@@ -1,0 +1,411 @@
+"""TransitModel: the end-to-end spectrum pipeline on tensors.
+
+The counterpart of transit_tpu.model (model.py:65-272, 360-754) on the
+path this package ports so far: fast mode on the unbanded tile plan,
+eclipse geometry, the atmosphere file's radius grid.  Init loads and
+precomputes everything static on the host (grids, line plan, path-weight
+matrix, spline operators); ``forward(temps, q)``, the retrieval step,
+recomputes densities and partition functions and runs the spectrum:
+line extinction through the CUDA line-tile kernel, then CIA, scattering,
+clouds, optical depth, intensities and flux in torch ops.
+
+The model runs on ``cuda`` unless the caller passes ``device="cpu"``;
+with no card and no ``device`` it raises.  On the CPU the line-tile
+kernel's plain PyTorch version takes its place.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from transit_tpu_torch import grids
+from transit_tpu_torch.config import TransitConfig
+from transit_tpu_torch.constants import AMU, KB, NAVOGADRO, TLI_WAV_UNITS
+from transit_tpu_torch.io.atmosphere import read_atmosphere
+from transit_tpu_torch.io.crosssec import read_cross_section
+from transit_tpu_torch.io.tli import read_tli, select_lines
+from transit_tpu_torch.numerics.spline import (splinterp_np,
+                                               spline_second_derivs_np,
+                                               spline_eval_torch)
+from transit_tpu_torch.opacities import fast
+from transit_tpu_torch.opacities.cia import cs_extinction, precompute_cs
+from transit_tpu_torch.opacities.clouds import CloudParams, cloud_extinction
+from transit_tpu_torch.opacities.kernel_lbl import (kernel_extinction,
+                                                    plain_extinction)
+from transit_tpu_torch.opacities.lbl import IsoConst
+from transit_tpu_torch.opacities.scattering import scattering_extinction
+from transit_tpu_torch.rt import tau as rt_tau
+from transit_tpu_torch.rt.emission import eclipse_intensities, flux
+
+
+def _later(what: str, slice_: str):
+    return NotImplementedError(
+        f"{what} is not ported to transit_tpu_torch yet; it comes with the "
+        f"{slice_} slice (see ROADMAP.md)")
+
+
+def resolve_device(device=None) -> torch.device:
+    """``device`` as given, else ``cuda``; raises when no card is there
+    and the caller did not ask for another device."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("transit_tpu_torch runs on a CUDA device and "
+                           "none is available; pass device='cpu' to run "
+                           "on the CPU")
+    return torch.device("cuda")
+
+
+@dataclasses.dataclass
+class SpectrumResult:
+    wns: np.ndarray                    # coarse wavenumber grid (cm-1)
+    spectrum: torch.Tensor             # flux (eclipse)
+    intensity: torch.Tensor = None     # (nangle, nwn)
+    tau: torch.Tensor = None           # (nwn, nh)
+    last: torch.Tensor = None          # (nwn,)
+    extinction: torch.Tensor = None    # (nlayer, nwn) line extinction
+    cia: torch.Tensor = None           # (nwn, nlayer)
+    scatt: torch.Tensor = None         # (nwn, nlayer) scattering extinction
+    cloud: torch.Tensor = None         # (nwn, nlayer) cloud extinction
+    total: torch.Tensor = None         # (nwn, nlayer) total extinction er
+
+
+class TransitModel:
+    def __init__(self, cfg: TransitConfig, dtype=None, mode: str = "fast",
+                 use_kernel: bool = True, device=None, tli=None,
+                 bands: int = 0):
+        """``use_kernel`` selects the CUDA line-tile kernel (True) or its
+        plain PyTorch version (False) for the line extinction; on the CPU
+        both compute the plain version.  ``tli``: a preloaded TliData
+        overriding cfg.linedb's full read.  ``dtype`` defaults to
+        float32; the kernel takes float32 only.  ``bands`` > 0 (the
+        layer-banded plan) is not ported yet and raises."""
+        from transit_tpu_torch.config import validate
+        self.cfg = cfg = validate(cfg)
+        if mode == "exact":
+            raise _later("mode='exact'", "exact-mode")
+        if mode != "fast":
+            raise ValueError(f"unknown mode {mode!r}")
+        if bands > 0:
+            raise _later("the banded plan (bands > 0)", "banded-plan")
+        if cfg.solution == "transit":
+            raise _later("transit geometry", "transit-geometry")
+        if cfg.solution != "eclipse":
+            raise ValueError(f"unknown solution {cfg.solution!r}")
+        if cfg.opacityfile:
+            raise _later("the opacity grid (opacityfile)", "opacity-grid")
+        if cfg.raddelt != -1.0:
+            raise _later("radius resampling (raddelt > 0)",
+                         "transit-geometry")
+        if cfg.saveext:
+            raise _later("the extinction savefile (saveext)", "opacity-grid")
+        self.device = resolve_device(device)
+        if self.device.type == "cuda":
+            # The tau product must run in full float32, not TF32 (this
+            # sets PyTorch's process-wide switch; its default is False):
+            torch.backends.cuda.matmul.allow_tf32 = False
+        self.mode = mode
+        self.use_kernel = use_kernel
+        self.dtype = torch.float32 if dtype is None else dtype
+
+        # --- wavenumber grids (transit.c:44 makewnsample) ---
+        self.wns, self.owns = grids.make_wn_sampling(
+            wnlow=cfg.wnlow, wnhigh=cfg.wnhigh, wllow=cfg.wllow,
+            wlhigh=cfg.wlhigh, wndelt=cfg.wndelt, wnosamp=cfg.wnosamp,
+            wnfct=(cfg.wnfct if cfg.wnfct > 0 else 1.0), wlfct=cfg.wlfct)
+
+        # --- atmosphere (transit.c:49 getatm) ---
+        qmol = cfg.qmol.split(",") if cfg.qmol else None
+        qscale = ([float(x) for x in cfg.qscale.split(",")]
+                  if cfg.qscale else None)
+        self.atm, self.mol = read_atmosphere(cfg.atm, cfg.molfile,
+                                             qmol=qmol, qscale=qscale,
+                                             allowq=cfg.allowq)
+        # Radius sampling: the atmosphere grid (makesample.c:472-482):
+        self.rfct = cfg.radfct if cfg.radfct > 0 else self.atm.rfct
+        self.rads_v = self.atm.radius
+
+        # --- line list (transit.c:52 readlineinfo) ---
+        self.tli = tli if tli is not None else (
+            read_tli(cfg.linedb) if cfg.linedb else None)
+        self._setup_isotopes()
+
+        # --- line tile plan ---
+        self.fplan = None
+        self.fdev = None
+        if self.tli is not None:
+            wl, isoid, elow, gf = select_lines(self.tli, self.wns.i,
+                                               self.wns.f)
+            wavn = 1.0 / (np.asarray(wl) * TLI_WAV_UNITS)
+            mw = fast.max_width_bound(self.atm, self.mol, self.iso.mass,
+                                      self.wns.f, self.iso.imol)
+            self.fplan = fast.make_fast_plan(
+                wavn, isoid, elow, gf, wn_i=self.wns.i, dwn=self.wns.d,
+                n_coarse=self.wns.n, max_width=mw, nwidth=cfg.nwidth)
+            self.fdev = fast.fast_device_arrays(self.fplan, self.iso,
+                                                dtype=self.dtype,
+                                                device=self.device)
+
+        # --- cross sections (transit.c:63 readcs) ---
+        self.cs_tables = []
+        self.cs_species = []
+        if cfg.csfile:
+            for f in cfg.csfile.split(","):
+                tb = read_cross_section(f.strip())
+                self.cs_tables.append(tb)
+                self.cs_species.append(
+                    np.array([self.atm.species.index(s)
+                              for s in tb.species]))
+        self.cs_pre = precompute_cs(self.cs_tables)
+
+        # --- geometry / path weights (static-radius eclipse) ---
+        self.solution = cfg.solution
+        self.angles = cfg.raygrid_list()
+        self.W = rt_tau.eclipse_weights(self.rads_v)
+
+        self._scatter_flag, self._scatter_logext = self._parse_scattering()
+        self._cloud = self._parse_cloud()
+
+        # Partition-function spline coefficients (static; evaluated at the
+        # layer temperatures per step):
+        self._setup_partition()
+        self.Z_layers = np.stack(
+            [splinterp_np(t, z, self.atm.temp)
+             for t, z in self._pf]) if self._pf else np.zeros(
+                 (0, self.atm.nlayers))
+
+        # Static tensors the step reads:
+        t = self._t
+        self._W_t = t(self.W)
+        self._radii_t = t(self.rads_v)
+        self._press_t = t(self.atm.press)
+        self._press_cgs_t = t(self.atm.press * self.atm.pfct)
+        self._molm_t = t(self.mol.mass)
+        self._molrad_t = t(self.mol.radius)
+        self._molpol_t = t(self.mol.pol)
+        self._wns_t = t(self.wns.v)
+        self._wns_cgs_t = t(self.wns.v * self.wns.fct)
+        self._pf_t = [(t(tt), t(z), t(z2))
+                      for (tt, z), z2 in zip(self._pf, self._pf_z2)]
+
+    def _t(self, a):
+        """Host array -> tensor in the model's dtype and device."""
+        return torch.as_tensor(np.asarray(a, dtype=np.float64),
+                               dtype=self.dtype, device=self.device)
+
+    # ------------------------------------------------------------------
+    def _setup_isotopes(self):
+        """Cumulative isotope constants (readlineinfo.c:134-244, setimol
+        readlineinfo.c:249-278, and calcopacity's molID ordering
+        opacity.c:349-361)."""
+        if self.tli is None:
+            self.iso = IsoConst(mass=np.zeros(0), ratio=np.zeros(0),
+                                imol=np.zeros(0, np.int32),
+                                iout=np.zeros(0, np.int32), nmol_out=0)
+            return
+        names, masses, ratios, dbidx, mols = self.tli.iso_index()
+        imol = np.array([self.atm.species.index(m) for m in mols],
+                        dtype=np.int32)
+        iout = np.zeros(len(names), dtype=np.int32)
+        seen = []
+        for i, mi in enumerate(imol):
+            mid = self.mol.ids[mi]
+            if mid not in seen:
+                seen.append(mid)
+            iout[i] = seen.index(mid)
+        self.iso = IsoConst(mass=masses, ratio=ratios, imol=imol,
+                            iout=iout, nmol_out=len(seen))
+        self.iso_names = names
+
+    def _setup_partition(self):
+        """(temps, z) pairs per isotope plus static spline coefficients
+        (makesample.c:533-543)."""
+        self._pf = []
+        self._pf_z2 = []
+        if self.tli is None:
+            return
+        for db in self.tli.databases:
+            for iso in db.isotopes:
+                self._pf.append((db.temps, iso.partition))
+                self._pf_z2.append(spline_second_derivs_np(db.temps,
+                                                           iso.partition))
+
+    def partition(self, temps_raw: torch.Tensor) -> torch.Tensor:
+        """Z (niso, nl) at the layer temperatures (natural spline; the
+        reference evaluates at unscaled atmosphere temperatures)."""
+        if not self._pf_t:
+            return torch.zeros((0, temps_raw.shape[0]), dtype=self.dtype,
+                               device=self.device)
+        return torch.stack([spline_eval_torch(t, z, z2, temps_raw)
+                            for t, z, z2 in self._pf_t])
+
+    def _parse_scattering(self):
+        s = self.cfg.scattering
+        if s is None:
+            return 0, 0.0
+        if s.strip() == "polar":
+            return 2, 0.0
+        return 1, float(s)
+
+    def _parse_cloud(self):
+        """argum.c:636-718: 'type,ext,top,bot[,extra...]' with type one of
+        ext/opa/B17/F18/P19 (reference syntax) or the numeric flag 1-5."""
+        c = self.cfg.cloud
+        if c is None:
+            if self.cfg.cloudtop is not None:
+                # Standalone --cloudtop (argum.c CLA_CLOUDTOP, 720-726):
+                # an opaque constant-extinction deck from cloudtop down
+                # 10 dex, cloudext = 100:
+                return CloudParams(flag=1, cloudext=100.0,
+                                   cloudtop=self.cfg.cloudtop,
+                                   cloudbot=self.cfg.cloudtop + 10.0)
+            return CloudParams()
+        names = {"ext": 1, "opa": 2, "B17": 3, "F18": 4, "P19": 5}
+        head, *rest = c.split(",")
+        flag = names.get(head.strip(), None)
+        if flag is None:
+            flag = int(float(head))
+        parts = [float(flag)] + [float(x) for x in rest]
+        p = CloudParams(flag=flag, cloudext=parts[1], cloudtop=parts[2],
+                        cloudbot=parts[3])
+        extra = parts[4:]
+        if flag == 3 and extra:
+            p.gamma = extra[0]
+        elif flag == 4 and len(extra) >= 3:
+            p.gamma, p.Q, p.r = extra[0], extra[1], extra[2]
+        elif flag == 5 and len(extra) >= 3:
+            p.gamma, p.sig, p.refwn = extra[0], extra[1], extra[2]
+        return p
+
+    # ------------------------------------------------------------------
+    def device_tree(self):
+        """The (potentially large) tensors the spectrum step reads: the
+        line tile tensors and isotope tables."""
+        return self.fdev
+
+    def line_extinction(self, temps_cgs, densities, Z, dev=None):
+        """Per-layer line extinction (nlayer, nwn).  ``dev`` overrides the
+        model's stored tile tensors (device_tree)."""
+        nl = temps_cgs.shape[0]
+        if self.fplan is None:
+            return torch.zeros((nl, self.wns.n), dtype=self.dtype,
+                               device=self.device)
+        fn = kernel_extinction if self.use_kernel else plain_extinction
+        return fn(self.fplan, dev if dev is not None else self.fdev,
+                  temps_cgs, densities, Z, self._molm_t, self._molrad_t,
+                  wn_i=self.wns.i, dwn=self.wns.d,
+                  ethresh=self.cfg.ethreshold, nwidth=self.cfg.nwidth)
+
+    # ------------------------------------------------------------------
+    def _spectrum(self, temps_raw, q, densities, full_result: bool,
+                  dev=None):
+        """Shared spectrum core."""
+        temps_cgs = temps_raw * self.atm.tfct
+        Z = self.partition(temps_raw)
+        ex = self.line_extinction(temps_cgs, densities, Z, dev=dev)
+        return self._assemble(temps_raw, q, densities, ex, full_result)
+
+    def _assemble(self, temps_raw, q, densities, ex, full_result: bool):
+        """Everything downstream of the line extinction: scattering,
+        clouds, CIA, optical depth, eclipse spectrum."""
+        atm = self.atm
+        nl = atm.nlayers
+        temps_cgs = temps_raw * atm.tfct
+        wns_cgs = self._wns_cgs_t
+        # The reference feeds computeextscat the *raw* (file-unit) pressure
+        # and temperature arrays (tau.c:113-114,226), not cgs:
+        e_s = scattering_extinction(
+            self._scatter_flag, self._scatter_logext, self._press_t,
+            temps_raw, wns_cgs, densities, self._molm_t, self._molpol_t)
+
+        # Mean mass density and H2 number density for cloud models
+        # (tau.c:193-213; the reference leaves mean_dens uninitialized —
+        # we compute the intended quantity):
+        molm = self._molm_t
+        mean_molar = torch.sum(densities / molm[:, None] * q, dim=0)
+        mean_mm = torch.sum(molm[:, None] * q, dim=0)
+        mean_dens = mean_molar * mean_mm
+        iH2 = (atm.species.index("H2") if "H2" in atm.species else -1)
+        nH = (densities[iH2] / molm[iH2] * q[iH2] * NAVOGADRO if iH2 >= 0
+              else torch.zeros(nl, dtype=self.dtype, device=self.device))
+        e_c = cloud_extinction(self._cloud, self._press_t, mean_dens, nH,
+                               wns_cgs)
+
+        e_cs = (cs_extinction(self.cs_tables, self.cs_pre, self._wns_t,
+                              temps_cgs, densities, molm, self.cs_species)
+                if self.cs_tables else
+                torch.zeros((self.wns.n, nl), dtype=self.dtype,
+                            device=self.device))
+
+        er = ex.T + e_s + e_c + e_cs            # (nwn, nl)
+        tau = rt_tau.optical_depth(er, self._W_t, self.rfct)
+        last = rt_tau.last_index(tau, self.cfg.toomuch)
+
+        temp_rev = temps_cgs.flip(0)
+        intens = eclipse_intensities(tau, last, wns_cgs, temp_rev,
+                                     self.angles)
+        spec = flux(intens, self.angles)
+        if not full_result:
+            return spec
+        return SpectrumResult(wns=self.wns.v, spectrum=spec,
+                              intensity=intens, tau=tau, last=last,
+                              extinction=ex, cia=e_cs,
+                              scatt=e_s.expand(er.shape),
+                              cloud=e_c.expand(er.shape), total=er)
+
+    # ------------------------------------------------------------------
+    # The reference's re-entrant interface (transit.c:98-115
+    # set_radius/set_cloudtop/set_scattering):
+    def set_radius(self, refradius: float):
+        """Set the reference ('surface') radius for hydrostatic solves."""
+        self.cfg.refradius = refradius
+
+    def set_cloudtop(self, cloudtop: float):
+        """Set the cloud-deck top pressure (log10 of the pressure in the
+        atmosphere file's units)."""
+        self._cloud.cloudtop = cloudtop
+
+    def set_scattering(self, logext: float):
+        """Set the Lecavelier H2-Rayleigh log-extinction parameter."""
+        self._scatter_flag = 1
+        self._scatter_logext = logext
+
+    # ------------------------------------------------------------------
+    def compute(self):
+        """Spectrum for the file atmosphere (static radii)."""
+        atm = self.atm
+        return self._spectrum(self._t(atm.temp), self._t(atm.q),
+                              self._t(atm.d), full_result=True)
+
+    def forward(self, temps_raw, q, dev=None):
+        """Retrieval step: new T (nl,) / q (nmol, nl) profiles ->
+        spectrum (nwn,).
+
+        Reproduces reloadatm (readatm.c:722-784) on the static radius
+        grid: mean molecular mass, ideal-gas densities, then the full
+        spectrum.  ``dev`` optionally supplies the line tile tensors
+        (see device_tree)."""
+        cfg = self.cfg
+        if cfg.gsurf and cfg.refpress and cfg.refradius:
+            raise _later("hydrostatic radii (gsurf/refpress/refradius)",
+                         "transit-geometry")
+        atm = self.atm
+        temps_raw = torch.as_tensor(temps_raw, dtype=self.dtype,
+                                    device=self.device)
+        q = torch.as_tensor(q, dtype=self.dtype, device=self.device)
+        molm = self._molm_t
+        if atm.by_mass:
+            mm = 1.0 / torch.sum(q / molm[:, None], dim=0)
+        else:
+            mm = torch.sum(q * molm[:, None], dim=0)
+        rho = (AMU * q * self._press_cgs_t[None, :] / KB /
+               (temps_raw * atm.tfct)[None, :])
+        densities = rho * (mm[None, :] if atm.by_mass else molm[:, None])
+        return self._spectrum(temps_raw, q, densities, full_result=False,
+                              dev=dev)
+
+    def forward_batch(self, temps_raw, q, dev=None):
+        raise _later("forward_batch", "gradients / forward_batch")

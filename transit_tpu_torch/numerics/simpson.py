@@ -1,0 +1,69 @@
+"""Non-uniform Simpson integration expressed as weight vectors.
+
+The reference integrates over non-uniform grids with a Simpson scheme built
+from interval pair coefficients (reference: pu/src/numerical.c:390-525,
+``geth``/``simps``/``simpson``).  The integral is a *linear* functional of the
+sampled values, so we precompute the weight vector w with
+``integral = w @ y`` and every path/level integral becomes a dot product or a
+matmul.
+
+Semantics reproduced exactly:
+  * n == 1 -> 0
+  * n == 2 -> trapezoid:  h0*(y0+y1)/2
+  * n >= 3 -> pairwise Simpson over intervals; when the number of samples is
+    even the first interval is handled by a trapezoid and the Simpson pairs
+    start at index 1 (numerical.c:413-424,472-480).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+
+def simpson_weights_np(x: np.ndarray) -> np.ndarray:
+    """Weight vector w such that w @ y == simps(y) of the reference."""
+    x = np.asarray(x, dtype=np.float64)
+    n = x.shape[0]
+    w = np.zeros(n, dtype=np.float64)
+    if n < 2:
+        return w
+    h = np.diff(x)
+    if n == 2:
+        w[0] = w[1] = h[0] / 2.0
+        return w
+    even = int(n % 2 == 0)
+    # Simpson pairs: j = 2*i + even, i in [0, (n-1)//2)
+    npairs = (n - 1) // 2
+    i = np.arange(npairs)
+    j = 2 * i + even
+    h0 = h[j]
+    h1 = h[j + 1]
+    hsum = h0 + h1
+    hratio = h1 / h0
+    hfactor = hsum * hsum / (h0 * h1)
+    np.add.at(w, j, (2.0 - hratio) * hsum / 6.0)
+    np.add.at(w, j + 1, hfactor * hsum / 6.0)
+    np.add.at(w, j + 2, (2.0 - 1.0 / hratio) * hsum / 6.0)
+    if even:
+        w[0] += h[0] / 2.0
+        w[1] += h[0] / 2.0
+    return w
+
+
+def suffix_simpson_matrix_np(x: np.ndarray) -> np.ndarray:
+    """Matrix W with W[s] = Simpson weights of the suffix x[s:] placed at
+    global indices (zeros before s).  Used for per-height vertical optical
+    depth: tau[s] = W[s] @ y (reference: transit/src/eclipse.c:28-105)."""
+    x = np.asarray(x, dtype=np.float64)
+    n = x.shape[0]
+    W = np.zeros((n, n), dtype=np.float64)
+    for s in range(n):
+        W[s, s:] = simpson_weights_np(x[s:])
+    return W
+
+
+def trapz_np(x: np.ndarray, y: np.ndarray) -> float:
+    """Reference integ_trapz (numerical.c:155-172)."""
+    x = np.asarray(x, dtype=np.float64)
+    y = np.asarray(y, dtype=np.float64)
+    return 0.5 * float(np.sum((x[1:] - x[:-1]) * (y[1:] + y[:-1])))

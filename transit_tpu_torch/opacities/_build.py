@@ -1,0 +1,100 @@
+"""Build and load the port's CUDA kernels.
+
+The kernels are CUDA C++ with a plain C interface (``csrc/*.cu``), built
+with ``nvcc`` into one shared library and loaded with ``ctypes`` — no
+PyTorch headers, so a build takes seconds.  The library is built at first
+use into ``build/transit_tpu_torch/`` beside the package, under a name
+keyed by a hash of the sources and the flags, so an edited source is
+rebuilt and an unchanged one is loaded as it is.
+
+Not compiled with ``--use_fast_math``: the kernels' ``expf``/``cosf``
+must stay accurate to ~1 ulp, or lines near the ethresh cut flip between
+the kernel and its plain version.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+PKG = Path(__file__).resolve().parent.parent
+CSRC = PKG / "csrc"
+BUILD_DIR = PKG.parent / "build" / "transit_tpu_torch"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# extern "C" entry points: name -> argument types (all return cudaError_t).
+SIGNATURES = {
+    "line_tile_extinction": [_P] * 13 + [_I] * 6 + [_F] * 5 + [_P],
+}
+
+
+def sources():
+    """The kernel sources, in a fixed order."""
+    return sorted(list(CSRC.glob("*.cu")) + list(CSRC.glob("*.cuh")))
+
+
+def nvcc_path() -> str:
+    """The CUDA compiler: ``$CUDA_HOME/bin/nvcc``, else ``nvcc`` on PATH,
+    else /usr/local/cuda/bin/nvcc."""
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    cands = ([os.path.join(home, "bin", "nvcc")] if home else []) + \
+        [shutil.which("nvcc") or "", "/usr/local/cuda/bin/nvcc"]
+    for c in cands:
+        if c and os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    raise RuntimeError("nvcc not found: the CUDA kernels are built with "
+                       "the CUDA toolkit's nvcc (set CUDA_HOME)")
+
+
+def library_path() -> Path:
+    """Where the library built from the current sources lives."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libtransit_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build(verbose: bool = False) -> Path:
+    """Compile the sources with nvcc unless the keyed library exists.
+    Returns its path.  ``verbose`` adds ``-Xptxas -v`` (registers, shared
+    memory and spills per kernel) and prints the compiler's output."""
+    so = library_path()
+    if so.exists() and not verbose:
+        return so
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cu = [str(s) for s in sources() if s.suffix == ".cu"]
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [nvcc_path(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+           "-o", tmp, *cu]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
+                           f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
+    if verbose:
+        print(res.stdout + res.stderr)
+    os.replace(tmp, so)          # atomic: a reader never sees a partial .so
+    return so
+
+
+@functools.cache
+def load_library() -> ctypes.CDLL:
+    """Build if needed, load, and declare the entry points' C types."""
+    lib = ctypes.CDLL(str(build()))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib

@@ -1,0 +1,110 @@
+"""Humlicek w4 Voigt profile on tensors (forward only).
+
+The plain PyTorch counterpart of transit_tpu.opacities.voigt's
+``_humlicek_w`` / ``voigt_k_humlicek`` (voigt.py:116-249).  It is the
+Voigt function of the line-tile kernel's plain version
+(opacities/kernel_lbl.py), and the CUDA kernel (csrc/line_tile.cu)
+evaluates the same regions with the same constants.  The numerical
+contracts carry over unchanged:
+
+  * real-pair complex arithmetic;
+  * region I (s >= 15) folded into region II, whose rational is valid on
+    all of s >= 5.5;
+  * region II in the v = 1/u form — the direct u^2 form overflows float32
+    once |x| >~ 6e4;
+  * the three rationals share one divide, numerator and denominator
+    selected per element, and masked-out elements are fed safe values so
+    they stay finite.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from transit_tpu_torch.constants import SQRTLN2PI
+
+
+def humlicek_regions(x: torch.Tensor, y: torch.Tensor):
+    """Boolean masks (II, III, IV) of the Humlicek region each (x, y)
+    falls in; region I is part of II."""
+    in2 = (x.abs() + y) >= 5.5
+    in4 = (~in2) & (y < 0.195 * x.abs() - 0.176)
+    in3 = ~(in2 | in4)
+    return in2, in3, in4
+
+
+def _humlicek_w(x: torch.Tensor, y: torch.Tensor):
+    """Humlicek (1982) w4 as a real pair: (Re w(x+iy), Im w(x+iy))."""
+    x, y = torch.broadcast_tensors(x, y)
+    where = torch.where
+
+    def cmul(ar, ai, br, bi):
+        return ar * br - ai * bi, ar * bi + ai * br
+
+    def horner(tr_, ti_, coeffs):
+        # complex Horner: p(t) with real coefficients, highest degree last
+        pr = torch.full_like(tr_, coeffs[-1])
+        pi = torch.zeros_like(tr_)
+        for c in reversed(coeffs[:-1]):
+            pr, pi = cmul(pr, pi, tr_, ti_)
+            pr = pr + c
+        return pr, pi
+
+    tr, ti = y, -x                       # t = y - i x
+    ur = (y - x) * (y + x)               # u = t^2
+    ui = -2.0 * x * y
+    in2, in3, in4 = humlicek_regions(x, y)
+
+    # Region II (s >= 5.5): w = t (1.410474 v^2 + 0.5641896 v) /
+    # (1 + 3 v + 0.75 v^2) with v = 1/u (|v| <= 1/15 in region):
+    u2r, u2i = where(in2, ur, 16.0), where(in2, ui, 0.0)
+    t2r, t2i = where(in2, tr, 1.0), where(in2, ti, 0.0)
+    uinv = 1.0 / (u2r * u2r + u2i * u2i)
+    vr, vi = u2r * uinv, -u2i * uinv
+    v2r, v2i = cmul(vr, vi, vr, vi)
+    n2r, n2i = cmul(t2r, t2i,
+                    1.410474 * v2r + 0.5641896 * vr,
+                    1.410474 * v2i + 0.5641896 * vi)
+    d2r = 1.0 + 3.0 * vr + 0.75 * v2r
+    d2i = 3.0 * vi + 0.75 * v2i
+
+    # Region III: degree-4 / degree-5 rational in t:
+    t3r, t3i = where(in3, tr, 1.0), where(in3, ti, 0.0)
+    n3r, n3i = horner(t3r, t3i,
+                      [16.4955, 20.20933, 11.96482, 3.778987, 0.5642236])
+    d3r, d3i = horner(t3r, t3i,
+                      [16.4955, 38.82363, 39.27121, 21.69274, 6.699398, 1.0])
+
+    # Region IV: w = exp(u) - t * P(u)/Q(u)  (alternating-sign polys in u):
+    u4r, u4i = where(in4, ur, -1.0), where(in4, ui, 0.0)
+    t4r, t4i = where(in4, tr, 1.0), where(in4, ti, 0.0)
+    pc = [36183.31, -3321.9905, 1540.787, -219.0313, 35.76683,
+          -1.320522, 0.56419]
+    qc = [32066.6, -24322.84, 9022.228, -2186.181, 364.2191,
+          -61.57037, 1.841439, -1.0]
+    p4r, p4i = horner(u4r, u4i, pc)
+    q4r, q4i = horner(u4r, u4i, qc)
+    n4r, n4i = cmul(t4r, t4i, p4r, p4i)
+    # exp(u) = exp(ur) (cos ui + i sin ui); in-region ur < 0:
+    eu = torch.exp(u4r)
+    exp_re = eu * torch.cos(u4i)
+    exp_im = eu * torch.sin(u4i)
+
+    # One shared divide: n/d with n, d selected per element:
+    nr = where(in2, n2r, where(in4, n4r, n3r))
+    ni = where(in2, n2i, where(in4, n4i, n3i))
+    dr = where(in2, d2r, where(in4, q4r, d3r))
+    di = where(in2, d2i, where(in4, q4i, d3i))
+    dinv = 1.0 / (dr * dr + di * di)
+    re = (nr * dr + ni * di) * dinv
+    im = (ni * dr - nr * di) * dinv
+    wr = where(in4, exp_re - re, re)
+    wi = where(in4, exp_im - im, im)
+    return wr, wi
+
+
+def voigt_k_humlicek(x: torch.Tensor, y: torch.Tensor):
+    """K(x, y) = sqrt(ln2/pi) Re[w(x + iy)] via the Humlicek w4
+    rational approximation (voigt.py:225, forward only).  Multiply by
+    1/alphaD for the area-normalised profile value."""
+    return SQRTLN2PI * _humlicek_w(x, y)[0]
