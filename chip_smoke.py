@@ -2,14 +2,16 @@
 
     python3 chip_smoke.py [--profile chiprun_out/forward_trace.json]
 
-Builds the port's CUDA kernel from the sources in this checkout, holds it
-against its plain PyTorch version on the card, drives the main path —
+Builds the port's CUDA kernels (the line-tile kernel and the per-layer
+kmax scan) from the sources in this checkout, holds each against its
+plain PyTorch version on the card, drives the main path —
 ``transit_tpu_torch.model.TransitModel(mode="fast", use_kernel=True)`` on
 the hot-Jupiter workload (benchmarks/data/hj: 100 layers, 19001
 wavenumbers, 194,349 lines, eclipse) — through three ``forward``
 requests, checks the spectra against the plain path and the reference C
-spectrum, and times the kernel, its plain version and one ``forward``
-with CUDA events.  With ``--profile`` it also traces forwards with
+spectrum, checks that the line-tile kernel evaluated exactly the (layer,
+bin, line) pairs the function needs, and times the kernels, their plain
+versions and one ``forward`` with CUDA events.  With ``--profile`` it also traces forwards with
 torch.profiler (device time by kernel, busy share).  Every phase prints
 one line with its seconds; any failed check raises, so the script exits non-zero and prints no result.
 
@@ -35,10 +37,13 @@ import torch
 from transit_tpu_torch.config import TransitConfig
 from transit_tpu_torch.model import TransitModel
 from transit_tpu_torch.opacities import _build
-from transit_tpu_torch.opacities.kernel_lbl import (kernel_extinction,
+from transit_tpu_torch.opacities.kernel_lbl import (iso_tables,
+                                                    kernel_extinction,
+                                                    layer_kmax,
                                                     layer_tables,
                                                     line_tile_extinction,
                                                     plain_extinction,
+                                                    plain_kmax, run_counts,
                                                     work_counts)
 
 ROOT = Path(__file__).resolve().parent
@@ -71,6 +76,10 @@ PEAK_BYTES = 3.35e12
 OPS_LAYER_LINE = 27
 OPS_EVAL = 7
 OPS_REGION = {"II": 48, "III": 82, "IV": 120}
+# Operations of the kmax scan per (layer, line): the strength chain k0
+# (2 multiplies and 2 divides into the exps, 2 exps, a subtract, 3
+# multiplies) and the max.
+OPS_KMAX = 12
 
 
 class CheckFailed(RuntimeError):
@@ -145,6 +154,44 @@ def kernel_vs_plain(m: TransitModel, label: str):
                       m.fplan.tw]}
 
 
+def kmax_vs_plain(m: TransitModel, label: str) -> float:
+    """layer_kmax against plain_kmax on the same inputs, on the card:
+    they must agree bit for bit (a max does not depend on order, and
+    both round each operation the same way).  Returns max |a - b|."""
+    args, _ = file_state(m)
+    coef0 = iso_tables(m.fdev, *args)["coef0"]
+    a = plain_kmax(m.fdev, args[0], coef0)
+    b = layer_kmax(m.fdev, args[0], coef0)
+    torch.cuda.synchronize()
+    check(a.shape == b.shape == (m.atm.nlayers,) and
+          bool(torch.isfinite(a).all()),
+          f"{label}: kmax shapes {tuple(a.shape)} {tuple(b.shape)}")
+    if not torch.equal(a, b):
+        i = int((a != b).nonzero()[0])
+        raise CheckFailed(f"{label}: layer_kmax differs from plain kmax "
+                          f"at layer {i}: {float(a[i])!r} {float(b[i])!r}")
+    return float((a - b).abs().max())
+
+
+def design_counts(m: TransitModel, tab, counts) -> dict:
+    """The line-tile kernel's own work on the model's file atmosphere:
+    its counters (chains computed, live entries, pairs evaluated) from
+    one launch, checked against the host count of the same design
+    (run_counts) and against the Voigt evaluations the function needs
+    (work_counts: no dead pair reaches the Voigt)."""
+    args, kw = file_state(m)
+    host = run_counts(m.fplan, m.fdev, tab, args[0], **kw)
+    stats = torch.zeros(3, dtype=torch.int64, device=args[0].device)
+    line_tile_extinction(m.fplan, m.fdev, tab, args[0], **kw, stats=stats)
+    card = dict(zip(("chains", "live", "pairs"), stats.tolist()))
+    check(card == host, f"kernel counters {card} != design {host}")
+    need = sum(counts[r] for r in OPS_REGION)
+    check(card["pairs"] == need,
+          f"kernel evaluated {card['pairs']} pairs, the function needs "
+          f"{need}")
+    return card
+
+
 def cuda_ms(fn, runs: int = RUNS) -> float:
     """Median of ``runs`` CUDA-event timings of fn() after one warm-up."""
     fn()
@@ -161,6 +208,25 @@ def cuda_ms(fn, runs: int = RUNS) -> float:
     return statistics.median(times)
 
 
+def roofline(ops: float, nbytes: float) -> tuple:
+    """(bound_ms, bound_by): the larger of the operation and byte times
+    at the card's peaks."""
+    t_ops, t_bytes = ops / PEAK_FP32, nbytes / PEAK_BYTES
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def kmax_bound(m: TransitModel) -> tuple:
+    """(bound_ms, bound_by, ops, bytes) of the kmax scan."""
+    d = m.fdev
+    nl, nlines = m.atm.nlayers, d["all_wavn"].shape[0]
+    ops = OPS_KMAX * nl * nlines
+    nbytes = sum(d[k].numel() * d[k].element_size()
+                 for k in ("all_wavn", "all_elow", "all_gf", "all_iso"))
+    nbytes += 4 * nl * (2 + d["iso_mass"].shape[0])  # temps, coef0, kmax
+    return (*roofline(ops, nbytes), ops, nbytes)
+
+
 def bound(m: TransitModel, tab, counts) -> tuple:
     """(bound_ms, bound_by, ops, bytes) of the line-tile function."""
     ops = (OPS_LAYER_LINE * counts["layer_lines"] +
@@ -170,9 +236,36 @@ def bound(m: TransitModel, tab, counts) -> tuple:
                  for k in ("wavn", "elow", "gf", "iso", "mask"))
     nbytes += sum(t.numel() * t.element_size() for t in tab.values())
     nbytes += 4 * m.atm.nlayers * (1 + m.wns.n)       # temps in, output
-    t_ops, t_bytes = ops / PEAK_FP32, nbytes / PEAK_BYTES
-    return (1e3 * max(t_ops, t_bytes),
-            "operations" if t_ops >= t_bytes else "bytes", ops, nbytes)
+    return (*roofline(ops, nbytes), ops, nbytes)
+
+
+def stored_k_choice(m: TransitModel) -> dict:
+    """The design choice between recomputing each line's strength in the
+    line-tile kernel and reading it from an (nl, nlines) array that
+    layer_kmax writes: both outputs must be equal bit for bit; times of
+    kmax scan + line-tile kernel, CUDA events, in turns (recompute,
+    stored, stored, recompute)."""
+    args, kw = file_state(m)
+    T = args[0]
+    tab = iso_tables(m.fdev, *args)
+    k0 = torch.empty((T.shape[0], m.fdev["all_wavn"].shape[0]),
+                     dtype=torch.float32, device=T.device)
+
+    def recompute():
+        t = dict(tab, kmax=layer_kmax(m.fdev, T, tab["coef0"]))
+        return line_tile_extinction(m.fplan, m.fdev, t, T, **kw)
+
+    def stored():
+        t = dict(tab, kmax=layer_kmax(m.fdev, T, tab["coef0"], k0_out=k0))
+        return line_tile_extinction(m.fplan, m.fdev, t, T, **kw,
+                                    k0_lines=k0)
+    check(torch.equal(recompute(), stored()),
+          "stored-k line-tile output differs from the recomputed one")
+    times = {"recompute": [], "stored": []}
+    for name in ("recompute", "stored", "stored", "recompute"):
+        times[name].append(cuda_ms(recompute if name == "recompute"
+                                   else stored))
+    return times
 
 
 def profile_forward(m: TransitModel, T, q, ms_forward: float,
@@ -233,16 +326,17 @@ def main(device: str = "cuda", profile: str | None = None) -> int:
           f"device {torch.cuda.get_device_name(0)}", flush=True)
     phase("card", t0)
 
-    # 2. Build the kernel from this checkout's sources.
+    # 2. Build the kernels from this checkout's sources.
     t0 = time.perf_counter()
     so = _build.build(verbose=True)
     _build.load_library()
     phase("build", t0, f"({so.relative_to(ROOT)})")
 
-    # 3. Kernel against its plain version at the fixture and hot-Jupiter
-    #    shapes, float32.
+    # 3. Kernels against their plain versions at the fixture and
+    #    hot-Jupiter shapes, float32.
     t0 = time.perf_counter()
     fix = TransitModel(fixture_config(), dtype=torch.float32, device=dev)
+    kmax_vs_plain(fix, "fixture")
     err_fix = kernel_vs_plain(fix, "fixture")
     phase("kernel_vs_plain_fixture", t0,
           f"max_rel {err_fix['max_rel']:.3e} (nl, ntiles, lmax, tw) "
@@ -257,6 +351,11 @@ def main(device: str = "cuda", profile: str | None = None) -> int:
           f"{nlines} lines, {hj.fplan.ntiles} tiles, lmax "
           f"{hj.fplan.lmax}, tw {hj.fplan.tw}")
     t0 = time.perf_counter()
+    kmax_err = kmax_vs_plain(hj, "hotjupiter")
+    phase("kmax_vs_plain", t0, f"layer_kmax equals plain kmax bitwise on "
+          f"the fixture and on {hj.atm.nlayers} hot-Jupiter layers "
+          f"(max_abs {kmax_err!r})")
+    t0 = time.perf_counter()
     err_hj = kernel_vs_plain(hj, "hotjupiter")
     phase("kernel_vs_plain_hotjupiter", t0,
           f"max_rel {err_hj['max_rel']:.3e} max_abs {err_hj['max_abs']:.3e}")
@@ -266,12 +365,16 @@ def main(device: str = "cuda", profile: str | None = None) -> int:
     T0 = np.asarray(hj.atm.temp, dtype=np.float64)
     q0 = np.asarray(hj.atm.q, dtype=np.float64)
     requests = [(T0, q0), (T0 + 50.0, q0), (T0 - 50.0, q0)]
-    line_tile_extinction.launches = 0
+    kernels = (line_tile_extinction, layer_kmax)
+    for k in kernels:
+        k.launches = 0
     specs = [hj.forward(T, q) for T, q in requests]
     torch.cuda.synchronize()
-    launches = line_tile_extinction.launches
-    phase("main_path", t0, f"3 forward requests, {launches} kernel launches")
-    check(launches >= 3, f"main path launched the kernel {launches} times")
+    launches = {k.__name__: k.launches for k in kernels}
+    phase("main_path", t0, f"3 forward requests, kernel launches "
+          f"{launches}")
+    for name, n in launches.items():
+        check(n >= 3, f"main path launched {name} {n} times")
     t0 = time.perf_counter()
     for s in specs:
         check(s.shape == (hj.wns.n,) and s.dtype == torch.float32,
@@ -300,24 +403,42 @@ def main(device: str = "cuda", profile: str | None = None) -> int:
           f"vs plain path max_rel {spec_rel:.3e}; vs reference C median "
           f"{c_median:.4e} (p90 {float(np.quantile(c_rel, 0.9)):.4e})")
 
-    # 5. Times (CUDA events, median of RUNS after a warm-up).
+    # 5. Times (CUDA events, median of RUNS after a warm-up), and the
+    #    line-tile kernel's own work against what the function needs.
     t0 = time.perf_counter()
     args, kw = file_state(hj)
+    T = args[0]
     tab = layer_tables(hj.fdev, *args)
+    coef0 = tab["coef0"]
     ms_kernel = cuda_ms(lambda: line_tile_extinction(
-        hj.fplan, hj.fdev, tab, args[0], **kw))
+        hj.fplan, hj.fdev, tab, T, **kw))
+    ms_kmax = cuda_ms(lambda: layer_kmax(hj.fdev, T, coef0))
+    ms_kmax_plain = cuda_ms(lambda: plain_kmax(hj.fdev, T, coef0))
     ms_wrapper = cuda_ms(lambda: kernel_extinction(hj.fplan, hj.fdev, *args,
                                                    **kw))
     ms_plain = cuda_ms(lambda: plain_extinction(hj.fplan, hj.fdev, *args,
                                                 **kw))
     ms_forward = cuda_ms(lambda: hj.forward(T0, q0))
-    counts = work_counts(hj.fplan, hj.fdev, tab, args[0], **kw)
+    counts = work_counts(hj.fplan, hj.fdev, tab, T, **kw)
     bound_ms, bound_by, ops, nbytes = bound(hj, tab, counts)
+    kb_ms, kb_by, kb_ops, kb_bytes = kmax_bound(hj)
     phase("times", t0,
           f"kernel {ms_kernel:.3f} ms, with prep {ms_wrapper:.3f} ms, plain "
           f"{ms_plain:.3f} ms, forward {ms_forward:.3f} ms, bound "
-          f"{bound_ms:.4f} ms ({bound_by}: {ops:.4e} ops, {nbytes} bytes)")
+          f"{bound_ms:.4f} ms ({bound_by}: {ops:.4e} ops, {nbytes} bytes); "
+          f"layer_kmax {ms_kmax:.4f} ms, plain {ms_kmax_plain:.4f} ms, "
+          f"bound {kb_ms:.4f} ms ({kb_by}: {kb_ops:.4e} ops, {kb_bytes} "
+          f"bytes)")
     print("work " + json.dumps(counts), flush=True)
+    t0 = time.perf_counter()
+    design = design_counts(hj, tab, counts)
+    phase("design_counts", t0, "line-tile kernel counters (equal to the "
+          "host count of its design; pairs equal the function's Voigt "
+          "evaluations) " + json.dumps(design))
+    t0 = time.perf_counter()
+    choice = stored_k_choice(hj)
+    phase("stored_k_choice", t0, "kmax scan + line-tile kernel, ms in turns "
+          + json.dumps(choice))
     points = hj.wns.n * hj.atm.nlayers
     print(f"forward: {points / (ms_forward * 1e-3):.6e} wavenumber points x "
           f"layers per second ({ms_forward:.3f} ms, {card})", flush=True)
@@ -340,8 +461,8 @@ def main(device: str = "cuda", profile: str | None = None) -> int:
         "name": "line_tile_extinction",
         "route": "cuda",
         "source": "transit_tpu_torch/csrc/line_tile.cu",
-        "replaces": "transit_tpu/opacities/pallas_lbl.py:37",
-        "launches": launches,
+        "replaces": "transit_tpu/opacities/pallas_lbl.py:38",
+        "launches": launches["line_tile_extinction"],
         "max_abs_err": err_hj["max_abs"],
         "max_rel_vs_plain": err_hj["max_rel"],
         "max_rel_vs_plain_fixture": err_fix["max_rel"],
@@ -352,6 +473,19 @@ def main(device: str = "cuda", profile: str | None = None) -> int:
         "bound_by": bound_by,
         "library_ms": None,
         "forward_ms": ms_forward,
+        "card": card,
+    }, {
+        "name": "layer_kmax",
+        "route": "cuda",
+        "source": "transit_tpu_torch/csrc/line_tile.cu",
+        "replaces": "transit_tpu/opacities/pallas_lbl.py:127",
+        "launches": launches["layer_kmax"],
+        "max_abs_err": kmax_err,
+        "ms": ms_kmax,
+        "plain_ms": ms_kmax_plain,
+        "bound_ms": kb_ms,
+        "bound_by": kb_by,
+        "library_ms": None,
         "card": card,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,4 @@
-"""The port's CUDA kernel on the card: marked ``cuda``, skipped without
+"""The port's CUDA kernels on the card: marked ``cuda``, skipped without
 one.  Imports no JAX, so it runs on a machine that has only PyTorch:
 
     python -m pytest -m cuda --noconftest tests/test_torch_cuda.py -q
@@ -13,10 +13,13 @@ import torch
 
 from transit_tpu_torch.config import TransitConfig
 from transit_tpu_torch.model import TransitModel
-from transit_tpu_torch.opacities.kernel_lbl import (kernel_extinction,
+from transit_tpu_torch.opacities.kernel_lbl import (iso_tables,
+                                                    kernel_extinction,
+                                                    layer_kmax,
                                                     layer_tables,
                                                     line_tile_extinction,
-                                                    plain_extinction)
+                                                    plain_extinction,
+                                                    plain_kmax, run_counts)
 
 torch.set_num_threads(1)
 
@@ -88,3 +91,72 @@ def test_zero_live_lines_on_card(card):
     tab = layer_tables(d, *args)
     out = line_tile_extinction(m.fplan, d, tab, args[0], **kw)
     assert int(torch.count_nonzero(out)) == 0
+
+
+def _kernel_vs_plain(m, args, kw):
+    """Kernel and plain version on the same state: max relative error
+    (the bound of tests/test_pallas.py:35) and the kernel's counters
+    against the host count of its design (run_counts)."""
+    before = (line_tile_extinction.launches, layer_kmax.launches)
+    b = kernel_extinction(m.fplan, m.fdev, *args, **kw)
+    a = plain_extinction(m.fplan, m.fdev, *args, **kw)
+    assert (line_tile_extinction.launches, layer_kmax.launches) == \
+        (before[0] + 1, before[1] + 1)
+    tab = layer_tables(m.fdev, *args)
+    stats = torch.zeros(3, dtype=torch.int64, device=a.device)
+    c = line_tile_extinction(m.fplan, m.fdev, tab, args[0], **kw,
+                             stats=stats)
+    torch.cuda.synchronize()
+    assert torch.equal(b, c)
+    host = run_counts(m.fplan, m.fdev, tab, args[0], **kw)
+    assert dict(zip(("chains", "live", "pairs"), stats.tolist())) == host
+    assert b.shape == a.shape == (args[0].shape[0], m.wns.n)
+    rel = (a - b).abs() / (a.abs() + 1e-6 * a.abs().max())
+    return float(rel.max()) if a.numel() else 0.0, host
+
+
+@pytest.mark.cuda
+def test_layer_kmax_equals_plain_bitwise(card):
+    m = _model(card)
+    args, _ = _state(m)
+    coef0 = iso_tables(m.fdev, *args)["coef0"]
+    before = layer_kmax.launches
+    got = layer_kmax(m.fdev, args[0], coef0)
+    want = plain_kmax(m.fdev, args[0], coef0)
+    torch.cuda.synchronize()
+    assert layer_kmax.launches == before + 1
+    assert torch.isfinite(want).all() and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_kernel_wide_wing_in_rounds(card):
+    """A wing far wider than the plan's halo: every kept line covers its
+    whole tile, so a chunk holds more (bin, line) pairs than one round
+    of shared memory (20 layers x 96 lines x 8 bins > 4096)."""
+    m = _model(card)
+    args, kw = _state(m)
+    kw["nwidth"] = 1e5
+    rel, host = _kernel_vs_plain(m, args, kw)
+    assert rel < 1e-5
+    assert host["pairs"] == host["live"] * m.fplan.tw
+
+
+@pytest.mark.cuda
+def test_kernel_ragged_layer_count(card):
+    m = _model(card)
+    (T, dens, Z, mm, mr), kw = _state(m)
+    rel, host = _kernel_vs_plain(m, (T[:7], dens[:, :7], Z[:, :7], mm, mr),
+                                 kw)
+    assert rel < 1e-5 and host["pairs"] > 0
+
+
+@pytest.mark.cuda
+def test_kernel_every_line_cut_by_ethresh(card):
+    """ethresh above 1 drops every line (k0 < ethresh * kmax)."""
+    m = _model(card)
+    args, kw = _state(m)
+    kw["ethresh"] = 2.0
+    out = kernel_extinction(m.fplan, m.fdev, *args, **kw)
+    assert int(torch.count_nonzero(out)) == 0
+    tab = layer_tables(m.fdev, *args)
+    assert run_counts(m.fplan, m.fdev, tab, args[0], **kw)["live"] == 0

@@ -19,8 +19,13 @@ from transit_tpu_torch.config import TransitConfig
 from transit_tpu_torch.convert import device_arrays_from_numpy
 from transit_tpu_torch.model import TransitModel
 from transit_tpu_torch.opacities import _build, kernel_lbl
-from transit_tpu_torch.opacities.kernel_lbl import (kernel_extinction,
-                                                    plain_extinction)
+from transit_tpu_torch.opacities.kernel_lbl import (bin_runs,
+                                                    kernel_extinction,
+                                                    layer_kmax,
+                                                    layer_tables,
+                                                    line_tile_extinction,
+                                                    plain_extinction,
+                                                    _tile_chunks)
 
 torch.set_num_threads(1)
 
@@ -160,8 +165,50 @@ def test_cpu_tensors_never_touch_the_cuda_build(fixture_pair, monkeypatch):
     monkeypatch.setattr(_build, "load_library", refuse)
     args, kw = _state(tm, np.float64)
     targs = [torch.as_tensor(a) for a in args]
-    before = kernel_lbl.line_tile_extinction.launches
+    before = (kernel_lbl.line_tile_extinction.launches,
+              kernel_lbl.layer_kmax.launches)
     got = kernel_extinction(tm.fplan, tm.fdev, *targs, **kw)
     want = plain_extinction(tm.fplan, tm.fdev, *targs, **kw)
     assert torch.equal(got, want)
-    assert kernel_lbl.line_tile_extinction.launches == before
+    assert (kernel_lbl.line_tile_extinction.launches,
+            kernel_lbl.layer_kmax.launches) == before
+
+
+@pytest.mark.parametrize("case,dtype", [("fixture", torch.float32),
+                                        ("fixture", torch.float64),
+                                        ("bench", torch.float32)])
+def test_bin_runs_mark_exactly_the_used_bins(case, dtype):
+    """The kernel's design (csrc/line_tile.cu:find_run, as bin_runs
+    computes it on the host): each live (layer, tile, line)'s run
+    [b0, b1] covers exactly the bins that the plain version's ``use``
+    mask marks — a kept line inside its wing — and no other."""
+    jcfg = make_config("eclipse", 1e30) if case == "fixture" \
+        else _bench_config()
+    m = TransitModel(TransitConfig(**dataclasses.asdict(jcfg)), dtype=dtype,
+                     device="cpu")
+    args, kw = _state(m, np.float64)
+    targs = [torch.as_tensor(a).to(dtype) for a in args]
+    tab = layer_tables(m.fdev, *targs)
+    bins = torch.arange(m.fplan.tw)[None, None, :, None]
+    npairs = 0
+    for (t0, t1, b0, b1, _, live), (s0, s1, *_, use) in zip(
+            bin_runs(m.fplan, m.fdev, tab, targs[0], **kw),
+            _tile_chunks(m.fplan, m.fdev, tab, targs[0], **kw)):
+        assert (t0, t1) == (s0, s1)
+        marks = (live[:, :, None, :] & (bins >= b0[:, :, None, :]) &
+                 (bins <= b1[:, :, None, :]))
+        assert torch.equal(marks, use)
+        npairs += int(use.sum())
+    assert npairs > 0
+
+
+def test_kernel_wrappers_refuse_cpu_tensors(fixture_pair):
+    _, tm = fixture_pair
+    args, kw = _state(tm, np.float32)
+    tm32 = TransitModel(tm.cfg, dtype=torch.float32, device="cpu")
+    targs = [torch.as_tensor(a) for a in args]
+    tab = layer_tables(tm32.fdev, *targs)
+    with pytest.raises(ValueError, match="CUDA"):
+        layer_kmax(tm32.fdev, targs[0], tab["coef0"])
+    with pytest.raises(ValueError, match="CUDA"):
+        line_tile_extinction(tm32.fplan, tm32.fdev, tab, targs[0], **kw)

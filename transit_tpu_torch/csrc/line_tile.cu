@@ -1,9 +1,10 @@
 // Line extinction on the unbanded tile plan: the Hopper counterpart of the
 // Pallas kernel transit_tpu/opacities/pallas_lbl.py:_kernel (launched by
-// pallas_extinction).
+// pallas_extinction), and of the per-layer kmax scan that pallas_extinction
+// computes outside pallas_call (pallas_lbl.py:127-133).
 //
-// For each tile of tw coarse bins, layer and bin it sums over the tile's
-// lines
+// For each tile of tw coarse bins, layer and bin, line_tile_kernel sums
+// over the tile's lines
 //     k * K(x, y) / alphaD,
 //     k  = gf e^(-c2 El/T) (1 - e^(-c2 nu/T)) coef0 dens   (0 when the line's
 //          k0 < ethresh * kmax, extinction.c:400-427),
@@ -11,24 +12,40 @@
 //          y = sqrt(ln2) alphaL / alphaD,
 // where |nu_bin - nu| <= nwidth * max(alphaD, alphaL).
 //
-// What bounds it: FP32 arithmetic.  A Voigt evaluation costs ~10^2 flops
-// (a complex rational and one divide; region IV adds exp and cos), against
-// 17 bytes per line that are read once per tile and layer block.  The
-// design therefore spends nothing on memory tricks and keeps the
-// arithmetic lean:
-//   * one block per (tile, block of lb layers); a thread owns one
-//     (layer, bin) output and accumulates it in f32 registers, with a
-//     Kahan compensation term;
-//   * the tile's lines are staged through shared memory in chunks of CH;
-//     the strength chain and the widths are computed once per
-//     (layer, line) into shared memory, not once per bin;
-//   * the per-isotope tables are indexed directly (no one-hot product);
-//   * the loop stops at the tile's line count, not at lmax, and a line
-//     whose strength was dropped or whose wing misses the bin skips the
-//     Voigt evaluation — the Pallas kernel evaluates every padded element;
-//   * each element takes only its own Voigt region's rational, where the
-//     TPU's branch-free form computes all three.
-// Ragged layer blocks and the ragged last tile are masked, not padded.
+// What bounds it: FP32 arithmetic, and on this data most of the work is
+// dead.  Of the (layer, bin, line) triples of the tile plan only ~3% are
+// kept lines inside their wing, and their bins form one contiguous run per
+// (layer, line): the distance to the line is monotone on each side of it.
+// So the kernel never tests pairs; it finds runs and evaluates only them:
+//   * one block per (tile, block of lb layers).  A window of the tile's
+//     lines that can reach it at all is found first; the window goes
+//     through in chunks of CH lines, a thread taking SEG consecutive
+//     (layer, line) elements of a chunk.  A chunk's line rows are loaded
+//     two chunks ahead and staged one chunk ahead (double buffer);
+//   * set-up: per element the wing and the run [b0, b1] of the tile's bins
+//     inside it (find_run: seeded at the nearest bin, settled with the
+//     exact test); only a line that reaches the tile pays the strength
+//     chain, and only a kept one 1/alphaD and y;
+//   * compaction: one block-wide scan of the live (kept, reaching)
+//     elements and their run lengths lists them layer by layer in line
+//     order, and numbers their (bin, line) pairs;
+//   * evaluation: every thread takes pairs off that list, so the Voigt runs
+//     on all lanes, and writes k K / alphaD to a shared-memory slot; a chunk
+//     with more pairs than CAP slots goes in rounds;
+//   * summation: the thread that owns (layer, bin) walks its layer's list
+//     and adds its terms in line order with a Kahan compensation carried
+//     across chunks: the same terms in the same order as a thread that
+//     walks every line, with no float atomics.
+// Each element takes only its own Voigt region's rational, where the TPU's
+// branch-free form computes all three.  Ragged layer blocks and the ragged
+// last tile are masked, not padded.
+//
+// layer_kmax_kernel: kmax[L] = max over the line list of k0 (the chain
+// above without dens); bound by FP32 operations (two exps and two divides
+// per (layer, line)).  A thread keeps the maxima of KM_LAYERS layers in
+// registers over its lines, a block reduces them with warp shuffles, and
+// blocks combine with an atomic max on the float's bit pattern, which does
+// not depend on order.
 //
 // Rounding: the bin wavenumber (wn_i + dwn*(tile*tw) + dwn*bin), x, and the
 // strength chain use the _rn intrinsics, which the compiler never contracts
@@ -40,10 +57,15 @@
 
 namespace {
 
-constexpr int CH = 64;            // lines staged per chunk
-constexpr int MAX_THREADS = 256;  // lb * tw <= MAX_THREADS
+constexpr int NT = 256;           // threads per line-tile block
+constexpr int SEG = 4;            // (layer, line) elements per thread
+constexpr int NE = NT * SEG;      // elements per chunk: lb * CH <= NE
+constexpr int CAP = 4096;         // pair slots per evaluation round
+constexpr int MAX_LB = 32;        // layers per block (5 bits of a slot code)
+constexpr int NWARP = NT / 32;
 constexpr float SQRTLN2 = 0.83255461115769775635f;
 constexpr float SQRTLN2PI = 0.46971863934982566689f;
+constexpr unsigned FULL = 0xffffffffu;
 
 // K(x, y) = sqrt(ln2/pi) Re w(x + iy), Humlicek (1982) w4, for x >= 0,
 // y > 0.  Real-pair arithmetic; region I is folded into region II, and
@@ -115,13 +137,76 @@ __device__ __forceinline__ float humlicek_k(float x, float y) {
   return SQRTLN2PI * ((nr * dr + ni * di) * dinv);
 }
 
-__global__ void __launch_bounds__(MAX_THREADS)
+// k0 = gf e^(-c2 El/T) (1 - e^(-c2 nu/T)) coef0, in the plain version's
+// order of operations.
+__device__ __forceinline__ float strength(float gf, float el, float wv,
+                                          float T, float cf0,
+                                          float neg_expcte) {
+  const float e1 = expf(__fdiv_rn(__fmul_rn(neg_expcte, el), T));
+  const float e2 = expf(__fdiv_rn(__fmul_rn(neg_expcte, wv), T));
+  return __fmul_rn(__fmul_rn(__fmul_rn(gf, e1), __fsub_rn(1.0f, e2)), cf0);
+}
+
+// Wavenumber of the tile's bin b; wn0 = wn_i + dwn*(tile*tw), rounded.
+__device__ __forceinline__ float bin_wn(float wn0, float dwn, int b) {
+  return __fadd_rn(wn0, __fmul_rn(dwn, (float)b));
+}
+
+// The run [b0, b1] of the tile's bins b with |wn_b - wv| <= wing; false
+// when there is none.  The set is an interval, since wn_b rises with b and
+// the rounded distance is monotone on each side of wv.  Seeded at the bin
+// nearest the line (clamped to the tile) and settled with the exact test,
+// so the seed's rounding never changes the answer.  If the seed bin is
+// out, the run can only lie toward the line: walk that way until a bin is
+// in, or the walk passes the line (every farther bin is out) or the tile.
+__device__ __forceinline__ bool find_run(float wn0, float dwn,
+                                         float inv_dwn, int tw, float wv,
+                                         float wing, int& b0, int& b1) {
+  const float c = rintf(__fmul_rn(__fsub_rn(wv, wn0), inv_dwn));
+  int s = (int)fminf(fmaxf(c, 0.0f), (float)(tw - 1));
+  float w = bin_wn(wn0, dwn, s);
+  if (!(fabsf(__fsub_rn(w, wv)) <= wing)) {
+    const int step = w < wv ? 1 : -1;
+    for (;;) {
+      s += step;
+      if (s < 0 || s >= tw) return false;
+      w = bin_wn(wn0, dwn, s);
+      if (fabsf(__fsub_rn(w, wv)) <= wing) break;
+      if (step > 0 ? w >= wv : w <= wv) return false;
+    }
+  }
+  b0 = s;
+  b1 = s;
+  while (b0 > 0 && fabsf(__fsub_rn(bin_wn(wn0, dwn, b0 - 1), wv)) <= wing)
+    --b0;
+  while (b1 < tw - 1 &&
+         fabsf(__fsub_rn(bin_wn(wn0, dwn, b1 + 1), wv)) <= wing)
+    ++b1;
+  return true;
+}
+
+// Shared-memory layout of line_tile_kernel (dynamic, > 48 KB).
+struct Rows {                     // a chunk's line rows, staged
+  float wv[NT], el[NT], gf[NT];
+  int iso[NT];                    // -1: masked
+};
+static_assert(NT <= 2048 && MAX_LB <= 32, "slot codes' bit fields");
+constexpr size_t SMEM_BYTES =
+    3 * NE * sizeof(float)            // s_k, s_inv, s_y
+    + NE * sizeof(unsigned)           // s_run
+    + NE * sizeof(int2)               // s_ent
+    + CAP * sizeof(unsigned)          // s_slot
+    + 2 * sizeof(Rows)                // s_rows, double-buffered
+    + (MAX_LB + 2) * sizeof(int)      // s_lfirst (+ pad to 8 bytes)
+    + NWARP * sizeof(unsigned)        // s_scan
+    + 2 * NWARP * sizeof(int) + 8;    // s_win, s_nchain
+
+__global__ void __launch_bounds__(NT, 4)
 line_tile_kernel(const float* __restrict__ wavn,
                  const float* __restrict__ elow,
                  const float* __restrict__ gf,
                  const int* __restrict__ iso,
                  const unsigned char* __restrict__ mask,
-                 const int* __restrict__ tile_nlines,
                  const float* __restrict__ temps,
                  const float* __restrict__ alphal,
                  const float* __restrict__ alphad_f,
@@ -129,114 +214,404 @@ line_tile_kernel(const float* __restrict__ wavn,
                  const float* __restrict__ densm,
                  const float* __restrict__ kmax,
                  float* __restrict__ out,
+                 unsigned long long* __restrict__ stats,
+                 const float* __restrict__ k0_lines,
+                 const int* __restrict__ tile_start,
                  int nl, int lmax, int niso, int tw, int lb, int n_coarse,
-                 float wn_i, float dwn, float ethresh, float nwidth,
-                 float neg_expcte) {
-  extern __shared__ float smem[];
-  float* s_wv = smem;                 // (CH,)   line wavenumber
-  float* s_k = s_wv + CH;             // (CH, lb) strength x density
-  float* s_inv = s_k + CH * lb;       // (CH, lb) 1 / alphaD
-  float* s_y = s_inv + CH * lb;       // (CH, lb) y
-  float* s_wing = s_y + CH * lb;      // (CH, lb) wing half-width
+                 int nlines, float wn_i, float dwn, float ethresh,
+                 float nwidth, float neg_expcte) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* s_k = reinterpret_cast<float*>(smem);   // (lb, CH) k
+  float* s_inv = s_k + NE;                       // (lb, CH) 1 / alphaD
+  float* s_y = s_inv + NE;                       // (lb, CH) y
+  unsigned* s_run = reinterpret_cast<unsigned*>(s_y + NE);
+  int2* s_ent = reinterpret_cast<int2*>(s_run + NE);  // live list
+  unsigned* s_slot = reinterpret_cast<unsigned*>(s_ent + NE);
+  Rows* s_rows = reinterpret_cast<Rows*>(s_slot + CAP);
+  int* s_lfirst = reinterpret_cast<int*>(s_rows + 2);
+  unsigned* s_scan = reinterpret_cast<unsigned*>(s_lfirst + MAX_LB + 2);
+  int* s_win = reinterpret_cast<int*>(s_scan + NWARP);
+  int* s_nchain = s_win + 2 * NWARP;
 
   const int tile = blockIdx.x;
   const int l0 = blockIdx.y * lb;
   const int tid = threadIdx.x;
-  const int nthreads = blockDim.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int tpl = NT / lb;                 // set-up threads per layer
+  const int seg = min(SEG, NT / tpl);      // elements per set-up thread
+  const int CH = tpl * seg;                // lines per chunk, <= NT
+  // Set-up role: layer lj, elements (lj, jseg .. jseg + seg - 1).
+  const int lj = tid / tpl;
+  const int jseg = (tid - lj * tpl) * seg;
+  const int L = l0 + lj;
+  const bool setup = lj < lb && L < nl;
+  // Owner role: (layer ll, bin b).
   const int ll = tid / tw;
   const int b = tid - ll * tw;
   const int layer = l0 + ll;
   const int col = tile * tw + b;
-  const bool active = ll < lb && layer < nl && col < n_coarse;
-  const float wn = __fadd_rn(__fadd_rn(wn_i, __fmul_rn(dwn, (float)(tile * tw))),
-                             __fmul_rn(dwn, (float)b));
-  const int n = tile_nlines[tile];
-  const size_t row = (size_t)tile * lmax;
-  float acc = 0.0f, comp = 0.0f;
+  const bool owner = ll < lb && layer < nl && col < n_coarse;
 
-  for (int c0 = 0; c0 < n; c0 += CH) {
-    const int cn = min(CH, n - c0);
-    __syncthreads();                  // the previous chunk is consumed
-    for (int e = tid; e < cn * lb; e += nthreads) {
-      const int j = e / lb;
-      const int lj = e - j * lb;
-      const int L = l0 + lj;
-      const size_t g = row + c0 + j;
-      const float wv = wavn[g];
-      if (lj == 0) s_wv[j] = wv;
-      float k = 0.0f, inv = 1.0f, y = 0.0f, wing = -1.0f;
-      if (L < nl) {
-        const float T = temps[L];
-        const size_t ti = (size_t)L * niso + iso[g];
+  const float wn0 = __fadd_rn(wn_i, __fmul_rn(dwn, (float)(tile * tw)));
+  const float inv_dwn = 1.0f / dwn;
+  const size_t row = (size_t)tile * lmax;
+  float T = 1.0f, thr = 0.0f;
+  if (setup) {
+    T = temps[L];
+    thr = __fmul_rn(ethresh, kmax[L]);
+  }
+  if (tid == 0) *s_nchain = 0;
+
+  // The block's window of lines [jlo, jhi): every unmasked line whose wing
+  // can reach a bin of the tile in one of the block's layers lies in it.
+  // A wing is nwidth * max(alphad_f * nu, alphaL), each rounded operation
+  // is monotone, so with the block's largest alphad_f and alphaL it is at
+  // most `reach`; a line farther than reach from the tile's first and last
+  // bins (with a margin for the rounding of the distance) reaches none.
+  float dfmax = 0.0f, almax = 0.0f;       // each warp reduces the tables
+  for (int t = lane; t < min(lb, nl - l0) * niso; t += 32) {
+    dfmax = fmaxf(dfmax, alphad_f[l0 * niso + t]);
+    almax = fmaxf(almax, alphal[l0 * niso + t]);
+  }
+#pragma unroll
+  for (int o = 16; o; o >>= 1) {
+    dfmax = fmaxf(dfmax, __shfl_xor_sync(FULL, dfmax, o));
+    almax = fmaxf(almax, __shfl_xor_sync(FULL, almax, o));
+  }
+  const double wn_first = wn0, wn_last = bin_wn(wn0, dwn, tw - 1);
+  int jlo = lmax, jhi = 0;
+#pragma unroll 4
+  for (int t = tid; t < lmax; t += NT) {
+    const bool on = mask[row + t];
+    const float wvf = wavn[row + t];
+    const double wv = wvf, reach = 1.000001 * (double)__fmul_rn(
+        nwidth, fmaxf(__fmul_rn(dfmax, wvf), almax));
+    if (on && wn_first - wv <= reach && wv - wn_last <= reach) {
+      jlo = min(jlo, t);
+      jhi = t + 1;
+    }
+  }
+  jlo = __reduce_min_sync(FULL, jlo);
+  jhi = __reduce_max_sync(FULL, jhi);
+  if (lane == 0) {
+    s_win[warp] = jlo;
+    s_win[NWARP + warp] = jhi;
+  }
+  __syncthreads();
+  for (int w = 0; w < NWARP; ++w) {
+    jlo = min(jlo, s_win[w]);
+    jhi = max(jhi, s_win[NWARP + w]);
+  }
+
+  float acc = 0.0f, comp = 0.0f;
+  // Thread 0: the block's live entries and pairs, for stats.
+  unsigned long long n_live = 0, n_pair = 0;
+
+  // Line rows: chunk k is staged in s_rows[k & 1] during chunk k - 1, from
+  // registers loaded during chunk k - 2, so the loads' latency hides
+  // behind a chunk of work and the staging needs no barrier of its own.
+  float r_wv = 0.0f, r_el = 0.0f, r_gf = 0.0f;
+  int r_iso = -1;
+  auto load = [&](int c) {
+    if (tid < min(CH, jhi - c)) {
+      const size_t g = row + c + tid;
+      r_wv = wavn[g];
+      r_el = elow[g];
+      r_gf = gf[g];
+      r_iso = mask[g] ? iso[g] : -1;
+    }
+  };
+  auto stage = [&](Rows& r, int c) {
+    if (tid < min(CH, jhi - c)) {
+      r.wv[tid] = r_wv;
+      r.el[tid] = r_el;
+      r.gf[tid] = r_gf;
+      r.iso[tid] = r_iso;
+    }
+  };
+  load(jlo);
+  stage(s_rows[0], jlo);
+  load(jlo + CH);
+  __syncthreads();
+
+  for (int c0 = jlo, k = 0; c0 < jhi; c0 += CH, ++k) {
+    const int cn = min(CH, jhi - c0);
+    const Rows& rw = s_rows[k & 1];
+    __syncthreads();                      // the previous chunk is consumed
+    stage(s_rows[(k + 1) & 1], c0 + CH);
+    load(c0 + 2 * CH);
+
+    // 1. Set-up: per element the wing and its run of the tile's bins
+    //    (find_run); for a line that reaches the tile, its strength, and
+    //    for a kept one k, 1/alphaD and y.
+    int nchain = 0, nlive = 0, npair = 0;
+    for (int i = 0; i < seg; ++i) {
+      const int j = jseg + i;
+      const int e = lj * CH + j;
+      unsigned run = 0;
+      if (setup && j < cn && rw.iso[j] >= 0) {
+        const float wv = rw.wv[j];
+        const int ti = L * niso + rw.iso[j];
         const float aL = alphal[ti];
-        const float e1 = expf(__fdiv_rn(__fmul_rn(neg_expcte, elow[g]), T));
-        const float e2 = expf(__fdiv_rn(__fmul_rn(neg_expcte, wv), T));
-        const float k0 = __fmul_rn(
-            __fmul_rn(__fmul_rn(gf[g], e1), __fsub_rn(1.0f, e2)), coef0[ti]);
-        if (mask[g] && k0 >= __fmul_rn(ethresh, kmax[L]))
-          k = __fmul_rn(k0, densm[ti]);
         const float aD = __fmul_rn(alphad_f[ti], wv);
-        inv = __fdiv_rn(1.0f, aD);
-        y = __fmul_rn(__fmul_rn(SQRTLN2, aL), inv);
-        wing = __fmul_rn(nwidth, fmaxf(aD, aL));
+        const float wing = __fmul_rn(nwidth, fmaxf(aD, aL));
+        int b0, b1;
+        if (find_run(wn0, dwn, inv_dwn, tw, wv, wing, b0, b1)) {
+          ++nchain;
+          const float k0 =
+              k0_lines ? k0_lines[(size_t)L * nlines + tile_start[tile] +
+                                  c0 + j]
+                       : strength(rw.gf[j], rw.el[j], wv, T, coef0[ti],
+                                  neg_expcte);
+          if (k0 >= thr) {
+            const float inv = __fdiv_rn(1.0f, aD);
+            s_k[e] = __fmul_rn(k0, densm[ti]);
+            s_inv[e] = inv;
+            s_y[e] = __fmul_rn(__fmul_rn(SQRTLN2, aL), inv);
+            run = 1u << 16 | (unsigned)b1 << 8 | (unsigned)b0;
+            ++nlive;
+            npair += b1 - b0 + 1;
+          }
+        }
       }
-      s_k[e] = k;
-      s_inv[e] = inv;
-      s_y[e] = y;
-      s_wing[e] = wing;
+      if (lj < lb) s_run[e] = run;
+    }
+    if (stats) {
+      nchain = __reduce_add_sync(FULL, nchain);
+      if (lane == 0) atomicAdd(s_nchain, nchain);
+    }
+
+    // 2. Compaction: exclusive block scan of (live, pairs), packed 11 | 21
+    //    bits (per chunk at most NE and NE * 256), lists the live elements
+    //    layer by layer in line order and numbers their (bin, line) pairs.
+    const unsigned mine = (unsigned)nlive << 21 | (unsigned)npair;
+    unsigned v = mine;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const unsigned u = __shfl_up_sync(FULL, v, o);
+      if (lane >= o) v += u;
+    }
+    if (lane == 31) s_scan[warp] = v;
+    __syncthreads();
+    if (warp == 0) {
+      unsigned w = lane < NWARP ? s_scan[lane] : 0u;
+#pragma unroll
+      for (int o = 1; o < NWARP; o <<= 1) {
+        const unsigned u = __shfl_up_sync(FULL, w, o);
+        if (lane >= o) w += u;
+      }
+      if (lane < NWARP) s_scan[lane] = w;
     }
     __syncthreads();
-    if (active) {
-      for (int j = 0; j < cn; ++j) {
-        const int e = j * lb + ll;
-        const float k = s_k[e];
-        const float dist = fabsf(__fsub_rn(wn, s_wv[j]));
-        if (k != 0.0f && dist <= s_wing[e]) {
-          const float inv = s_inv[e];
-          const float x = __fmul_rn(__fmul_rn(SQRTLN2, dist), inv);
-          const float prof = __fmul_rn(humlicek_k(x, s_y[e]), inv);
-          // Compensated (Kahan) sum: a bin adds up hundreds of lines one
-          // by one, where the plain version's reduction is a tree.
-          const float term = __fsub_rn(__fmul_rn(prof, k), comp);
-          const float t = __fadd_rn(acc, term);
-          comp = __fsub_rn(__fsub_rn(t, acc), term);
-          acc = t;
+    const unsigned excl = v - mine + (warp > 0 ? s_scan[warp - 1] : 0u);
+    const unsigned total = s_scan[NWARP - 1];
+    const int live_base = (int)(excl >> 21);
+    const int pair_base = (int)(excl & 0x1fffff);
+    const int P = (int)(total & 0x1fffff);
+    if (tid == 0) {
+      n_live += total >> 21;
+      n_pair += P;
+    }
+    {
+      int q = live_base, p = pair_base;
+      for (int i = 0; i < seg && lj < lb; ++i) {
+        const unsigned run = s_run[lj * CH + jseg + i];
+        if (run) {
+          const int b0 = run & 255, b1 = run >> 8 & 255;
+          s_ent[q++] = make_int2(p, b0 | (b1 - b0) << 16);
+          p += b1 - b0 + 1;
         }
+      }
+      if (lj < lb && jseg == 0) s_lfirst[lj] = live_base;
+      if (tid == 0) s_lfirst[lb] = (int)(total >> 21);
+    }
+
+    // 3. + 4. Evaluate the pairs, CAP at a time, then sum them per owner.
+    for (int r0 = 0; r0 < P; r0 += CAP) {
+      const int rn = min(CAP, P - r0);
+      if (lj < lb && npair && pair_base < r0 + rn &&
+          pair_base + npair > r0) {
+        int p = pair_base - r0;
+        for (int i = 0; i < seg; ++i) {
+          const int j = jseg + i;
+          const unsigned run = s_run[lj * CH + j];
+          if (!run) continue;
+          const int b0 = run & 255, b1 = run >> 8 & 255;
+          for (int bb = b0; bb <= b1; ++bb, ++p)
+            if ((unsigned)p < (unsigned)rn)
+              s_slot[p] = (unsigned)j | (unsigned)lj << 11 |
+                          (unsigned)bb << 16;
+        }
+      }
+      __syncthreads();
+      for (int s = tid; s < rn; s += NT) {
+        const unsigned code = s_slot[s];
+        const int j = code & 2047;
+        const int e = (int)(code >> 11 & 31) * CH + j;
+        const float dist =
+            fabsf(__fsub_rn(bin_wn(wn0, dwn, (int)(code >> 16)), rw.wv[j]));
+        const float inv = s_inv[e];
+        const float x = __fmul_rn(__fmul_rn(SQRTLN2, dist), inv);
+        const float prof = __fmul_rn(humlicek_k(x, s_y[e]), inv);
+        s_slot[s] = __float_as_uint(__fmul_rn(prof, s_k[e]));
+      }
+      __syncthreads();
+      if (owner) {
+        const int qb = s_lfirst[ll + 1];
+#pragma unroll 4
+        for (int q = s_lfirst[ll]; q < qb; ++q) {
+          const int2 en = s_ent[q];              // (first pair, b0 | len-1)
+          const int d = b - (en.y & 0xffff);
+          const int p = en.x + d - r0;
+          if ((unsigned)d <= (unsigned)(en.y >> 16) &&
+              (unsigned)p < (unsigned)rn) {
+            // Compensated (Kahan) sum: a bin adds up hundreds of lines one
+            // by one, where the plain version's reduction is a tree.
+            const float term =
+                __fsub_rn(__uint_as_float(s_slot[p]), comp);
+            const float t = __fadd_rn(acc, term);
+            comp = __fsub_rn(__fsub_rn(t, acc), term);
+            acc = t;
+          }
+        }
+      }
+      if (r0 + CAP < P) __syncthreads();  // else the next chunk's first
+    }
+  }
+  if (owner) out[(size_t)layer * n_coarse + col] = acc;
+  if (stats) {
+    __syncthreads();
+    if (tid == 0 && *s_nchain) {
+      atomicAdd(&stats[0], (unsigned long long)*s_nchain);
+      atomicAdd(&stats[1], n_live);
+      atomicAdd(&stats[2], n_pair);
+    }
+  }
+}
+
+constexpr int KM_THREADS = 256;
+constexpr int KM_LAYERS = 8;       // layers per block, maxima in registers
+constexpr int KM_MAX_BLOCKS = 264; // blocks along the lines: 2 per SM
+
+// Atomic max of a float by its bit pattern: a non-negative float orders
+// as a signed int, a negative one in reverse as an unsigned int.
+__device__ __forceinline__ void atomic_max_float(float* addr, float v) {
+  if (!(v < 0.0f))
+    atomicMax(reinterpret_cast<int*>(addr), __float_as_int(v));
+  else
+    atomicMin(reinterpret_cast<unsigned*>(addr), __float_as_uint(v));
+}
+
+__global__ void __launch_bounds__(KM_THREADS)
+layer_kmax_kernel(const float* __restrict__ wavn,
+                  const float* __restrict__ elow,
+                  const float* __restrict__ gf,
+                  const int* __restrict__ iso,
+                  const float* __restrict__ temps,
+                  const float* __restrict__ coef0,
+                  float* __restrict__ kmax,
+                  float* __restrict__ k0_out,
+                  int nlines, int nl, int niso, float neg_expcte) {
+  __shared__ float s_red[KM_THREADS / 32][KM_LAYERS];
+  const int l0 = blockIdx.y * KM_LAYERS;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float T[KM_LAYERS], m[KM_LAYERS];
+#pragma unroll
+  for (int a = 0; a < KM_LAYERS; ++a) {
+    T[a] = l0 + a < nl ? temps[l0 + a] : 1.0f;
+    m[a] = -INFINITY;
+  }
+  for (int i = blockIdx.x * KM_THREADS + threadIdx.x; i < nlines;
+       i += gridDim.x * KM_THREADS) {
+    const float wv = wavn[i], el = elow[i], g = gf[i];
+    const int is = iso[i];
+#pragma unroll
+    for (int a = 0; a < KM_LAYERS; ++a) {
+      const int L = l0 + a;
+      if (L < nl) {
+        const float k0 = strength(g, el, wv, T[a], coef0[L * niso + is],
+                                  neg_expcte);
+        m[a] = fmaxf(m[a], k0);
+        if (k0_out) k0_out[(size_t)L * nlines + i] = k0;
       }
     }
   }
-  if (active) out[(size_t)layer * n_coarse + col] = acc;
+#pragma unroll
+  for (int a = 0; a < KM_LAYERS; ++a) {
+    float v = m[a];
+#pragma unroll
+    for (int o = 16; o; o >>= 1) v = fmaxf(v, __shfl_xor_sync(FULL, v, o));
+    if (lane == 0) s_red[warp][a] = v;
+  }
+  __syncthreads();
+  if (threadIdx.x < KM_LAYERS && l0 + (int)threadIdx.x < nl) {
+    float v = s_red[0][threadIdx.x];
+    for (int w = 1; w < KM_THREADS / 32; ++w)
+      v = fmaxf(v, s_red[w][threadIdx.x]);
+    atomic_max_float(&kmax[l0 + threadIdx.x], v);
+  }
 }
 
 }  // namespace
 
 // Launch on `stream`; returns cudaGetLastError() (0 = launched).
 // Pointers are device pointers to contiguous tensors: line tiles
-// (ntiles, lmax) wavn/elow/gf f32, iso int32, mask bool; tile_nlines
-// (ntiles,) int32; temps and kmax (nl,); the isotope tables
-// (nl, niso) f32; out (nl, n_coarse) f32, fully written.
+// (ntiles, lmax) wavn/elow/gf f32, iso int32, mask bool; temps and kmax
+// (nl,); the isotope tables
+// (nl, niso) f32; out (nl, n_coarse) f32, fully written.  stats, if not
+// null, is (3,) uint64 and gets the (layer, line) chains computed, the live
+// (layer, tile, line) entries and the (layer, bin, line) pairs evaluated
+// added to it.  k0_lines, if not null, is (nl, nlines) f32, the strength
+// k0 of every (layer, line) of the line list (layer_kmax's k0_out), and the
+// kernel reads k0 there, at tile_start[tile] + slot, instead of computing
+// it; the plan must then have one line range per tile.
 extern "C" int line_tile_extinction(
     const void* wavn, const void* elow, const void* gf, const void* iso,
-    const void* mask, const void* tile_nlines, const void* temps,
+    const void* mask, const void* temps,
     const void* alphal, const void* alphad_f, const void* coef0,
-    const void* densm, const void* kmax, void* out,
-    int nl, int ntiles, int lmax, int niso, int tw, int n_coarse,
+    const void* densm, const void* kmax, void* out, void* stats,
+    const void* k0_lines, const void* tile_start,
+    int nl, int ntiles, int lmax, int niso, int tw, int n_coarse, int nlines,
     float wn_i, float dwn, float ethresh, float nwidth, float neg_expcte,
     void* stream) {
-  if (nl <= 0 || ntiles <= 0 || tw <= 0 || tw > MAX_THREADS)
+  if (nl <= 0 || ntiles <= 0 || tw <= 0 || tw > NT)
     return (int)cudaErrorInvalidValue;
-  int lb = MAX_THREADS / tw;
-  if (lb > 32) lb = 32;
+  int lb = NT / tw;
+  if (lb > MAX_LB) lb = MAX_LB;
   if (lb > nl) lb = nl;
-  const dim3 grid(ntiles, (nl + lb - 1) / lb);
-  const dim3 block(lb * tw);
-  const size_t shmem = sizeof(float) * CH * (1 + 4 * lb);
-  line_tile_kernel<<<grid, block, shmem, (cudaStream_t)stream>>>(
+  const int nblk = (nl + lb - 1) / lb;
+  lb = (nl + nblk - 1) / nblk;            // balance the ragged layer block
+  cudaError_t err = cudaFuncSetAttribute(
+      line_tile_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)SMEM_BYTES);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(ntiles, nblk);
+  line_tile_kernel<<<grid, NT, SMEM_BYTES, (cudaStream_t)stream>>>(
       (const float*)wavn, (const float*)elow, (const float*)gf,
-      (const int*)iso, (const unsigned char*)mask, (const int*)tile_nlines,
-      (const float*)temps, (const float*)alphal, (const float*)alphad_f,
+      (const int*)iso, (const unsigned char*)mask, (const float*)temps, (const float*)alphal, (const float*)alphad_f,
       (const float*)coef0, (const float*)densm, (const float*)kmax,
-      (float*)out, nl, lmax, niso, tw, lb, n_coarse, wn_i, dwn, ethresh,
-      nwidth, neg_expcte);
+      (float*)out, (unsigned long long*)stats, (const float*)k0_lines,
+      (const int*)tile_start, nl, lmax, niso, tw, lb, n_coarse, nlines,
+      wn_i, dwn, ethresh, nwidth, neg_expcte);
+  return (int)cudaGetLastError();
+}
+
+// kmax (nl,) f32 must hold -inf on entry; it gets the max over the line
+// list (wavn, elow, gf f32, iso int32, each (nlines,)) of k0 at the layer's
+// temperature temps (nl,) and strength coefficient coef0 (nl, niso).
+// k0_out, if not null, is (nl, nlines) f32 and gets every k0.
+extern "C" int layer_kmax(const void* wavn, const void* elow, const void* gf,
+                          const void* iso, const void* temps,
+                          const void* coef0, void* kmax, void* k0_out,
+                          int nlines, int nl, int niso, float neg_expcte,
+                          void* stream) {
+  if (nlines <= 0 || nl <= 0 || niso <= 0) return (int)cudaErrorInvalidValue;
+  int bx = (nlines + KM_THREADS - 1) / KM_THREADS;
+  if (bx > KM_MAX_BLOCKS) bx = KM_MAX_BLOCKS;
+  const dim3 grid(bx, (nl + KM_LAYERS - 1) / KM_LAYERS);
+  layer_kmax_kernel<<<grid, KM_THREADS, 0, (cudaStream_t)stream>>>(
+      (const float*)wavn, (const float*)elow, (const float*)gf,
+      (const int*)iso, (const float*)temps, (const float*)coef0,
+      (float*)kmax, (float*)k0_out, nlines, nl, niso, neg_expcte);
   return (int)cudaGetLastError();
 }
