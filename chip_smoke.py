@@ -11,8 +11,9 @@ wavenumbers, 194,349 lines, eclipse) — through three ``forward``
 requests, checks the spectra against the plain path and the reference C
 spectrum, checks that the line-tile kernel evaluated exactly the (layer,
 bin, line) pairs the function needs, and times the kernels, their plain
-versions and one ``forward`` with CUDA events.  With ``--profile`` it also traces forwards with
-torch.profiler (device time by kernel, busy share).  Every phase prints
+versions and one ``forward`` with CUDA events.  With ``--profile`` it
+also traces forwards with torch.profiler (device time by kernel, busy
+share).  Every phase prints
 one line with its seconds; any failed check raises, so the script exits non-zero and prints no result.
 
 Output, last three lines: the card's name and power limit as nvidia-smi
@@ -37,14 +38,9 @@ import torch
 from transit_tpu_torch.config import TransitConfig
 from transit_tpu_torch.model import TransitModel
 from transit_tpu_torch.opacities import _build
-from transit_tpu_torch.opacities.kernel_lbl import (iso_tables,
-                                                    kernel_extinction,
-                                                    layer_kmax,
-                                                    layer_tables,
-                                                    line_tile_extinction,
-                                                    plain_extinction,
-                                                    plain_kmax, run_counts,
-                                                    work_counts)
+from transit_tpu_torch.opacities.kernel_lbl import (
+    kernel_extinction, layer_kmax, layer_tables, line_tile_extinction,
+    plain_extinction, plain_kmax, run_counts, strength_coef, work_counts)
 
 ROOT = Path(__file__).resolve().parent
 FIX = ROOT / "tests" / "fixtures"
@@ -159,7 +155,7 @@ def kmax_vs_plain(m: TransitModel, label: str) -> float:
     they must agree bit for bit (a max does not depend on order, and
     both round each operation the same way).  Returns max |a - b|."""
     args, _ = file_state(m)
-    coef0 = iso_tables(m.fdev, *args)["coef0"]
+    coef0 = strength_coef(m.fdev, args[2])
     a = plain_kmax(m.fdev, args[0], coef0)
     b = layer_kmax(m.fdev, args[0], coef0)
     torch.cuda.synchronize()
@@ -237,35 +233,6 @@ def bound(m: TransitModel, tab, counts) -> tuple:
     nbytes += sum(t.numel() * t.element_size() for t in tab.values())
     nbytes += 4 * m.atm.nlayers * (1 + m.wns.n)       # temps in, output
     return (*roofline(ops, nbytes), ops, nbytes)
-
-
-def stored_k_choice(m: TransitModel) -> dict:
-    """The design choice between recomputing each line's strength in the
-    line-tile kernel and reading it from an (nl, nlines) array that
-    layer_kmax writes: both outputs must be equal bit for bit; times of
-    kmax scan + line-tile kernel, CUDA events, in turns (recompute,
-    stored, stored, recompute)."""
-    args, kw = file_state(m)
-    T = args[0]
-    tab = iso_tables(m.fdev, *args)
-    k0 = torch.empty((T.shape[0], m.fdev["all_wavn"].shape[0]),
-                     dtype=torch.float32, device=T.device)
-
-    def recompute():
-        t = dict(tab, kmax=layer_kmax(m.fdev, T, tab["coef0"]))
-        return line_tile_extinction(m.fplan, m.fdev, t, T, **kw)
-
-    def stored():
-        t = dict(tab, kmax=layer_kmax(m.fdev, T, tab["coef0"], k0_out=k0))
-        return line_tile_extinction(m.fplan, m.fdev, t, T, **kw,
-                                    k0_lines=k0)
-    check(torch.equal(recompute(), stored()),
-          "stored-k line-tile output differs from the recomputed one")
-    times = {"recompute": [], "stored": []}
-    for name in ("recompute", "stored", "stored", "recompute"):
-        times[name].append(cuda_ms(recompute if name == "recompute"
-                                   else stored))
-    return times
 
 
 def profile_forward(m: TransitModel, T, q, ms_forward: float,
@@ -435,10 +402,6 @@ def main(device: str = "cuda", profile: str | None = None) -> int:
     phase("design_counts", t0, "line-tile kernel counters (equal to the "
           "host count of its design; pairs equal the function's Voigt "
           "evaluations) " + json.dumps(design))
-    t0 = time.perf_counter()
-    choice = stored_k_choice(hj)
-    phase("stored_k_choice", t0, "kmax scan + line-tile kernel, ms in turns "
-          + json.dumps(choice))
     points = hj.wns.n * hj.atm.nlayers
     print(f"forward: {points / (ms_forward * 1e-3):.6e} wavenumber points x "
           f"layers per second ({ms_forward:.3f} ms, {card})", flush=True)

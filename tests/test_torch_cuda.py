@@ -13,13 +13,9 @@ import torch
 
 from transit_tpu_torch.config import TransitConfig
 from transit_tpu_torch.model import TransitModel
-from transit_tpu_torch.opacities.kernel_lbl import (iso_tables,
-                                                    kernel_extinction,
-                                                    layer_kmax,
-                                                    layer_tables,
-                                                    line_tile_extinction,
-                                                    plain_extinction,
-                                                    plain_kmax, run_counts)
+from transit_tpu_torch.opacities.kernel_lbl import (
+    kernel_extinction, layer_kmax, layer_tables, line_tile_extinction,
+    plain_extinction, plain_kmax, run_counts, strength_coef)
 
 torch.set_num_threads(1)
 
@@ -119,7 +115,7 @@ def _kernel_vs_plain(m, args, kw):
 def test_layer_kmax_equals_plain_bitwise(card):
     m = _model(card)
     args, _ = _state(m)
-    coef0 = iso_tables(m.fdev, *args)["coef0"]
+    coef0 = strength_coef(m.fdev, args[2])
     before = layer_kmax.launches
     got = layer_kmax(m.fdev, args[0], coef0)
     want = plain_kmax(m.fdev, args[0], coef0)

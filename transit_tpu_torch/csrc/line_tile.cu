@@ -197,9 +197,9 @@ constexpr size_t SMEM_BYTES =
     + NE * sizeof(int2)               // s_ent
     + CAP * sizeof(unsigned)          // s_slot
     + 2 * sizeof(Rows)                // s_rows, double-buffered
-    + (MAX_LB + 2) * sizeof(int)      // s_lfirst (+ pad to 8 bytes)
+    + (MAX_LB + 1) * sizeof(int)      // s_lfirst
     + NWARP * sizeof(unsigned)        // s_scan
-    + 2 * NWARP * sizeof(int) + 8;    // s_win, s_nchain
+    + (2 * NWARP + 1) * sizeof(int);  // s_win, s_nchain
 
 __global__ void __launch_bounds__(NT, 4)
 line_tile_kernel(const float* __restrict__ wavn,
@@ -215,11 +215,9 @@ line_tile_kernel(const float* __restrict__ wavn,
                  const float* __restrict__ kmax,
                  float* __restrict__ out,
                  unsigned long long* __restrict__ stats,
-                 const float* __restrict__ k0_lines,
-                 const int* __restrict__ tile_start,
                  int nl, int lmax, int niso, int tw, int lb, int n_coarse,
-                 int nlines, float wn_i, float dwn, float ethresh,
-                 float nwidth, float neg_expcte) {
+                 float wn_i, float dwn, float ethresh, float nwidth,
+                 float neg_expcte) {
   extern __shared__ __align__(16) unsigned char smem[];
   float* s_k = reinterpret_cast<float*>(smem);   // (lb, CH) k
   float* s_inv = s_k + NE;                       // (lb, CH) 1 / alphaD
@@ -229,7 +227,7 @@ line_tile_kernel(const float* __restrict__ wavn,
   unsigned* s_slot = reinterpret_cast<unsigned*>(s_ent + NE);
   Rows* s_rows = reinterpret_cast<Rows*>(s_slot + CAP);
   int* s_lfirst = reinterpret_cast<int*>(s_rows + 2);
-  unsigned* s_scan = reinterpret_cast<unsigned*>(s_lfirst + MAX_LB + 2);
+  unsigned* s_scan = reinterpret_cast<unsigned*>(s_lfirst + MAX_LB + 1);
   int* s_win = reinterpret_cast<int*>(s_scan + NWARP);
   int* s_nchain = s_win + 2 * NWARP;
 
@@ -358,11 +356,8 @@ line_tile_kernel(const float* __restrict__ wavn,
         int b0, b1;
         if (find_run(wn0, dwn, inv_dwn, tw, wv, wing, b0, b1)) {
           ++nchain;
-          const float k0 =
-              k0_lines ? k0_lines[(size_t)L * nlines + tile_start[tile] +
-                                  c0 + j]
-                       : strength(rw.gf[j], rw.el[j], wv, T, coef0[ti],
-                                  neg_expcte);
+          const float k0 = strength(rw.gf[j], rw.el[j], wv, T, coef0[ti],
+                                    neg_expcte);
           if (k0 >= thr) {
             const float inv = __fdiv_rn(1.0f, aD);
             s_k[e] = __fmul_rn(k0, densm[ti]);
@@ -510,7 +505,6 @@ layer_kmax_kernel(const float* __restrict__ wavn,
                   const float* __restrict__ temps,
                   const float* __restrict__ coef0,
                   float* __restrict__ kmax,
-                  float* __restrict__ k0_out,
                   int nlines, int nl, int niso, float neg_expcte) {
   __shared__ float s_red[KM_THREADS / 32][KM_LAYERS];
   const int l0 = blockIdx.y * KM_LAYERS;
@@ -532,7 +526,6 @@ layer_kmax_kernel(const float* __restrict__ wavn,
         const float k0 = strength(g, el, wv, T[a], coef0[L * niso + is],
                                   neg_expcte);
         m[a] = fmaxf(m[a], k0);
-        if (k0_out) k0_out[(size_t)L * nlines + i] = k0;
       }
     }
   }
@@ -561,18 +554,13 @@ layer_kmax_kernel(const float* __restrict__ wavn,
 // (nl, niso) f32; out (nl, n_coarse) f32, fully written.  stats, if not
 // null, is (3,) uint64 and gets the (layer, line) chains computed, the live
 // (layer, tile, line) entries and the (layer, bin, line) pairs evaluated
-// added to it.  k0_lines, if not null, is (nl, nlines) f32, the strength
-// k0 of every (layer, line) of the line list (layer_kmax's k0_out), and the
-// kernel reads k0 there, at tile_start[tile] + slot, instead of computing
-// it; the plan must then have one line range per tile.
+// added to it.
 extern "C" int line_tile_extinction(
     const void* wavn, const void* elow, const void* gf, const void* iso,
     const void* mask, const void* temps,
     const void* alphal, const void* alphad_f, const void* coef0,
     const void* densm, const void* kmax, void* out, void* stats,
-    const void* k0_lines, const void* tile_start,
-    int nl, int ntiles, int lmax, int niso, int tw, int n_coarse, int nlines,
-    float wn_i, float dwn, float ethresh, float nwidth, float neg_expcte,
+    int nl, int ntiles, int lmax, int niso, int tw, int n_coarse, float wn_i, float dwn, float ethresh, float nwidth, float neg_expcte,
     void* stream) {
   if (nl <= 0 || ntiles <= 0 || tw <= 0 || tw > NT)
     return (int)cudaErrorInvalidValue;
@@ -590,21 +578,18 @@ extern "C" int line_tile_extinction(
       (const float*)wavn, (const float*)elow, (const float*)gf,
       (const int*)iso, (const unsigned char*)mask, (const float*)temps, (const float*)alphal, (const float*)alphad_f,
       (const float*)coef0, (const float*)densm, (const float*)kmax,
-      (float*)out, (unsigned long long*)stats, (const float*)k0_lines,
-      (const int*)tile_start, nl, lmax, niso, tw, lb, n_coarse, nlines,
-      wn_i, dwn, ethresh, nwidth, neg_expcte);
+      (float*)out, (unsigned long long*)stats, nl, lmax, niso, tw, lb,
+      n_coarse, wn_i, dwn, ethresh, nwidth, neg_expcte);
   return (int)cudaGetLastError();
 }
 
 // kmax (nl,) f32 must hold -inf on entry; it gets the max over the line
 // list (wavn, elow, gf f32, iso int32, each (nlines,)) of k0 at the layer's
 // temperature temps (nl,) and strength coefficient coef0 (nl, niso).
-// k0_out, if not null, is (nl, nlines) f32 and gets every k0.
 extern "C" int layer_kmax(const void* wavn, const void* elow, const void* gf,
                           const void* iso, const void* temps,
-                          const void* coef0, void* kmax, void* k0_out,
-                          int nlines, int nl, int niso, float neg_expcte,
-                          void* stream) {
+                          const void* coef0, void* kmax, int nlines, int nl,
+                          int niso, float neg_expcte, void* stream) {
   if (nlines <= 0 || nl <= 0 || niso <= 0) return (int)cudaErrorInvalidValue;
   int bx = (nlines + KM_THREADS - 1) / KM_THREADS;
   if (bx > KM_MAX_BLOCKS) bx = KM_MAX_BLOCKS;
@@ -612,6 +597,6 @@ extern "C" int layer_kmax(const void* wavn, const void* elow, const void* gf,
   layer_kmax_kernel<<<grid, KM_THREADS, 0, (cudaStream_t)stream>>>(
       (const float*)wavn, (const float*)elow, (const float*)gf,
       (const int*)iso, (const float*)temps, (const float*)coef0,
-      (float*)kmax, (float*)k0_out, nlines, nl, niso, neg_expcte);
+      (float*)kmax, nlines, nl, niso, neg_expcte);
   return (int)cudaGetLastError();
 }

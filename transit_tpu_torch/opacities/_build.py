@@ -34,8 +34,8 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # extern "C" entry points: name -> argument types (all return cudaError_t).
 SIGNATURES = {
-    "line_tile_extinction": [_P] * 15 + [_I] * 7 + [_F] * 5 + [_P],
-    "layer_kmax": [_P] * 8 + [_I] * 3 + [_F] + [_P],
+    "line_tile_extinction": [_P] * 13 + [_I] * 6 + [_F] * 5 + [_P],
+    "layer_kmax": [_P] * 7 + [_I] * 3 + [_F] + [_P],
 }
 
 

@@ -57,14 +57,6 @@ def width_tables(d, temps, densities, mol_mass, mol_radius):
             "densm": densities.T[:, imol]}
 
 
-def iso_tables(d, temps, densities, Z, mol_mass, mol_radius):
-    """Per-(layer, isotope) tables of the line-tile computation
-    (pallas_lbl.py:111-125), each (nl, niso): :func:`width_tables` and
-    ``coef0`` (:func:`strength_coef`)."""
-    return {**width_tables(d, temps, densities, mol_mass, mol_radius),
-            "coef0": strength_coef(d, Z)}
-
-
 def plain_kmax(d, temps, coef0):
     """Per-layer species-collapsed maximum line strength (nl,) over the
     full line list (pallas_lbl.py:127-133): the max over lines of
@@ -84,11 +76,13 @@ def plain_kmax(d, temps, coef0):
 
 
 def layer_tables(d, temps, densities, Z, mol_mass, mol_radius):
-    """:func:`iso_tables` and the per-layer ``kmax`` (:func:`plain_kmax`)
-    of the line-tile computation (pallas_lbl.py:111-133)."""
-    tab = iso_tables(d, temps, densities, Z, mol_mass, mol_radius)
-    tab["kmax"] = plain_kmax(d, temps, tab["coef0"]).contiguous()
-    return tab
+    """The per-layer tables of the line-tile computation
+    (pallas_lbl.py:111-133): :func:`width_tables`, ``coef0``
+    (:func:`strength_coef`) and the per-layer ``kmax``
+    (:func:`plain_kmax`)."""
+    coef0 = strength_coef(d, Z)
+    return {**width_tables(d, temps, densities, mol_mass, mol_radius),
+            "coef0": coef0, "kmax": plain_kmax(d, temps, coef0)}
 
 
 def _line_chunks(plan: FastPlan, d, tab, temps, ethresh: float,
@@ -309,14 +303,12 @@ def _check_cuda(fn: str, args: dict, ints=("iso",)):
     return device
 
 
-def layer_kmax(d, temps, coef0, k0_out=None):
+def layer_kmax(d, temps, coef0):
     """Launch ``layer_kmax`` (csrc/line_tile.cu): the per-layer maximum
     line strength (nl,) float32 over the full line list of ``d``, at the
     layer temperatures ``temps`` (nl,) and strength coefficients
-    ``coef0`` (nl, niso) — :func:`plain_kmax` on the card.  ``k0_out``,
-    an (nl, nlines) float32 tensor, also gets every (layer, line)'s
-    strength.  Raises on any other device, type or shape, and when the
-    launch fails."""
+    ``coef0`` (nl, niso) — :func:`plain_kmax` on the card.  Raises on any
+    other device, type or shape, and when the launch fails."""
     from transit_tpu_torch.opacities._build import load_library
 
     lines = {k: d[k] for k in ("all_wavn", "all_elow", "all_gf", "all_iso")}
@@ -331,12 +323,6 @@ def layer_kmax(d, temps, coef0, k0_out=None):
     if coef0.dim() != 2 or coef0.shape[0] != nl or temps.dim() != 1:
         raise ValueError(f"layer_kmax: temps {tuple(temps.shape)} and "
                          f"coef0 {tuple(coef0.shape)} do not match")
-    if k0_out is not None and (k0_out.dtype != torch.float32 or
-                               tuple(k0_out.shape) != (nl, nlines) or
-                               k0_out.device != device or
-                               not k0_out.is_contiguous()):
-        raise ValueError("layer_kmax: k0_out must be a contiguous "
-                         f"({nl}, {nlines}) float32 tensor on {device}")
     kmax = torch.full((nl,), -torch.inf, dtype=torch.float32,
                       device=device)
     if nl == 0 or nlines == 0:
@@ -349,9 +335,8 @@ def layer_kmax(d, temps, coef0, k0_out=None):
             *(ctypes.c_void_p(args[k].data_ptr())
               for k in ("all_wavn", "all_elow", "all_gf", "all_iso", "temps",
                         "coef0")),
-            ctypes.c_void_p(kmax.data_ptr()),
-            ctypes.c_void_p(None if k0_out is None else k0_out.data_ptr()),
-            nlines, nl, coef0.shape[1], -EXPCTE, ctypes.c_void_p(stream))
+            ctypes.c_void_p(kmax.data_ptr()), nlines, nl, coef0.shape[1],
+            -EXPCTE, ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"layer_kmax failed to launch: CUDA error {err}")
     layer_kmax.launches += 1
@@ -360,16 +345,14 @@ def layer_kmax(d, temps, coef0, k0_out=None):
 
 def line_tile_extinction(plan: FastPlan, d, tab, temps, wn_i: float,
                          dwn: float, ethresh: float, nwidth: float,
-                         stats=None, k0_lines=None):
+                         stats=None):
     """Launch ``line_tile_extinction`` (csrc/line_tile.cu) on the line
     tiles ``d`` and the per-layer tables ``tab`` (:func:`layer_tables`)
     -> extinction (nlayer, n_coarse), float32 on the tiles' CUDA device.
     ``stats``, a (3,) int64 tensor on the card, gets the strength chains
     computed, the live (layer, tile, line) entries and the (layer, bin,
     line) pairs evaluated added to it (:func:`run_counts` counts the
-    same on the host).  ``k0_lines``, (nl, nlines) float32 from
-    :func:`layer_kmax`'s ``k0_out``, is read in place of computing each
-    line's strength.  Raises on any other device, type or shape, and
+    same on the host).  Raises on any other device, type or shape, and
     when the launch fails."""
     from transit_tpu_torch.opacities._build import load_library
 
@@ -396,27 +379,14 @@ def line_tile_extinction(plan: FastPlan, d, tab, temps, wn_i: float,
         raise ValueError("line_tile_extinction: kmax must be (nl,)")
     if stats is not None and (stats.dtype != torch.int64 or
                               tuple(stats.shape) != (3,) or
-                              stats.device != device):
+                              stats.device != device or
+                              not stats.is_contiguous()):
         raise ValueError(f"line_tile_extinction: stats must be a (3,) "
                          f"int64 tensor on {device}")
-    nlines = plan.wavn.shape[0]
-    if k0_lines is not None:
-        if plan.tile_start2 is not None:
-            raise ValueError("line_tile_extinction: k0_lines needs one "
-                             "line range per tile")
-        if (k0_lines.dtype != torch.float32 or k0_lines.device != device
-                or tuple(k0_lines.shape) != (nl, nlines)
-                or not k0_lines.is_contiguous()):
-            raise ValueError("line_tile_extinction: k0_lines must be a "
-                             f"contiguous ({nl}, {nlines}) float32 "
-                             f"tensor on {device}")
     out = torch.empty((nl, plan.n_coarse), dtype=torch.float32,
                       device=device)
     if nl == 0 or plan.n_coarse == 0:
         return out
-    tile_start = (None if k0_lines is None else
-                  torch.as_tensor(plan.tile_start, dtype=torch.int32,
-                                  device=device))
     args = {k: v.contiguous() for k, v in args.items()}
 
     def ptr(t):
@@ -429,9 +399,8 @@ def line_tile_extinction(plan: FastPlan, d, tab, temps, wn_i: float,
             *(ptr(args[k]) for k in ("wavn", "elow", "gf", "iso", "mask")),
             *(ptr(args[k]) for k in ("temps", "alphal", "alphad_f", "coef0",
                                      "densm", "kmax")),
-            ptr(out), ptr(stats), ptr(k0_lines), ptr(tile_start),
-            nl, ntiles, lmax, niso, plan.tw, plan.n_coarse, nlines,
-            wn_i, dwn, ethresh, nwidth, -EXPCTE,
+            ptr(out), ptr(stats), nl, ntiles, lmax, niso, plan.tw,
+            plan.n_coarse, wn_i, dwn, ethresh, nwidth, -EXPCTE,
             ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"line_tile_extinction failed to launch: CUDA "
