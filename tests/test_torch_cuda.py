@@ -13,6 +13,7 @@ import torch
 
 from transit_tpu_torch.config import TransitConfig
 from transit_tpu_torch.model import TransitModel
+from transit_tpu_torch.opacities import fast
 from transit_tpu_torch.opacities.kernel_lbl import (
     kernel_extinction, layer_kmax, layer_tables, line_tile_extinction,
     plain_extinction, plain_kmax, run_counts, strength_coef)
@@ -156,3 +157,24 @@ def test_kernel_every_line_cut_by_ethresh(card):
     assert int(torch.count_nonzero(out)) == 0
     tab = layer_tables(m.fdev, *args)
     assert run_counts(m.fplan, m.fdev, tab, args[0], **kw)["live"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tw", [64, 256])
+def test_kernel_wide_tiles(card, tw):
+    """Other tile widths than the fixture's 8: fewer layers per block,
+    longer chunks, and (tw 256) one ragged tile of 101 bins."""
+    m = _model(card)
+    p = m.fplan
+    mw = fast.max_width_bound(m.atm, m.mol, m.iso.mass, m.wns.f,
+                              m.iso.imol)
+    m.fplan = fast.make_fast_plan(p.wavn, p.isoid, p.elow, p.gf,
+                                  wn_i=m.wns.i, dwn=m.wns.d,
+                                  n_coarse=m.wns.n, max_width=mw,
+                                  nwidth=m.cfg.nwidth, tw=tw)
+    m.fdev = {**m.fdev, **fast.fast_device_arrays(m.fplan, m.iso,
+                                                  dtype=torch.float32,
+                                                  device=card)}
+    args, kw = _state(m)
+    rel, host = _kernel_vs_plain(m, args, kw)
+    assert rel < 1e-5 and host["pairs"] > 0

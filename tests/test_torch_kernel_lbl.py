@@ -18,7 +18,7 @@ from transit_tpu.opacities.pallas_lbl import pallas_extinction
 from transit_tpu_torch.config import TransitConfig
 from transit_tpu_torch.convert import device_arrays_from_numpy
 from transit_tpu_torch.model import TransitModel
-from transit_tpu_torch.opacities import _build, kernel_lbl
+from transit_tpu_torch.opacities import _build, fast, kernel_lbl
 from transit_tpu_torch.opacities.kernel_lbl import (bin_runs,
                                                     kernel_extinction,
                                                     layer_kmax,
@@ -174,18 +174,31 @@ def test_cpu_tensors_never_touch_the_cuda_build(fixture_pair, monkeypatch):
             kernel_lbl.layer_kmax.launches) == before
 
 
-@pytest.mark.parametrize("case,dtype", [("fixture", torch.float32),
-                                        ("fixture", torch.float64),
-                                        ("bench", torch.float32)])
-def test_bin_runs_mark_exactly_the_used_bins(case, dtype):
+@pytest.mark.parametrize("case,dtype,tw", [("fixture", torch.float32, None),
+                                           ("fixture", torch.float64, None),
+                                           ("fixture", torch.float32, 64),
+                                           ("bench", torch.float32, None)])
+def test_bin_runs_mark_exactly_the_used_bins(case, dtype, tw):
     """The kernel's design (csrc/line_tile.cu:find_run, as bin_runs
     computes it on the host): each live (layer, tile, line)'s run
     [b0, b1] covers exactly the bins that the plain version's ``use``
-    mask marks — a kept line inside its wing — and no other."""
+    mask marks — a kept line inside its wing — and no other.  ``tw``
+    replans the tiles at that width (the planner's own is 8 here)."""
     jcfg = make_config("eclipse", 1e30) if case == "fixture" \
         else _bench_config()
     m = TransitModel(TransitConfig(**dataclasses.asdict(jcfg)), dtype=dtype,
                      device="cpu")
+    if tw is not None:
+        p = m.fplan
+        mw = fast.max_width_bound(m.atm, m.mol, m.iso.mass, m.wns.f,
+                                  m.iso.imol)
+        m.fplan = fast.make_fast_plan(p.wavn, p.isoid, p.elow, p.gf,
+                                      wn_i=m.wns.i, dwn=m.wns.d,
+                                      n_coarse=m.wns.n, max_width=mw,
+                                      nwidth=m.cfg.nwidth, tw=tw)
+        m.fdev = {**m.fdev, **fast.fast_device_arrays(
+            m.fplan, m.iso, dtype=dtype, device="cpu")}
+        assert m.fplan.tw == tw
     args, kw = _state(m, np.float64)
     targs = [torch.as_tensor(a).to(dtype) for a in args]
     tab = layer_tables(m.fdev, *targs)
