@@ -2,19 +2,30 @@
 
     python3 chip_smoke.py [--profile chiprun_out/forward_trace.json]
 
-Builds the port's CUDA kernels (the line-tile kernel and the per-layer
-kmax scan) from the sources in this checkout, holds each against its
-plain PyTorch version on the card, drives the main path —
-``transit_tpu_torch.model.TransitModel(mode="fast", use_kernel=True)`` on
-the hot-Jupiter workload (benchmarks/data/hj: 100 layers, 19001
-wavenumbers, 194,349 lines, eclipse) — through three ``forward``
-requests, checks the spectra against the plain path and the reference C
-spectrum, checks that the line-tile kernel evaluated exactly the (layer,
-bin, line) pairs the function needs, and times the kernels, their plain
-versions and one ``forward`` with CUDA events.  With ``--profile`` it
-also traces forwards with torch.profiler (device time by kernel, busy
-share).  Every phase prints
-one line with its seconds; any failed check raises, so the script exits non-zero and prints no result.
+Builds the port's CUDA kernels (csrc/line_tile.cu: the line-tile kernel
+and the per-layer kmax scan; csrc/shell_tile.cu: the decimated far-wing
+shell kernel) from the sources in this checkout, one nvcc per source,
+and holds each against its plain PyTorch version on the card.  Then it
+drives three paths of ``transit_tpu_torch.model.TransitModel(mode="fast",
+use_kernel=True)``, each through three ``forward`` requests with the
+kernels' launch counts set to 0 just before and read just after:
+
+  1. the unbanded plan on the hot-Jupiter workload (benchmarks/data/hj:
+     100 layers, 19001 wavenumbers at 0.5 cm-1, 194,349 lines, eclipse);
+  2. the main path, ``bands=6`` (the JAX package's benchmarked model),
+     on the same workload: near tile classes and stride-1 far shells;
+  3. ``bands=6`` on the same files at 0.05 cm-1 (190,001 wavenumbers),
+     which adds decimated far-wing shells (strides 2 and 4).
+
+It checks every launch of the banded paths against its plain version,
+the spectra against the plain paths, the unbanded path and the reference
+C spectrum, and the kernels' work counters against host counts of the
+work; it times one ``forward`` and each kernel's launches of one forward,
+their plain versions and their bounds with CUDA events.  With
+``--profile`` it also traces forwards of the main path with
+torch.profiler (device time by kernel, busy share).  Every phase prints
+one line with its seconds; any failed check raises, so the script exits
+non-zero and prints no result.
 
 Output, last three lines: the card's name and power limit as nvidia-smi
 gives them precedes them; then one ``{"kernels": [...]}`` JSON object and,
@@ -37,15 +48,19 @@ import torch
 
 from transit_tpu_torch.config import TransitConfig
 from transit_tpu_torch.model import TransitModel
-from transit_tpu_torch.opacities import _build
+from transit_tpu_torch.opacities import _build, banded
 from transit_tpu_torch.opacities.kernel_lbl import (
     kernel_extinction, layer_kmax, layer_tables, line_tile_extinction,
-    plain_extinction, plain_kmax, run_counts, strength_coef, work_counts)
+    plain_extinction, plain_kmax, plain_line_tiles, run_counts,
+    strength_coef, work_counts)
+from transit_tpu_torch.opacities.kernel_shell import (
+    plain_shell_tiles, shell_counts, shell_tile_extinction)
 
 ROOT = Path(__file__).resolve().parent
 FIX = ROOT / "tests" / "fixtures"
 HJ = ROOT / "benchmarks" / "data" / "hj"
 HJ_SHAPE = (19001, 100)        # wavenumbers, layers
+HJ_FINE_SHAPE = (190001, 100)  # at 0.05 cm-1
 
 # Kernel against its plain version: max |a-b| / (|a| + 1e-6 max|a|), the
 # bound of the JAX package's Pallas-vs-XLA test (tests/test_pallas.py:35).
@@ -53,6 +68,11 @@ KERNEL_REL_TOL = 1e-5
 # Spectra of the kernel path against the plain path (float32 sums in
 # another order: ~1e-6 expected).
 SPECTRUM_REL_TOL = 1e-4
+# The banded main path's spectrum against the unbanded kernel path's:
+# the same physics (far shells take the region-II branch the w4 kernel
+# would), in float32 with the bin wavenumbers rounded in another order
+# (fast._run_tiles' against the Pallas kernel's).
+BANDED_VS_UNBANDED_TOL = 1e-5
 # Median |flux/C - 1| against the reference C spectrum (the JAX fast mode
 # recorded 0.23% on these files, benchmarks/RESULTS.md:253).
 C_MEDIAN_TOL = 1e-2
@@ -72,6 +92,14 @@ PEAK_BYTES = 3.35e12
 OPS_LAYER_LINE = 27
 OPS_EVAL = 7
 OPS_REGION = {"II": 48, "III": 82, "IV": 120}
+# The far-wing kernels (csrc/voigt.cuh): region II alone with its floor,
+# and the two-term asymptotic pair.
+OPS_WFN = {"r2": 44, "asym2": 20}
+# Per (tile, line) of a decimated shell, its halo weight (distance to the
+# tile, the smoothstep: 12); per output of a decimated shell, the
+# Catmull-Rom weights' products and sums, the clip and the add (9).
+OPS_WEIGHT = 12
+OPS_UPSAMPLE = 9
 # Operations of the kmax scan per (layer, line): the strength chain k0
 # (2 multiplies and 2 divides into the exps, 2 exps, a subtract, 3
 # multiplies) and the max.
@@ -92,6 +120,10 @@ def phase(name: str, t0: float, text: str = ""):
           flush=True)
 
 
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
 def fixture_config() -> TransitConfig:
     """The repo's conformance fixture (tests/fixtures: 20 layers, 101
     wavenumbers, eclipse)."""
@@ -102,14 +134,17 @@ def fixture_config() -> TransitConfig:
         nwidth=20.0, ethreshold=1e-8, solution="eclipse", toomuch=1e30)
 
 
-def hotjupiter_config() -> TransitConfig:
-    """The hot-Jupiter workload (bench.py:208-240, hj_ref.cfg)."""
+def hotjupiter_config(wndelt: float = 0.5) -> TransitConfig:
+    """The hot-Jupiter workload (bench.py:208-240, hj_ref.cfg); at
+    0.05 cm-1 the oversampling factor is cut from 2160 to 2: fast mode
+    never reads the oversampled grid, whose 4e8 points would only take
+    host memory."""
     return TransitConfig(
         atm=f"{HJ}/hj.atm", linedb=f"{HJ}/hj.tli",
         csfile=f"{HJ}/cia_H2_H2.dat,{HJ}/cia_H2_He.dat",
         molfile=f"{HJ}/molecules.dat", wnlow=500.0, wnhigh=10000.0,
-        wndelt=0.5, wnosamp=2160, wnfct=1.0, nwidth=20.0, ethreshold=1e-8,
-        solution="eclipse", toomuch=1e30)
+        wndelt=wndelt, wnosamp=2160 if wndelt >= 0.5 else 2, wnfct=1.0,
+        nwidth=20.0, ethreshold=1e-8, solution="eclipse", toomuch=1e30)
 
 
 def file_state(m: TransitModel):
@@ -235,6 +270,268 @@ def bound(m: TransitModel, tab, counts) -> tuple:
     return (*roofline(ops, nbytes), ops, nbytes)
 
 
+def distinct_lines(*plans) -> int:
+    """Lines of the sorted list that the plans' tiles hold, each counted
+    once (a line sits in several tiles' ranges, and in several plans of a
+    band)."""
+    n = plans[0].wavn.shape[0]
+    mark = np.zeros(n + 1, dtype=np.int64)
+    for plan in plans:
+        c1 = (plan.tile_count if plan.tile_count1 is None else
+              plan.tile_count1)
+        ranges = [(plan.tile_start, plan.tile_start + c1)]
+        if plan.tile_start2 is not None:
+            ranges.append((plan.tile_start2,
+                           plan.tile_start2 + plan.tile_count - c1))
+        for s, e in ranges:
+            np.add.at(mark, s, 1)
+            np.add.at(mark, e, -1)
+    return int((np.cumsum(mark[:n]) > 0).sum())
+
+
+def rel_err(a, b) -> float:
+    """max |a-b| / (|a| + 1e-6 max|a|), a the plain version; an all-zero
+    reference must be matched exactly."""
+    if not bool(a.any()):
+        return 0.0 if not bool(b.any()) else float("inf")
+    return float(((a - b).abs() / (a.abs() + 1e-6 * a.abs().max())).max())
+
+
+def banded_launches(m: TransitModel, far_full_res: bool = False):
+    """The kernel launches of one banded forward, in order: yields
+    (part, plan, line tensors, global tiles (numpy or None), the tiles'
+    int32 tensor, the band's rows (int32 tensor, long tensor), stride)
+    with part "near" or "s1" (line-tile kernel) or "shell" (shell
+    kernel)."""
+    for (i, rows, part, plan, classes, stride), tiles in zip(
+            banded.band_parts(m.bplan, m.bdev, far_full_res),
+            m.bindex["tiles"]):
+        r = m.bindex["rows"][i]
+        for (dc, gidx), t in zip(classes, tiles):
+            yield part, plan, dc, gidx, t, r, r.long(), stride
+
+
+def launch_kernel(m, tab, T, kw, part, plan, dc, t, r, stride, out,
+                  stats=None):
+    """One launch of the banded path into ``out``."""
+    if part == "shell":
+        shell_tile_extinction(plan, dc, tab, T, stride=stride, tiles=t,
+                              rows=r, out=out, stats=stats, **kw)
+    else:
+        line_tile_extinction(plan, dc, tab, T, tiles=t, rows=r, out=out,
+                             accumulate=part == "s1", bins_first=True,
+                             stats=stats, **kw)
+
+
+def launch_plain(tab, T, kw, part, plan, dc, gidx, sel, stride):
+    """The plain version of one launch: (nrows, ntiles_c, tw)."""
+    tab_r = {k: v[sel] for k, v in tab.items()}
+    if part == "shell":
+        return plain_shell_tiles(plan, dc, tab_r, T[sel], stride=stride,
+                                 gidx=gidx, **kw)
+    return plain_line_tiles(plan, dc, tab_r, T[sel], gidx=gidx,
+                            bins_first=True, wfn_tag=plan.wfn_tag, **kw)
+
+
+def banded_vs_plain(m: TransitModel, label: str, parts=("near", "s1",
+                                                        "shell")) -> dict:
+    """Every launch of the banded path (of the given parts) on its own,
+    into a zero output, against its plain version on the same inputs:
+    {kernel: {"max_rel", "max_abs", "launches"}}."""
+    args, kw = file_state(m)
+    T = args[0]
+    tab = banded.prep_layers(m.bdev[0], *args, use_kernel=True)
+    res = {}
+    for part, plan, dc, gidx, t, r, sel, stride in banded_launches(m):
+        if part not in parts:
+            continue
+        out = torch.zeros((m.atm.nlayers, m.wns.n), device=T.device)
+        launch_kernel(m, tab, T, kw, part, plan, dc, t, r, stride, out)
+        want = launch_plain(tab, T, kw, part, plan, dc, gidx, sel, stride)
+        g = (torch.arange(plan.ntiles, device=T.device) if gidx is None
+             else t.long())
+        cols = (g[:, None] * plan.tw +
+                torch.arange(plan.tw, device=T.device)).flatten()
+        keep = cols < m.wns.n
+        got = out[sel][:, cols[keep]]
+        want = want.reshape(sel.shape[0], -1)[:, keep]
+        check(bool(torch.isfinite(got).all()),
+              f"{label} {part}: kernel output not finite")
+        err = rel_err(want, got)
+        check(err < KERNEL_REL_TOL,
+              f"{label} {part} (tw {plan.tw}, {plan.wfn_tag}, stride "
+              f"{stride}, lmax {dc['wavn'].shape[1]}): kernel vs plain "
+              f"{err:.3e} >= {KERNEL_REL_TOL}")
+        name = "shell_tile_extinction" if part == "shell" else \
+            "line_tile_extinction"
+        e = res.setdefault(name, {"max_rel": 0.0, "max_abs": 0.0,
+                                  "launches": 0})
+        e["max_rel"] = max(e["max_rel"], err)
+        e["max_abs"] = max(e["max_abs"], float((got - want).abs().max()))
+        e["launches"] += 1
+    return res
+
+
+def run_requests(m: TransitModel, requests, kernels) -> tuple:
+    """Three forward requests with the launch counts set to 0 just before
+    and read just after: (spectra, {kernel: launches})."""
+    for k in kernels:
+        k.launches = 0
+    specs = [m.forward(T, q) for T, q in requests]
+    torch.cuda.synchronize()
+    return specs, {k.__name__: k.launches for k in kernels}
+
+
+def per_forward(launches: dict) -> dict:
+    return {k: v / 3 for k, v in launches.items()}
+
+
+def check_spectra(m: TransitModel, specs, requests, label: str) -> float:
+    """Finite positive spectra of the right shape, and the kernel path
+    against the plain path; returns the max relative difference."""
+    for s in specs:
+        check(s.shape == (m.wns.n,) and s.dtype == torch.float32,
+              f"{label}: spectrum {tuple(s.shape)} {s.dtype}")
+        check(bool(torch.isfinite(s).all()) and float(s.min()) > 0,
+              f"{label}: spectrum not finite and positive")
+    m.use_kernel = False
+    plain = [m.forward(T, q) for T, q in requests]
+    m.use_kernel = True
+    err = max(float(((a - b).abs() / b.abs()).max())
+              for a, b in zip(specs, plain))
+    check(err <= SPECTRUM_REL_TOL,
+          f"{label}: kernel path vs plain path {err:.3e} > "
+          f"{SPECTRUM_REL_TOL}")
+    return err
+
+
+def c_median(m: TransitModel, spec) -> tuple:
+    """Median and 90th percentile of |flux/C - 1| against the reference C
+    spectrum (listed from 20 um down: ascending wavenumber)."""
+    ref = np.loadtxt(HJ / "hj_ref_spectrum.dat")
+    wl = 1e4 / m.wns.v
+    check(ref.shape == (m.wns.n, 2) and
+          np.allclose(ref[:, 0], wl, rtol=1e-6),
+          "reference C spectrum is on another grid")
+    rel = np.abs(spec.double().cpu().numpy() / ref[:, 1] - 1.0)
+    return float(np.median(rel)), float(np.quantile(rel, 0.9))
+
+
+def banded_times(m: TransitModel) -> dict:
+    """Per kernel of the banded path: the time of its launches of one
+    forward (CUDA events, median of RUNS), of their plain versions, the
+    bound of the work they need, the counters from one forward against
+    the host counts of the same work."""
+    args, kw = file_state(m)
+    T = args[0]
+    nl = m.atm.nlayers
+    tab = banded.prep_layers(m.bdev[0], *args, use_kernel=True)
+    launches = list(banded_launches(m))
+    out = torch.zeros((nl, m.wns.n), device=T.device)
+    res = {}
+    for name, parts in (("line_tile_extinction", ("near", "s1")),
+                        ("shell_tile_extinction", ("shell",))):
+        mine = [x for x in launches if x[0] in parts]
+        if not mine:
+            continue
+        ms = cuda_ms(lambda: [launch_kernel(m, tab, T, kw, p, pl, dc, t, r,
+                                            st, out)
+                              for p, pl, dc, _, t, r, _, st in mine])
+        plain_ms = cuda_ms(lambda: [launch_plain(tab, T, kw, p, pl, dc, g,
+                                                 sel, st)
+                                    for p, pl, dc, g, _, _, sel, st in mine],
+                           runs=1)
+        res[name] = {"ms": ms, "plain_ms": plain_ms, "launches": len(mine)}
+    # kmax: the scan of prep_layers (floor 0).
+    coef0 = tab["coef0"]
+    res["layer_kmax"] = {
+        "ms": cuda_ms(lambda: layer_kmax(m.bdev[0], T, coef0, floor=0.0)),
+        "plain_ms": cuda_ms(lambda: plain_kmax(m.bdev[0], T, coef0,
+                                               floor=0.0)),
+        "launches": 1}
+    # Counters of one forward's launches against the host count.
+    stats = {k: torch.zeros(3, dtype=torch.int64, device=T.device)
+             for k in ("line_tile", "shell")}
+    banded.banded_kernel_extinction(m.bplan, m.bdev, *args, index=m.bindex,
+                                    stats=stats, **kw)
+    host = banded.banded_counts(m.bplan, m.bdev, tab, T, **kw)
+    card = {"line_tile": dict(zip(("chains", "live", "pairs"),
+                                  stats["line_tile"].tolist())),
+            "shell": dict(zip(("chains", "live", "evals"),
+                              stats["shell"].tolist()))}
+    check(card == host, f"banded kernel counters {card} != host {host}")
+    # Bounds: the work each function needs on these inputs.
+    tables = nbytes(*(tab[k] for k in ("alphal", "alphad_f", "coef0",
+                                       "densm", "kmax")), T)
+    need = {"line_tile_extinction": [0, tables],
+            "shell_tile_extinction": [0, tables]}
+    for i, (a, b) in enumerate(m.bplan.slices):
+        nrows = b - a
+        parts = [(p, pl) for bi, _, p, pl, _, _ in
+                 banded.band_parts(m.bplan, m.bdev) if bi == i]
+        lt = [pl for p, pl in parts if p != "shell"]
+        sh = [pl for p, pl in parts if p == "shell"]
+        need["line_tile_extinction"][0] += (
+            OPS_LAYER_LINE * nrows * distinct_lines(*lt))
+        if sh:
+            need["shell_tile_extinction"][0] += (
+                OPS_LAYER_LINE * nrows * distinct_lines(*sh))
+    for part, plan, dc, gidx, t, r, sel, stride in launches:
+        key = ("shell_tile_extinction" if part == "shell" else
+               "line_tile_extinction")
+        lines = nbytes(*(dc[k] for k in ("wavn", "elow", "gf", "iso",
+                                         "mask")))
+        ncol = min(m.wns.n, plan.ntiles * plan.tw) if gidx is None else \
+            int(np.minimum(m.wns.n - np.asarray(gidx) * plan.tw,
+                           plan.tw).sum())
+        outb = 4 * sel.shape[0] * ncol * (1 if part == "near" else 2)
+        need[key][1] += lines + outb
+        tab_r = {k: v[sel] for k, v in tab.items()}
+        if part == "shell":
+            c = shell_counts(plan, dc, tab_r, T[sel], stride=stride,
+                             gidx=gidx, **kw)
+            need[key][0] += (c["evals"] * (OPS_EVAL + OPS_WFN[plan.wfn_tag])
+                             + OPS_WEIGHT * int(dc["mask"].sum())
+                             + (OPS_UPSAMPLE if stride > 1 else 1) *
+                             sel.shape[0] * ncol)
+        else:
+            w = work_counts(plan, {**dc, "all_wavn": m.bdev[0]["all_wavn"]},
+                            tab_r, T[sel], gidx=gidx, bins_first=True, **kw)
+            ev = sum(w[g] for g in OPS_REGION)
+            if plan.wfn_tag == "w4":
+                need[key][0] += sum((OPS_EVAL + OPS_REGION[g]) * w[g]
+                                    for g in OPS_REGION)
+            else:
+                need[key][0] += (OPS_EVAL + OPS_WFN[plan.wfn_tag]) * ev
+    for name, (ops, nb) in need.items():
+        if name in res:
+            b_ms, b_by = roofline(ops, nb)
+            res[name].update(bound_ms=b_ms, bound_by=b_by, ops=ops,
+                             bytes=nb)
+    d = m.bdev[0]
+    km_ops = OPS_KMAX * nl * d["all_wavn"].shape[0]
+    km_bytes = nbytes(d["all_wavn"], d["all_elow"], d["all_gf"],
+                      d["all_iso"]) + 4 * nl * (2 + d["iso_mass"].shape[0])
+    b_ms, b_by = roofline(km_ops, km_bytes)
+    res["layer_kmax"].update(bound_ms=b_ms, bound_by=b_by, ops=km_ops,
+                             bytes=km_bytes)
+    res["counters"] = card
+    return res
+
+
+def plan_summary(m: TransitModel) -> str:
+    """Bands, tile widths, classes and shells of a banded plan."""
+    out = []
+    for i, ((a, b), p) in enumerate(zip(m.bplan.slices, m.bplan.plans)):
+        far = m.bplan.far_plans[i] if m.bplan.far_plans else None
+        shells = ",".join(f"s{s}:{fp.wfn_tag}:{fp.lanes}"
+                          f":{fp.class_lmax or fp.lmax}"
+                          for fp, _, s in far or [])
+        out.append(f"band {i} layers {b - a} tw {p.tw} tiles {p.ntiles} "
+                   f"classes {p.class_lmax or p.lmax} shells [{shells}]")
+    return "; ".join(out)
+
+
 def profile_forward(m: TransitModel, T, q, ms_forward: float,
                     trace: str) -> None:
     """Trace RUNS forwards with torch.profiler and print the device time
@@ -327,48 +624,26 @@ def main(device: str = "cuda", profile: str | None = None) -> int:
     phase("kernel_vs_plain_hotjupiter", t0,
           f"max_rel {err_hj['max_rel']:.3e} max_abs {err_hj['max_abs']:.3e}")
 
-    # 4. The main path: three retrieval requests through the kernel.
+    # 4. Path 1, the unbanded plan: three retrieval requests.
     t0 = time.perf_counter()
     T0 = np.asarray(hj.atm.temp, dtype=np.float64)
     q0 = np.asarray(hj.atm.q, dtype=np.float64)
     requests = [(T0, q0), (T0 + 50.0, q0), (T0 - 50.0, q0)]
-    kernels = (line_tile_extinction, layer_kmax)
-    for k in kernels:
-        k.launches = 0
-    specs = [hj.forward(T, q) for T, q in requests]
-    torch.cuda.synchronize()
-    launches = {k.__name__: k.launches for k in kernels}
-    phase("main_path", t0, f"3 forward requests, kernel launches "
-          f"{launches}")
-    for name, n in launches.items():
-        check(n >= 3, f"main path launched {name} {n} times")
+    kernels = (line_tile_extinction, layer_kmax, shell_tile_extinction)
+    specs, launches_unb = run_requests(hj, requests, kernels)
+    phase("unbanded_path", t0, f"3 forward requests, kernel launches "
+          f"{launches_unb}, per forward {per_forward(launches_unb)}")
+    for name in ("line_tile_extinction", "layer_kmax"):
+        check(launches_unb[name] >= 3,
+              f"unbanded path launched {name} {launches_unb[name]} times")
     t0 = time.perf_counter()
-    for s in specs:
-        check(s.shape == (hj.wns.n,) and s.dtype == torch.float32,
-              f"spectrum {tuple(s.shape)} {s.dtype}")
-        check(bool(torch.isfinite(s).all()) and float(s.min()) > 0,
-              "spectrum not finite and positive")
-    hj.use_kernel = False
-    plain_specs = [hj.forward(T, q) for T, q in requests]
-    hj.use_kernel = True
-    spec_rel = max(float(((a - b).abs() / b.abs()).max())
-                   for a, b in zip(specs, plain_specs))
-    check(spec_rel <= SPECTRUM_REL_TOL,
-          f"kernel path vs plain path {spec_rel:.3e} > {SPECTRUM_REL_TOL}")
-    # The C output lists wavelength from 20 um down: ascending wavenumber.
-    ref = np.loadtxt(HJ / "hj_ref_spectrum.dat")
-    ours = specs[0].double().cpu().numpy()
-    wl = 1e4 / hj.wns.v
-    check(ref.shape == (hj.wns.n, 2) and
-          np.allclose(ref[:, 0], wl, rtol=1e-6),
-          "reference C spectrum is on another grid")
-    c_rel = np.abs(ours / ref[:, 1] - 1.0)
-    c_median = float(np.median(c_rel))
-    check(c_median < C_MEDIAN_TOL,
-          f"median vs reference C {c_median:.3e} >= {C_MEDIAN_TOL}")
-    phase("main_path_checks", t0,
+    spec_rel = check_spectra(hj, specs, requests, "unbanded")
+    c_med, c_p90 = c_median(hj, specs[0])
+    check(c_med < C_MEDIAN_TOL,
+          f"median vs reference C {c_med:.3e} >= {C_MEDIAN_TOL}")
+    phase("unbanded_path_checks", t0,
           f"vs plain path max_rel {spec_rel:.3e}; vs reference C median "
-          f"{c_median:.4e} (p90 {float(np.quantile(c_rel, 0.9)):.4e})")
+          f"{c_med:.4e} (p90 {c_p90:.4e})")
 
     # 5. Times (CUDA events, median of RUNS after a warm-up), and the
     #    line-tile kernel's own work against what the function needs.
@@ -387,12 +662,12 @@ def main(device: str = "cuda", profile: str | None = None) -> int:
                                                 **kw))
     ms_forward = cuda_ms(lambda: hj.forward(T0, q0))
     counts = work_counts(hj.fplan, hj.fdev, tab, T, **kw)
-    bound_ms, bound_by, ops, nbytes = bound(hj, tab, counts)
+    bound_ms, bound_by, ops, nbytes_ = bound(hj, tab, counts)
     kb_ms, kb_by, kb_ops, kb_bytes = kmax_bound(hj)
-    phase("times", t0,
+    phase("unbanded_times", t0,
           f"kernel {ms_kernel:.3f} ms, with prep {ms_wrapper:.3f} ms, plain "
           f"{ms_plain:.3f} ms, forward {ms_forward:.3f} ms, bound "
-          f"{bound_ms:.4f} ms ({bound_by}: {ops:.4e} ops, {nbytes} bytes); "
+          f"{bound_ms:.4f} ms ({bound_by}: {ops:.4e} ops, {nbytes_} bytes); "
           f"layer_kmax {ms_kmax:.4f} ms, plain {ms_kmax_plain:.4f} ms, "
           f"bound {kb_ms:.4f} ms ({kb_by}: {kb_ops:.4e} ops, {kb_bytes} "
           f"bytes)")
@@ -403,54 +678,176 @@ def main(device: str = "cuda", profile: str | None = None) -> int:
           "host count of its design; pairs equal the function's Voigt "
           "evaluations) " + json.dumps(design))
     points = hj.wns.n * hj.atm.nlayers
-    print(f"forward: {points / (ms_forward * 1e-3):.6e} wavenumber points x "
-          f"layers per second ({ms_forward:.3f} ms, {card})", flush=True)
+    print(f"forward unbanded: {points / (ms_forward * 1e-3):.6e} wavenumber "
+          f"points x layers per second ({ms_forward:.3f} ms, {card})",
+          flush=True)
 
-    # Optional: where one forward spends its device time.
+    # 6. Path 2, the main path: bands=6 on the same workload.
+    t0 = time.perf_counter()
+    hjb = TransitModel(hotjupiter_config(), dtype=torch.float32, device=dev,
+                       bands=6)
+    torch.cuda.synchronize()
+    phase("banded_model_setup", t0, plan_summary(hjb))
+    t0 = time.perf_counter()
+    err_b = banded_vs_plain(hjb, "banded")
+    phase("banded_kernels_vs_plain", t0, "every launch against its plain "
+          "version: " + json.dumps(err_b))
+    t0 = time.perf_counter()
+    specs_b, launches_b = run_requests(hjb, requests, kernels)
+    phase("main_path", t0, f"3 forward requests, kernel launches "
+          f"{launches_b}, per forward {per_forward(launches_b)}")
+    for name in ("line_tile_extinction", "layer_kmax"):
+        check(launches_b[name] >= 3,
+              f"main path launched {name} {launches_b[name]} times")
+    t0 = time.perf_counter()
+    spec_rel_b = check_spectra(hjb, specs_b, requests, "banded")
+    vs_unb = max(float(((a - b).abs() / b.abs()).max())
+                 for a, b in zip(specs_b, specs))
+    cb_med, cb_p90 = c_median(hjb, specs_b[0])
+    check(cb_med < C_MEDIAN_TOL,
+          f"banded median vs reference C {cb_med:.3e} >= {C_MEDIAN_TOL}")
+    phase("main_path_checks", t0,
+          f"vs plain path max_rel {spec_rel_b:.3e}; vs the unbanded kernel "
+          f"path max_rel {vs_unb:.3e} (bound {BANDED_VS_UNBANDED_TOL}); vs "
+          f"reference C median {cb_med:.4e} (p90 {cb_p90:.4e})")
+    # Checked after the last phase, so that a miss still prints every
+    # phase's numbers before the script fails.
+    deferred = [] if vs_unb <= BANDED_VS_UNBANDED_TOL else [
+        f"banded vs unbanded kernel path {vs_unb:.3e} > "
+        f"{BANDED_VS_UNBANDED_TOL}"]
+    t0 = time.perf_counter()
+    ms_fwd_b = cuda_ms(lambda: hjb.forward(T0, q0))
+    times_b = banded_times(hjb)
+    phase("main_path_times", t0, f"forward {ms_fwd_b:.3f} ms; " +
+          json.dumps(times_b))
+    print(f"forward banded: {points / (ms_fwd_b * 1e-3):.6e} wavenumber "
+          f"points x layers per second ({ms_fwd_b:.3f} ms, {card})",
+          flush=True)
     if profile:
         t0 = time.perf_counter()
-        profile_forward(hj, T0, q0, ms_forward, profile)
+        profile_forward(hjb, T0, q0, ms_fwd_b, profile)
         phase("profile", t0)
 
-    # 7. Nothing of JAX or of the JAX package was loaded.
+    # 7. Path 3: bands=6 at 0.05 cm-1, with decimated far-wing shells.
+    t0 = time.perf_counter()
+    hjf = TransitModel(hotjupiter_config(0.05), dtype=torch.float32,
+                       device=dev, bands=6)
+    check((hjf.wns.n, hjf.atm.nlayers) == HJ_FINE_SHAPE,
+          f"0.05 cm-1 grid {hjf.wns.n} x {hjf.atm.nlayers}")
+    strides = sorted({s for far in hjf.bplan.far_plans if far
+                      for *_, s in far})
+    check(max(strides) > 1, f"no decimated shell at 0.05 cm-1: {strides}")
+    torch.cuda.synchronize()
+    phase("fine_model_setup", t0, plan_summary(hjf))
+    t0 = time.perf_counter()
+    err_f = banded_vs_plain(hjf, "fine")
+    check("shell_tile_extinction" in err_f, "no shell launch compared")
+    phase("fine_kernels_vs_plain", t0, "every launch (all decimated "
+          "shells included) against its plain version: " +
+          json.dumps(err_f))
+    t0 = time.perf_counter()
+    T0f = np.asarray(hjf.atm.temp, dtype=np.float64)
+    q0f = np.asarray(hjf.atm.q, dtype=np.float64)
+    req_f = [(T0f, q0f), (T0f + 50.0, q0f), (T0f - 50.0, q0f)]
+    specs_f, launches_f = run_requests(hjf, req_f, kernels)
+    phase("fine_path", t0, f"3 forward requests, kernel launches "
+          f"{launches_f}, per forward {per_forward(launches_f)}")
+    for name, n in launches_f.items():
+        check(n >= 3, f"0.05 cm-1 path launched {name} {n} times")
+    t0 = time.perf_counter()
+    spec_rel_f = check_spectra(hjf, specs_f, req_f, "fine")
+    exact = TransitModel(hotjupiter_config(0.05), dtype=torch.float32,
+                         device=dev, bands=6, far_decimate=False)
+    s_exact = exact.forward(T0f, q0f)
+    dec_shift = float(((specs_f[0] - s_exact).abs() / s_exact.abs()).max())
+    del exact
+    phase("fine_path_checks", t0,
+          f"vs plain path max_rel {spec_rel_f:.3e}; far_decimate=False "
+          f"differs by max_rel {dec_shift:.3e} (for the record)")
+    t0 = time.perf_counter()
+    ms_fwd_f = cuda_ms(lambda: hjf.forward(T0f, q0f))
+    times_f = banded_times(hjf)
+    points_f = hjf.wns.n * hjf.atm.nlayers
+    phase("fine_path_times", t0, f"forward {ms_fwd_f:.3f} ms; " +
+          json.dumps(times_f))
+    print(f"forward 0.05 cm-1: {points_f / (ms_fwd_f * 1e-3):.6e} wavenumber "
+          f"points x layers per second ({ms_fwd_f:.3f} ms, {card})",
+          flush=True)
+
+    # 8. Nothing of JAX or of the JAX package was loaded.
     bad = sorted(k for k in sys.modules
                  if k.split(".")[0] in ("jax", "jaxlib", "transit_tpu"))
     check(not bad, f"JAX modules loaded: {bad[:5]}")
     phase("total", t_start)
+    check(not deferred, "; ".join(deferred))
 
-    # 6. + 8. Result lines, after the card's line.
+    # 9. Result lines, after the card's line.  Launches: the banded
+    #    paths' (main path and 0.05 cm-1); times and bounds per forward of
+    #    the main path, the shell kernel's of the 0.05 cm-1 path.
+    def launched(name):
+        return launches_b[name] + launches_f[name]
+    by_path = {k.__name__: {"unbanded": launches_unb[k.__name__],
+                            "banded": launches_b[k.__name__],
+                            "banded_0.05": launches_f[k.__name__]}
+               for k in kernels}
+    lt, km, sh = (times_b["line_tile_extinction"], times_b["layer_kmax"],
+                  times_f["shell_tile_extinction"])
     print(card, flush=True)
     print(json.dumps({"kernels": [{
         "name": "line_tile_extinction",
         "route": "cuda",
         "source": "transit_tpu_torch/csrc/line_tile.cu",
         "replaces": "transit_tpu/opacities/pallas_lbl.py:38",
-        "launches": launches["line_tile_extinction"],
-        "max_abs_err": err_hj["max_abs"],
-        "max_rel_vs_plain": err_hj["max_rel"],
-        "max_rel_vs_plain_fixture": err_fix["max_rel"],
-        "ms": ms_kernel,
-        "ms_with_prep": ms_wrapper,
-        "plain_ms": ms_plain,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
+        "launches": launched("line_tile_extinction"),
+        "launches_by_path": by_path["line_tile_extinction"],
+        "max_abs_err": max(err_hj["max_abs"],
+                           err_b["line_tile_extinction"]["max_abs"],
+                           err_f["line_tile_extinction"]["max_abs"]),
+        "max_rel_vs_plain": max(err_hj["max_rel"], err_fix["max_rel"],
+                                err_b["line_tile_extinction"]["max_rel"],
+                                err_f["line_tile_extinction"]["max_rel"]),
+        "ms": lt["ms"],
+        "plain_ms": lt["plain_ms"],
+        "bound_ms": lt["bound_ms"],
+        "bound_by": lt["bound_by"],
         "library_ms": None,
-        "forward_ms": ms_forward,
+        "ms_0.05": times_f["line_tile_extinction"]["ms"],
+        "bound_ms_0.05": times_f["line_tile_extinction"]["bound_ms"],
+        "ms_unbanded": ms_kernel,
+        "bound_ms_unbanded": bound_ms,
+        "plain_ms_unbanded": ms_plain,
         "card": card,
     }, {
         "name": "layer_kmax",
         "route": "cuda",
         "source": "transit_tpu_torch/csrc/line_tile.cu",
         "replaces": "transit_tpu/opacities/pallas_lbl.py:127",
-        "launches": launches["layer_kmax"],
+        "launches": launched("layer_kmax"),
+        "launches_by_path": by_path["layer_kmax"],
         "max_abs_err": kmax_err,
-        "ms": ms_kmax,
-        "plain_ms": ms_kmax_plain,
-        "bound_ms": kb_ms,
-        "bound_by": kb_by,
+        "ms": km["ms"],
+        "plain_ms": km["plain_ms"],
+        "bound_ms": km["bound_ms"],
+        "bound_by": km["bound_by"],
         "library_ms": None,
         "card": card,
-    }]}), flush=True)
+    }, {
+        "name": "shell_tile_extinction",
+        "route": "cuda",
+        "source": "transit_tpu_torch/csrc/shell_tile.cu",
+        "replaces": "transit_tpu/opacities/fast.py:690",
+        "launches": launched("shell_tile_extinction"),
+        "launches_by_path": by_path["shell_tile_extinction"],
+        "max_abs_err": err_f["shell_tile_extinction"]["max_abs"],
+        "max_rel_vs_plain": err_f["shell_tile_extinction"]["max_rel"],
+        "ms": sh["ms"],
+        "plain_ms": sh["plain_ms"],
+        "bound_ms": sh["bound_ms"],
+        "bound_by": sh["bound_by"],
+        "library_ms": None,
+        "card": card,
+    }], "forward_ms": {"unbanded": ms_forward, "banded": ms_fwd_b,
+                       "banded_0.05": ms_fwd_f}}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

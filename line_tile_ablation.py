@@ -41,11 +41,11 @@ ABLATIONS = {
           "const int P = 0 * (int)(total & 0x1fffff);")]),
     "no_voigt": (
         "the Voigt function (x + y stands in for K(x, y))",
-        [("humlicek_k(x, s_y[e])", "(x + s_y[e])")]),
+        [("voigt_k<WFN>(x, s_y[e])", "(x + s_y[e])")]),
     "no_owner": (
         "the owners' walk and sum",
-        [("      if (owner) {\n        const int qb",
-          "      if (owner && jhi < 0) {\n        const int qb")]),
+        [("        if (!o_on[o]) continue;",
+          "        if (!o_on[o] || jhi >= 0) continue;")]),
 }
 
 
@@ -66,7 +66,8 @@ def build_variants() -> dict:
         cu.write_text(text)
         so = out / f"{name}.so"
         procs[name] = (so, subprocess.Popen(
-            [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(so), str(cu)],
+            [_build.nvcc_path(), *_build.NVCC_FLAGS, "-shared", "-I",
+             str(_build.CSRC), "-o", str(so), str(cu)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs = {}
     for name, (so, proc) in procs.items():
@@ -74,8 +75,8 @@ def build_variants() -> dict:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {name}:\n{log}")
         lib = ctypes.CDLL(str(so))
-        for fn, argtypes in _build.SIGNATURES.items():
-            getattr(lib, fn).argtypes = argtypes
+        for fn in ("line_tile_extinction", "layer_kmax"):
+            getattr(lib, fn).argtypes = _build.SIGNATURES[fn]
             getattr(lib, fn).restype = ctypes.c_int
         libs[name] = lib
     return libs

@@ -30,13 +30,13 @@ def card():
     return torch.device("cuda")
 
 
-def _model(device, dtype=torch.float32):
+def _model(device, dtype=torch.float32, **kw):
     cfg = TransitConfig(
         atm=f"{FIX}/test.atm", linedb=f"{FIX}/test.tli",
         csfile=f"{FIX}/test_cia.dat", molfile=f"{FIX}/molecules.dat",
         wnlow=2000.0, wnhigh=2100.0, wndelt=1.0, wnosamp=216, wnfct=1.0,
         nwidth=20.0, ethreshold=1e-8, solution="eclipse", toomuch=1e30)
-    return TransitModel(cfg, dtype=dtype, device=device)
+    return TransitModel(cfg, dtype=dtype, device=device, **kw)
 
 
 def _state(m):
@@ -178,3 +178,165 @@ def test_kernel_wide_tiles(card, tw):
     args, kw = _state(m)
     rel, host = _kernel_vs_plain(m, args, kw)
     assert rel < 1e-5 and host["pairs"] > 0
+
+
+# --- The banded path (opacities/banded.py) ---------------------------------
+
+def _fine_model(device, **kw):
+    """The fine-grid fixture configuration (tests/test_fast_and_forward.py
+    :261) with bands=6: tile widths up to 512, decimated asym2 shells with
+    lanes="bins" (lmax 8 and up) and tile classes, a stride-1 r2 shell."""
+    cfg = TransitConfig(
+        atm=f"{FIX}/test.atm", linedb=f"{FIX}/test.tli",
+        csfile=f"{FIX}/test_cia.dat", molfile=f"{FIX}/molecules.dat",
+        wnlow=2000.0, wnhigh=2040.0, wndelt=0.01, wnosamp=2, wnfct=1.0,
+        nwidth=20.0, ethreshold=1e-8, solution="eclipse", toomuch=1e30)
+    return TransitModel(cfg, dtype=torch.float32, device=device, bands=6,
+                        **kw)
+
+
+def _rel(a, b):
+    """max |a-b| / (|a| + 1e-6 max|a|); an all-zero reference must be
+    matched exactly."""
+    if not bool(a.any()):
+        return 0.0 if not bool(b.any()) else float("inf")
+    return float(((a - b).abs() / (a.abs() + 1e-6 * a.abs().max())).max())
+
+
+def _parts(m, args, kw, far_full_res=False):
+    """Each launch of the banded path on its own, into a zero output, and
+    its plain version on the band's rows: yields (part, plan, kernel,
+    plain), both (nrows, ntiles*tw) over the part's class tiles."""
+    from transit_tpu_torch.opacities import banded
+    tab = banded.prep_layers(m.bdev[0], *args, use_kernel=True)
+    index = banded.banded_index(m.bplan, m.bdev, args[0].device)
+    for (i, rows, part, plan, classes, stride), tiles in zip(
+            banded.band_parts(m.bplan, m.bdev, far_full_res),
+            index["tiles"]):
+        r = index["rows"][i]
+        sel = r.long()
+        tab_r = {k: v[sel] for k, v in tab.items()}
+        for (dc, gidx), t in zip(classes, tiles):
+            out = torch.zeros((args[0].shape[0], m.wns.n),
+                              device=args[0].device)
+            if part == "shell":
+                from transit_tpu_torch.opacities.kernel_shell import (
+                    plain_shell_tiles, shell_tile_extinction)
+                shell_tile_extinction(plan, dc, tab, args[0], stride=stride,
+                                      tiles=t, rows=r, out=out, **kw)
+                ref = plain_shell_tiles(plan, dc, tab_r, args[0][sel],
+                                        stride=stride, gidx=gidx, **kw)
+            else:
+                from transit_tpu_torch.opacities.kernel_lbl import (
+                    plain_line_tiles)
+                line_tile_extinction(plan, dc, tab, args[0], tiles=t,
+                                     rows=r, out=out,
+                                     accumulate=part == "s1",
+                                     bins_first=True, **kw)
+                ref = plain_line_tiles(plan, dc, tab_r, args[0][sel],
+                                       gidx=gidx, bins_first=True,
+                                       wfn_tag=plan.wfn_tag, **kw)
+            g = (torch.arange(plan.ntiles, device=out.device)
+                 if gidx is None else torch.as_tensor(gidx).long().to(
+                     out.device))
+            cols = (g[:, None] * plan.tw +
+                    torch.arange(plan.tw, device=out.device)).flatten()
+            keep = cols < m.wns.n
+            got = out[sel][:, cols[keep]]
+            want = ref.reshape(len(rows), -1)[:, keep]
+            yield part, plan, got, want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("config", ["fixture", "fine"])
+def test_banded_launches_match_plain(card, config):
+    """Every launch of the banded path — near classes, stride-1 shells
+    (accumulate, r2), decimated shells (asym2, lanes="bins" lmax 8,
+    classes), tw 512, on the band's layer rows — against its plain
+    version."""
+    m = (_model(card, bands=6) if config == "fixture" else
+         _fine_model(card))
+    args, kw = _state(m)
+    seen = set()
+    for part, plan, got, want in _parts(m, args, kw):
+        assert got.shape == want.shape
+        assert _rel(want, got) < 1e-5, (part, plan.tw, plan.wfn_tag)
+        seen.add((part, plan.tw, plan.wfn_tag, plan.lanes, plan.lmax))
+    if config == "fine":
+        assert any(s[1] == 512 for s in seen)
+        assert any(s[0] == "shell" and s[3] == "bins" and s[4] == 8
+                   for s in seen)
+        assert any(s[0] == "s1" for s in seen)
+
+
+@pytest.mark.cuda
+def test_shell_kernel_full_resolution(card):
+    """far_full_res: the decimated shells evaluated at stride 1 with the
+    same weighting (no upsampling), kernel against plain."""
+    m = _fine_model(card)
+    args, kw = _state(m)
+    n = 0
+    for part, plan, got, want in _parts(m, args, kw, far_full_res=True):
+        assert _rel(want, got) < 1e-5
+        n += part == "shell"
+    assert n > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("config", ["fixture", "fine"])
+def test_banded_forward_on_card(card, config):
+    """The banded model's forward through the kernels against its plain
+    path, and the kernels' counters against the host count of their
+    work."""
+    from transit_tpu_torch.opacities import banded
+    from transit_tpu_torch.opacities.kernel_shell import (
+        shell_tile_extinction)
+    m = (_model(card, bands=6) if config == "fixture" else
+         _fine_model(card))
+    before = (line_tile_extinction.launches, layer_kmax.launches,
+              shell_tile_extinction.launches)
+    s = m.forward(m.atm.temp, m.atm.q)
+    torch.cuda.synchronize()
+    after = (line_tile_extinction.launches, layer_kmax.launches,
+             shell_tile_extinction.launches)
+    assert after[1] == before[1] + 1 and after[0] > before[0]
+    assert (after[2] > before[2]) == (config == "fine")
+    m.use_kernel = False
+    p = m.forward(m.atm.temp, m.atm.q)
+    assert bool(torch.isfinite(s).all())
+    assert float(((s - p).abs() / p.abs()).max()) < 1e-4
+    args, kw = _state(m)
+    stats = {k: torch.zeros(3, dtype=torch.int64, device=card)
+             for k in ("line_tile", "shell")}
+    banded.banded_kernel_extinction(m.bplan, m.bdev, *args, stats=stats,
+                                    **kw)
+    tab = banded.prep_layers(m.bdev[0], *args, use_kernel=True)
+    host = banded.banded_counts(m.bplan, m.bdev, tab, args[0], **kw)
+    assert dict(zip(("chains", "live", "pairs"),
+                    stats["line_tile"].tolist())) == host["line_tile"]
+    assert dict(zip(("chains", "live", "evals"),
+                    stats["shell"].tolist())) == host["shell"]
+
+
+@pytest.mark.cuda
+def test_layer_kmax_floor_zero(card):
+    m = _model(card)
+    args, _ = _state(m)
+    coef0 = strength_coef(m.fdev, args[2])
+    d = {**m.fdev, **{k: m.fdev[k][:1] for k in
+                      ("all_wavn", "all_elow", "all_gf", "all_iso")}}
+    d["all_gf"] = torch.zeros_like(d["all_gf"]) - 1.0   # k0 < 0
+    got = layer_kmax(d, args[0], coef0, floor=0.0)
+    assert torch.equal(got, plain_kmax(d, args[0], coef0, floor=0.0))
+    assert torch.count_nonzero(got) == 0
+
+
+@pytest.mark.cuda
+def test_kernels_refuse_gradients(card):
+    """The kernels have no backward yet: an input that requires grad
+    raises with the slice's name instead of dropping the gradient."""
+    m = _model(card)
+    args, kw = _state(m)
+    T = args[0].clone().requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="slice"):
+        kernel_extinction(m.fplan, m.fdev, T, *args[1:], **kw)

@@ -29,7 +29,9 @@ _CHECK = (
 @pytest.mark.parametrize("mods", [
     "transit_tpu_torch, transit_tpu_torch.model",
     "transit_tpu_torch.opacities.kernel_lbl, transit_tpu_torch.convert, "
-    "transit_tpu_torch.opacities._build",
+    "transit_tpu_torch.opacities._build, "
+    "transit_tpu_torch.opacities.banded, "
+    "transit_tpu_torch.opacities.kernel_shell",
     "chip_smoke",
 ])
 def test_import_loads_no_jax(mods):
@@ -78,7 +80,7 @@ def test_model_without_device_or_card_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("change", [
-    dict(mode="exact"), dict(bands=6), dict(solution="transit"),
+    dict(mode="exact"), dict(solution="transit"),
     dict(raddelt=100.0), dict(opacityfile="grid.bin"),
     dict(saveext="ext.save")])
 def test_unported_options_raise(change):
@@ -86,7 +88,7 @@ def test_unported_options_raise(change):
     cfg = _torch_cfg()
     kw = {}
     for k, v in change.items():
-        if k in ("mode", "bands"):
+        if k == "mode":
             kw[k] = v
         else:
             setattr(cfg, k, v)
@@ -94,13 +96,35 @@ def test_unported_options_raise(change):
         TransitModel(cfg, device="cpu", **kw)
 
 
-def test_unported_step_options_raise():
+def test_unported_banded_options_raise():
+    """wn_window and kmax_override (the multi-process bands slice) raise
+    with their slice's name."""
+    from transit_tpu_torch.model import TransitModel
+    from transit_tpu_torch.opacities.banded import banded_kernel_extinction
+    with pytest.raises(NotImplementedError, match="wn_window.*slice"):
+        TransitModel(_torch_cfg(), device="cpu", bands=6, wn_window=(0, 50))
+    m = TransitModel(_torch_cfg(), dtype=torch.float64, device="cpu",
+                     bands=6)
+    t = m._t(m.atm.temp)
+    with pytest.raises(NotImplementedError, match="kmax_override.*slice"):
+        banded_kernel_extinction(
+            m.bplan, m.bdev, t * m.atm.tfct, m._t(m.atm.d), m.partition(t),
+            m._molm_t, m._molrad_t, wn_i=m.wns.i, dwn=m.wns.d,
+            ethresh=m.cfg.ethreshold, nwidth=m.cfg.nwidth,
+            kmax_override=torch.ones_like(t))
+
+
+@pytest.mark.parametrize("bands", [0, 6])
+def test_unported_step_options_raise(bands):
+    """forward_batch and hydrostatic radii raise with their slice's name,
+    on the unbanded and on the banded model."""
     from transit_tpu_torch.model import TransitModel
     cfg = _torch_cfg()
-    m = TransitModel(cfg, dtype=torch.float64, device="cpu")
+    m = TransitModel(cfg, dtype=torch.float64, device="cpu", bands=bands)
+    assert (m.bplan is not None) == (bands > 0)
     T = torch.as_tensor(m.atm.temp)
     q = torch.as_tensor(m.atm.q)
-    with pytest.raises(NotImplementedError, match="slice"):
+    with pytest.raises(NotImplementedError, match="forward_batch.*slice"):
         m.forward_batch(T[None], q[None])
     cfg.gsurf, cfg.refpress, cfg.refradius = 2000.0, 0.1, 7e9
     with pytest.raises(NotImplementedError, match="slice"):

@@ -1,14 +1,23 @@
-// Line extinction on the unbanded tile plan: the Hopper counterpart of the
-// Pallas kernel transit_tpu/opacities/pallas_lbl.py:_kernel (launched by
-// pallas_extinction), and of the per-layer kmax scan that pallas_extinction
-// computes outside pallas_call (pallas_lbl.py:127-133).
+// Line extinction on a tile plan: the Hopper counterpart of the Pallas
+// kernel transit_tpu/opacities/pallas_lbl.py:_kernel (launched by
+// pallas_extinction), of the near tiles and stride-1 far shells of the
+// banded path (fast._run_tiles / _block_primal with a per-layer wing
+// cutoff, fast.py:554-571, 690-837), and of the per-layer kmax scan
+// (pallas_lbl.py:127-133, fast._kmax_scan).
+//
+// A launch covers one tile class of a plan (the global tile of each row
+// of the line tensors in `tiles`) on a list of layer rows (`rows`, the
+// band's layers), and writes, or with `accumulate` adds, its sums into
+// those rows and the tiles' columns of the (nl, n_coarse) output.  K is
+// the Voigt function of the plan (w4; r2 for a stride-1 far shell).
 //
 // For each tile of tw coarse bins, layer and bin, line_tile_kernel sums
 // over the tile's lines
 //     k * K(x, y) / alphaD,
 //     k  = gf e^(-c2 El/T) (1 - e^(-c2 nu/T)) coef0 dens   (0 when the line's
 //          k0 < ethresh * kmax, extinction.c:400-427),
-//     K  = Humlicek w4 Voigt, x = sqrt(ln2) |nu_bin - nu| / alphaD,
+//     K  = Humlicek w4 Voigt (or a far-wing kernel), x = sqrt(ln2)
+//          |nu_bin - nu| / alphaD clamped at 1e8,
 //          y = sqrt(ln2) alphaL / alphaD,
 // where |nu_bin - nu| <= nwidth * max(alphaD, alphaL).
 //
@@ -47,109 +56,34 @@
 // blocks combine with an atomic max on the float's bit pattern, which does
 // not depend on order.
 //
-// Rounding: the bin wavenumber (wn_i + dwn*(tile*tw) + dwn*bin), x, and the
+// Rounding: the bin wavenumber ((wa + dwn*bin) + wb: wa = wn_i +
+// dwn*(tile*tw), wb = 0 as the Pallas kernel rounds it; with bins_first,
+// wa = wn_i, wb = dwn*(tile*tw) as fast._run_tiles does), x, and the
 // strength chain use the _rn intrinsics, which the compiler never contracts
 // into FMAs, so they round as the plain PyTorch version's separate ops do.
 // Build without --use_fast_math (expf/cosf must stay accurate to ~1 ulp).
 
-#include <cuda_runtime.h>
-#include <math.h>
+#include "voigt.cuh"
 
 namespace {
 
 constexpr int NT = 256;           // threads per line-tile block
+constexpr int OWN = 2;            // (layer, bin) owners per thread
+constexpr int MAX_TW = OWN * NT;  // widest tile: lb * tw <= OWN * NT
 constexpr int SEG = 4;            // (layer, line) elements per thread
 constexpr int NE = NT * SEG;      // elements per chunk: lb * CH <= NE
 constexpr int CAP = 4096;         // pair slots per evaluation round
 constexpr int MAX_LB = 32;        // layers per block (5 bits of a slot code)
 constexpr int NWARP = NT / 32;
-constexpr float SQRTLN2 = 0.83255461115769775635f;
-constexpr float SQRTLN2PI = 0.46971863934982566689f;
-constexpr unsigned FULL = 0xffffffffu;
 
-// K(x, y) = sqrt(ln2/pi) Re w(x + iy), Humlicek (1982) w4, for x >= 0,
-// y > 0.  Real-pair arithmetic; region I is folded into region II, and
-// region II is in the v = 1/u form (transit_tpu/opacities/voigt.py:116-206).
-__device__ __forceinline__ float humlicek_k(float x, float y) {
-  const float tr = y, ti = -x;              // t = y - i x
-  const float ur = (y - x) * (y + x);       // u = t^2
-  const float ui = -2.0f * x * y;
-  const float s = fabsf(x) + y;
-  float nr, ni, dr, di;
-  if (s >= 5.5f) {
-    // Region II: w = t (1.410474 v^2 + 0.5641896 v) / (1 + 3 v + 0.75 v^2)
-    const float uinv = 1.0f / (ur * ur + ui * ui);
-    const float vr = ur * uinv, vi = -ui * uinv;
-    const float v2r = vr * vr - vi * vi, v2i = vr * vi + vi * vr;
-    const float ar = 1.410474f * v2r + 0.5641896f * vr;
-    const float ai = 1.410474f * v2i + 0.5641896f * vi;
-    nr = tr * ar - ti * ai;
-    ni = tr * ai + ti * ar;
-    dr = 1.0f + 3.0f * vr + 0.75f * v2r;
-    di = 3.0f * vi + 0.75f * v2i;
-  } else if (y < 0.195f * fabsf(x) - 0.176f) {
-    // Region IV: w = exp(u) - t P(u) / Q(u)
-    const float pc[7] = {36183.31f, -3321.9905f, 1540.787f, -219.0313f,
-                         35.76683f, -1.320522f, 0.56419f};
-    const float qc[8] = {32066.6f, -24322.84f, 9022.228f, -2186.181f,
-                         364.2191f, -61.57037f, 1.841439f, -1.0f};
-    float pr = pc[6], pi = 0.0f;
-#pragma unroll
-    for (int c = 5; c >= 0; --c) {
-      const float r = pr * ur - pi * ui;
-      pi = pr * ui + pi * ur;
-      pr = r + pc[c];
-    }
-    float qr = qc[7], qi = 0.0f;
-#pragma unroll
-    for (int c = 6; c >= 0; --c) {
-      const float r = qr * ur - qi * ui;
-      qi = qr * ui + qi * ur;
-      qr = r + qc[c];
-    }
-    nr = tr * pr - ti * pi;
-    ni = tr * pi + ti * pr;
-    const float dinv = 1.0f / (qr * qr + qi * qi);
-    const float re = (nr * qr + ni * qi) * dinv;
-    return SQRTLN2PI * (expf(ur) * cosf(ui) - re);
-  } else {
-    // Region III: degree-4 / degree-5 rational in t
-    const float nc[5] = {16.4955f, 20.20933f, 11.96482f, 3.778987f,
-                         0.5642236f};
-    const float dc[6] = {16.4955f, 38.82363f, 39.27121f, 21.69274f,
-                         6.699398f, 1.0f};
-    nr = nc[4]; ni = 0.0f;
-#pragma unroll
-    for (int c = 3; c >= 0; --c) {
-      const float r = nr * tr - ni * ti;
-      ni = nr * ti + ni * tr;
-      nr = r + nc[c];
-    }
-    dr = dc[5]; di = 0.0f;
-#pragma unroll
-    for (int c = 4; c >= 0; --c) {
-      const float r = dr * tr - di * ti;
-      di = dr * ti + di * tr;
-      dr = r + dc[c];
-    }
-  }
-  const float dinv = 1.0f / (dr * dr + di * di);
-  return SQRTLN2PI * ((nr * dr + ni * di) * dinv);
+// Bin b of the tile at (wa + dwn*b) + wb (see Rounding above).
+__device__ __forceinline__ float bin_wn(float wa, float wb, float dwn,
+                                        int b) {
+  return __fadd_rn(__fadd_rn(wa, __fmul_rn(dwn, (float)b)), wb);
 }
 
-// k0 = gf e^(-c2 El/T) (1 - e^(-c2 nu/T)) coef0, in the plain version's
-// order of operations.
-__device__ __forceinline__ float strength(float gf, float el, float wv,
-                                          float T, float cf0,
-                                          float neg_expcte) {
-  const float e1 = expf(__fdiv_rn(__fmul_rn(neg_expcte, el), T));
-  const float e2 = expf(__fdiv_rn(__fmul_rn(neg_expcte, wv), T));
-  return __fmul_rn(__fmul_rn(__fmul_rn(gf, e1), __fsub_rn(1.0f, e2)), cf0);
-}
-
-// Wavenumber of the tile's bin b; wn0 = wn_i + dwn*(tile*tw), rounded.
-__device__ __forceinline__ float bin_wn(float wn0, float dwn, int b) {
-  return __fadd_rn(wn0, __fmul_rn(dwn, (float)b));
+__device__ __forceinline__ int layer_of(const int* rows, int i) {
+  return rows ? rows[i] : i;
 }
 
 // The run [b0, b1] of the tile's bins b with |wn_b - wv| <= wing; false
@@ -159,28 +93,30 @@ __device__ __forceinline__ float bin_wn(float wn0, float dwn, int b) {
 // so the seed's rounding never changes the answer.  If the seed bin is
 // out, the run can only lie toward the line: walk that way until a bin is
 // in, or the walk passes the line (every farther bin is out) or the tile.
-__device__ __forceinline__ bool find_run(float wn0, float dwn,
+__device__ __forceinline__ bool find_run(float wa, float wb, float dwn,
                                          float inv_dwn, int tw, float wv,
                                          float wing, int& b0, int& b1) {
-  const float c = rintf(__fmul_rn(__fsub_rn(wv, wn0), inv_dwn));
+  const float c =
+      rintf(__fmul_rn(__fsub_rn(wv, __fadd_rn(wa, wb)), inv_dwn));
   int s = (int)fminf(fmaxf(c, 0.0f), (float)(tw - 1));
-  float w = bin_wn(wn0, dwn, s);
+  float w = bin_wn(wa, wb, dwn, s);
   if (!(fabsf(__fsub_rn(w, wv)) <= wing)) {
     const int step = w < wv ? 1 : -1;
     for (;;) {
       s += step;
       if (s < 0 || s >= tw) return false;
-      w = bin_wn(wn0, dwn, s);
+      w = bin_wn(wa, wb, dwn, s);
       if (fabsf(__fsub_rn(w, wv)) <= wing) break;
       if (step > 0 ? w >= wv : w <= wv) return false;
     }
   }
   b0 = s;
   b1 = s;
-  while (b0 > 0 && fabsf(__fsub_rn(bin_wn(wn0, dwn, b0 - 1), wv)) <= wing)
+  while (b0 > 0 &&
+         fabsf(__fsub_rn(bin_wn(wa, wb, dwn, b0 - 1), wv)) <= wing)
     --b0;
   while (b1 < tw - 1 &&
-         fabsf(__fsub_rn(bin_wn(wn0, dwn, b1 + 1), wv)) <= wing)
+         fabsf(__fsub_rn(bin_wn(wa, wb, dwn, b1 + 1), wv)) <= wing)
     ++b1;
   return true;
 }
@@ -190,7 +126,8 @@ struct Rows {                     // a chunk's line rows, staged
   float wv[NT], el[NT], gf[NT];
   int iso[NT];                    // -1: masked
 };
-static_assert(NT <= 2048 && MAX_LB <= 32, "slot codes' bit fields");
+static_assert(NT <= 2048 && MAX_LB <= 32 && MAX_TW <= 1024,
+              "slot codes' and run codes' bit fields");
 constexpr size_t SMEM_BYTES =
     3 * NE * sizeof(float)            // s_k, s_inv, s_y
     + NE * sizeof(unsigned)           // s_run
@@ -201,12 +138,15 @@ constexpr size_t SMEM_BYTES =
     + NWARP * sizeof(unsigned)        // s_scan
     + (2 * NWARP + 1) * sizeof(int);  // s_win, s_nchain
 
+template <int WFN>
 __global__ void __launch_bounds__(NT, 4)
 line_tile_kernel(const float* __restrict__ wavn,
                  const float* __restrict__ elow,
                  const float* __restrict__ gf,
                  const int* __restrict__ iso,
                  const unsigned char* __restrict__ mask,
+                 const int* __restrict__ tiles,
+                 const int* __restrict__ rows,
                  const float* __restrict__ temps,
                  const float* __restrict__ alphal,
                  const float* __restrict__ alphad_f,
@@ -215,9 +155,9 @@ line_tile_kernel(const float* __restrict__ wavn,
                  const float* __restrict__ kmax,
                  float* __restrict__ out,
                  unsigned long long* __restrict__ stats,
-                 int nl, int lmax, int niso, int tw, int lb, int n_coarse,
-                 float wn_i, float dwn, float ethresh, float nwidth,
-                 float neg_expcte) {
+                 int nrows, int lmax, int niso, int tw, int lb,
+                 int n_coarse, int accumulate, int bins_first, float wn_i,
+                 float dwn, float ethresh, float nwidth, float neg_expcte) {
   extern __shared__ __align__(16) unsigned char smem[];
   float* s_k = reinterpret_cast<float*>(smem);   // (lb, CH) k
   float* s_inv = s_k + NE;                       // (lb, CH) 1 / alphaD
@@ -231,8 +171,9 @@ line_tile_kernel(const float* __restrict__ wavn,
   int* s_win = reinterpret_cast<int*>(s_scan + NWARP);
   int* s_nchain = s_win + 2 * NWARP;
 
-  const int tile = blockIdx.x;
+  const int tile = tiles ? tiles[blockIdx.x] : (int)blockIdx.x;
   const int l0 = blockIdx.y * lb;
+  const int nlay = min(lb, nrows - l0);  // the block's layers
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
   const int tpl = NT / lb;                 // set-up threads per layer
@@ -241,18 +182,28 @@ line_tile_kernel(const float* __restrict__ wavn,
   // Set-up role: layer lj, elements (lj, jseg .. jseg + seg - 1).
   const int lj = tid / tpl;
   const int jseg = (tid - lj * tpl) * seg;
-  const int L = l0 + lj;
-  const bool setup = lj < lb && L < nl;
-  // Owner role: (layer ll, bin b).
-  const int ll = tid / tw;
-  const int b = tid - ll * tw;
-  const int layer = l0 + ll;
-  const int col = tile * tw + b;
-  const bool owner = ll < lb && layer < nl && col < n_coarse;
+  const bool setup = lj < nlay;
+  const int L = setup ? layer_of(rows, l0 + lj) : 0;
+  // Owner roles: (layer ll, bin b), OWN per thread for tiles wider than NT.
+  int o_ll[OWN], o_b[OWN];
+  bool o_on[OWN];
+  size_t o_at[OWN];
+#pragma unroll
+  for (int o = 0; o < OWN; ++o) {
+    const int ob = tid + o * NT;
+    o_ll[o] = ob / tw;
+    o_b[o] = ob - o_ll[o] * tw;
+    const int col = tile * tw + o_b[o];
+    o_on[o] = o_ll[o] < nlay && col < n_coarse;
+    o_at[o] = o_on[o] ? (size_t)layer_of(rows, l0 + o_ll[o]) * n_coarse + col
+                      : 0;
+  }
 
-  const float wn0 = __fadd_rn(wn_i, __fmul_rn(dwn, (float)(tile * tw)));
+  const float toff = __fmul_rn(dwn, (float)(tile * tw));
+  const float wa = bins_first ? wn_i : __fadd_rn(wn_i, toff);
+  const float wb = bins_first ? toff : 0.0f;
   const float inv_dwn = 1.0f / dwn;
-  const size_t row = (size_t)tile * lmax;
+  const size_t row = (size_t)blockIdx.x * lmax;
   float T = 1.0f, thr = 0.0f;
   if (setup) {
     T = temps[L];
@@ -266,17 +217,21 @@ line_tile_kernel(const float* __restrict__ wavn,
   // is monotone, so with the block's largest alphad_f and alphaL it is at
   // most `reach`; a line farther than reach from the tile's first and last
   // bins (with a margin for the rounding of the distance) reaches none.
+  // (A far shell's two line ranges are one sorted list with a gap; the
+  // window does not depend on the order.)
   float dfmax = 0.0f, almax = 0.0f;       // each warp reduces the tables
-  for (int t = lane; t < min(lb, nl - l0) * niso; t += 32) {
-    dfmax = fmaxf(dfmax, alphad_f[l0 * niso + t]);
-    almax = fmaxf(almax, alphal[l0 * niso + t]);
+  for (int t = lane; t < nlay * niso; t += 32) {
+    const int ti = layer_of(rows, l0 + t / niso) * niso + t % niso;
+    dfmax = fmaxf(dfmax, alphad_f[ti]);
+    almax = fmaxf(almax, alphal[ti]);
   }
 #pragma unroll
   for (int o = 16; o; o >>= 1) {
     dfmax = fmaxf(dfmax, __shfl_xor_sync(FULL, dfmax, o));
     almax = fmaxf(almax, __shfl_xor_sync(FULL, almax, o));
   }
-  const double wn_first = wn0, wn_last = bin_wn(wn0, dwn, tw - 1);
+  const double wn_first = bin_wn(wa, wb, dwn, 0);
+  const double wn_last = bin_wn(wa, wb, dwn, tw - 1);
   int jlo = lmax, jhi = 0;
 #pragma unroll 4
   for (int t = tid; t < lmax; t += NT) {
@@ -301,7 +256,9 @@ line_tile_kernel(const float* __restrict__ wavn,
     jhi = max(jhi, s_win[NWARP + w]);
   }
 
-  float acc = 0.0f, comp = 0.0f;
+  float acc[OWN], comp[OWN];
+#pragma unroll
+  for (int o = 0; o < OWN; ++o) acc[o] = comp[o] = 0.0f;
   // Thread 0: the block's live entries and pairs, for stats.
   unsigned long long n_live = 0, n_pair = 0;
 
@@ -354,7 +311,7 @@ line_tile_kernel(const float* __restrict__ wavn,
         const float aD = __fmul_rn(alphad_f[ti], wv);
         const float wing = __fmul_rn(nwidth, fmaxf(aD, aL));
         int b0, b1;
-        if (find_run(wn0, dwn, inv_dwn, tw, wv, wing, b0, b1)) {
+        if (find_run(wa, wb, dwn, inv_dwn, tw, wv, wing, b0, b1)) {
           ++nchain;
           const float k0 = strength(rw.gf[j], rw.el[j], wv, T, coef0[ti],
                                     neg_expcte);
@@ -363,7 +320,7 @@ line_tile_kernel(const float* __restrict__ wavn,
             s_k[e] = __fmul_rn(k0, densm[ti]);
             s_inv[e] = inv;
             s_y[e] = __fmul_rn(__fmul_rn(SQRTLN2, aL), inv);
-            run = 1u << 16 | (unsigned)b1 << 8 | (unsigned)b0;
+            run = 1u << 20 | (unsigned)b1 << 10 | (unsigned)b0;
             ++nlive;
             npair += b1 - b0 + 1;
           }
@@ -377,8 +334,9 @@ line_tile_kernel(const float* __restrict__ wavn,
     }
 
     // 2. Compaction: exclusive block scan of (live, pairs), packed 11 | 21
-    //    bits (per chunk at most NE and NE * 256), lists the live elements
-    //    layer by layer in line order and numbers their (bin, line) pairs.
+    //    bits (per chunk at most NE and NE * MAX_TW / 4), lists the live
+    //    elements layer by layer in line order and numbers their
+    //    (bin, line) pairs.
     const unsigned mine = (unsigned)nlive << 21 | (unsigned)npair;
     unsigned v = mine;
 #pragma unroll
@@ -412,7 +370,7 @@ line_tile_kernel(const float* __restrict__ wavn,
       for (int i = 0; i < seg && lj < lb; ++i) {
         const unsigned run = s_run[lj * CH + jseg + i];
         if (run) {
-          const int b0 = run & 255, b1 = run >> 8 & 255;
+          const int b0 = run & 1023, b1 = run >> 10 & 1023;
           s_ent[q++] = make_int2(p, b0 | (b1 - b0) << 16);
           p += b1 - b0 + 1;
         }
@@ -431,7 +389,7 @@ line_tile_kernel(const float* __restrict__ wavn,
           const int j = jseg + i;
           const unsigned run = s_run[lj * CH + j];
           if (!run) continue;
-          const int b0 = run & 255, b1 = run >> 8 & 255;
+          const int b0 = run & 1023, b1 = run >> 10 & 1023;
           for (int bb = b0; bb <= b1; ++bb, ++p)
             if ((unsigned)p < (unsigned)rn)
               s_slot[p] = (unsigned)j | (unsigned)lj << 11 |
@@ -443,37 +401,43 @@ line_tile_kernel(const float* __restrict__ wavn,
         const unsigned code = s_slot[s];
         const int j = code & 2047;
         const int e = (int)(code >> 11 & 31) * CH + j;
-        const float dist =
-            fabsf(__fsub_rn(bin_wn(wn0, dwn, (int)(code >> 16)), rw.wv[j]));
+        const float dist = fabsf(__fsub_rn(
+            bin_wn(wa, wb, dwn, (int)(code >> 16)), rw.wv[j]));
         const float inv = s_inv[e];
-        const float x = __fmul_rn(__fmul_rn(SQRTLN2, dist), inv);
-        const float prof = __fmul_rn(humlicek_k(x, s_y[e]), inv);
+        const float x =
+            fminf(__fmul_rn(__fmul_rn(SQRTLN2, dist), inv), 1e8f);
+        const float prof = __fmul_rn(voigt_k<WFN>(x, s_y[e]), inv);
         s_slot[s] = __float_as_uint(__fmul_rn(prof, s_k[e]));
       }
       __syncthreads();
-      if (owner) {
-        const int qb = s_lfirst[ll + 1];
+#pragma unroll
+      for (int o = 0; o < OWN; ++o) {
+        if (!o_on[o]) continue;
+        const int qb = s_lfirst[o_ll[o] + 1];
 #pragma unroll 4
-        for (int q = s_lfirst[ll]; q < qb; ++q) {
+        for (int q = s_lfirst[o_ll[o]]; q < qb; ++q) {
           const int2 en = s_ent[q];              // (first pair, b0 | len-1)
-          const int d = b - (en.y & 0xffff);
+          const int d = o_b[o] - (en.y & 0xffff);
           const int p = en.x + d - r0;
           if ((unsigned)d <= (unsigned)(en.y >> 16) &&
               (unsigned)p < (unsigned)rn) {
             // Compensated (Kahan) sum: a bin adds up hundreds of lines one
             // by one, where the plain version's reduction is a tree.
             const float term =
-                __fsub_rn(__uint_as_float(s_slot[p]), comp);
-            const float t = __fadd_rn(acc, term);
-            comp = __fsub_rn(__fsub_rn(t, acc), term);
-            acc = t;
+                __fsub_rn(__uint_as_float(s_slot[p]), comp[o]);
+            const float t = __fadd_rn(acc[o], term);
+            comp[o] = __fsub_rn(__fsub_rn(t, acc[o]), term);
+            acc[o] = t;
           }
         }
       }
       if (r0 + CAP < P) __syncthreads();  // else the next chunk's first
     }
   }
-  if (owner) out[(size_t)layer * n_coarse + col] = acc;
+#pragma unroll
+  for (int o = 0; o < OWN; ++o)
+    if (o_on[o])
+      out[o_at[o]] = accumulate ? __fadd_rn(out[o_at[o]], acc[o]) : acc[o];
   if (stats) {
     __syncthreads();
     if (tid == 0 && *s_nchain) {
@@ -482,6 +446,29 @@ line_tile_kernel(const float* __restrict__ wavn,
       atomicAdd(&stats[2], n_pair);
     }
   }
+}
+
+template <int WFN>
+int launch_line_tile(dim3 grid, cudaStream_t stream, const float* wavn,
+                     const float* elow, const float* gf, const int* iso,
+                     const unsigned char* mask, const int* tiles,
+                     const int* rows, const float* temps,
+                     const float* alphal, const float* alphad_f,
+                     const float* coef0, const float* densm,
+                     const float* kmax, float* out,
+                     unsigned long long* stats, int nrows, int lmax,
+                     int niso, int tw, int lb, int n_coarse, int accumulate,
+                     int bins_first, float wn_i, float dwn, float ethresh,
+                     float nwidth, float neg_expcte) {
+  cudaError_t err = cudaFuncSetAttribute(
+      line_tile_kernel<WFN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)SMEM_BYTES);
+  if (err != cudaSuccess) return (int)err;
+  line_tile_kernel<WFN><<<grid, NT, SMEM_BYTES, stream>>>(
+      wavn, elow, gf, iso, mask, tiles, rows, temps, alphal, alphad_f,
+      coef0, densm, kmax, out, stats, nrows, lmax, niso, tw, lb, n_coarse,
+      accumulate, bins_first, wn_i, dwn, ethresh, nwidth, neg_expcte);
+  return (int)cudaGetLastError();
 }
 
 constexpr int KM_THREADS = 256;
@@ -549,41 +536,52 @@ layer_kmax_kernel(const float* __restrict__ wavn,
 
 // Launch on `stream`; returns cudaGetLastError() (0 = launched).
 // Pointers are device pointers to contiguous tensors: line tiles
-// (ntiles, lmax) wavn/elow/gf f32, iso int32, mask bool; temps and kmax
-// (nl,); the isotope tables
-// (nl, niso) f32; out (nl, n_coarse) f32, fully written.  stats, if not
-// null, is (3,) uint64 and gets the (layer, line) chains computed, the live
-// (layer, tile, line) entries and the (layer, bin, line) pairs evaluated
-// added to it.
+// (ntiles, lmax) wavn/elow/gf f32, iso int32, mask bool; tiles (ntiles,)
+// int32, the global tile of each row (null: row i is tile i); rows
+// (nrows,) int32, the layers computed (null: layers 0 .. nrows-1); temps
+// and kmax (nl,); the isotope tables (nl, niso) f32; out (nl, n_coarse)
+// f32, of which the launch writes (or with accumulate, adds to) the rows'
+// and tiles' block.  wfn selects K: 0 w4 (near tiles), 1 r2 (stride-1
+// shells; the planner never tags one asym2).  stats, if not
+// null, is (3,) uint64 and gets the (layer, line) chains computed, the
+// live (layer, tile, line) entries and the (layer, bin, line) pairs
+// evaluated added to it.
 extern "C" int line_tile_extinction(
     const void* wavn, const void* elow, const void* gf, const void* iso,
-    const void* mask, const void* temps,
-    const void* alphal, const void* alphad_f, const void* coef0,
-    const void* densm, const void* kmax, void* out, void* stats,
-    int nl, int ntiles, int lmax, int niso, int tw, int n_coarse, float wn_i, float dwn, float ethresh, float nwidth, float neg_expcte,
-    void* stream) {
-  if (nl <= 0 || ntiles <= 0 || tw <= 0 || tw > NT)
+    const void* mask, const void* tiles, const void* rows,
+    const void* temps, const void* alphal, const void* alphad_f,
+    const void* coef0, const void* densm, const void* kmax, void* out,
+    void* stats, int nrows, int ntiles, int lmax, int niso, int tw,
+    int n_coarse, int accumulate, int bins_first, int wfn, float wn_i,
+    float dwn, float ethresh, float nwidth, float neg_expcte, void* stream) {
+  if (nrows <= 0 || ntiles <= 0 || lmax <= 0 || tw <= 0 || tw > MAX_TW ||
+      wfn < 0 || wfn > 1)
     return (int)cudaErrorInvalidValue;
   int lb = NT / tw;
+  if (lb < 1) lb = 1;
   if (lb > MAX_LB) lb = MAX_LB;
-  if (lb > nl) lb = nl;
-  const int nblk = (nl + lb - 1) / lb;
-  lb = (nl + nblk - 1) / nblk;            // balance the ragged layer block
-  cudaError_t err = cudaFuncSetAttribute(
-      line_tile_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)SMEM_BYTES);
-  if (err != cudaSuccess) return (int)err;
+  if (lb > nrows) lb = nrows;
+  const int nblk = (nrows + lb - 1) / lb;
+  lb = (nrows + nblk - 1) / nblk;         // balance the ragged layer block
   const dim3 grid(ntiles, nblk);
-  line_tile_kernel<<<grid, NT, SMEM_BYTES, (cudaStream_t)stream>>>(
-      (const float*)wavn, (const float*)elow, (const float*)gf,
-      (const int*)iso, (const unsigned char*)mask, (const float*)temps, (const float*)alphal, (const float*)alphad_f,
-      (const float*)coef0, (const float*)densm, (const float*)kmax,
-      (float*)out, (unsigned long long*)stats, nl, lmax, niso, tw, lb,
-      n_coarse, wn_i, dwn, ethresh, nwidth, neg_expcte);
-  return (int)cudaGetLastError();
+  auto go = [&](auto launch) {
+    return launch(grid, (cudaStream_t)stream, (const float*)wavn,
+                  (const float*)elow, (const float*)gf, (const int*)iso,
+                  (const unsigned char*)mask, (const int*)tiles,
+                  (const int*)rows, (const float*)temps,
+                  (const float*)alphal, (const float*)alphad_f,
+                  (const float*)coef0, (const float*)densm,
+                  (const float*)kmax, (float*)out,
+                  (unsigned long long*)stats, nrows, lmax, niso, tw, lb,
+                  n_coarse, accumulate, bins_first, wn_i, dwn, ethresh,
+                  nwidth, neg_expcte);
+  };
+  if (wfn == 0) return go(&launch_line_tile<0>);
+  return go(&launch_line_tile<1>);
 }
 
-// kmax (nl,) f32 must hold -inf on entry; it gets the max over the line
+// kmax (nl,) f32 must hold its floor (-inf, or 0 as the banded path's
+// scan starts) on entry; it gets the max over the line
 // list (wavn, elow, gf f32, iso int32, each (nlines,)) of k0 at the layer's
 // temperature temps (nl,) and strength coefficient coef0 (nl, niso).
 extern "C" int layer_kmax(const void* wavn, const void* elow, const void* gf,

@@ -1,17 +1,19 @@
 """TransitModel: the end-to-end spectrum pipeline on tensors.
 
 The counterpart of transit_tpu.model (model.py:65-272, 360-754) on the
-path this package ports so far: fast mode on the unbanded tile plan,
-eclipse geometry, the atmosphere file's radius grid.  Init loads and
-precomputes everything static on the host (grids, line plan, path-weight
-matrix, spline operators); ``forward(temps, q)``, the retrieval step,
-recomputes densities and partition functions and runs the spectrum:
-line extinction through the CUDA line-tile kernel, then CIA, scattering,
-clouds, optical depth, intensities and flux in torch ops.
+path this package ports so far: fast mode on the unbanded or the
+layer-banded tile plan (``bands``, with far-wing shells), eclipse
+geometry, the atmosphere file's radius grid.  Init loads and precomputes
+everything static on the host (grids, line plans, path-weight matrix,
+spline operators); ``forward(temps, q)``, the retrieval step, recomputes
+densities and partition functions and runs the spectrum: line extinction
+through the CUDA kernels (opacities/kernel_lbl.py on the unbanded plan,
+opacities/banded.py on the banded one), then CIA, scattering, clouds,
+optical depth, intensities and flux in torch ops.
 
 The model runs on ``cuda`` unless the caller passes ``device="cpu"``;
-with no card and no ``device`` it raises.  On the CPU the line-tile
-kernel's plain PyTorch version takes its place.
+with no card and no ``device`` it raises.  On the CPU the kernels' plain
+PyTorch versions take their place.
 """
 
 from __future__ import annotations
@@ -31,6 +33,9 @@ from transit_tpu_torch.numerics.spline import (splinterp_np,
                                                spline_second_derivs_np,
                                                spline_eval_torch)
 from transit_tpu_torch.opacities import fast
+from transit_tpu_torch.opacities.banded import (banded_index,
+                                                banded_kernel_extinction,
+                                                plain_banded_extinction)
 from transit_tpu_torch.opacities.cia import cs_extinction, precompute_cs
 from transit_tpu_torch.opacities.clouds import CloudParams, cloud_extinction
 from transit_tpu_torch.opacities.kernel_lbl import (kernel_extinction,
@@ -76,21 +81,26 @@ class SpectrumResult:
 class TransitModel:
     def __init__(self, cfg: TransitConfig, dtype=None, mode: str = "fast",
                  use_kernel: bool = True, device=None, tli=None,
-                 bands: int = 0):
-        """``use_kernel`` selects the CUDA line-tile kernel (True) or its
-        plain PyTorch version (False) for the line extinction; on the CPU
-        both compute the plain version.  ``tli``: a preloaded TliData
+                 bands: int = 0, split_far: bool = True,
+                 far_decimate: bool = True, wn_window=None):
+        """``use_kernel`` selects the CUDA kernels (True) or their plain
+        PyTorch versions (False) for the line extinction; on the CPU
+        both compute the plain versions.  ``tli``: a preloaded TliData
         overriding cfg.linedb's full read.  ``dtype`` defaults to
-        float32; the kernel takes float32 only.  ``bands`` > 0 (the
-        layer-banded plan) is not ported yet and raises."""
+        float32; the kernels take float32 only.  ``bands`` > 0: the
+        layer-banded plan with at most that many bands, far-wing shells
+        (``split_far``) and their decimation (``far_decimate``), as
+        transit_tpu's TransitModel(mode="fast", bands=...).  A
+        ``wn_window`` (one process's band of a multi-process run) is not
+        ported yet and raises."""
         from transit_tpu_torch.config import validate
         self.cfg = cfg = validate(cfg)
         if mode == "exact":
             raise _later("mode='exact'", "exact-mode")
         if mode != "fast":
             raise ValueError(f"unknown mode {mode!r}")
-        if bands > 0:
-            raise _later("the banded plan (bands > 0)", "banded-plan")
+        if wn_window is not None:
+            raise _later("wn_window", "multi-process bands")
         if cfg.solution == "transit":
             raise _later("transit geometry", "transit-geometry")
         if cfg.solution != "eclipse":
@@ -133,21 +143,40 @@ class TransitModel:
             read_tli(cfg.linedb) if cfg.linedb else None)
         self._setup_isotopes()
 
-        # --- line tile plan ---
+        # --- line tile plans ---
         self.fplan = None
         self.fdev = None
+        self.bplan = None
+        self.bdev = None
+        self.bindex = None
         if self.tli is not None:
             wl, isoid, elow, gf = select_lines(self.tli, self.wns.i,
                                                self.wns.f)
             wavn = 1.0 / (np.asarray(wl) * TLI_WAV_UNITS)
-            mw = fast.max_width_bound(self.atm, self.mol, self.iso.mass,
-                                      self.wns.f, self.iso.imol)
-            self.fplan = fast.make_fast_plan(
-                wavn, isoid, elow, gf, wn_i=self.wns.i, dwn=self.wns.d,
-                n_coarse=self.wns.n, max_width=mw, nwidth=cfg.nwidth)
-            self.fdev = fast.fast_device_arrays(self.fplan, self.iso,
-                                                dtype=self.dtype,
-                                                device=self.device)
+            if bands > 0:
+                aL, aDf = fast.layer_width_bounds(
+                    self.atm, self.mol, self.iso.mass, self.iso.imol)
+                self.bplan = fast.make_banded_plans(
+                    wavn, isoid, elow, gf, wn_i=self.wns.i,
+                    dwn=self.wns.d, n_coarse=self.wns.n, aL_layers=aL,
+                    aDf_layers=aDf, wn_max=self.wns.f, nwidth=cfg.nwidth,
+                    max_bands=bands, split_far=split_far,
+                    far_decimate=far_decimate)
+                self.bdev = fast.banded_device_arrays(
+                    self.bplan, self.iso, dtype=self.dtype,
+                    device=self.device)
+                if self.device.type == "cuda":
+                    self.bindex = banded_index(self.bplan, self.bdev,
+                                               self.device)
+            else:
+                mw = fast.max_width_bound(self.atm, self.mol, self.iso.mass,
+                                          self.wns.f, self.iso.imol)
+                self.fplan = fast.make_fast_plan(
+                    wavn, isoid, elow, gf, wn_i=self.wns.i, dwn=self.wns.d,
+                    n_coarse=self.wns.n, max_width=mw, nwidth=cfg.nwidth)
+                self.fdev = fast.fast_device_arrays(self.fplan, self.iso,
+                                                    dtype=self.dtype,
+                                                    device=self.device)
 
         # --- cross sections (transit.c:63 readcs) ---
         self.cs_tables = []
@@ -283,21 +312,29 @@ class TransitModel:
     # ------------------------------------------------------------------
     def device_tree(self):
         """The (potentially large) tensors the spectrum step reads: the
-        line tile tensors and isotope tables."""
-        return self.fdev
+        line tile tensors and isotope tables, per band on the banded
+        plan."""
+        return self.bdev if self.bplan is not None else self.fdev
 
     def line_extinction(self, temps_cgs, densities, Z, dev=None):
         """Per-layer line extinction (nlayer, nwn).  ``dev`` overrides the
         model's stored tile tensors (device_tree)."""
         nl = temps_cgs.shape[0]
+        kw = dict(wn_i=self.wns.i, dwn=self.wns.d,
+                  ethresh=self.cfg.ethreshold, nwidth=self.cfg.nwidth)
+        args = (temps_cgs, densities, Z, self._molm_t, self._molrad_t)
+        if self.bplan is not None:
+            bdev = dev if dev is not None else self.bdev
+            if self.use_kernel:
+                return banded_kernel_extinction(
+                    self.bplan, bdev, *args, index=self.bindex, **kw)
+            return plain_banded_extinction(self.bplan, bdev, *args, **kw)
         if self.fplan is None:
             return torch.zeros((nl, self.wns.n), dtype=self.dtype,
                                device=self.device)
         fn = kernel_extinction if self.use_kernel else plain_extinction
         return fn(self.fplan, dev if dev is not None else self.fdev,
-                  temps_cgs, densities, Z, self._molm_t, self._molrad_t,
-                  wn_i=self.wns.i, dwn=self.wns.d,
-                  ethresh=self.cfg.ethreshold, nwidth=self.cfg.nwidth)
+                  *args, **kw)
 
     # ------------------------------------------------------------------
     def _spectrum(self, temps_raw, q, densities, full_result: bool,

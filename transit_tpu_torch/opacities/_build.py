@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
-The kernels are CUDA C++ with a plain C interface (``csrc/*.cu``), built
-with ``nvcc`` into one shared library and loaded with ``ctypes`` — no
-PyTorch headers, so a build takes seconds.  The library is built at first
+The kernels are CUDA C++ with a plain C interface (``csrc/*.cu``), each
+source compiled by its own ``nvcc`` (all started together), linked into
+one shared library and loaded with ``ctypes`` — no PyTorch headers, so a
+build takes seconds.  The library is built at first
 use into ``build/transit_tpu_torch/`` beside the package, under a name
 keyed by a hash of the sources and the flags, so an edited source is
 rebuilt and an unchanged one is loaded as it is.
@@ -27,14 +28,15 @@ PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG.parent / "build" / "transit_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-Xcompiler", "-fPIC"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 # extern "C" entry points: name -> argument types (all return cudaError_t).
 SIGNATURES = {
-    "line_tile_extinction": [_P] * 13 + [_I] * 6 + [_F] * 5 + [_P],
+    "line_tile_extinction": [_P] * 15 + [_I] * 9 + [_F] * 5 + [_P],
+    "shell_tile_extinction": [_P] * 15 + [_I] * 8 + [_F] * 9 + [_P],
     "layer_kmax": [_P] * 7 + [_I] * 3 + [_F] + [_P],
 }
 
@@ -67,26 +69,40 @@ def library_path() -> Path:
 
 
 def build(verbose: bool = False) -> Path:
-    """Compile the sources with nvcc unless the keyed library exists.
-    Returns its path.  ``verbose`` adds ``-Xptxas -v`` (registers, shared
+    """Compile the sources with nvcc unless the keyed library exists: one
+    nvcc per ``.cu`` file, all at once, then one link.  Returns the
+    library's path.  ``verbose`` adds ``-Xptxas -v`` (registers, shared
     memory and spills per kernel) and prints the compiler's output."""
     so = library_path()
     if so.exists() and not verbose:
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = [str(s) for s in sources() if s.suffix == ".cu"]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc_path(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", tmp, *cu]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                           f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
-    if verbose:
-        print(res.stdout + res.stderr)
-    os.replace(tmp, so)          # atomic: a reader never sees a partial .so
+    nvcc = nvcc_path()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        jobs = []
+        for src in (s for s in sources() if s.suffix == ".cu"):
+            obj = os.path.join(tmpdir, src.stem + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+                   "-c", "-o", obj, str(src)]
+            jobs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        outs = [(cmd, obj, p.communicate()[0], p.returncode)
+                for cmd, obj, p in jobs]
+        for cmd, _, text, rc in outs:
+            if rc != 0:
+                raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}"
+                                   f"\n{text}")
+            if verbose:
+                print(f"{' '.join(cmd)}\n{text}")
+        tmp = os.path.join(tmpdir, "lib.so")
+        cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", tmp,
+               *(obj for _, obj, _, _ in outs)]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
+                               f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
+        os.replace(tmp, so)      # atomic: a reader never sees a partial .so
     return so
 
 

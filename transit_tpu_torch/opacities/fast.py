@@ -1,16 +1,16 @@
 """Host-side line-tile plan of the fast extinction path.
 
 The counterpart of the planner half of transit_tpu.opacities.fast
-(fast.py:82-285, 1248-1267): the coarse wavenumber axis is split into
-tiles of TW bins and the wavenumber-sorted line list is bucketed to every
-tile its wings can reach (contiguous slices, duplication factor
-~(2*halo+TW)/TW).  The plan is numpy and equals transit_tpu's field for
-field; :func:`fast_device_arrays` turns it into the padded
-(ntiles, lmax) line tensors that the line-tile kernel
-(opacities/kernel_lbl.py) reads.
-
-The tile executor of the banded main path (``_run_tiles``, the far-wing
-shells) comes with the banded-plan slice.
+(fast.py:43-285, 881-1200, 1248-1267): the coarse wavenumber axis is
+split into tiles of TW bins and the wavenumber-sorted line list is
+bucketed to every tile its wings can reach (contiguous slices,
+duplication factor ~(2*halo+TW)/TW).  :func:`make_banded_plans` splits
+the layers into width bands with one plan each, and splits a band's
+lines into a near window and far-wing distance shells.  The plans are
+numpy and equal transit_tpu's field for field; :func:`fast_device_arrays`
+and :func:`banded_device_arrays` turn them into the padded
+(ntiles, lmax) line tensors that the kernels read
+(opacities/kernel_lbl.py, opacities/kernel_shell.py, opacities/banded.py).
 """
 
 from __future__ import annotations
@@ -21,6 +21,24 @@ import numpy as np
 import torch
 
 from transit_tpu_torch.constants import SQRTLN2, KB, AMU, LS, PI
+
+# Far-line margin: region II of the Humlicek w4 kernel is selected when
+# s = |x| + y >= 5.5, i.e. at distances >= 5.5/sqrt(ln2) Doppler widths
+# from the line center; 1.02 is a safety factor on the host width bound
+# (transit_tpu/opacities/fast.py:43-49).
+R2_MARGIN = 1.02 * 5.5 / float(SQRTLN2)
+# Far-wing decimation: a line at distance >= FAR_FACTOR * s bins from
+# every evaluation point may be evaluated on a stride-s grid and
+# Catmull-Rom interpolated back up (per-line relative error ~3e-5;
+# fast.py:51-61).
+FAR_FACTOR = 24
+# Scaled distance beyond which the two-term asymptotic Faddeeva kernel
+# replaces the region-II rational in a shell (fast.py:63-68).
+X_ASYM = 15.0
+# Relative per-element kernel costs of the planner's absorption decision
+# (fast.py:70-78).
+W4_COST = 1.0
+R2_COST = 0.3
 
 
 @dataclasses.dataclass
@@ -218,6 +236,273 @@ def fast_device_arrays(plan: FastPlan, iso, dtype=torch.float32,
         "all_gf": t(plan.gf),
         "all_iso": t(plan.isoid, torch.int32),
     }
+
+
+@dataclasses.dataclass
+class BandedPlan:
+    """Layer-banded fast plans (transit_tpu/opacities/fast.py:881-907).
+
+    Layers are permuted by descending width bound and split into
+    contiguous bands; each band gets its own FastPlan whose halo is that
+    band's width bound.  Results equal the unbanded path's (the wing mask
+    uses the true per-layer widths; banding only skips pairs the mask
+    would zero).
+    """
+    perm: np.ndarray          # (nl,) layer order, widest first
+    inv_perm: np.ndarray      # (nl,) inverse permutation
+    slices: list              # [(lo, hi)] into perm per band
+    plans: list               # FastPlan per band (near plan when split)
+    # Far-line split: per band, a list of distance SHELLS
+    # [(far plan, None, stride), ...] over the wing-only line ranges
+    # left and right of each tile's near window (one two-range plan per
+    # shell); None when the band isn't split.
+    far_plans: list = None
+
+
+def layer_width_bounds(atm, mol, iso_mass, iso_imol=None):
+    """Per-layer width bounds from the init atmosphere: (aL_max, aDf_max),
+    each (nlayer,); alphaD = aDf * wn (width formulas of
+    extinction.c:364-395)."""
+    t = atm.temp * atm.tfct
+    fdop = np.sqrt(2.0 * KB * t / AMU) * SQRTLN2 / LS
+    flor = np.sqrt(2.0 * KB * t / PI / AMU) / (AMU * LS)
+    if iso_imol is None:
+        iso_imol = np.zeros(iso_mass.shape[0], dtype=int)
+    aL = np.zeros(t.shape[0])
+    aDf = np.zeros(t.shape[0])
+    for mi in range(iso_mass.shape[0]):
+        aDf = np.maximum(aDf, fdop / np.sqrt(iso_mass[mi]))
+        al = np.zeros_like(t)
+        for j in range(len(mol.mass)):
+            csd = mol.radius[j] + mol.radius[iso_imol[mi]]
+            al += (atm.d[j] / mol.mass[j] * csd * csd *
+                   np.sqrt(1.0 / iso_mass[mi] + 1.0 / mol.mass[j]))
+        aL = np.maximum(aL, flor * al)
+    return aL, aDf
+
+
+def _lanes_choice(cnt, ne: int, far_decimate: bool) -> str:
+    """Register layout of a far-shell plan (fast.py:1063-1074 and
+    1125-1131, one rule): "bins" when it pads less than "lines"."""
+    mean_c = float(cnt.sum()) / max(len(cnt), 1)
+    waste_lines = max(128.0, mean_c) / max(mean_c, 1.0)
+    lane_pad = 128.0 * (-(-ne // 128)) / max(ne, 1)
+    waste_bins = lane_pad * max(8.0, mean_c) / max(mean_c, 1.0)
+    return "bins" if far_decimate and waste_bins < waste_lines else "lines"
+
+
+def make_banded_plans(wavn, isoid, elow, gf, wn_i: float, dwn: float,
+                      n_coarse: int, aL_layers, aDf_layers, wn_max: float,
+                      nwidth: float, max_bands: int = 4,
+                      ratio: float = 3.0, tw_scale: float = None,
+                      classes: bool = True,
+                      split_far: bool = True,
+                      far_decimate: bool = True,
+                      max_stride: int = 64) -> BandedPlan:
+    """Split layers into width bands and build one FastPlan per band
+    (transit_tpu/opacities/fast.py:932-1173, the same plans field for
+    field).
+
+    aL_layers/aDf_layers: per-layer width bounds (layer_width_bounds).
+    A new band starts when the layer width falls below 1/ratio of the
+    current band's maximum, up to max_bands bands.  The tile width is
+    the band's halo (a quarter of it once distance shells carry the
+    wings and the region-II margin is >= 8 bins), a power of two in
+    [8, 512].
+
+    split_far: per tile, split the bucketed lines into a near window
+    (within R2_MARGIN Doppler widths of a tile bin, full Humlicek w4) and
+    far ranges (wing only, region-II rational).  far_decimate: split the
+    far ranges into distance shells, stride s covering
+    [FAR_FACTOR*s, FAR_FACTOR*2s) bins, each evaluated on an s-decimated
+    grid and Catmull-Rom upsampled; the stride-1 shell may be absorbed
+    into the near window when the padded-eval cost model says so.
+    """
+    w = np.maximum(aL_layers, aDf_layers * wn_max)
+    perm = np.argsort(-w, kind="stable")
+    ws = w[perm]
+    slices = []
+    lo = 0
+    for i in range(1, len(ws) + 1):
+        if i == len(ws) or (ws[i] < ws[lo] / ratio and
+                            len(slices) < max_bands - 1):
+            slices.append((lo, i))
+            lo = i
+    order = np.argsort(wavn, kind="stable")
+    wavn_s = np.asarray(wavn, dtype=np.float64)[order]
+    isoid_s = np.asarray(isoid, dtype=np.int32)[order]
+    elow_s = np.asarray(elow, dtype=np.float64)[order]
+    gf_s = np.asarray(gf, dtype=np.float64)[order]
+    plans = []
+    far_plans = [] if split_far else None
+    for (a, b) in slices:
+        sel = perm[a:b]
+        halo_est = nwidth * float(w[sel].max()) / dwn
+        margin_est = (R2_MARGIN * float(aDf_layers[sel].max()) *
+                      wn_max / dwn)
+        scale = (tw_scale if tw_scale
+                 else (0.25 if (halo_est >= 2.0 * FAR_FACTOR + 16.0
+                                and margin_est >= 8.0)
+                       else 1.0))
+        tw = int(min(512, max(8, 2 ** int(np.ceil(np.log2(
+            max(halo_est * scale, 1.0)))))))
+        aL_max = float(aL_layers[sel].max())
+        aDf_max = float(aDf_layers[sel].max())
+        ntiles = -(-n_coarse // tw)
+        k = np.arange(ntiles)
+        wn_hi_tile = wn_i + (k + 1) * tw * dwn
+        width_t = np.maximum(aL_max, aDf_max * wn_hi_tile)
+        halo = nwidth * width_t / dwn + 1.0          # (ntiles,) in bins
+        lo_full = wn_i + (k * tw - halo) * dwn
+        hi_full = wn_i + ((k + 1) * tw + halo) * dwn
+        margin = R2_MARGIN * aDf_max * (wn_hi_tile + halo * dwn) + dwn
+        do_split = split_far and bool(np.any(halo * dwn > 2.0 * margin))
+        if not do_split:
+            plans.append(_subplan(
+                wavn_s, isoid_s, elow_s, gf_s,
+                np.searchsorted(wavn_s, lo_full, side="left"),
+                np.searchsorted(wavn_s, hi_full, side="right"),
+                tw=tw, ntiles=ntiles, n_coarse=n_coarse,
+                halo_rep=float(halo.max()), classes=classes))
+            if split_far:
+                far_plans.append(None)
+            continue
+        halo_wn = halo * dwn                              # (ntiles,)
+        tile_lo = wn_i + k * tw * dwn
+        tile_hi = wn_i + (k + 1) * tw * dwn
+
+        # Shell stride s spans [bound(s), bound(2s)) in wn per tile; the
+        # stride-1 shell starts at the region-II margin, the outermost
+        # ends at the full wing bound:
+        def bound(s):
+            if s == 1:
+                return margin
+            return np.minimum(np.maximum(margin + s * dwn,
+                                         FAR_FACTOR * s * dwn), halo_wn)
+
+        strides = [1]
+        if far_decimate:
+            s = 2
+            smax = min(max_stride, tw // 4)
+            while s <= smax and bool(np.any(bound(s) < halo_wn)):
+                strides.append(s)
+                s *= 2
+
+        def side_ranges(lo_b, hi_b):
+            """Per-tile line ranges of one shell's left and right side."""
+            sL0 = np.searchsorted(wavn_s, tile_lo - hi_b, side="left")
+            sL1 = np.searchsorted(wavn_s, tile_lo - lo_b, side="left")
+            sR0 = np.searchsorted(wavn_s, tile_hi + lo_b, side="right")
+            sR1 = np.searchsorted(wavn_s, tile_hi + hi_b, side="right")
+            return sL0, sL1, sR0, sR1
+
+        def est_cost(cnt, ne, weight, lanes):
+            """Padded-eval cost of a plan with per-tile line counts
+            ``cnt`` over ``ne`` evaluation bins in layout ``lanes``;
+            ``weight`` is the kernel's relative per-element cost."""
+            if lanes == "bins":
+                pl = np.maximum(8, -(-cnt // 8) * 8)
+                return weight * float(pl.sum()) * 128 * (-(-ne // 128))
+            pl = np.maximum(128, -(-cnt // 128) * 128)
+            return weight * float(pl.sum()) * ne
+
+        # Absorb the stride-1 shell into the near window when one merged
+        # w4 plan costs less than near + stride-1 shell (the w4 kernel
+        # equals the region-II rational on region-II inputs):
+        near_b = margin
+        absorb = False
+        if len(strides) > 1:
+            b2 = np.minimum(bound(strides[1]), halo_wn)
+            aL0, aL1, aR0, aR1 = side_ranges(margin, b2)
+            cnt_s1 = (aL1 - aL0) + (aR1 - aR0)
+            n0 = np.searchsorted(wavn_s, tile_lo - margin, side="left")
+            n1 = np.searchsorted(wavn_s, tile_hi + margin, side="right")
+            merged = est_cost((n1 - n0) + cnt_s1, tw, W4_COST, "lines")
+            sep = (est_cost(n1 - n0, tw, W4_COST, "lines") +
+                   est_cost(cnt_s1, tw, R2_COST,
+                            _lanes_choice(cnt_s1, tw, far_decimate)))
+            absorb = bool(merged < sep)
+            if absorb:
+                near_b = b2
+        plans.append(_subplan(
+            wavn_s, isoid_s, elow_s, gf_s,
+            np.searchsorted(wavn_s, tile_lo - near_b, side="left"),
+            np.searchsorted(wavn_s, tile_hi + near_b, side="right"),
+            tw=tw, ntiles=ntiles, n_coarse=n_coarse,
+            halo_rep=float(halo.max()), classes=classes))
+
+        def mk_far(sL0, sL1, sR0, sR1, ne, lo_b, stride_s):
+            """Far-shell subplan: both sides of the tile's near window in
+            one two-range padded tensor; the asymptotic kernel where every
+            line sits at x >= X_ASYM from every evaluation point; the
+            smooth per-line halo weight on decimated shells."""
+            cnt = (sL1 - sL0) + (sR1 - sR0)
+            lanes = _lanes_choice(cnt, ne, far_decimate)
+            aD_hi = aDf_max * (wn_hi_tile + halo_wn)
+            x_min = float(np.min(float(SQRTLN2) *
+                                 (lo_b - stride_s * dwn) / aD_hi))
+            tag = ("asym2" if far_decimate and x_min >= X_ASYM
+                   else "r2")
+            lwt = ((aL_max, aDf_max) if stride_s > 1 else None)
+            return _subplan(wavn_s, isoid_s, elow_s, gf_s, sL0, sL1,
+                            tw=tw, ntiles=ntiles, n_coarse=n_coarse,
+                            halo_rep=float(halo.max()), classes=classes,
+                            lanes=lanes, wfn_tag=tag, line_weight=lwt,
+                            start2=sR0, end2=sR1)
+
+        shells = []
+        for si, s in enumerate(strides):
+            if s == 1 and absorb:
+                continue                 # folded into the near window
+            lo_b = bound(s) if s > 1 else near_b
+            # The outermost decimated shell extends to 1.125*halo, where
+            # its per-line halo weight reaches 0:
+            if si + 1 < len(strides):
+                hi_b = bound(strides[si + 1])
+            else:
+                hi_b = halo_wn if s == 1 else 1.125 * halo_wn
+            ne = tw // s + 3 if s > 1 else tw
+            sL0, sL1, sR0, sR1 = side_ranges(lo_b, hi_b)
+            if int((sL1 - sL0).max()) > 0 or int((sR1 - sR0).max()) > 0:
+                shells.append((mk_far(sL0, sL1, sR0, sR1, ne, lo_b, s),
+                               None, s))
+        far_plans.append(shells if shells else None)
+    inv = np.empty_like(perm)
+    inv[perm] = np.arange(len(perm))
+    return BandedPlan(perm=perm, inv_perm=inv, slices=slices, plans=plans,
+                      far_plans=far_plans)
+
+
+def _far_tile_tensors(fp: FastPlan, iso, dtype, device):
+    """Tile-tensor subset of fast_device_arrays for a far subplan (the
+    all_*/iso_* arrays are shared with the band's near dict)."""
+    fd = fast_device_arrays(fp, iso, dtype=dtype, device=device)
+    return {k: fd[k] for k in
+            (("classes",) if fp.class_tiles is not None
+             else ("wavn", "elow", "gf", "iso", "mask"))}
+
+
+def banded_device_arrays(bplan: BandedPlan, iso, dtype=torch.float32,
+                         device="cuda"):
+    """Per-band tensors on ``device`` (a list parallel to bplan.plans, as
+    transit_tpu's banded_device_arrays).  A far-split band's dict gains a
+    "far" list parallel to its shells: (tensors, None) per shell.  The
+    bands' full line arrays (``all_*``) and isotope tables are equal, so
+    every band shares the first band's tensors."""
+    devs = []
+    for i, p in enumerate(bplan.plans):
+        d = fast_device_arrays(p, iso, dtype=dtype, device=device)
+        if devs:
+            d.update({k: v for k, v in devs[0].items()
+                      if k.startswith(("all_", "iso_"))})
+        far = bplan.far_plans[i] if bplan.far_plans is not None else None
+        if far:
+            d["far"] = [tuple(_far_tile_tensors(fp, iso, dtype, device)
+                              if fp is not None else None
+                              for fp in (pL, pR))
+                        for (pL, pR, _s) in far]
+        devs.append(d)
+    return devs
 
 
 def _layer_widths(temps, densities, iso_mass, iso_imol, mol_mass,

@@ -1,5 +1,7 @@
-"""Line extinction on the unbanded tile plan through the CUDA line-tile
-kernel — the counterpart of transit_tpu.opacities.pallas_lbl.
+"""Line extinction on a tile plan through the CUDA line-tile kernel — the
+counterpart of transit_tpu.opacities.pallas_lbl, and of the near tiles and
+stride-1 far shells of the banded path (fast._run_tiles with a per-layer
+wing cutoff).
 
 ``kernel_extinction`` takes the arguments of ``pallas_extinction``
 (pallas_lbl.py:101) and returns the line extinction (nlayer, n_coarse):
@@ -19,6 +21,12 @@ full line list (the scan JAX runs outside ``pallas_call``), and
 ``line_tile_extinction``.  On a CPU tensor it computes
 :func:`plain_extinction`, the plain PyTorch version of the same
 function, with :func:`plain_kmax` for the scan.
+
+The banded path (opacities/banded.py) launches the same kernel per tile
+class of a plan, on the band's layer rows, with the Voigt function of the
+plan's ``wfn_tag`` and the bin wavenumbers rounded as fast._run_tiles
+rounds them (``bins_first``); :func:`plain_line_tiles` is its plain
+version.
 """
 
 from __future__ import annotations
@@ -29,12 +37,14 @@ import torch
 
 from transit_tpu_torch.constants import SQRTLN2, SIGCTE, EXPCTE
 from transit_tpu_torch.opacities.fast import FastPlan, _layer_widths
-from transit_tpu_torch.opacities.voigt import (humlicek_regions,
-                                               voigt_k_humlicek)
+from transit_tpu_torch.opacities.voigt import (FAR_KERNELS, WFN_CODE,
+                                               humlicek_regions)
 
 # Elements of the (layer, tile, bin, line) volume the plain version
-# holds at once; it walks the tiles in chunks of this size.
-PLAIN_ELEMENTS = 1 << 25
+# holds at once; it walks the tiles in chunks of this size: small enough
+# on the CPU for its temporaries to stay in cache, large on the card to
+# keep its launches few.
+PLAIN_ELEMENTS = {"cpu": 1 << 18, "cuda": 1 << 25}
 # Lines per chunk of the strength pre-pass (kmax scan).
 KMAX_CHUNK = 1 << 16
 
@@ -57,14 +67,16 @@ def width_tables(d, temps, densities, mol_mass, mol_radius):
             "densm": densities.T[:, imol]}
 
 
-def plain_kmax(d, temps, coef0):
+def plain_kmax(d, temps, coef0, floor: float = -torch.inf):
     """Per-layer species-collapsed maximum line strength (nl,) over the
-    full line list (pallas_lbl.py:127-133): the max over lines of
-    k0 = gf e^(-c2 El/T) (1 - e^(-c2 nu/T)) coef0[layer, iso]; -inf for
-    an empty list.  The plain PyTorch version of :func:`layer_kmax`."""
+    full line list (pallas_lbl.py:127-133): the max of ``floor`` and,
+    over lines, k0 = gf e^(-c2 El/T) (1 - e^(-c2 nu/T)) coef0[layer, iso].
+    The default floor -inf is jnp.max's (pallas_lbl.py:133); the banded
+    path's scan starts its carry at 0 (fast._kmax_scan, fast.py:413-418).
+    The plain PyTorch version of :func:`layer_kmax`."""
     T = temps[:, None]
     nlines = d["all_wavn"].shape[0]
-    kmax = torch.full_like(temps, -torch.inf)
+    kmax = torch.full_like(temps, floor)
     for a in range(0, nlines, KMAX_CHUNK):
         w = d["all_wavn"][None, a:a + KMAX_CHUNK]
         s = (d["all_gf"][None, a:a + KMAX_CHUNK] *
@@ -88,78 +100,102 @@ def layer_tables(d, temps, densities, Z, mol_mass, mol_radius):
 def _line_chunks(plan: FastPlan, d, tab, temps, ethresh: float,
                  nwidth: float):
     """Walk the tiles in chunks whose (layer, tile, bin, line) volume stays
-    under PLAIN_ELEMENTS elements.  Yields (t0, t1, wn0, wv, keep, k, aD,
-    aL, wing) for tiles t0:t1: the tiles' first-bin wavenumber
-    wn_i + dwn*(tile*tw) is left to the caller; wv (tc, L) the line
-    wavenumbers; and per (layer, tile, line), each (nl, tc, L): ``keep``,
-    a line that is not masked or dropped by the ethresh cut; the line
-    strength x density k, 0 where not kept; alphaD, alphaL, and the wing
-    half-width nwidth * max(alphaD, alphaL)."""
+    under PLAIN_ELEMENTS elements.  Yields (t0, t1, wv, keep, k, aD, aL,
+    wing, mask) for tiles t0:t1: wv (tc, L) the line wavenumbers; per
+    (layer, tile, line), each (nl, tc, L): ``keep``, a line that is not
+    masked or dropped by the ethresh cut; the line strength x density k,
+    0 where not kept; alphaD, alphaL, and the wing half-width
+    nwidth * max(alphaD, alphaL); and the line mask (tc, L).  L stops at
+    the chunk's longest line list: the padding after it is masked."""
     nl = temps.shape[0]
     ntiles, lmax = d["wavn"].shape
     T = temps[:, None, None]
     kthr = (ethresh * tab["kmax"])[:, None, None]
-    step = max(1, PLAIN_ELEMENTS // max(1, nl * plan.tw * lmax))
+    step = max(1, PLAIN_ELEMENTS[temps.device.type] //
+               max(1, nl * plan.tw * lmax))
     for t0 in range(0, ntiles, step):
         t1 = min(ntiles, t0 + step)
-        wv = d["wavn"][t0:t1]                               # (tc, L)
-        el = d["elow"][t0:t1]
-        iso = d["iso"][t0:t1].long()
+        n = max(1, int(d["mask"][t0:t1].sum(dim=1).max()))
+        mask = d["mask"][t0:t1, :n]
+        wv = d["wavn"][t0:t1, :n]                           # (tc, L)
+        el = d["elow"][t0:t1, :n]
+        iso = d["iso"][t0:t1, :n].long()
         aL = tab["alphal"][:, iso]                          # (nl, tc, L)
-        k0 = (d["gf"][t0:t1] * torch.exp(-EXPCTE * el / T) *
+        k0 = (d["gf"][t0:t1, :n] * torch.exp(-EXPCTE * el / T) *
               (1.0 - torch.exp(-EXPCTE * wv / T)) * tab["coef0"][:, iso])
-        keep = d["mask"][t0:t1] & (k0 >= kthr)
+        keep = mask & (k0 >= kthr)
         k = torch.where(keep, k0 * tab["densm"][:, iso], 0.0)
         aD = tab["alphad_f"][:, iso] * wv
-        yield t0, t1, wv, keep, k, aD, aL, nwidth * torch.maximum(aD, aL)
+        yield (t0, t1, wv, keep, k, aD, aL, nwidth * torch.maximum(aD, aL),
+               mask)
 
 
-def _tile_wn0(t0: int, t1: int, tw: int, wn_i: float, dwn: float, dtype,
-              device):
-    """The kernel's first-bin wavenumber of tiles t0:t1,
-    wn_i + dwn*(tile*tw), rounded in ``dtype``."""
-    tile = torch.arange(t0, t1, device=device).to(dtype)
-    return wn_i + dwn * (tile * tw)
+def _bin_origin(tile, tw: int, wn_i: float, dwn: float, bins_first: bool):
+    """(wa, wb), each (tc,) in the dtype of ``tile`` (the global tile
+    indices, as floats): the kernel's bin wavenumber is
+    (wa + dwn*bin) + wb.  The unbanded path rounds as the Pallas kernel
+    does, wa = wn_i + dwn*(tile*tw) and wb = 0 (pallas_lbl.py:59); with
+    ``bins_first``, as fast._run_tiles does, wa = wn_i and
+    wb = dwn*(tile*tw) (fast.py:723, 771)."""
+    toff = dwn * (tile * tw)
+    if bins_first:
+        return torch.full_like(tile, wn_i), toff
+    return wn_i + toff, torch.zeros_like(tile)
+
+
+def _tile_ids(gidx, t0: int, t1: int, dtype, device):
+    """Global tile indices of rows t0:t1 of the line tensors, as floats
+    (``gidx`` None: the rows are the tiles)."""
+    if gidx is None:
+        return torch.arange(t0, t1, device=device).to(dtype)
+    return torch.as_tensor(gidx[t0:t1], device=device).to(dtype)
 
 
 def _tile_chunks(plan: FastPlan, d, tab, temps, wn_i: float, dwn: float,
-                 ethresh: float, nwidth: float):
+                 ethresh: float, nwidth: float, gidx=None,
+                 bins_first: bool = False):
     """Walk the tiles in chunks (:func:`_line_chunks`).  Yields (t0, t1,
     k, x, y, inv, use) for tiles t0:t1: the line strength x density k
     (nl, tc, L), 0 where the line is masked or dropped by the ethresh cut;
-    the Voigt arguments x (nl, tc, tw, L) and y, and 1/alphaD inv, both
+    the Voigt arguments x (nl, tc, tw, L), clamped at 1e8 as
+    fast._block_primal does, and y, and 1/alphaD inv, both
     (nl, tc, 1, L); and ``use`` (nl, tc, tw, L), a kept line inside its
-    wing."""
+    wing.  ``gidx``: the global tile index of each row of ``d`` (None:
+    row i is tile i); ``bins_first``: see :func:`_bin_origin`."""
     tw = plan.tw
     dtype, device = d["wavn"].dtype, d["wavn"].device
     bins = torch.arange(tw, device=device).to(dtype)
-    for t0, t1, wv, keep, k, aD, aL, wing in _line_chunks(
+    for t0, t1, wv, keep, k, aD, aL, wing, _ in _line_chunks(
             plan, d, tab, temps, ethresh, nwidth):
         inv = 1.0 / aD
         y = SQRTLN2 * aL * inv
-        # The kernel's bin wavenumber, wn_i + dwn*(tile*tw) + dwn*bin:
-        wn_col = (_tile_wn0(t0, t1, tw, wn_i, dwn, dtype, device)[:, None] +
-                  (dwn * bins)[None, :])
+        # The kernel's bin wavenumber, (wa + dwn*bin) + wb:
+        wa, wb = _bin_origin(_tile_ids(gidx, t0, t1, dtype, device), tw,
+                             wn_i, dwn, bins_first)
+        wn_col = (wa[:, None] + (dwn * bins)[None, :]) + wb[:, None]
         dist = (wn_col[:, :, None] - wv[:, None, :]).abs()  # (tc, tw, L)
         inv = inv[:, :, None, :]
-        x = SQRTLN2 * dist[None] * inv                      # (nl, tc, tw, L)
+        x = torch.clamp_max(SQRTLN2 * dist[None] * inv, 1e8)
         use = (dist[None] <= wing[:, :, None, :]) & keep[:, :, None, :]
         yield t0, t1, k, x, y[:, :, None, :], inv, use
 
 
-def _find_runs(wn0, wv, wing, dwn: float, tw: int):
+def _find_runs(wa, wb, wv, wing, dwn: float, tw: int):
     """The run [b0, b1] of each line's bins inside its wing, the way the
     kernel finds it (csrc/line_tile.cu:find_run): seeded at the bin
     nearest the line, clamped to the tile; if that bin is out, walk toward
     the line until a bin is in, or the walk passes the line or the tile;
-    then extend both ends while the next bin is in.  wn0 (tc,), wv
-    (tc, L), wing (nl, tc, L) -> b0, b1 (int64) and ``found`` (bool),
-    each (nl, tc, L)."""
-    wn0 = wn0[None, :, None]
+    then extend both ends while the next bin is in.  Bin b lies at
+    (wa + dwn*b) + wb (:func:`_bin_origin`); wa, wb (tc,), wv (tc, L),
+    wing (nl, tc, L) -> b0, b1 (int64) and ``found`` (bool), each
+    (nl, tc, L)."""
+    wa = wa[None, :, None]
+    wb = wb[None, :, None]
+    wn0 = wa + wb
     wv = wv[None]
 
     def wn(b):
-        return wn0 + dwn * b.to(wv.dtype)
+        return (wa + dwn * b.to(wv.dtype)) + wb
 
     def inside(b):
         return (wn(b) - wv).abs() <= wing
@@ -191,59 +227,80 @@ def _find_runs(wn0, wv, wing, dwn: float, tw: int):
 
 
 def bin_runs(plan: FastPlan, d, tab, temps, wn_i: float, dwn: float,
-             ethresh: float, nwidth: float):
+             ethresh: float, nwidth: float, gidx=None,
+             bins_first: bool = False):
     """The (layer, tile, line) entries of the kernel's design, by chunks
     of tiles: yields (t0, t1, b0, b1, reach, live), each (nl, tc, L) but
     t0, t1; ``reach`` is an unmasked line whose wing reaches a bin of the
     tile (the kernel computes its strength chain), ``live`` one of those
     that is kept, [b0, b1] the run of the tile's bins it reaches
     (:func:`_find_runs`).  The bins of the live runs are exactly ``use``
-    of :func:`_tile_chunks`."""
+    of :func:`_tile_chunks` (same ``gidx`` and ``bins_first``)."""
     dtype, device = d["wavn"].dtype, d["wavn"].device
-    for t0, t1, wv, keep, _, _, _, wing in _line_chunks(
+    for t0, t1, wv, keep, _, _, _, wing, mask in _line_chunks(
             plan, d, tab, temps, ethresh, nwidth):
-        wn0 = _tile_wn0(t0, t1, plan.tw, wn_i, dwn, dtype, device)
-        b0, b1, found = _find_runs(wn0, wv, wing, dwn, plan.tw)
-        reach = found & d["mask"][None, t0:t1]
+        wa, wb = _bin_origin(_tile_ids(gidx, t0, t1, dtype, device),
+                             plan.tw, wn_i, dwn, bins_first)
+        b0, b1, found = _find_runs(wa, wb, wv, wing, dwn, plan.tw)
+        reach = found & mask[None]
         yield t0, t1, b0, b1, reach, keep & found
 
 
 def run_counts(plan: FastPlan, d, tab, temps, wn_i: float, dwn: float,
-               ethresh: float, nwidth: float) -> dict:
+               ethresh: float, nwidth: float, gidx=None,
+               bins_first: bool = False) -> dict:
     """The kernel's own work on this data (:func:`bin_runs`):
     ``chains``, the (layer, tile, line) entries whose wing reaches the
     tile, each a strength chain; ``live``, the kept ones; ``pairs``, the
     (layer, bin, line) pairs of their runs, each a Voigt evaluation."""
     out = {"chains": 0, "live": 0, "pairs": 0}
     for *_, b0, b1, reach, live in bin_runs(plan, d, tab, temps, wn_i, dwn,
-                                            ethresh, nwidth):
+                                            ethresh, nwidth, gidx,
+                                            bins_first):
         out["chains"] += int(reach.sum())
         out["live"] += int(live.sum())
         out["pairs"] += int(torch.where(live, b1 - b0 + 1, 0).sum())
     return out
 
 
+def plain_line_tiles(plan: FastPlan, d, tab, temps, wn_i: float,
+                     dwn: float, ethresh: float, nwidth: float, gidx=None,
+                     bins_first: bool = False, wfn_tag: str = "w4"):
+    """The line-tile function on the line tensors ``d`` (nt, lmax) and the
+    per-layer tables ``tab`` of the layers of ``temps``: (nl, nt, tw), for
+    each layer, tile and bin the sum over the tile's kept lines inside
+    their wing of k K(x, y) / alphaD, with K the Voigt function of
+    ``wfn_tag`` (fast._block_primal without a line weight, fast.py:554).
+    The plain PyTorch version of :func:`line_tile_extinction`, walking
+    the tiles in chunks (:func:`_tile_chunks`)."""
+    voigt = FAR_KERNELS[wfn_tag]
+    nl = temps.shape[0]
+    ntiles, tw = d["wavn"].shape[0], plan.tw
+    out = torch.zeros((nl, ntiles, tw), dtype=d["wavn"].dtype,
+                      device=d["wavn"].device)
+    for t0, t1, k, x, y, inv, use in _tile_chunks(
+            plan, d, tab, temps, wn_i, dwn, ethresh, nwidth, gidx,
+            bins_first):
+        prof = voigt(x, y) * inv
+        out[:, t0:t1] = (torch.where(use, prof, 0.0) *
+                         k[:, :, None, :]).sum(dim=3)
+    return out
+
+
 def plain_extinction(plan: FastPlan, d, temps, densities, Z, mol_mass,
                      mol_radius, wn_i: float, dwn: float, ethresh: float,
                      nwidth: float):
-    """Extinction (nlayer, n_coarse): the plain PyTorch version of the
-    line-tile kernel, on the tensors' device, walking the tiles in chunks
-    (:func:`_tile_chunks`)."""
+    """Extinction (nlayer, n_coarse) on the unbanded plan: the plain
+    PyTorch version of :func:`kernel_extinction`, on the tensors'
+    device (:func:`layer_tables`, :func:`plain_line_tiles`)."""
     tab = layer_tables(d, temps, densities, Z, mol_mass, mol_radius)
-    nl = temps.shape[0]
-    ntiles, tw = d["wavn"].shape[0], plan.tw
-    out = torch.zeros((nl, ntiles * tw), dtype=d["wavn"].dtype,
-                      device=d["wavn"].device)
-    for t0, t1, k, x, y, inv, use in _tile_chunks(
-            plan, d, tab, temps, wn_i, dwn, ethresh, nwidth):
-        prof = voigt_k_humlicek(x, y) * inv
-        val = (torch.where(use, prof, 0.0) * k[:, :, None, :]).sum(dim=3)
-        out[:, t0 * tw:t1 * tw] = val.reshape(nl, (t1 - t0) * tw)
-    return out[:, :plan.n_coarse]
+    out = plain_line_tiles(plan, d, tab, temps, wn_i, dwn, ethresh, nwidth)
+    return out.reshape(temps.shape[0], -1)[:, :plan.n_coarse]
 
 
 def work_counts(plan: FastPlan, d, tab, temps, wn_i: float, dwn: float,
-                ethresh: float, nwidth: float) -> dict:
+                ethresh: float, nwidth: float, gidx=None,
+                bins_first: bool = False) -> dict:
     """The work the line-tile function needs on this data, whatever the
     design: ``layer_lines``, one strength and width chain per (layer,
     line) of the line list; and the Voigt evaluations of kept lines inside
@@ -252,7 +309,7 @@ def work_counts(plan: FastPlan, d, tab, temps, wn_i: float, dwn: float,
     out = {"layer_lines": temps.shape[0] * d["all_wavn"].shape[0],
            "II": 0, "III": 0, "IV": 0}
     for *_, x, y, _, use in _tile_chunks(plan, d, tab, temps, wn_i, dwn,
-                                         ethresh, nwidth):
+                                         ethresh, nwidth, gidx, bins_first):
         for name, region in zip(("II", "III", "IV"),
                                 humlicek_regions(x, y)):
             out[name] += int((use & region).sum())
@@ -286,12 +343,17 @@ def kernel_extinction(plan: FastPlan, d, temps, densities, Z, mol_mass,
 
 def _check_cuda(fn: str, args: dict, ints=("iso",)):
     """Raise unless every tensor of ``args`` is on one CUDA device,
-    float32 (int32 for ``ints``, bool for ``mask``); returns the
-    device."""
+    float32 (int32 for ``ints``, bool for ``mask``) and needs no
+    gradient (the kernels have no backward yet); returns the device."""
     device = next(iter(args.values())).device
     if device.type != "cuda":
         raise ValueError(f"{fn} runs on CUDA tensors, not {device}")
     for name, t in args.items():
+        if t.requires_grad:
+            raise NotImplementedError(
+                f"{fn}: {name} requires grad; gradients through the CUDA "
+                f"kernels come with the gradients / forward_batch slice "
+                f"(see ROADMAP.md)")
         want = (torch.int32 if name in ints else
                 torch.bool if name == "mask" else torch.float32)
         if t.dtype != want:
@@ -303,12 +365,13 @@ def _check_cuda(fn: str, args: dict, ints=("iso",)):
     return device
 
 
-def layer_kmax(d, temps, coef0):
+def layer_kmax(d, temps, coef0, floor: float = -torch.inf):
     """Launch ``layer_kmax`` (csrc/line_tile.cu): the per-layer maximum
     line strength (nl,) float32 over the full line list of ``d``, at the
     layer temperatures ``temps`` (nl,) and strength coefficients
-    ``coef0`` (nl, niso) — :func:`plain_kmax` on the card.  Raises on any
-    other device, type or shape, and when the launch fails."""
+    ``coef0`` (nl, niso), and at least ``floor`` — :func:`plain_kmax` on
+    the card.  Raises on any other device, type or shape, and when the
+    launch fails."""
     from transit_tpu_torch.opacities._build import load_library
 
     lines = {k: d[k] for k in ("all_wavn", "all_elow", "all_gf", "all_iso")}
@@ -323,8 +386,7 @@ def layer_kmax(d, temps, coef0):
     if coef0.dim() != 2 or coef0.shape[0] != nl or temps.dim() != 1:
         raise ValueError(f"layer_kmax: temps {tuple(temps.shape)} and "
                          f"coef0 {tuple(coef0.shape)} do not match")
-    kmax = torch.full((nl,), -torch.inf, dtype=torch.float32,
-                      device=device)
+    kmax = torch.full((nl,), floor, dtype=torch.float32, device=device)
     if nl == 0 or nlines == 0:
         return kmax
     args = {k: v.contiguous() for k, v in args.items()}
@@ -345,26 +407,38 @@ def layer_kmax(d, temps, coef0):
 
 def line_tile_extinction(plan: FastPlan, d, tab, temps, wn_i: float,
                          dwn: float, ethresh: float, nwidth: float,
-                         stats=None):
+                         stats=None, *, tiles=None, rows=None, out=None,
+                         accumulate: bool = False, bins_first: bool = False,
+                         wfn_tag: str = None):
     """Launch ``line_tile_extinction`` (csrc/line_tile.cu) on the line
     tiles ``d`` and the per-layer tables ``tab`` (:func:`layer_tables`)
     -> extinction (nlayer, n_coarse), float32 on the tiles' CUDA device.
-    ``stats``, a (3,) int64 tensor on the card, gets the strength chains
-    computed, the live (layer, tile, line) entries and the (layer, bin,
-    line) pairs evaluated added to it (:func:`run_counts` counts the
-    same on the host).  Raises on any other device, type or shape, and
-    when the launch fails."""
+
+    ``tiles``: int32 global tile index of each row of ``d`` (one tile
+    class; None: row i is tile i of the plan).  ``rows``: int32 layer
+    indices into ``temps`` and ``tab`` that the launch computes (None:
+    all).  ``out``: the (nlayer, n_coarse) float32 output to write in
+    place, the launch's (row, tile) block only; ``accumulate`` adds the
+    launch's sums to it.  ``bins_first``: the bin wavenumber's rounding
+    (:func:`_bin_origin`).  ``wfn_tag``: the Voigt function, the plan's
+    own by default.  ``stats``, a (3,) int64 tensor on the card, gets
+    the strength chains computed, the live (layer, tile, line) entries
+    and the (layer, bin, line) pairs evaluated added to it
+    (:func:`run_counts` counts the same on the host).  Raises on any
+    other device, type or shape, and when the launch fails."""
     from transit_tpu_torch.opacities._build import load_library
 
-    if plan.class_tiles is not None:
-        raise NotImplementedError(
-            "tile classes come with the banded-plan slice")
     lines = {k: d[k] for k in ("wavn", "elow", "gf", "iso", "mask")}
-    args = {**lines, **tab, "temps": temps}
-    device = _check_cuda("line_tile_extinction", args)
+    idx = {k: v for k, v in (("tiles", tiles), ("rows", rows))
+           if v is not None}
+    args = {**lines, **tab, "temps": temps, **idx}
+    device = _check_cuda("line_tile_extinction", args,
+                         ints=("iso", "tiles", "rows"))
     ntiles, lmax = d["wavn"].shape
-    if plan.ntiles != ntiles or plan.lmax != lmax:
+    if tiles is None and (plan.ntiles != ntiles or plan.lmax != lmax):
         raise ValueError("line tensors do not match the plan")
+    if tiles is not None and tuple(tiles.shape) != (ntiles,):
+        raise ValueError("line_tile_extinction: one tile index per row")
     for name in lines:
         if tuple(d[name].shape) != (ntiles, lmax):
             raise ValueError(f"line_tile_extinction: {name} has shape "
@@ -377,15 +451,30 @@ def line_tile_extinction(plan: FastPlan, d, tab, temps, wn_i: float,
                              f"{tuple(tab[name].shape)}")
     if tuple(tab["kmax"].shape) != (nl,):
         raise ValueError("line_tile_extinction: kmax must be (nl,)")
-    if stats is not None and (stats.dtype != torch.int64 or
-                              tuple(stats.shape) != (3,) or
-                              stats.device != device or
-                              not stats.is_contiguous()):
-        raise ValueError(f"line_tile_extinction: stats must be a (3,) "
-                         f"int64 tensor on {device}")
-    out = torch.empty((nl, plan.n_coarse), dtype=torch.float32,
-                      device=device)
-    if nl == 0 or plan.n_coarse == 0:
+    if rows is not None and rows.dim() != 1:
+        raise ValueError("line_tile_extinction: rows must be 1-d")
+    if plan.tw > 512:
+        raise ValueError(f"line_tile_extinction: tile width {plan.tw} > "
+                         f"512")
+    wfn = wfn_tag or plan.wfn_tag
+    if wfn not in ("w4", "r2"):
+        raise ValueError(f"line_tile_extinction: Voigt function {wfn!r}; "
+                         f"the kernel has w4 and r2")
+    _check_stats("line_tile_extinction", stats, device)
+    if out is None:
+        if accumulate:
+            raise ValueError("line_tile_extinction: accumulate needs out")
+        subset = tiles is not None or rows is not None
+        out = (torch.zeros if subset else torch.empty)(
+            (nl, plan.n_coarse), dtype=torch.float32, device=device)
+    elif (out.dtype != torch.float32 or out.device != device or
+          tuple(out.shape) != (nl, plan.n_coarse) or
+          not out.is_contiguous()):
+        raise ValueError(f"line_tile_extinction: out must be a contiguous "
+                         f"({nl}, {plan.n_coarse}) float32 tensor on "
+                         f"{device}")
+    nrows = nl if rows is None else rows.shape[0]
+    if nrows == 0 or plan.n_coarse == 0 or ntiles == 0:
         return out
     args = {k: v.contiguous() for k, v in args.items()}
 
@@ -397,16 +486,27 @@ def line_tile_extinction(plan: FastPlan, d, tab, temps, wn_i: float,
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.line_tile_extinction(
             *(ptr(args[k]) for k in ("wavn", "elow", "gf", "iso", "mask")),
+            ptr(args.get("tiles")), ptr(args.get("rows")),
             *(ptr(args[k]) for k in ("temps", "alphal", "alphad_f", "coef0",
                                      "densm", "kmax")),
-            ptr(out), ptr(stats), nl, ntiles, lmax, niso, plan.tw,
-            plan.n_coarse, wn_i, dwn, ethresh, nwidth, -EXPCTE,
-            ctypes.c_void_p(stream))
+            ptr(out), ptr(stats), nrows, ntiles, lmax, niso, plan.tw,
+            plan.n_coarse, int(accumulate), int(bins_first),
+            WFN_CODE[wfn], wn_i, dwn, ethresh, nwidth,
+            -EXPCTE, ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"line_tile_extinction failed to launch: CUDA "
                            f"error {err}")
     line_tile_extinction.launches += 1
     return out
+
+
+def _check_stats(fn: str, stats, device):
+    if stats is not None and (stats.dtype != torch.int64 or
+                              tuple(stats.shape) != (3,) or
+                              stats.device != device or
+                              not stats.is_contiguous()):
+        raise ValueError(f"{fn}: stats must be a (3,) int64 tensor on "
+                         f"{device}")
 
 
 # Kernel launches since the last reset (plain counts; set one to 0 to

@@ -1,10 +1,13 @@
-"""Humlicek w4 Voigt profile on tensors (forward only).
+"""Humlicek w4 Voigt profile and the far-wing kernels on tensors (forward
+only).
 
 The plain PyTorch counterpart of transit_tpu.opacities.voigt's
-``_humlicek_w`` / ``voigt_k_humlicek`` (voigt.py:116-249).  It is the
-Voigt function of the line-tile kernel's plain version
-(opacities/kernel_lbl.py), and the CUDA kernel (csrc/line_tile.cu)
-evaluates the same regions with the same constants.  The numerical
+``_humlicek_w`` / ``voigt_k_humlicek`` (voigt.py:116-249), its region II
+alone (``_humlicek_w_r2``, :272-323) and the two-term asymptotic pair
+(``_w_asym2``, :334-370).  They are the Voigt functions of the kernels'
+plain versions (opacities/kernel_lbl.py, opacities/kernel_shell.py), and
+the CUDA kernels (csrc/*.cu) evaluate the same formulas with the same
+constants.  The numerical
 contracts carry over unchanged:
 
   * real-pair complex arithmetic;
@@ -21,7 +24,7 @@ from __future__ import annotations
 
 import torch
 
-from transit_tpu_torch.constants import SQRTLN2PI
+from transit_tpu_torch.constants import SQRTLN2PI, TWOOSQRTPI
 
 
 def humlicek_regions(x: torch.Tensor, y: torch.Tensor):
@@ -108,3 +111,62 @@ def voigt_k_humlicek(x: torch.Tensor, y: torch.Tensor):
     rational approximation (voigt.py:225, forward only).  Multiply by
     1/alphaD for the area-normalised profile value."""
     return SQRTLN2PI * _humlicek_w(x, y)[0]
+
+
+def _humlicek_w_r2(x: torch.Tensor, y: torch.Tensor):
+    """Region II of the w4 pair alone, (Re w, Im w): the v = 1/u form,
+    with |u|^2 floored at 1 so that zero-weighted padding lanes
+    (x ~ y ~ 0) stay finite; valid lanes have |u|^2 >= 900."""
+    x, y = torch.broadcast_tensors(x, y)
+    tr, ti = y, -x
+    ur = (y - x) * (y + x)
+    ui = -2.0 * x * y
+    uinv = 1.0 / torch.clamp_min(ur * ur + ui * ui, 1.0)
+    vr, vi = ur * uinv, -ui * uinv
+    v2r = vr * vr - vi * vi
+    v2i = 2.0 * vr * vi
+    cr = 1.410474 * v2r + 0.5641896 * vr
+    ci = 1.410474 * v2i + 0.5641896 * vi
+    nr = tr * cr - ti * ci
+    ni = tr * ci + ti * cr
+    dr = 1.0 + 3.0 * vr + 0.75 * v2r
+    di = 3.0 * vi + 0.75 * v2i
+    dinv = 1.0 / (dr * dr + di * di)
+    return (nr * dr + ni * di) * dinv, (ni * dr - nr * di) * dinv
+
+
+def voigt_k_humlicek_r2(x: torch.Tensor, y: torch.Tensor):
+    """K(x, y) from region II of w4 alone (voigt.py:310): equal to
+    :func:`voigt_k_humlicek` wherever |x| + y >= 5.5 — the far-wing
+    stride-1 shells."""
+    return SQRTLN2PI * _humlicek_w_r2(x, y)[0]
+
+
+def _w_asym2(x: torch.Tensor, y: torch.Tensor):
+    """Two-term asymptotic Faddeeva pair w(z) ~ (i/sqrt(pi)) (1/z +
+    1/(2 z^3)), z = x + iy, as (Re w, Im w); relative error <= 3/(4|z|^4).
+    |z|^2 is floored at 1 (valid lanes have |z|^2 >= 121)."""
+    x, y = torch.broadcast_tensors(x, y)
+    r2 = torch.clamp_min(x * x + y * y, 1.0)
+    rinv = 1.0 / r2
+    ur = x * rinv                 # 1/z = (x - i y)/|z|^2
+    ui = -y * rinv
+    u2r = ur * ur - ui * ui
+    u2i = 2.0 * ur * ui
+    fr = ur * (1.0 + 0.5 * u2r) - 0.5 * ui * u2i
+    fi = ui * (1.0 + 0.5 * u2r) + 0.5 * ur * u2i
+    inv_sqrtpi = 0.5 * TWOOSQRTPI
+    return -fi * inv_sqrtpi, fr * inv_sqrtpi
+
+
+def voigt_k_asym2(x: torch.Tensor, y: torch.Tensor):
+    """K(x, y) from the two-term asymptotic pair (voigt.py:365): the outer
+    far-wing shells, where every line sits at x >= X_ASYM."""
+    return SQRTLN2PI * _w_asym2(x, y)[0]
+
+
+# Voigt function of a plan by its ``wfn_tag`` (fast.py:125), and the
+# kernels' selector for it (csrc/*.cu: template argument WFN).
+FAR_KERNELS = {"w4": voigt_k_humlicek, "r2": voigt_k_humlicek_r2,
+               "asym2": voigt_k_asym2}
+WFN_CODE = {"w4": 0, "r2": 1, "asym2": 2}
