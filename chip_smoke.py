@@ -186,13 +186,21 @@ def kernel_vs_plain(m: TransitModel, label: str):
 
 
 def kmax_vs_plain(m: TransitModel, label: str) -> float:
-    """layer_kmax against plain_kmax on the same inputs, on the card:
-    they must agree bit for bit (a max does not depend on order, and
-    both round each operation the same way).  Returns max |a - b|."""
+    """layer_kmax against plain_kmax on the same inputs, on the card, as
+    the model's forward calls it: on the unbanded arrays with jnp.max's
+    floor -inf, or, on a banded model, on the banded arrays with the
+    coefficient of prep_layers and floor 0.  They must agree bit for bit
+    (a max does not depend on order, and both round each operation the
+    same way).  Returns max |a - b|."""
     args, _ = file_state(m)
-    coef0 = strength_coef(m.fdev, args[2])
-    a = plain_kmax(m.fdev, args[0], coef0)
-    b = layer_kmax(m.fdev, args[0], coef0)
+    if m.bplan is None:
+        d, floor = m.fdev, -torch.inf
+        coef0 = strength_coef(d, args[2])
+    else:
+        d, floor = m.bdev[0], 0.0
+        coef0 = banded.prep_layers(d, *args, use_kernel=False)["coef0"]
+    a = plain_kmax(d, args[0], coef0, floor=floor)
+    b = layer_kmax(d, args[0], coef0, floor=floor)
     torch.cuda.synchronize()
     check(a.shape == b.shape == (m.atm.nlayers,) and
           bool(torch.isfinite(a).all()),
@@ -330,7 +338,7 @@ def launch_plain(tab, T, kw, part, plan, dc, gidx, sel, stride):
         return plain_shell_tiles(plan, dc, tab_r, T[sel], stride=stride,
                                  gidx=gidx, **kw)
     return plain_line_tiles(plan, dc, tab_r, T[sel], gidx=gidx,
-                            bins_first=True, wfn_tag=plan.wfn_tag, **kw)
+                            bins_first=True, **kw)
 
 
 def banded_vs_plain(m: TransitModel, label: str, parts=("near", "s1",
@@ -689,9 +697,11 @@ def main(device: str = "cuda", profile: str | None = None) -> int:
     torch.cuda.synchronize()
     phase("banded_model_setup", t0, plan_summary(hjb))
     t0 = time.perf_counter()
+    kmax_err_b = kmax_vs_plain(hjb, "banded")
     err_b = banded_vs_plain(hjb, "banded")
-    phase("banded_kernels_vs_plain", t0, "every launch against its plain "
-          "version: " + json.dumps(err_b))
+    phase("banded_kernels_vs_plain", t0, "layer_kmax (floor 0) equals "
+          f"plain kmax bitwise (max_abs {kmax_err_b!r}); every launch "
+          "against its plain version: " + json.dumps(err_b))
     t0 = time.perf_counter()
     specs_b, launches_b = run_requests(hjb, requests, kernels)
     phase("main_path", t0, f"3 forward requests, kernel launches "
@@ -824,7 +834,8 @@ def main(device: str = "cuda", profile: str | None = None) -> int:
         "replaces": "transit_tpu/opacities/pallas_lbl.py:127",
         "launches": launched("layer_kmax"),
         "launches_by_path": by_path["layer_kmax"],
-        "max_abs_err": kmax_err,
+        "max_abs_err": kmax_err_b,
+        "max_abs_err_unbanded": kmax_err,
         "ms": km["ms"],
         "plain_ms": km["plain_ms"],
         "bound_ms": km["bound_ms"],

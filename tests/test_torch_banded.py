@@ -103,13 +103,12 @@ def test_launch_sequence_matches_plain(monkeypatch, config, far_full_res):
     seen = {"line": 0, "shell": 0}
 
     def line_tile(plan, d, tab, temps, wn_i, dwn, ethresh, nwidth,
-                  stats=None, *, tiles, rows, out, accumulate, bins_first,
-                  wfn_tag=None):
+                  stats=None, *, tiles, rows, out, accumulate, bins_first):
         sel = rows.long()
         val = kernel_lbl.plain_line_tiles(
             plan, d, {k: v[sel] for k, v in tab.items()}, temps[sel], wn_i,
             dwn, ethresh, nwidth, gidx=None if tiles is None else tiles,
-            bins_first=bins_first, wfn_tag=plan.wfn_tag)
+            bins_first=bins_first)
         _scatter(out, plan, tiles, rows, val, accumulate)
         seen["line"] += 1
 

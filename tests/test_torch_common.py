@@ -114,11 +114,3 @@ def banded_pair(jcfg, npdt, far_full_res=False):
                                   far_full_res=far_full_res, **kw).numpy()
     return jm, ref, got
 
-
-def rel_layer(a, b):
-    """max over layers of max |a - b| / max |a| (a (nl, nwn), the
-    reference): the per-layer scale of tests/test_fast_and_forward.py's
-    decimation bound."""
-    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
-    return float(np.max(np.abs(a - b).max(axis=1) /
-                        np.abs(a).max(axis=1).clip(min=1e-300)))

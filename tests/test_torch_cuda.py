@@ -234,8 +234,7 @@ def _parts(m, args, kw, far_full_res=False):
                                      accumulate=part == "s1",
                                      bins_first=True, **kw)
                 ref = plain_line_tiles(plan, dc, tab_r, args[0][sel],
-                                       gidx=gidx, bins_first=True,
-                                       wfn_tag=plan.wfn_tag, **kw)
+                                       gidx=gidx, bins_first=True, **kw)
             g = (torch.arange(plan.ntiles, device=out.device)
                  if gidx is None else torch.as_tensor(gidx).long().to(
                      out.device))

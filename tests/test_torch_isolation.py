@@ -26,21 +26,38 @@ _CHECK = (
     "print('clean')\n")
 
 
-@pytest.mark.parametrize("mods", [
+_MODS = [
     "transit_tpu_torch, transit_tpu_torch.model",
     "transit_tpu_torch.opacities.kernel_lbl, transit_tpu_torch.convert, "
     "transit_tpu_torch.opacities._build, "
     "transit_tpu_torch.opacities.banded, "
     "transit_tpu_torch.opacities.kernel_shell",
     "chip_smoke",
-])
-def test_import_loads_no_jax(mods):
+]
+
+
+@pytest.fixture(scope="module")
+def import_checks():
+    """One fresh interpreter per entry of _MODS running _CHECK, all
+    started together (each imports torch, ~4 s), by entry."""
     env = dict(os.environ, PYTHONPATH=ROOT)
-    res = subprocess.run([sys.executable, "-c", _CHECK.format(mods=mods)],
-                         cwd=ROOT, env=env, capture_output=True, text=True,
-                         timeout=120)
-    assert res.returncode == 0, res.stderr
-    assert res.stdout.strip() == "clean"
+    procs = {mods: subprocess.Popen(
+        [sys.executable, "-c", _CHECK.format(mods=mods)], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for mods in _MODS}
+    yield procs
+    for p in procs.values():
+        if p.poll() is None:
+            p.kill()
+        p.communicate()
+
+
+@pytest.mark.parametrize("mods", _MODS)
+def test_import_loads_no_jax(import_checks, mods):
+    proc = import_checks[mods]
+    out, err = proc.communicate(timeout=120)
+    assert proc.returncode == 0, err
+    assert out.strip() == "clean"
 
 
 def _sources():

@@ -89,8 +89,7 @@ def _plain_part(part, plan, classes, tab, temps, stride, kw):
                                     gidx=gidx, **kw)
         else:
             val = plain_line_tiles(plan, dc, tab, temps, gidx=gidx,
-                                   bins_first=True, wfn_tag=plan.wfn_tag,
-                                   **kw)
+                                   bins_first=True, **kw)
         if gidx is None:
             full = val
         else:

@@ -265,15 +265,16 @@ def run_counts(plan: FastPlan, d, tab, temps, wn_i: float, dwn: float,
 
 def plain_line_tiles(plan: FastPlan, d, tab, temps, wn_i: float,
                      dwn: float, ethresh: float, nwidth: float, gidx=None,
-                     bins_first: bool = False, wfn_tag: str = "w4"):
+                     bins_first: bool = False):
     """The line-tile function on the line tensors ``d`` (nt, lmax) and the
     per-layer tables ``tab`` of the layers of ``temps``: (nl, nt, tw), for
     each layer, tile and bin the sum over the tile's kept lines inside
-    their wing of k K(x, y) / alphaD, with K the Voigt function of
-    ``wfn_tag`` (fast._block_primal without a line weight, fast.py:554).
+    their wing of k K(x, y) / alphaD, with K the Voigt function of the
+    plan's ``wfn_tag`` (fast._block_primal without a line weight,
+    fast.py:554).
     The plain PyTorch version of :func:`line_tile_extinction`, walking
     the tiles in chunks (:func:`_tile_chunks`)."""
-    voigt = FAR_KERNELS[wfn_tag]
+    voigt = FAR_KERNELS[plan.wfn_tag]
     nl = temps.shape[0]
     ntiles, tw = d["wavn"].shape[0], plan.tw
     out = torch.zeros((nl, ntiles, tw), dtype=d["wavn"].dtype,
@@ -408,8 +409,7 @@ def layer_kmax(d, temps, coef0, floor: float = -torch.inf):
 def line_tile_extinction(plan: FastPlan, d, tab, temps, wn_i: float,
                          dwn: float, ethresh: float, nwidth: float,
                          stats=None, *, tiles=None, rows=None, out=None,
-                         accumulate: bool = False, bins_first: bool = False,
-                         wfn_tag: str = None):
+                         accumulate: bool = False, bins_first: bool = False):
     """Launch ``line_tile_extinction`` (csrc/line_tile.cu) on the line
     tiles ``d`` and the per-layer tables ``tab`` (:func:`layer_tables`)
     -> extinction (nlayer, n_coarse), float32 on the tiles' CUDA device.
@@ -420,8 +420,8 @@ def line_tile_extinction(plan: FastPlan, d, tab, temps, wn_i: float,
     all).  ``out``: the (nlayer, n_coarse) float32 output to write in
     place, the launch's (row, tile) block only; ``accumulate`` adds the
     launch's sums to it.  ``bins_first``: the bin wavenumber's rounding
-    (:func:`_bin_origin`).  ``wfn_tag``: the Voigt function, the plan's
-    own by default.  ``stats``, a (3,) int64 tensor on the card, gets
+    (:func:`_bin_origin`).  The Voigt function is the plan's
+    ``wfn_tag``.  ``stats``, a (3,) int64 tensor on the card, gets
     the strength chains computed, the live (layer, tile, line) entries
     and the (layer, bin, line) pairs evaluated added to it
     (:func:`run_counts` counts the same on the host).  Raises on any
@@ -456,10 +456,9 @@ def line_tile_extinction(plan: FastPlan, d, tab, temps, wn_i: float,
     if plan.tw > 512:
         raise ValueError(f"line_tile_extinction: tile width {plan.tw} > "
                          f"512")
-    wfn = wfn_tag or plan.wfn_tag
-    if wfn not in ("w4", "r2"):
-        raise ValueError(f"line_tile_extinction: Voigt function {wfn!r}; "
-                         f"the kernel has w4 and r2")
+    if plan.wfn_tag not in ("w4", "r2"):
+        raise ValueError(f"line_tile_extinction: Voigt function "
+                         f"{plan.wfn_tag!r}; the kernel has w4 and r2")
     _check_stats("line_tile_extinction", stats, device)
     if out is None:
         if accumulate:
@@ -491,7 +490,7 @@ def line_tile_extinction(plan: FastPlan, d, tab, temps, wn_i: float,
                                      "densm", "kmax")),
             ptr(out), ptr(stats), nrows, ntiles, lmax, niso, plan.tw,
             plan.n_coarse, int(accumulate), int(bins_first),
-            WFN_CODE[wfn], wn_i, dwn, ethresh, nwidth,
+            WFN_CODE[plan.wfn_tag], wn_i, dwn, ethresh, nwidth,
             -EXPCTE, ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"line_tile_extinction failed to launch: CUDA "
