@@ -54,7 +54,7 @@ from transit_tpu_torch.opacities.kernel_lbl import (
     plain_extinction, plain_kmax, plain_line_tiles, run_counts,
     strength_coef, work_counts)
 from transit_tpu_torch.opacities.kernel_shell import (
-    plain_shell_tiles, shell_counts, shell_tile_extinction)
+    plain_shell_band, shell_counts, shell_tile_extinction)
 
 ROOT = Path(__file__).resolve().parent
 FIX = ROOT / "tests" / "fixtures"
@@ -82,6 +82,10 @@ RUNS = 5
 # outside the tensor cores, and HBM3 bandwidth.
 PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
+# The special-function unit (MUFU: exp2, reciprocal, ...): 16 results a
+# clock on each of the 132 SMs, at the 1.98 GHz clock of PEAK_FP32
+# (132 x 128 FP32 lanes x 2 x 1.98e9 = 67e12): a quarter of the FP32 rate.
+PEAK_MUFU = 132 * 16 * 1.98e9
 # Operations the line-tile function needs, whatever the design (an add,
 # a multiply, a compare or a max is one, a divide or an exp one): per
 # (layer, line) of the line list, 19 for the strength and width chain
@@ -104,6 +108,16 @@ OPS_UPSAMPLE = 9
 # (2 multiplies and 2 divides into the exps, 2 exps, a subtract, 3
 # multiplies) and the max.
 OPS_KMAX = 12
+# MUFU operations the functions need besides (each also counted once
+# above): per strength chain its two exps (the divisions are by the
+# layer's T, a per-layer constant: FP32 work once its reciprocal is
+# hoisted); per (layer, line) of a line-tile or shell function the two
+# exps and 1/alphaD; per Voigt evaluation the rational's reciprocals (w4:
+# region II two, III one, IV one and an exp; r2 two; asym2 one).
+MUFU_KMAX = 2
+MUFU_LAYER_LINE = 3
+MUFU_REGION = {"II": 2, "III": 1, "IV": 2}
+MUFU_WFN = {"r2": 2, "asym2": 1}
 
 
 class CheckFailed(RuntimeError):
@@ -120,7 +134,7 @@ def phase(name: str, t0: float, text: str = ""):
           flush=True)
 
 
-def nbytes(*ts) -> int:
+def nbytes_of(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
@@ -147,9 +161,11 @@ def hotjupiter_config(wndelt: float = 0.5) -> TransitConfig:
         nwidth=20.0, ethreshold=1e-8, solution="eclipse", toomuch=1e30)
 
 
-def file_state(m: TransitModel):
-    """Line-extinction arguments for the model's file atmosphere."""
-    temps_raw = m._t(m.atm.temp)
+def file_state(m: TransitModel, temps_raw=None):
+    """Line-extinction arguments for the model's file atmosphere, or for
+    its densities at the temperatures ``temps_raw``."""
+    if temps_raw is None:
+        temps_raw = m._t(m.atm.temp)
     args = (temps_raw * m.atm.tfct, m._t(m.atm.d), m.partition(temps_raw),
             m._molm_t, m._molrad_t)
     kw = dict(wn_i=m.wns.i, dwn=m.wns.d, ethresh=m.cfg.ethreshold,
@@ -185,31 +201,47 @@ def kernel_vs_plain(m: TransitModel, label: str):
                       m.fplan.tw]}
 
 
+def kmax_profiles(m: TransitModel) -> dict:
+    """The temperature profiles on which layer_kmax is held to its plain
+    version: the file's, 50 K above and below it, and isothermal 300 K
+    and 3000 K."""
+    T = m._t(m.atm.temp)
+    return {"file": T, "+50K": T + 50.0, "-50K": T - 50.0,
+            "300K": torch.full_like(T, 300.0),
+            "3000K": torch.full_like(T, 3000.0)}
+
+
 def kmax_vs_plain(m: TransitModel, label: str) -> float:
     """layer_kmax against plain_kmax on the same inputs, on the card, as
     the model's forward calls it: on the unbanded arrays with jnp.max's
     floor -inf, or, on a banded model, on the banded arrays with the
-    coefficient of prep_layers and floor 0.  They must agree bit for bit
-    (a max does not depend on order, and both round each operation the
-    same way).  Returns max |a - b|."""
-    args, _ = file_state(m)
-    if m.bplan is None:
-        d, floor = m.fdev, -torch.inf
-        coef0 = strength_coef(d, args[2])
-    else:
-        d, floor = m.bdev[0], 0.0
-        coef0 = banded.prep_layers(d, *args, use_kernel=False)["coef0"]
-    a = plain_kmax(d, args[0], coef0, floor=floor)
-    b = layer_kmax(d, args[0], coef0, floor=floor)
-    torch.cuda.synchronize()
-    check(a.shape == b.shape == (m.atm.nlayers,) and
-          bool(torch.isfinite(a).all()),
-          f"{label}: kmax shapes {tuple(a.shape)} {tuple(b.shape)}")
-    if not torch.equal(a, b):
-        i = int((a != b).nonzero()[0])
-        raise CheckFailed(f"{label}: layer_kmax differs from plain kmax "
-                          f"at layer {i}: {float(a[i])!r} {float(b[i])!r}")
-    return float((a - b).abs().max())
+    coefficient of prep_layers and floor 0; at each profile of
+    kmax_profiles.  They must agree bit for bit (a max does not depend on
+    order, and both round each operation the same way).  Returns max
+    |a - b| over the profiles."""
+    worst = 0.0
+    for name, temps_raw in kmax_profiles(m).items():
+        args, _ = file_state(m, temps_raw)
+        if m.bplan is None:
+            d, floor = m.fdev, -torch.inf
+            coef0 = strength_coef(d, args[2])
+        else:
+            d, floor = m.bdev[0], 0.0
+            coef0 = banded.prep_layers(d, *args, use_kernel=False)["coef0"]
+        a = plain_kmax(d, args[0], coef0, floor=floor)
+        b = layer_kmax(d, args[0], coef0, floor=floor)
+        torch.cuda.synchronize()
+        check(a.shape == b.shape == (m.atm.nlayers,) and
+              bool(torch.isfinite(a).all()),
+              f"{label} {name}: kmax shapes {tuple(a.shape)} "
+              f"{tuple(b.shape)}")
+        if not torch.equal(a, b):
+            i = int((a != b).nonzero()[0])
+            raise CheckFailed(f"{label} {name}: layer_kmax differs from "
+                              f"plain kmax at layer {i}: {float(a[i])!r} "
+                              f"{float(b[i])!r}")
+        worst = max(worst, float((a - b).abs().max()))
+    return worst
 
 
 def design_counts(m: TransitModel, tab, counts) -> dict:
@@ -247,35 +279,65 @@ def cuda_ms(fn, runs: int = RUNS) -> float:
     return statistics.median(times)
 
 
-def roofline(ops: float, nbytes: float) -> tuple:
-    """(bound_ms, bound_by): the larger of the operation and byte times
-    at the card's peaks."""
-    t_ops, t_bytes = ops / PEAK_FP32, nbytes / PEAK_BYTES
-    return (1e3 * max(t_ops, t_bytes),
-            "operations" if t_ops >= t_bytes else "bytes")
+def graph_ms(fn, n: int = 200, runs: int = RUNS) -> float:
+    """Time of one fn() over many back-to-back launches: fn() n times
+    captured in a CUDA graph, the graph replayed runs times after a
+    warm-up, CUDA events around each replay; median / n.  Reads the
+    device's time of fn, not the host's launch rate."""
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(n):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        g.replay()
+        e.record()
+        e.synchronize()
+        times.append(s.elapsed_time(e) / n)
+    return statistics.median(times)
 
 
-def kmax_bound(m: TransitModel) -> tuple:
-    """(bound_ms, bound_by, ops, bytes) of the kmax scan."""
-    d = m.fdev
-    nl, nlines = m.atm.nlayers, d["all_wavn"].shape[0]
-    ops = OPS_KMAX * nl * nlines
-    nbytes = sum(d[k].numel() * d[k].element_size()
-                 for k in ("all_wavn", "all_elow", "all_gf", "all_iso"))
-    nbytes += 4 * nl * (2 + d["iso_mass"].shape[0])  # temps, coef0, kmax
-    return (*roofline(ops, nbytes), ops, nbytes)
+def roofline(ops: float, nbytes: float, mufu: float = 0.0) -> tuple:
+    """(bound_ms, bound_by, unit): the largest of the FP32 operation, MUFU
+    operation and byte times at the card's peaks; bound_by "operations"
+    (unit "fp32" or "mufu") or "bytes"."""
+    terms = {"fp32": ops / PEAK_FP32, "mufu": mufu / PEAK_MUFU,
+             "bytes": nbytes / PEAK_BYTES}
+    unit = max(terms, key=terms.get)
+    return (1e3 * terms[unit], "bytes" if unit == "bytes" else "operations",
+            unit)
+
+
+def kmax_bound(d, nl: int) -> tuple:
+    """(bound_ms, bound_by, unit, ops, bytes) of the kmax scan of nl
+    layers over the line list of d."""
+    chains = nl * d["all_wavn"].shape[0]
+    nbytes = nbytes_of(d["all_wavn"], d["all_elow"], d["all_gf"],
+                       d["all_iso"]) + 4 * nl * (2 + d["iso_mass"].shape[0])
+    return (*roofline(OPS_KMAX * chains, nbytes, MUFU_KMAX * chains),
+            OPS_KMAX * chains, nbytes)
 
 
 def bound(m: TransitModel, tab, counts) -> tuple:
-    """(bound_ms, bound_by, ops, bytes) of the line-tile function."""
+    """(bound_ms, bound_by, unit, ops, bytes) of the line-tile
+    function."""
     ops = (OPS_LAYER_LINE * counts["layer_lines"] +
            sum((OPS_EVAL + OPS_REGION[r]) * counts[r] for r in OPS_REGION))
+    mufu = (MUFU_LAYER_LINE * counts["layer_lines"] +
+            sum(MUFU_REGION[r] * counts[r] for r in OPS_REGION))
     d = m.fdev
     nbytes = sum(d[k].numel() * d[k].element_size()
                  for k in ("wavn", "elow", "gf", "iso", "mask"))
     nbytes += sum(t.numel() * t.element_size() for t in tab.values())
     nbytes += 4 * m.atm.nlayers * (1 + m.wns.n)       # temps in, output
-    return (*roofline(ops, nbytes), ops, nbytes)
+    return (*roofline(ops, nbytes, mufu), ops, nbytes)
 
 
 def distinct_lines(*plans) -> int:
@@ -305,75 +367,78 @@ def rel_err(a, b) -> float:
     return float(((a - b).abs() / (a.abs() + 1e-6 * a.abs().max())).max())
 
 
-def banded_launches(m: TransitModel, far_full_res: bool = False):
+def banded_launches(m: TransitModel):
     """The kernel launches of one banded forward, in order: yields
-    (part, plan, line tensors, global tiles (numpy or None), the tiles'
-    int32 tensor, the band's rows (int32 tensor, long tensor), stride)
-    with part "near" or "s1" (line-tile kernel) or "shell" (shell
-    kernel)."""
-    for (i, rows, part, plan, classes, stride), tiles in zip(
-            banded.band_parts(m.bplan, m.bdev, far_full_res),
-            m.bindex["tiles"]):
+    (part, unit, the band's rows as an int32 and a long tensor) with part
+    "near" or "s1" (line-tile kernel, unit (plan, line tensors, global
+    tiles (numpy or None), their int32 tensor)) or "shell" (one shell
+    launch for the band's decimated shells, unit its ShellBand)."""
+    for i, part, unit in banded.launch_units(m.bplan, m.bdev, m.bindex):
         r = m.bindex["rows"][i]
-        for (dc, gidx), t in zip(classes, tiles):
-            yield part, plan, dc, gidx, t, r, r.long(), stride
+        yield part, unit, r, r.long()
 
 
-def launch_kernel(m, tab, T, kw, part, plan, dc, t, r, stride, out,
-                  stats=None):
+def launch_kernel(tab, T, kw, part, unit, r, out, stats=None):
     """One launch of the banded path into ``out``."""
     if part == "shell":
-        shell_tile_extinction(plan, dc, tab, T, stride=stride, tiles=t,
-                              rows=r, out=out, stats=stats, **kw)
+        shell_tile_extinction(unit, tab, T, rows=r, out=out, stats=stats,
+                              **kw)
     else:
+        plan, dc, _, t = unit
         line_tile_extinction(plan, dc, tab, T, tiles=t, rows=r, out=out,
                              accumulate=part == "s1", bins_first=True,
                              stats=stats, **kw)
 
 
-def launch_plain(tab, T, kw, part, plan, dc, gidx, sel, stride):
-    """The plain version of one launch: (nrows, ntiles_c, tw)."""
-    tab_r = {k: v[sel] for k, v in tab.items()}
+def launch_plain(tab, T, kw, part, unit, sel, out):
+    """The plain version of one launch, into ``out``."""
     if part == "shell":
-        return plain_shell_tiles(plan, dc, tab_r, T[sel], stride=stride,
-                                 gidx=gidx, **kw)
-    return plain_line_tiles(plan, dc, tab_r, T[sel], gidx=gidx,
-                            bins_first=True, **kw)
+        plain_shell_band(unit, tab, T, rows=sel, out=out, **kw)
+        return
+    plan, dc, gidx, _ = unit
+    val = plain_line_tiles(plan, dc, {k: v[sel] for k, v in tab.items()},
+                           T[sel], gidx=gidx, bins_first=True, **kw)
+    g = (torch.arange(plan.ntiles, device=T.device) if gidx is None else
+         torch.as_tensor(gidx, device=T.device).long())
+    cols = (g[:, None] * plan.tw +
+            torch.arange(plan.tw, device=T.device)).flatten()
+    keep = cols < out.shape[1]
+    r, c = sel[:, None], cols[keep][None, :]
+    v = val.reshape(sel.shape[0], -1)[:, keep]
+    out[r, c] = out[r, c] + v if part == "s1" else v
 
 
-def banded_vs_plain(m: TransitModel, label: str, parts=("near", "s1",
-                                                        "shell")) -> dict:
-    """Every launch of the banded path (of the given parts) on its own,
-    into a zero output, against its plain version on the same inputs:
+def kernel_name(part: str) -> str:
+    return ("shell_tile_extinction" if part == "shell" else
+            "line_tile_extinction")
+
+
+def banded_vs_plain(m: TransitModel, label: str) -> dict:
+    """Every launch of the banded path on its own, into a zero output,
+    against its plain version on the same inputs (the band's rows):
     {kernel: {"max_rel", "max_abs", "launches"}}."""
     args, kw = file_state(m)
     T = args[0]
     tab = banded.prep_layers(m.bdev[0], *args, use_kernel=True)
     res = {}
-    for part, plan, dc, gidx, t, r, sel, stride in banded_launches(m):
-        if part not in parts:
-            continue
-        out = torch.zeros((m.atm.nlayers, m.wns.n), device=T.device)
-        launch_kernel(m, tab, T, kw, part, plan, dc, t, r, stride, out)
-        want = launch_plain(tab, T, kw, part, plan, dc, gidx, sel, stride)
-        g = (torch.arange(plan.ntiles, device=T.device) if gidx is None
-             else t.long())
-        cols = (g[:, None] * plan.tw +
-                torch.arange(plan.tw, device=T.device)).flatten()
-        keep = cols < m.wns.n
-        got = out[sel][:, cols[keep]]
-        want = want.reshape(sel.shape[0], -1)[:, keep]
+    for part, unit, r, sel in banded_launches(m):
+        got = torch.zeros((m.atm.nlayers, m.wns.n), device=T.device)
+        want = torch.zeros_like(got)
+        launch_kernel(tab, T, kw, part, unit, r, got)
+        launch_plain(tab, T, kw, part, unit, sel, want)
+        got, want = got[sel], want[sel]
         check(bool(torch.isfinite(got).all()),
               f"{label} {part}: kernel output not finite")
         err = rel_err(want, got)
+        desc = (f"strides {[s for *_, s in unit.parts]}" if part == "shell"
+                else f"tw {unit[0].tw}, {unit[0].wfn_tag}, lmax "
+                f"{unit[1]['wavn'].shape[1]}")
         check(err < KERNEL_REL_TOL,
-              f"{label} {part} (tw {plan.tw}, {plan.wfn_tag}, stride "
-              f"{stride}, lmax {dc['wavn'].shape[1]}): kernel vs plain "
-              f"{err:.3e} >= {KERNEL_REL_TOL}")
-        name = "shell_tile_extinction" if part == "shell" else \
-            "line_tile_extinction"
-        e = res.setdefault(name, {"max_rel": 0.0, "max_abs": 0.0,
-                                  "launches": 0})
+              f"{label} {part} ({desc}): kernel vs plain {err:.3e} >= "
+              f"{KERNEL_REL_TOL}")
+        e = res.setdefault(kernel_name(part), {"max_rel": 0.0,
+                                               "max_abs": 0.0,
+                                               "launches": 0})
         e["max_rel"] = max(e["max_rel"], err)
         e["max_abs"] = max(e["max_abs"], float((got - want).abs().max()))
         e["launches"] += 1
@@ -392,6 +457,20 @@ def run_requests(m: TransitModel, requests, kernels) -> tuple:
 
 def per_forward(launches: dict) -> dict:
     return {k: v / 3 for k, v in launches.items()}
+
+
+def check_launches(m: TransitModel, launches: dict, label: str):
+    """Three forwards of a banded model launched each kernel as often as
+    its plan asks: layer_kmax once, the line-tile kernel once per near or
+    stride-1 class, the shell kernel once per band with decimated
+    shells."""
+    want = {"layer_kmax": 1, "line_tile_extinction": 0,
+            "shell_tile_extinction": 0}
+    for _, part, _ in banded.launch_units(m.bplan, m.bdev, m.bindex):
+        want[kernel_name(part)] += 1
+    got = per_forward(launches)
+    check(got == want, f"{label}: launches per forward {got}, the plan "
+          f"asks {want}")
 
 
 def check_spectra(m: TransitModel, specs, requests, label: str) -> float:
@@ -427,9 +506,10 @@ def c_median(m: TransitModel, spec) -> tuple:
 
 def banded_times(m: TransitModel) -> dict:
     """Per kernel of the banded path: the time of its launches of one
-    forward (CUDA events, median of RUNS), of their plain versions, the
-    bound of the work they need, the counters from one forward against
-    the host counts of the same work."""
+    forward (CUDA events, median of RUNS; layer_kmax over many launches),
+    of their plain versions, the bound of the work they need, the
+    counters from one forward against the host counts of the same
+    work."""
     args, kw = file_state(m)
     T = args[0]
     nl = m.atm.nlayers
@@ -437,23 +517,21 @@ def banded_times(m: TransitModel) -> dict:
     launches = list(banded_launches(m))
     out = torch.zeros((nl, m.wns.n), device=T.device)
     res = {}
-    for name, parts in (("line_tile_extinction", ("near", "s1")),
-                        ("shell_tile_extinction", ("shell",))):
-        mine = [x for x in launches if x[0] in parts]
+    for name in ("line_tile_extinction", "shell_tile_extinction"):
+        mine = [x for x in launches if kernel_name(x[0]) == name]
         if not mine:
             continue
-        ms = cuda_ms(lambda: [launch_kernel(m, tab, T, kw, p, pl, dc, t, r,
-                                            st, out)
-                              for p, pl, dc, _, t, r, _, st in mine])
-        plain_ms = cuda_ms(lambda: [launch_plain(tab, T, kw, p, pl, dc, g,
-                                                 sel, st)
-                                    for p, pl, dc, g, _, _, sel, st in mine],
-                           runs=1)
+        ms = cuda_ms(lambda: [launch_kernel(tab, T, kw, p, u, r, out)
+                              for p, u, r, _ in mine])
+        plain_ms = cuda_ms(lambda: [launch_plain(tab, T, kw, p, u, sel, out)
+                                    for p, u, _, sel in mine], runs=1)
         res[name] = {"ms": ms, "plain_ms": plain_ms, "launches": len(mine)}
-    # kmax: the scan of prep_layers (floor 0).
+    # kmax: the scan of prep_layers (floor 0), over many launches.
     coef0 = tab["coef0"]
     res["layer_kmax"] = {
-        "ms": cuda_ms(lambda: layer_kmax(m.bdev[0], T, coef0, floor=0.0)),
+        "ms": graph_ms(lambda: layer_kmax(m.bdev[0], T, coef0, floor=0.0)),
+        "ms_events": cuda_ms(lambda: layer_kmax(m.bdev[0], T, coef0,
+                                                floor=0.0)),
         "plain_ms": cuda_ms(lambda: plain_kmax(m.bdev[0], T, coef0,
                                                floor=0.0)),
         "launches": 1}
@@ -468,61 +546,72 @@ def banded_times(m: TransitModel) -> dict:
             "shell": dict(zip(("chains", "live", "evals"),
                               stats["shell"].tolist()))}
     check(card == host, f"banded kernel counters {card} != host {host}")
-    # Bounds: the work each function needs on these inputs.
-    tables = nbytes(*(tab[k] for k in ("alphal", "alphad_f", "coef0",
-                                       "densm", "kmax")), T)
-    need = {"line_tile_extinction": [0, tables],
-            "shell_tile_extinction": [0, tables]}
+    # Bounds: the work each function needs on these inputs, as [FP32
+    # operations, bytes, MUFU operations].
+    tables = nbytes_of(*(tab[k] for k in ("alphal", "alphad_f", "coef0",
+                                          "densm", "kmax")), T)
+    need = {"line_tile_extinction": [0, tables, 0],
+            "shell_tile_extinction": [0, tables, 0]}
     for i, (a, b) in enumerate(m.bplan.slices):
         nrows = b - a
         parts = [(p, pl) for bi, _, p, pl, _, _ in
                  banded.band_parts(m.bplan, m.bdev) if bi == i]
         lt = [pl for p, pl in parts if p != "shell"]
         sh = [pl for p, pl in parts if p == "shell"]
-        need["line_tile_extinction"][0] += (
-            OPS_LAYER_LINE * nrows * distinct_lines(*lt))
-        if sh:
-            need["shell_tile_extinction"][0] += (
-                OPS_LAYER_LINE * nrows * distinct_lines(*sh))
-    for part, plan, dc, gidx, t, r, sel, stride in launches:
-        key = ("shell_tile_extinction" if part == "shell" else
-               "line_tile_extinction")
-        lines = nbytes(*(dc[k] for k in ("wavn", "elow", "gf", "iso",
-                                         "mask")))
+        for key, plans in (("line_tile_extinction", lt),
+                           ("shell_tile_extinction", sh)):
+            if plans:
+                chains = nrows * distinct_lines(*plans)
+                need[key][0] += OPS_LAYER_LINE * chains
+                need[key][2] += MUFU_LAYER_LINE * chains
+    for part, unit, r, sel in launches:
+        key = kernel_name(part)
+        if part == "shell":
+            tw = unit.parts[0][0].tw
+            tiles = unit.table[:, 0].astype(np.int64)
+            ncol = int(np.minimum(m.wns.n - tiles * tw, tw).sum())
+            need[key][1] += (nbytes_of(*unit.lines.values(), unit.blocks) +
+                             4 * sel.shape[0] * ncol * 2)
+            need[key][0] += (OPS_WEIGHT * unit.lines["wavn"].shape[0] +
+                             OPS_UPSAMPLE * sel.shape[0] * ncol *
+                             len(unit.parts))
+            tab_r = {k: v[sel] for k, v in tab.items()}
+            for plan, classes, stride in unit.parts:
+                for dc, gidx in classes:
+                    c = shell_counts(plan, dc, tab_r, T[sel], stride=stride,
+                                     gidx=gidx, **kw)
+                    need[key][0] += c["evals"] * (OPS_EVAL +
+                                                  OPS_WFN[plan.wfn_tag])
+                    need[key][2] += c["evals"] * MUFU_WFN[plan.wfn_tag]
+            continue
+        plan, dc, gidx, _ = unit
         ncol = min(m.wns.n, plan.ntiles * plan.tw) if gidx is None else \
             int(np.minimum(m.wns.n - np.asarray(gidx) * plan.tw,
                            plan.tw).sum())
-        outb = 4 * sel.shape[0] * ncol * (1 if part == "near" else 2)
-        need[key][1] += lines + outb
+        need[key][1] += (nbytes_of(*(dc[k] for k in ("wavn", "elow", "gf",
+                                                     "iso", "mask"))) +
+                         4 * sel.shape[0] * ncol * (1 if part == "near"
+                                                    else 2))
         tab_r = {k: v[sel] for k, v in tab.items()}
-        if part == "shell":
-            c = shell_counts(plan, dc, tab_r, T[sel], stride=stride,
-                             gidx=gidx, **kw)
-            need[key][0] += (c["evals"] * (OPS_EVAL + OPS_WFN[plan.wfn_tag])
-                             + OPS_WEIGHT * int(dc["mask"].sum())
-                             + (OPS_UPSAMPLE if stride > 1 else 1) *
-                             sel.shape[0] * ncol)
+        w = work_counts(plan, {**dc, "all_wavn": m.bdev[0]["all_wavn"]},
+                        tab_r, T[sel], gidx=gidx, bins_first=True, **kw)
+        if plan.wfn_tag == "w4":
+            need[key][0] += sum((OPS_EVAL + OPS_REGION[g]) * w[g]
+                                for g in OPS_REGION)
+            need[key][2] += sum(MUFU_REGION[g] * w[g] for g in OPS_REGION)
         else:
-            w = work_counts(plan, {**dc, "all_wavn": m.bdev[0]["all_wavn"]},
-                            tab_r, T[sel], gidx=gidx, bins_first=True, **kw)
             ev = sum(w[g] for g in OPS_REGION)
-            if plan.wfn_tag == "w4":
-                need[key][0] += sum((OPS_EVAL + OPS_REGION[g]) * w[g]
-                                    for g in OPS_REGION)
-            else:
-                need[key][0] += (OPS_EVAL + OPS_WFN[plan.wfn_tag]) * ev
-    for name, (ops, nb) in need.items():
+            need[key][0] += (OPS_EVAL + OPS_WFN[plan.wfn_tag]) * ev
+            need[key][2] += MUFU_WFN[plan.wfn_tag] * ev
+    for name, (ops, nb, mufu) in need.items():
         if name in res:
-            b_ms, b_by = roofline(ops, nb)
-            res[name].update(bound_ms=b_ms, bound_by=b_by, ops=ops,
-                             bytes=nb)
-    d = m.bdev[0]
-    km_ops = OPS_KMAX * nl * d["all_wavn"].shape[0]
-    km_bytes = nbytes(d["all_wavn"], d["all_elow"], d["all_gf"],
-                      d["all_iso"]) + 4 * nl * (2 + d["iso_mass"].shape[0])
-    b_ms, b_by = roofline(km_ops, km_bytes)
-    res["layer_kmax"].update(bound_ms=b_ms, bound_by=b_by, ops=km_ops,
-                             bytes=km_bytes)
+            b_ms, b_by, unit = roofline(ops, nb, mufu)
+            res[name].update(bound_ms=b_ms, bound_by=b_by, bound_unit=unit,
+                             ops=ops, mufu=mufu, bytes=nb)
+    b_ms, b_by, unit, km_ops, km_bytes = kmax_bound(m.bdev[0], nl)
+    res["layer_kmax"].update(bound_ms=b_ms, bound_by=b_by, bound_unit=unit,
+                             ops=km_ops, mufu=MUFU_KMAX * nl *
+                             m.bdev[0]["all_wavn"].shape[0], bytes=km_bytes)
     res["counters"] = card
     return res
 
@@ -540,12 +629,13 @@ def plan_summary(m: TransitModel) -> str:
     return "; ".join(out)
 
 
-def profile_forward(m: TransitModel, T, q, ms_forward: float,
-                    trace: str) -> None:
+def profile_forward(m: TransitModel, T, q, ms_forward: float, trace: str,
+                    label: str) -> dict:
     """Trace RUNS forwards with torch.profiler and print the device time
     per kernel name (per forward) and the device-busy share: summed device
     time of one forward over its CUDA-event time ``ms_forward``.  The
-    Chrome trace goes to ``trace``."""
+    Chrome trace goes to ``trace``.  Returns {"device_ms", "busy",
+    kernel name: device ms per forward} for the port's kernels."""
     from torch.autograd import DeviceType
 
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -569,12 +659,22 @@ def profile_forward(m: TransitModel, T, q, ms_forward: float,
     rows.sort(reverse=True)
     dev_ms = sum(r[0] for r in rows)
     check(dev_ms > 0, "the profiler recorded no device time")
-    print(f"profile: device time {dev_ms:.3f} ms per forward, busy share "
-          f"{dev_ms / ms_forward:.3f} of {ms_forward:.3f} ms; "
+    print(f"profile {label}: device time {dev_ms:.3f} ms per forward, busy "
+          f"share {dev_ms / ms_forward:.3f} of {ms_forward:.3f} ms; "
           f"{sum(r[1] for r in rows)} device kernels per forward, "
           f"{len(rows)} names; trace {trace}", flush=True)
     for ms, n, key in rows[:15]:
-        print(f"profile: {ms:10.4f} ms {n:5d} x {key[:90]}", flush=True)
+        print(f"profile {label}: {ms:10.4f} ms {n:5d} x {key[:90]}",
+              flush=True)
+    res = {"device_ms": dev_ms, "busy": dev_ms / ms_forward}
+    for name in ("line_tile_kernel", "layer_kmax_kernel",
+                 "shell_tile_kernel"):
+        res[name] = sum(r[0] for r in rows if name in r[2])
+    print(f"profile {label}: port kernels' device ms per forward and "
+          f"share of the device time: " + json.dumps(
+              {k: [v, v / dev_ms] for k, v in res.items()
+               if k.endswith("kernel")}), flush=True)
+    return res
 
 
 def main(device: str = "cuda", profile: str | None = None) -> int:
@@ -625,7 +725,8 @@ def main(device: str = "cuda", profile: str | None = None) -> int:
     t0 = time.perf_counter()
     kmax_err = kmax_vs_plain(hj, "hotjupiter")
     phase("kmax_vs_plain", t0, f"layer_kmax equals plain kmax bitwise on "
-          f"the fixture and on {hj.atm.nlayers} hot-Jupiter layers "
+          f"the fixture and on {hj.atm.nlayers} hot-Jupiter layers x "
+          f"{nlines} lines at the profiles {list(kmax_profiles(hj))} "
           f"(max_abs {kmax_err!r})")
     t0 = time.perf_counter()
     err_hj = kernel_vs_plain(hj, "hotjupiter")
@@ -662,7 +763,7 @@ def main(device: str = "cuda", profile: str | None = None) -> int:
     coef0 = tab["coef0"]
     ms_kernel = cuda_ms(lambda: line_tile_extinction(
         hj.fplan, hj.fdev, tab, T, **kw))
-    ms_kmax = cuda_ms(lambda: layer_kmax(hj.fdev, T, coef0))
+    ms_kmax = graph_ms(lambda: layer_kmax(hj.fdev, T, coef0))
     ms_kmax_plain = cuda_ms(lambda: plain_kmax(hj.fdev, T, coef0))
     ms_wrapper = cuda_ms(lambda: kernel_extinction(hj.fplan, hj.fdev, *args,
                                                    **kw))
@@ -670,15 +771,16 @@ def main(device: str = "cuda", profile: str | None = None) -> int:
                                                 **kw))
     ms_forward = cuda_ms(lambda: hj.forward(T0, q0))
     counts = work_counts(hj.fplan, hj.fdev, tab, T, **kw)
-    bound_ms, bound_by, ops, nbytes_ = bound(hj, tab, counts)
-    kb_ms, kb_by, kb_ops, kb_bytes = kmax_bound(hj)
+    bound_ms, bound_by, _, ops, nbytes_ = bound(hj, tab, counts)
+    kb_ms, kb_by, kb_unit, kb_ops, kb_bytes = kmax_bound(hj.fdev,
+                                                         hj.atm.nlayers)
     phase("unbanded_times", t0,
           f"kernel {ms_kernel:.3f} ms, with prep {ms_wrapper:.3f} ms, plain "
           f"{ms_plain:.3f} ms, forward {ms_forward:.3f} ms, bound "
           f"{bound_ms:.4f} ms ({bound_by}: {ops:.4e} ops, {nbytes_} bytes); "
           f"layer_kmax {ms_kmax:.4f} ms, plain {ms_kmax_plain:.4f} ms, "
-          f"bound {kb_ms:.4f} ms ({kb_by}: {kb_ops:.4e} ops, {kb_bytes} "
-          f"bytes)")
+          f"bound {kb_ms:.4f} ms ({kb_by}, {kb_unit}: {kb_ops:.4e} ops, "
+          f"{kb_bytes} bytes)")
     print("work " + json.dumps(counts), flush=True)
     t0 = time.perf_counter()
     design = design_counts(hj, tab, counts)
@@ -706,9 +808,7 @@ def main(device: str = "cuda", profile: str | None = None) -> int:
     specs_b, launches_b = run_requests(hjb, requests, kernels)
     phase("main_path", t0, f"3 forward requests, kernel launches "
           f"{launches_b}, per forward {per_forward(launches_b)}")
-    for name in ("line_tile_extinction", "layer_kmax"):
-        check(launches_b[name] >= 3,
-              f"main path launched {name} {launches_b[name]} times")
+    check_launches(hjb, launches_b, "main path")
     t0 = time.perf_counter()
     spec_rel_b = check_spectra(hjb, specs_b, requests, "banded")
     vs_unb = max(float(((a - b).abs() / b.abs()).max())
@@ -735,7 +835,7 @@ def main(device: str = "cuda", profile: str | None = None) -> int:
           flush=True)
     if profile:
         t0 = time.perf_counter()
-        profile_forward(hjb, T0, q0, ms_fwd_b, profile)
+        profile_forward(hjb, T0, q0, ms_fwd_b, profile, "banded")
         phase("profile", t0)
 
     # 7. Path 3: bands=6 at 0.05 cm-1, with decimated far-wing shells.
@@ -750,10 +850,12 @@ def main(device: str = "cuda", profile: str | None = None) -> int:
     torch.cuda.synchronize()
     phase("fine_model_setup", t0, plan_summary(hjf))
     t0 = time.perf_counter()
+    kmax_err_f = kmax_vs_plain(hjf, "fine")
     err_f = banded_vs_plain(hjf, "fine")
     check("shell_tile_extinction" in err_f, "no shell launch compared")
-    phase("fine_kernels_vs_plain", t0, "every launch (all decimated "
-          "shells included) against its plain version: " +
+    phase("fine_kernels_vs_plain", t0, "layer_kmax (floor 0) equals plain "
+          f"kmax bitwise (max_abs {kmax_err_f!r}); every launch (the "
+          "decimated shells' included) against its plain version: " +
           json.dumps(err_f))
     t0 = time.perf_counter()
     T0f = np.asarray(hjf.atm.temp, dtype=np.float64)
@@ -762,8 +864,9 @@ def main(device: str = "cuda", profile: str | None = None) -> int:
     specs_f, launches_f = run_requests(hjf, req_f, kernels)
     phase("fine_path", t0, f"3 forward requests, kernel launches "
           f"{launches_f}, per forward {per_forward(launches_f)}")
-    for name, n in launches_f.items():
-        check(n >= 3, f"0.05 cm-1 path launched {name} {n} times")
+    check_launches(hjf, launches_f, "0.05 cm-1 path")
+    check(launches_f["shell_tile_extinction"] <= 2 * 3,
+          f"0.05 cm-1 path: more than 2 shell launches per forward")
     t0 = time.perf_counter()
     spec_rel_f = check_spectra(hjf, specs_f, req_f, "fine")
     exact = TransitModel(hotjupiter_config(0.05), dtype=torch.float32,
@@ -783,6 +886,13 @@ def main(device: str = "cuda", profile: str | None = None) -> int:
     print(f"forward 0.05 cm-1: {points_f / (ms_fwd_f * 1e-3):.6e} wavenumber "
           f"points x layers per second ({ms_fwd_f:.3f} ms, {card})",
           flush=True)
+    if profile:
+        t0 = time.perf_counter()
+        trace = Path(profile)
+        profile_forward(hjf, T0f, q0f, ms_fwd_f,
+                        str(trace.with_name(f"{trace.stem}_0.05"
+                                            f"{trace.suffix}")), "0.05")
+        phase("profile_0.05", t0)
 
     # 8. Nothing of JAX or of the JAX package was loaded.
     bad = sorted(k for k in sys.modules
@@ -820,6 +930,7 @@ def main(device: str = "cuda", profile: str | None = None) -> int:
         "plain_ms": lt["plain_ms"],
         "bound_ms": lt["bound_ms"],
         "bound_by": lt["bound_by"],
+        "bound_unit": lt["bound_unit"],
         "library_ms": None,
         "ms_0.05": times_f["line_tile_extinction"]["ms"],
         "bound_ms_0.05": times_f["line_tile_extinction"]["bound_ms"],
@@ -834,12 +945,14 @@ def main(device: str = "cuda", profile: str | None = None) -> int:
         "replaces": "transit_tpu/opacities/pallas_lbl.py:127",
         "launches": launched("layer_kmax"),
         "launches_by_path": by_path["layer_kmax"],
-        "max_abs_err": kmax_err_b,
+        "max_abs_err": max(kmax_err_b, kmax_err_f),
         "max_abs_err_unbanded": kmax_err,
         "ms": km["ms"],
+        "ms_one_launch_events": km["ms_events"],
         "plain_ms": km["plain_ms"],
         "bound_ms": km["bound_ms"],
         "bound_by": km["bound_by"],
+        "bound_unit": km["bound_unit"],
         "library_ms": None,
         "card": card,
     }, {
@@ -855,6 +968,7 @@ def main(device: str = "cuda", profile: str | None = None) -> int:
         "plain_ms": sh["plain_ms"],
         "bound_ms": sh["bound_ms"],
         "bound_by": sh["bound_by"],
+        "bound_unit": sh["bound_unit"],
         "library_ms": None,
         "card": card,
     }], "forward_ms": {"unbanded": ms_forward, "banded": ms_fwd_b,

@@ -91,10 +91,12 @@ def _scatter(out, plan, tiles, rows, val, add):
     ("fixture", False), ("fine", False), ("fine", True)])
 def test_launch_sequence_matches_plain(monkeypatch, config, far_full_res):
     """The kernel path's launches (banded._launch_all: one layer_kmax,
-    then per band the near classes written and the shells added into one
-    output), each kernel replaced by its plain version, equal
-    plain_banded_extinction bit for bit: the same terms summed in the
-    same order as JAX's ``ex = near + shell_1 + ...``."""
+    then per band the near classes written and the stride-1 shell classes
+    added into one output, then one shell launch that adds the band's
+    decimated shells one after another), each kernel replaced by its
+    plain version, equal plain_banded_extinction bit for bit: the same
+    terms summed in the same order as JAX's ``ex = near + shell_1 +
+    ...``."""
     from tests.test_torch_common import fine_grid_config
     cfg = (make_config("eclipse", 1e30) if config == "fixture" else
            fine_grid_config())
@@ -112,14 +114,11 @@ def test_launch_sequence_matches_plain(monkeypatch, config, far_full_res):
         _scatter(out, plan, tiles, rows, val, accumulate)
         seen["line"] += 1
 
-    def shell_tile(plan, d, tab, temps, wn_i, dwn, ethresh, nwidth, stride,
-                   *, tiles, rows, out, stats=None):
-        sel = rows.long()
-        val = kernel_shell.plain_shell_tiles(
-            plan, d, {k: v[sel] for k, v in tab.items()}, temps[sel], wn_i,
-            dwn, ethresh, nwidth, stride,
-            gidx=None if tiles is None else tiles)
-        _scatter(out, plan, tiles, rows, val, True)
+    def shell_tile(band, tab, temps, wn_i, dwn, ethresh, nwidth, *, rows,
+                   out, stats=None, full_res):
+        kernel_shell.plain_shell_band(band, tab, temps, wn_i, dwn, ethresh,
+                                      nwidth, rows=rows, out=out,
+                                      full_res=full_res)
         seen["shell"] += 1
 
     monkeypatch.setattr(banded, "line_tile_extinction", line_tile)
@@ -134,4 +133,5 @@ def test_launch_sequence_matches_plain(monkeypatch, config, far_full_res):
                                           far_full_res=far_full_res, **kw)
     assert torch.equal(got, want)
     assert seen["line"] >= len(m.bplan.plans)
+    assert seen["shell"] == sum(b is not None for b in index["shells"])
     assert (seen["shell"] > 0) == (config == "fine")

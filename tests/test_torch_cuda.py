@@ -8,6 +8,7 @@ one.  Imports no JAX, so it runs on a machine that has only PyTorch:
 
 import os
 
+import numpy as np
 import pytest
 import torch
 
@@ -203,47 +204,52 @@ def _rel(a, b):
     return float(((a - b).abs() / (a.abs() + 1e-6 * a.abs().max())).max())
 
 
+def _scatter_plain(out, plan, gidx, sel, val, add):
+    """Write (or add) a line-tile launch's plain (nrows, ntiles_c, tw)
+    block into out."""
+    g = (torch.arange(plan.ntiles, device=out.device) if gidx is None else
+         torch.as_tensor(gidx).long().to(out.device))
+    cols = (g[:, None] * plan.tw +
+            torch.arange(plan.tw, device=out.device)).flatten()
+    keep = cols < out.shape[1]
+    r, c = sel[:, None], cols[keep][None, :]
+    v = val.reshape(sel.shape[0], -1)[:, keep]
+    out[r, c] = out[r, c] + v if add else v
+
+
 def _parts(m, args, kw, far_full_res=False):
     """Each launch of the banded path on its own, into a zero output, and
-    its plain version on the band's rows: yields (part, plan, kernel,
-    plain), both (nrows, ntiles*tw) over the part's class tiles."""
+    its plain version on the band's rows: yields (part, plans, kernel,
+    plain), both (nrows, n_coarse) on the band's rows."""
     from transit_tpu_torch.opacities import banded
+    from transit_tpu_torch.opacities.kernel_lbl import plain_line_tiles
+    from transit_tpu_torch.opacities.kernel_shell import (
+        plain_shell_band, shell_tile_extinction)
     tab = banded.prep_layers(m.bdev[0], *args, use_kernel=True)
     index = banded.banded_index(m.bplan, m.bdev, args[0].device)
-    for (i, rows, part, plan, classes, stride), tiles in zip(
-            banded.band_parts(m.bplan, m.bdev, far_full_res),
-            index["tiles"]):
+    for i, part, unit in banded.launch_units(m.bplan, m.bdev, index):
         r = index["rows"][i]
         sel = r.long()
-        tab_r = {k: v[sel] for k, v in tab.items()}
-        for (dc, gidx), t in zip(classes, tiles):
-            out = torch.zeros((args[0].shape[0], m.wns.n),
-                              device=args[0].device)
-            if part == "shell":
-                from transit_tpu_torch.opacities.kernel_shell import (
-                    plain_shell_tiles, shell_tile_extinction)
-                shell_tile_extinction(plan, dc, tab, args[0], stride=stride,
-                                      tiles=t, rows=r, out=out, **kw)
-                ref = plain_shell_tiles(plan, dc, tab_r, args[0][sel],
-                                        stride=stride, gidx=gidx, **kw)
-            else:
-                from transit_tpu_torch.opacities.kernel_lbl import (
-                    plain_line_tiles)
-                line_tile_extinction(plan, dc, tab, args[0], tiles=t,
-                                     rows=r, out=out,
-                                     accumulate=part == "s1",
-                                     bins_first=True, **kw)
-                ref = plain_line_tiles(plan, dc, tab_r, args[0][sel],
-                                       gidx=gidx, bins_first=True, **kw)
-            g = (torch.arange(plan.ntiles, device=out.device)
-                 if gidx is None else torch.as_tensor(gidx).long().to(
-                     out.device))
-            cols = (g[:, None] * plan.tw +
-                    torch.arange(plan.tw, device=out.device)).flatten()
-            keep = cols < m.wns.n
-            got = out[sel][:, cols[keep]]
-            want = ref.reshape(len(rows), -1)[:, keep]
-            yield part, plan, got, want
+        got = torch.zeros((args[0].shape[0], m.wns.n), device=r.device)
+        want = torch.zeros_like(got)
+        if part == "shell":
+            shell_tile_extinction(unit, tab, args[0], rows=r, out=got,
+                                  full_res=far_full_res, **kw)
+            plain_shell_band(unit, tab, args[0], rows=r, out=want,
+                             full_res=far_full_res, **kw)
+            plans = [p for p, _, _ in unit.parts]
+        else:
+            plan, dc, gidx, t = unit
+            line_tile_extinction(plan, dc, tab, args[0], tiles=t, rows=r,
+                                 out=got, accumulate=part == "s1",
+                                 bins_first=True, **kw)
+            val = plain_line_tiles(plan, dc,
+                                   {k: v[sel] for k, v in tab.items()},
+                                   args[0][sel], gidx=gidx,
+                                   bins_first=True, **kw)
+            _scatter_plain(want, plan, gidx, sel, val, part == "s1")
+            plans = [plan]
+        yield part, plans, got[sel], want[sel]
 
 
 @pytest.mark.cuda
@@ -257,10 +263,11 @@ def test_banded_launches_match_plain(card, config):
          _fine_model(card))
     args, kw = _state(m)
     seen = set()
-    for part, plan, got, want in _parts(m, args, kw):
+    for part, plans, got, want in _parts(m, args, kw):
         assert got.shape == want.shape
-        assert _rel(want, got) < 1e-5, (part, plan.tw, plan.wfn_tag)
-        seen.add((part, plan.tw, plan.wfn_tag, plan.lanes, plan.lmax))
+        assert _rel(want, got) < 1e-5, (part, plans[0].tw,
+                                         plans[0].wfn_tag)
+        seen.update((part, p.tw, p.wfn_tag, p.lanes, p.lmax) for p in plans)
     if config == "fine":
         assert any(s[1] == 512 for s in seen)
         assert any(s[0] == "shell" and s[3] == "bins" and s[4] == 8
@@ -275,7 +282,7 @@ def test_shell_kernel_full_resolution(card):
     m = _fine_model(card)
     args, kw = _state(m)
     n = 0
-    for part, plan, got, want in _parts(m, args, kw, far_full_res=True):
+    for part, _, got, want in _parts(m, args, kw, far_full_res=True):
         assert _rel(want, got) < 1e-5
         n += part == "shell"
     assert n > 0
@@ -339,3 +346,162 @@ def test_kernels_refuse_gradients(card):
     T = args[0].clone().requires_grad_(True)
     with pytest.raises(NotImplementedError, match="slice"):
         kernel_extinction(m.fplan, m.fdev, T, *args[1:], **kw)
+
+
+# --- The shell kernel's launch (one per band) and layer_kmax ---------------
+
+def _band_state(m):
+    """The fine-grid model's band-0 decimated shells [(plan, classes,
+    stride)] (tw 512, 8 tiles), and the prep tables of all its layers."""
+    from transit_tpu_torch.opacities import banded
+    args, kw = _state(m)
+    tab = banded.prep_layers(m.bdev[0], *args, use_kernel=True)
+    parts = [(p, c, s) for i, _, part, p, c, s in
+             banded.band_parts(m.bplan, m.bdev) if i == 0 and
+             part == "shell"]
+    return parts, tab, args[0], kw
+
+
+def _shell_vs_plain(band, tab, temps, kw, rows, full_res=False):
+    """Kernel and plain version of one shell launch on the same output
+    (zero on the rows, seeded random values elsewhere, which must stay
+    as they were), and the kernel's counters against shell_counts: max
+    relative error over the rows."""
+    from transit_tpu_torch.opacities.kernel_shell import (
+        plain_shell_band, shell_counts, shell_tile_extinction)
+    sel = rows.long()
+    others = torch.ones(temps.shape[0], dtype=torch.bool,
+                        device=temps.device)
+    others[sel] = False
+    rng = np.random.default_rng(7)
+    base = torch.as_tensor(rng.uniform(0.0, 1e-3, (temps.shape[0],
+                                                   band.parts[0][0].n_coarse)),
+                           dtype=torch.float32, device=temps.device)
+    base[sel] = 0.0
+    got, want = base.clone(), base.clone()
+    stats = torch.zeros(3, dtype=torch.int64, device=temps.device)
+    before = shell_tile_extinction.launches
+    shell_tile_extinction(band, tab, temps, rows=rows, out=got, stats=stats,
+                          full_res=full_res, **kw)
+    plain_shell_band(band, tab, temps, rows=rows, out=want,
+                     full_res=full_res, **kw)
+    torch.cuda.synchronize()
+    assert shell_tile_extinction.launches == before + 1
+    host = {"chains": 0, "live": 0, "evals": 0}
+    tab_r = {k: v[sel] for k, v in tab.items()}
+    for plan, classes, stride in band.parts:
+        for dc, gidx in classes:
+            c = shell_counts(plan, dc, tab_r, temps[sel],
+                             stride=1 if full_res else stride, gidx=gidx,
+                             **kw)
+            for k, v in c.items():
+                host[k] += v
+    assert dict(zip(("chains", "live", "evals"), stats.tolist())) == host
+    assert host["evals"] > 0
+    assert torch.equal(got[others], base[others])
+    assert float(want[sel].max()) > 0
+    return _rel(want[sel], got[sel])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nrows", [1, 5, 6, 7])
+@pytest.mark.parametrize("wfn", ["r2", "asym2"])
+@pytest.mark.parametrize("stride", [2, 4, 8])
+def test_shell_kernel_matches_plain(card, stride, wfn, nrows):
+    """One shell launch (the fine grid's band-0 shells at tw 512, all
+    with Voigt function ``wfn`` at ``stride``) on ``nrows`` layer rows
+    against its plain version; rows outside are left as they were."""
+    import dataclasses
+    from transit_tpu_torch.opacities.kernel_shell import shell_band
+    parts, tab, temps, kw = _band_state(_fine_model(card))
+    band = shell_band([(dataclasses.replace(p, wfn_tag=wfn), c, stride)
+                       for p, c, _ in parts[:2]])
+    rows = torch.arange(3, 3 + nrows, dtype=torch.int32, device=card)
+    assert _shell_vs_plain(band, tab, temps, kw, rows) < 1e-5
+
+
+def _dense_class(plan, classes, tiles_long, reps, empty):
+    """One class (row i = tile i) of a shell with the lines of the tiles
+    ``tiles_long`` repeated ``reps`` times and no line in the tiles
+    ``empty``."""
+    rows = {}
+    for dc, gidx in classes:
+        g = range(plan.ntiles) if gidx is None else gidx
+        for r, t in enumerate(g):
+            n = int(dc["mask"][r].sum())
+            rows[int(t)] = {k: dc[k][r, :n] for k in
+                            ("wavn", "elow", "gf", "iso")}
+    for t in tiles_long:
+        rows[t] = {k: v.repeat(reps) for k, v in rows[t].items()}
+    for t in empty:
+        rows[t] = {k: v[:0] for k, v in rows[t].items()}
+    lmax = max(v["wavn"].shape[0] for v in rows.values())
+    d = {}
+    for k in ("wavn", "elow", "gf", "iso"):
+        # Padding repeats a real line, as the planner's tile tensors do.
+        d[k] = rows[tiles_long[0]][k][0].repeat(plan.ntiles, lmax)
+        for t, v in rows.items():
+            d[k][t, :v[k].shape[0]] = v[k]
+    n = torch.tensor([rows[t]["wavn"].shape[0] for t in range(plan.ntiles)],
+                     device=d["wavn"].device)
+    d["mask"] = (torch.arange(lmax, device=n.device)[None, :] <
+                 n[:, None])
+    return [(d, None)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nrows", [1, 7])
+def test_shell_kernel_empty_and_long_tiles(card, nrows):
+    """A tile with no line in the first shell, a tile with no line in any
+    shell (no block: left as it was), and a tile with more lines than one
+    staged chunk holds (600-1400 > 512 lines), kernel against plain."""
+    from transit_tpu_torch.opacities.kernel_shell import shell_band
+    parts, tab, temps, kw = _band_state(_fine_model(card))
+    (p0, c0, s0), (p1, c1, s1) = parts[:2]
+    band = shell_band([
+        (p0, _dense_class(p0, c0, [0], 100, [2, 5]), s0),
+        (p1, _dense_class(p1, c1, [0, 3], 100, [5]), s1)])
+    assert 5 not in band.table[:, 0] and 2 in band.table[:, 0]
+    assert band.table[:, 2::2].max() > 512
+    rows = torch.arange(nrows, dtype=torch.int32, device=card)
+    assert _shell_vs_plain(band, tab, temps, kw, rows) < 1e-5
+    assert _shell_vs_plain(band, tab, temps, kw, rows, full_res=True) < 1e-5
+
+
+def _kmax_inputs(card, nl, profile):
+    """The fixture's line list repeated to 51,136 lines with gf scaled by
+    seeded random factors, and nl layers of coefficients (the fixture's
+    20 layers cycled) at the temperatures ``profile``: isothermal 300 K
+    or 3000 K, or the fixture's profile cycled with seeded offsets."""
+    m = _model(card)
+    args, _ = _state(m)
+    rng = np.random.default_rng(nl)
+    d = {k: m.fdev[k].repeat(272) for k in
+         ("all_wavn", "all_elow", "all_gf", "all_iso")}
+    d["all_gf"] = d["all_gf"] * torch.as_tensor(
+        rng.uniform(0.5, 2.0, d["all_gf"].shape[0]), dtype=torch.float32,
+        device=card)
+    coef0 = strength_coef(m.fdev, args[2])
+    layer = torch.arange(nl, device=card) % coef0.shape[0]
+    if profile == "profile":
+        T = args[0][layer] + torch.as_tensor(
+            rng.uniform(-100.0, 100.0, nl), dtype=torch.float32,
+            device=card)
+    else:
+        T = torch.full((nl,), float(profile[:-1]), device=card)
+    return d, T, coef0[layer].contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("floor", [-float("inf"), 0.0])
+@pytest.mark.parametrize("profile", ["300K", "3000K", "profile"])
+@pytest.mark.parametrize("nl", [1, 7, 100, 101])
+def test_layer_kmax_bitwise_layers_and_profiles(card, nl, profile, floor):
+    """layer_kmax equals plain_kmax bit for bit at 1, 7, 100 and 101
+    layers (ragged layer blocks of the kernel), isothermal and not, with
+    both floors."""
+    d, T, coef0 = _kmax_inputs(card, nl, profile)
+    got = layer_kmax(d, T, coef0, floor=floor)
+    want = plain_kmax(d, T, coef0, floor=floor)
+    torch.cuda.synchronize()
+    assert torch.isfinite(want).all() and torch.equal(got, want)

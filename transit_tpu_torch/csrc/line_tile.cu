@@ -50,11 +50,7 @@
 // last tile are masked, not padded.
 //
 // layer_kmax_kernel: kmax[L] = max over the line list of k0 (the chain
-// above without dens); bound by FP32 operations (two exps and two divides
-// per (layer, line)).  A thread keeps the maxima of KM_LAYERS layers in
-// registers over its lines, a block reduces them with warp shuffles, and
-// blocks combine with an atomic max on the float's bit pattern, which does
-// not depend on order.
+// above without dens); its design is described at the kernel.
 //
 // Rounding: the bin wavenumber ((wa + dwn*bin) + wb: wa = wn_i +
 // dwn*(tile*tw), wb = 0 as the Pallas kernel rounds it; with bins_first,
@@ -471,9 +467,24 @@ int launch_line_tile(dim3 grid, cudaStream_t stream, const float* wavn,
   return (int)cudaGetLastError();
 }
 
+// The kmax scan (pallas_lbl.py:127-133, fast._kmax_scan): per layer, the
+// max over the full line list of k0 = gf e^(-c2 El/T) (1 - e^(-c2 nu/T))
+// coef0.  What bounds it: the two exps of each (layer, line) chain on the
+// SFU (MUFU.EX2, a quarter of the FP32 rate), then FP32.  The design:
+//   * each block takes KM_LAYERS layers, with their temperatures, the
+//     reciprocals r = RN(1/T) and their coef0 rows in shared memory, so the
+//     line list is read ceil(nl / KM_LAYERS) times (4 for 100 layers);
+//   * a thread reads a line once and forms c2 El and c2 nu once for all
+//     its layers;
+//   * each quotient is q = RN(x r) corrected once (Markstein): q' =
+//     fma(fma(-q, T, x), r, q), the correctly rounded x / T, with no
+//     division and no MUFU.RCP in the chain, so a chain equals the plain
+//     version's bit for bit and the max is order-free (an atomic max on
+//     the float's bits across blocks);
+//   * the grid is a whole number of waves of resident blocks.
 constexpr int KM_THREADS = 256;
-constexpr int KM_LAYERS = 8;       // layers per block, maxima in registers
-constexpr int KM_MAX_BLOCKS = 264; // blocks along the lines: 2 per SM
+constexpr int KM_LAYERS = 25;      // layers per block, maxima in registers
+constexpr int KM_MAX_ISO = 64;     // isotopes of the coef0 rows in shared
 
 // Atomic max of a float by its bit pattern: a non-negative float orders
 // as a signed int, a negative one in reverse as an unsigned int.
@@ -484,7 +495,14 @@ __device__ __forceinline__ void atomic_max_float(float* addr, float v) {
     atomicMin(reinterpret_cast<unsigned*>(addr), __float_as_uint(v));
 }
 
-__global__ void __launch_bounds__(KM_THREADS)
+// x / T correctly rounded from r = RN(1/T): one Markstein correction of
+// RN(x r).
+__device__ __forceinline__ float div_by(float x, float T, float r) {
+  const float q = __fmul_rn(x, r);
+  return __fmaf_rn(__fmaf_rn(-q, T, x), r, q);
+}
+
+__global__ void __launch_bounds__(KM_THREADS, 2)
 layer_kmax_kernel(const float* __restrict__ wavn,
                   const float* __restrict__ elow,
                   const float* __restrict__ gf,
@@ -493,27 +511,36 @@ layer_kmax_kernel(const float* __restrict__ wavn,
                   const float* __restrict__ coef0,
                   float* __restrict__ kmax,
                   int nlines, int nl, int niso, float neg_expcte) {
+  __shared__ float s_coef[KM_MAX_ISO * KM_LAYERS];   // (iso, layer)
   __shared__ float s_red[KM_THREADS / 32][KM_LAYERS];
   const int l0 = blockIdx.y * KM_LAYERS;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  float T[KM_LAYERS], m[KM_LAYERS];
+  for (int i = threadIdx.x; i < niso * KM_LAYERS; i += KM_THREADS) {
+    const int is = i / KM_LAYERS, a = i - is * KM_LAYERS;
+    s_coef[i] = l0 + a < nl ? coef0[(size_t)(l0 + a) * niso + is] : 0.0f;
+  }
+  float T[KM_LAYERS], r[KM_LAYERS], m[KM_LAYERS];
 #pragma unroll
   for (int a = 0; a < KM_LAYERS; ++a) {
     T[a] = l0 + a < nl ? temps[l0 + a] : 1.0f;
+    r[a] = __frcp_rn(T[a]);
     m[a] = -INFINITY;
   }
+  __syncthreads();
   for (int i = blockIdx.x * KM_THREADS + threadIdx.x; i < nlines;
        i += gridDim.x * KM_THREADS) {
-    const float wv = wavn[i], el = elow[i], g = gf[i];
-    const int is = iso[i];
+    const float g = gf[i];
+    const float x1 = __fmul_rn(neg_expcte, elow[i]);
+    const float x2 = __fmul_rn(neg_expcte, wavn[i]);
+    const float* cf = s_coef + iso[i] * KM_LAYERS;
 #pragma unroll
     for (int a = 0; a < KM_LAYERS; ++a) {
-      const int L = l0 + a;
-      if (L < nl) {
-        const float k0 = strength(g, el, wv, T[a], coef0[L * niso + is],
-                                  neg_expcte);
-        m[a] = fmaxf(m[a], k0);
-      }
+      // strength() of voigt.cuh with the divisions hoisted.
+      const float e1 = expf(div_by(x1, T[a], r[a]));
+      const float e2 = expf(div_by(x2, T[a], r[a]));
+      const float k0 = __fmul_rn(
+          __fmul_rn(__fmul_rn(g, e1), __fsub_rn(1.0f, e2)), cf[a]);
+      m[a] = fmaxf(m[a], k0);
     }
   }
 #pragma unroll
@@ -583,16 +610,35 @@ extern "C" int line_tile_extinction(
 // kmax (nl,) f32 must hold its floor (-inf, or 0 as the banded path's
 // scan starts) on entry; it gets the max over the line
 // list (wavn, elow, gf f32, iso int32, each (nlines,)) of k0 at the layer's
-// temperature temps (nl,) and strength coefficient coef0 (nl, niso).
+// temperature temps (nl,) and strength coefficient coef0 (nl, niso),
+// niso <= 64.
 extern "C" int layer_kmax(const void* wavn, const void* elow, const void* gf,
                           const void* iso, const void* temps,
                           const void* coef0, void* kmax, int nlines, int nl,
                           int niso, float neg_expcte, void* stream) {
-  if (nlines <= 0 || nl <= 0 || niso <= 0) return (int)cudaErrorInvalidValue;
-  int bx = (nlines + KM_THREADS - 1) / KM_THREADS;
-  if (bx > KM_MAX_BLOCKS) bx = KM_MAX_BLOCKS;
-  const dim3 grid(bx, (nl + KM_LAYERS - 1) / KM_LAYERS);
-  layer_kmax_kernel<<<grid, KM_THREADS, 0, (cudaStream_t)stream>>>(
+  if (nlines <= 0 || nl <= 0 || niso <= 0 || niso > KM_MAX_ISO)
+    return (int)cudaErrorInvalidValue;
+  // A whole number of waves: the resident blocks of all SMs, shared by
+  // the layer blocks.
+  static int waves = 0;
+  if (!waves) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                   dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, layer_kmax_kernel, KM_THREADS, 0);
+    if (err != cudaSuccess) return (int)err;
+    waves = sms * (per_sm > 0 ? per_sm : 1);
+  }
+  const int ny = (nl + KM_LAYERS - 1) / KM_LAYERS;
+  int bx = waves / ny;
+  const int need = (nlines + KM_THREADS - 1) / KM_THREADS;
+  if (bx > need) bx = need;
+  if (bx < 1) bx = 1;
+  layer_kmax_kernel<<<dim3(bx, ny), KM_THREADS, 0, (cudaStream_t)stream>>>(
       (const float*)wavn, (const float*)elow, (const float*)gf,
       (const int*)iso, (const float*)temps, (const float*)coef0,
       (float*)kmax, nlines, nl, niso, neg_expcte);

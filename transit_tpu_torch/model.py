@@ -326,8 +326,10 @@ class TransitModel:
         if self.bplan is not None:
             bdev = dev if dev is not None else self.bdev
             if self.use_kernel:
+                # The index packs the stored tensors' shell lines.
+                index = self.bindex if bdev is self.bdev else None
                 return banded_kernel_extinction(
-                    self.bplan, bdev, *args, index=self.bindex, **kw)
+                    self.bplan, bdev, *args, index=index, **kw)
             return plain_banded_extinction(self.bplan, bdev, *args, **kw)
         if self.fplan is None:
             return torch.zeros((nl, self.wns.n), dtype=self.dtype,

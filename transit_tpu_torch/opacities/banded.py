@@ -11,9 +11,10 @@ Catmull-Rom upsampling).  A plan with tile classes runs class by class.
 
 :func:`banded_kernel_extinction` runs it on the card: one ``layer_kmax``
 launch, then per band the line-tile kernel for every near class and
-every stride-1 shell class and the shell kernel for every decimated
-shell class, each writing (near) or adding (shells) its band's rows and
-its tiles' columns of one (nl, n_coarse) output in place.
+every stride-1 shell class, each writing (near) or adding (shells) its
+band's rows and its tiles' columns of one (nl, n_coarse) output in
+place, and one shell-kernel launch that adds all the band's decimated
+shells, shell after shell.
 :func:`plain_banded_extinction` is the plain PyTorch version, used on
 the CPU and by ``use_kernel=False``.
 """
@@ -26,10 +27,12 @@ from transit_tpu_torch.constants import SIGCTE
 from transit_tpu_torch.opacities.fast import BandedPlan, FastPlan
 from transit_tpu_torch.opacities.kernel_lbl import (layer_kmax,
                                                     line_tile_extinction,
+                                                    plain_classes,
                                                     plain_kmax,
                                                     plain_line_tiles,
                                                     run_counts, width_tables)
-from transit_tpu_torch.opacities.kernel_shell import (plain_shell_tiles,
+from transit_tpu_torch.opacities.kernel_shell import (plain_shell_classes,
+                                                      shell_band,
                                                       shell_counts,
                                                       shell_tile_extinction)
 
@@ -80,21 +83,12 @@ def band_parts(bplan: BandedPlan, devs, far_full_res: bool = False):
 def _plain_part(part, plan, classes, tab, temps, stride, kw):
     """One part's (nrows, ntiles*tw) extinction, class by class, on the
     band's rows of ``tab`` and ``temps``."""
-    nl = temps.shape[0]
-    full = torch.zeros((nl, plan.ntiles, plan.tw), dtype=temps.dtype,
-                       device=temps.device)
-    for dc, gidx in classes:
-        if part == "shell":
-            val = plain_shell_tiles(plan, dc, tab, temps, stride=stride,
-                                    gidx=gidx, **kw)
-        else:
-            val = plain_line_tiles(plan, dc, tab, temps, gidx=gidx,
-                                   bins_first=True, **kw)
-        if gidx is None:
-            full = val
-        else:
-            full[:, torch.as_tensor(gidx, device=full.device).long()] = val
-    return full.reshape(nl, -1)
+    if part == "shell":
+        return plain_shell_classes(plan, classes, tab, temps, stride=stride,
+                                   **kw)
+    return plain_classes(plan, classes, temps, lambda dc, gidx:
+                         plain_line_tiles(plan, dc, tab, temps, gidx=gidx,
+                                          bins_first=True, **kw))
 
 
 def plain_banded_extinction(bplan: BandedPlan, devs, temps, densities, Z,
@@ -135,17 +129,42 @@ def plain_banded_extinction(bplan: BandedPlan, devs, temps, densities, Z,
 
 
 def banded_index(bplan: BandedPlan, devs, device):
-    """The int32 index tensors of the kernel launches, on ``device``,
-    made once per model: the layer rows of each band, and the global
-    tiles of each class of each part, in :func:`band_parts` order
-    (None for a plan without classes)."""
+    """The tensors of the kernel launches, on ``device``, made once per
+    model: "rows", the int32 layer rows of each band; "tiles", the int32
+    global tiles of each class of each near or stride-1 part, in
+    :func:`band_parts` order (None for a plan without classes); "shells",
+    per band the :class:`~kernel_shell.ShellBand` of its decimated shells
+    (None without)."""
     rows = [torch.as_tensor(bplan.perm[a:b], dtype=torch.int32,
                             device=device) for a, b in bplan.slices]
-    tiles = [[None if g is None else
-              torch.as_tensor(g, dtype=torch.int32, device=device)
-              for _, g in classes]
-             for *_, classes, _ in band_parts(bplan, devs)]
-    return {"rows": rows, "tiles": tiles}
+    tiles, shells = [], [[] for _ in bplan.slices]
+    for i, _, part, plan, classes, stride in band_parts(bplan, devs):
+        if part == "shell":
+            shells[i].append((plan, classes, stride))
+            continue
+        if shells[i]:
+            raise ValueError("a decimated shell comes before a near or "
+                             "stride-1 part of its band")
+        tiles.append([None if g is None else
+                      torch.as_tensor(g, dtype=torch.int32, device=device)
+                      for _, g in classes])
+    return {"rows": rows, "tiles": tiles,
+            "shells": [shell_band(p) if p else None for p in shells]}
+
+
+def launch_units(bplan: BandedPlan, devs, index):
+    """The kernel launches of the banded function, in order: yields
+    (band, part, unit): for part "near" or "s1" (the line-tile kernel)
+    one per class, unit (plan, line tensors, global tiles (numpy or
+    None), their int32 tensor); then for part "shell" one per band with
+    decimated shells, unit its ShellBand."""
+    tiles = iter(index["tiles"])
+    for i, _, part, plan, classes, _ in band_parts(bplan, devs):
+        if part != "shell":
+            for (dc, gidx), t in zip(classes, next(tiles)):
+                yield i, part, (plan, dc, gidx, t)
+        elif index["shells"][i].parts[0][0] is plan:
+            yield i, "shell", index["shells"][i]
 
 
 def banded_kernel_extinction(bplan: BandedPlan, devs, temps, densities, Z,
@@ -181,20 +200,18 @@ def _launch_all(bplan, devs, temps, densities, Z, mol_mass, mol_radius, kw,
                       use_kernel=True)
     out = torch.empty((temps.shape[0], bplan.plans[0].n_coarse),
                       dtype=temps.dtype, device=temps.device)
-    for (i, _, part, plan, classes, stride), tiles in zip(
-            band_parts(bplan, devs, far_full_res), index["tiles"]):
+    for i, part, unit in launch_units(bplan, devs, index):
         rows = index["rows"][i]
-        for (dc, _), t in zip(classes, tiles):
-            if part == "shell":
-                shell_tile_extinction(plan, dc, tab, temps, stride=stride,
-                                      tiles=t, rows=rows, out=out,
-                                      stats=stats.get("shell"), **kw)
-            else:
-                line_tile_extinction(plan, dc, tab, temps, tiles=t,
-                                     rows=rows, out=out,
-                                     accumulate=part == "s1",
-                                     bins_first=True,
-                                     stats=stats.get("line_tile"), **kw)
+        if part == "shell":
+            shell_tile_extinction(unit, tab, temps, rows=rows, out=out,
+                                  stats=stats.get("shell"),
+                                  full_res=far_full_res, **kw)
+        else:
+            plan, dc, _, t = unit
+            line_tile_extinction(plan, dc, tab, temps, tiles=t, rows=rows,
+                                 out=out, accumulate=part == "s1",
+                                 bins_first=True,
+                                 stats=stats.get("line_tile"), **kw)
     return out
 
 

@@ -288,6 +288,22 @@ def plain_line_tiles(plan: FastPlan, d, tab, temps, wn_i: float,
     return out
 
 
+def plain_classes(plan: FastPlan, classes, temps, fn):
+    """A plan's function over all its tiles from its classes [(line
+    tensors, global tiles (numpy) or None)]: ``fn(dc, gidx)`` gives a
+    class's (nl, nt_c, tw), placed at its tiles -> (nl, ntiles * tw)."""
+    nl = temps.shape[0]
+    full = torch.zeros((nl, plan.ntiles, plan.tw), dtype=temps.dtype,
+                       device=temps.device)
+    for dc, gidx in classes:
+        val = fn(dc, gidx)
+        if gidx is None:
+            full = val
+        else:
+            full[:, torch.as_tensor(gidx, device=full.device).long()] = val
+    return full.reshape(nl, -1)
+
+
 def plain_extinction(plan: FastPlan, d, temps, densities, Z, mol_mass,
                      mol_radius, wn_i: float, dwn: float, ethresh: float,
                      nwidth: float):
@@ -387,6 +403,10 @@ def layer_kmax(d, temps, coef0, floor: float = -torch.inf):
     if coef0.dim() != 2 or coef0.shape[0] != nl or temps.dim() != 1:
         raise ValueError(f"layer_kmax: temps {tuple(temps.shape)} and "
                          f"coef0 {tuple(coef0.shape)} do not match")
+    if coef0.shape[1] > 64:
+        raise ValueError(f"layer_kmax: {coef0.shape[1]} isotopes; the "
+                         f"kernel keeps at most 64 coef0 columns in shared "
+                         f"memory")
     kmax = torch.full((nl,), floor, dtype=torch.float32, device=device)
     if nl == 0 or nlines == 0:
         return kmax

@@ -20,14 +20,19 @@ then Catmull-Rom upsamples the points to the tw bins and clips at 0
 layouts (``lanes``) do not change the function; the plain version here
 uses one layout for all.
 
+The kernel takes a band's decimated shells in one launch: a
+:class:`ShellBand` (made once per model by :func:`shell_band`) packs the
+shells' lines tile by tile and lists the tiles a launch's blocks take.
 On a CUDA tensor :func:`shell_tile_extinction` launches
 ``shell_tile_extinction`` of csrc/shell_tile.cu, or raises;
-:func:`plain_shell_tiles` is its plain PyTorch version.
+:func:`plain_shell_band` is its plain PyTorch version and
+:func:`plain_shell_tiles` the plain function of one shell class.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import numpy as np
 import torch
@@ -36,7 +41,8 @@ from transit_tpu_torch.constants import SQRTLN2, EXPCTE
 from transit_tpu_torch.opacities.fast import FastPlan
 from transit_tpu_torch.opacities.kernel_lbl import (PLAIN_ELEMENTS,
                                                     _check_cuda,
-                                                    _check_stats)
+                                                    _check_stats,
+                                                    plain_classes)
 from transit_tpu_torch.opacities.voigt import FAR_KERNELS, WFN_CODE
 
 
@@ -84,10 +90,15 @@ def _eval_points(tw: int, stride: int, wn_i: float, dwn: float, tile):
     indices), rounded as fast._run_tiles rounds them:
     (wn_i + (dwn*stride)*(e - 1)) + dwn*(tile*tw) for stride > 1, and the
     tw bins (wn_i + dwn*e) + dwn*(tile*tw) for stride 1."""
-    off, ne = (1.0, tw // stride + 3) if stride > 1 else (0.0, tw)
+    off, ne = (1.0 if stride > 1 else 0.0), _points(tw, stride)
     e = torch.arange(ne, device=tile.device).to(tile.dtype)
     axis = wn_i + dwn * stride * (e - off)
     return axis[None, :] + (dwn * (tile * tw))[:, None]
+
+
+def _points(tw: int, stride: int) -> int:
+    """Evaluation points per tile of a shell at ``stride``."""
+    return tw // stride + 3 if stride > 1 else tw
 
 
 def _shell_chunks(plan: FastPlan, d, tab, temps, gidx, wn_i: float,
@@ -99,7 +110,7 @@ def _shell_chunks(plan: FastPlan, d, tab, temps, gidx, wn_i: float,
     (tc, L).  L stops at the chunk's longest line list."""
     nl = temps.shape[0]
     nt, lmax = d["wavn"].shape
-    ne = plan.tw // stride + 3 if stride > 1 else plan.tw
+    ne = _points(plan.tw, stride)
     dtype, device = d["wavn"].dtype, d["wavn"].device
     T = temps[:, None, None]
     kthr = (tab["kmax"] * ethresh)[:, None, None]
@@ -132,12 +143,12 @@ def plain_shell_tiles(plan: FastPlan, d, tab, temps, wn_i: float,
     """The shell function on the line tensors ``d`` (nt, lmax) of one
     class (``gidx``: their global tiles; None: row i is tile i) and the
     per-layer tables ``tab`` of the layers of ``temps``: (nl, nt, tw),
-    upsampled and clipped at 0 for stride > 1.  The plain PyTorch
-    version of :func:`shell_tile_extinction`."""
+    upsampled and clipped at 0 for stride > 1: one shell class of
+    :func:`plain_shell_band`."""
     voigt = FAR_KERNELS[plan.wfn_tag]
     nl = temps.shape[0]
     nt, tw = d["wavn"].shape[0], plan.tw
-    ne = tw // stride + 3 if stride > 1 else tw
+    ne = _points(tw, stride)
     dec = torch.zeros((nl, nt, ne), dtype=d["wavn"].dtype,
                       device=d["wavn"].device)
     for t0, t1, k, inv, y, pos, wv, _ in _shell_chunks(
@@ -160,7 +171,7 @@ def shell_counts(plan: FastPlan, d, tab, temps, wn_i: float, dwn: float,
     kept ones with a nonzero weighted strength; ``evals``, their
     (layer, point, line) Voigt evaluations, live x points — all of them
     needed by the function."""
-    ne = plan.tw // stride + 3 if stride > 1 else plan.tw
+    ne = _points(plan.tw, stride)
     out = {"chains": 0, "live": 0, "evals": 0}
     for t0, t1, k, *_, mask in _shell_chunks(plan, d, tab, temps, gidx, wn_i,
                                              dwn, ethresh, nwidth, stride):
@@ -170,42 +181,120 @@ def shell_counts(plan: FastPlan, d, tab, temps, wn_i: float, dwn: float,
     return out
 
 
-def shell_tile_extinction(plan: FastPlan, d, tab, temps, wn_i: float,
-                          dwn: float, ethresh: float, nwidth: float,
-                          stride: int, *, tiles=None, rows=None, out,
-                          stats=None):
-    """Launch ``shell_tile_extinction`` (csrc/shell_tile.cu): add the
-    shell field of the line tensors ``d`` (one class; ``tiles`` their
-    int32 global tile indices, None: row i is tile i) on the layer rows
-    ``rows`` (int32 indices into ``temps`` and ``tab``; None: all) into
-    ``out`` (nlayer, n_coarse), float32 on the card, in place; returns
-    ``out``.  ``stats``, a (3,) int64 tensor on the card, gets the
-    kernel's counters added (:func:`shell_counts`).  Raises on any other
-    device, type or shape, and when the launch fails."""
+def plain_shell_classes(plan: FastPlan, classes, tab, temps, wn_i: float,
+                        dwn: float, ethresh: float, nwidth: float,
+                        stride: int):
+    """The shell function of every tile of ``plan`` from its classes
+    [(line tensors, global tiles or None)]: (nl, ntiles * tw)."""
+    return plain_classes(plan, classes, temps, lambda dc, gidx:
+                         plain_shell_tiles(plan, dc, tab, temps, wn_i, dwn,
+                                           ethresh, nwidth, stride,
+                                           gidx=gidx))
+
+
+@dataclasses.dataclass
+class ShellBand:
+    """The decimated shells of one band, as one shell-kernel launch takes
+    them.  ``parts``: [(plan, classes, stride)] in plan order, the
+    classes' line tensors those of the plain version; ``lines``: the
+    shells' lines packed tile by tile (each tile's lines of each shell
+    contiguous, in line order), "wavn", "elow", "gf" and int32 "iso";
+    ``blocks``: (nblk, 1 + 2 nshell) int32, per tile with lines its
+    global index, then per shell the offset and count of its lines in
+    ``lines``, heaviest tiles first; ``table``: the same on the host."""
+    parts: list
+    lines: dict
+    blocks: torch.Tensor
+    table: np.ndarray
+
+
+def shell_band(parts) -> ShellBand:
+    """Pack the decimated shells ``parts`` [(plan, classes, stride)] of
+    one band (their class tensors, on their device) for the shell
+    kernel.  The shells share the band's tiles, tile width and line
+    weight."""
+    p0 = parts[0][0]
+    for plan, _, stride in parts:
+        if (plan.tw, plan.ntiles, plan.n_coarse, plan.line_weight) != \
+                (p0.tw, p0.ntiles, p0.n_coarse, p0.line_weight) or \
+                plan.line_weight is None:
+            raise ValueError("shell_band: the shells of a band share tiles "
+                             "and a line weight")
+    ns = len(parts)
+    table = np.zeros((p0.ntiles, 1 + 2 * ns), dtype=np.int64)
+    table[:, 0] = np.arange(p0.ntiles)
+    packed = {k: [] for k in ("wavn", "elow", "gf", "iso")}
+    base = 0
+    for si, (plan, classes, _) in enumerate(parts):
+        for dc, gidx in classes:
+            cnt = dc["mask"].sum(dim=1).cpu().numpy()
+            g = (np.arange(cnt.shape[0]) if gidx is None else
+                 np.asarray(gidx))
+            table[g, 1 + 2 * si] = base + np.cumsum(cnt) - cnt
+            table[g, 2 + 2 * si] = cnt
+            for k in packed:
+                packed[k].append(dc[k][dc["mask"]])
+            base += int(cnt.sum())
+    work = sum(table[:, 2 + 2 * si] * _points(p0.tw, s)
+               for si, (_, _, s) in enumerate(parts))
+    keep = np.nonzero(work > 0)[0]
+    table = table[keep[np.argsort(-work[keep], kind="stable")]]
+    table = table.astype(np.int32)
+    device = parts[0][1][0][0]["mask"].device
+    return ShellBand(parts=list(parts),
+                     lines={k: torch.cat(v) for k, v in packed.items()},
+                     blocks=torch.as_tensor(table, device=device),
+                     table=table)
+
+
+def plain_shell_band(band: ShellBand, tab, temps, wn_i: float, dwn: float,
+                     ethresh: float, nwidth: float, *, rows=None, out,
+                     stats=None, full_res: bool = False):
+    """The plain PyTorch version of :func:`shell_tile_extinction`: add
+    each shell's field, shell after shell, into the rows ``rows`` (None:
+    all) of ``out`` (nl, n_coarse), in place; returns ``out``.  ``stats``
+    is the kernel's only (None here)."""
+    if stats is not None:
+        raise ValueError("plain_shell_band counts nothing: shell_counts "
+                         "does")
+    sel = (torch.arange(temps.shape[0], device=temps.device) if rows is None
+           else rows.long())
+    tab_r = {k: v[sel] for k, v in tab.items()}
+    n = out.shape[1]
+    for plan, classes, stride in band.parts:
+        val = plain_shell_classes(plan, classes, tab_r, temps[sel], wn_i,
+                                  dwn, ethresh, nwidth,
+                                  1 if full_res else stride)
+        out[sel] = out[sel] + val[:, :n]
+    return out
+
+
+def shell_tile_extinction(band: ShellBand, tab, temps, wn_i: float,
+                          dwn: float, ethresh: float, nwidth: float, *,
+                          rows=None, out, stats=None,
+                          full_res: bool = False):
+    """Launch ``shell_tile_extinction`` (csrc/shell_tile.cu) once for the
+    decimated shells of ``band``: add each shell's field, shell after
+    shell, into the layer rows ``rows`` (int32 indices into ``temps`` and
+    ``tab``; None: all) of ``out`` (nlayer, n_coarse), float32 on the
+    card, in place; returns ``out``.  ``full_res`` evaluates the shells at
+    every bin (stride 1: no upsampling, no clip).  ``stats``, a (3,) int64
+    tensor on the card, gets the kernel's counters added
+    (:func:`shell_counts`, summed over the shells' classes).  Raises on
+    any other device, type or shape, and when the launch fails."""
     from transit_tpu_torch.opacities._build import load_library
 
-    if plan.line_weight is None:
-        raise ValueError("shell_tile_extinction: the plan has no line "
-                         "weight (a stride-1 shell goes to the line-tile "
-                         "kernel)")
-    if plan.wfn_tag not in ("r2", "asym2"):
-        raise ValueError(f"shell_tile_extinction: Voigt function "
-                         f"{plan.wfn_tag!r}; the kernel has r2 and asym2")
-    lines = {k: d[k] for k in ("wavn", "elow", "gf", "iso", "mask")}
-    idx = {k: v for k, v in (("tiles", tiles), ("rows", rows))
-           if v is not None}
-    args = {**lines, **tab, "temps": temps, **idx}
+    plans = [p for p, _, _ in band.parts]
+    for plan in plans:
+        if plan.wfn_tag not in ("r2", "asym2"):
+            raise ValueError(f"shell_tile_extinction: Voigt function "
+                             f"{plan.wfn_tag!r}; the kernel has r2 and "
+                             f"asym2")
+    idx = {"blocks": band.blocks, **({} if rows is None else
+                                     {"rows": rows})}
+    args = {**band.lines, **tab, "temps": temps, **idx}
     device = _check_cuda("shell_tile_extinction", args,
-                         ints=("iso", "tiles", "rows"))
-    ntiles, lmax = d["wavn"].shape
-    if tiles is None and ntiles != plan.ntiles:
-        raise ValueError("line tensors do not match the plan")
-    if tiles is not None and tuple(tiles.shape) != (ntiles,):
-        raise ValueError("shell_tile_extinction: one tile index per row")
-    for name in lines:
-        if tuple(d[name].shape) != (ntiles, lmax):
-            raise ValueError(f"shell_tile_extinction: {name} has shape "
-                             f"{tuple(d[name].shape)}")
+                         ints=("iso", "blocks", "rows"))
     nl = temps.shape[0]
     niso = tab["alphal"].shape[1]
     for name in ("alphal", "alphad_f", "coef0", "densm"):
@@ -214,41 +303,43 @@ def shell_tile_extinction(plan: FastPlan, d, tab, temps, wn_i: float,
                              f"{tuple(tab[name].shape)}")
     if tuple(tab["kmax"].shape) != (nl,):
         raise ValueError("shell_tile_extinction: kmax must be (nl,)")
-    if stride < 1 or plan.tw % stride:
-        raise ValueError(f"shell_tile_extinction: stride {stride} does not "
-                         f"divide the tile width {plan.tw}")
-    ne = plan.tw // stride + 3 if stride > 1 else plan.tw
-    if ne > 1024:
-        raise ValueError(f"shell_tile_extinction: {ne} points per tile > "
-                         f"1024")
+    tw, n_coarse = plans[0].tw, plans[0].n_coarse
+    strides = [1 if full_res else s for _, _, s in band.parts]
+    for s in strides:
+        if s < 1 or s & (s - 1) or tw % s:
+            raise ValueError(f"shell_tile_extinction: stride {s} is not a "
+                             f"power of two dividing the tile width {tw}")
+    if max(_points(tw, s) for s in strides) > 2048 or len(strides) > 8:
+        raise ValueError("shell_tile_extinction: more than 2048 points "
+                         "per tile or 8 shells")
     if (out.dtype != torch.float32 or out.device != device or
-            tuple(out.shape) != (nl, plan.n_coarse) or
-            not out.is_contiguous()):
+            tuple(out.shape) != (nl, n_coarse) or not out.is_contiguous()):
         raise ValueError(f"shell_tile_extinction: out must be a contiguous "
-                         f"({nl}, {plan.n_coarse}) float32 tensor on "
-                         f"{device}")
+                         f"({nl}, {n_coarse}) float32 tensor on {device}")
     _check_stats("shell_tile_extinction", stats, device)
     nrows = nl if rows is None else rows.shape[0]
-    if nrows == 0 or plan.n_coarse == 0 or ntiles == 0:
+    nblk = band.blocks.shape[0]
+    if nrows == 0 or nblk == 0:
         return out
     args = {k: v.contiguous() for k, v in args.items()}
+    spec = [v for s, p in zip(strides, plans) for v in (s, WFN_CODE[p.wfn_tag])]
 
     def ptr(t):
         return ctypes.c_void_p(None if t is None else t.data_ptr())
 
-    aL_max, aDf_max = plan.line_weight
+    aL_max, aDf_max = plans[0].line_weight
     with torch.cuda.device(device):
         lib = load_library()
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.shell_tile_extinction(
-            *(ptr(args[k]) for k in ("wavn", "elow", "gf", "iso", "mask")),
-            ptr(args.get("tiles")), ptr(args.get("rows")),
+            *(ptr(args[k]) for k in ("wavn", "elow", "gf", "iso", "blocks")),
+            ptr(args.get("rows")),
             *(ptr(args[k]) for k in ("temps", "alphal", "alphad_f", "coef0",
                                      "densm", "kmax")),
-            ptr(out), ptr(stats), nrows, ntiles, lmax, niso, plan.tw,
-            stride, plan.n_coarse, WFN_CODE[plan.wfn_tag], wn_i, dwn,
-            dwn * stride, ethresh, nwidth, aL_max, aDf_max, plan.tw * dwn,
-            -EXPCTE, ctypes.c_void_p(stream))
+            ptr(out), ptr(stats), nrows, nblk, len(strides),
+            (ctypes.c_int * len(spec))(*spec), niso, tw, n_coarse, wn_i,
+            dwn, ethresh, nwidth, aL_max, aDf_max, tw * dwn, -EXPCTE,
+            ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"shell_tile_extinction failed to launch: CUDA "
                            f"error {err}")
