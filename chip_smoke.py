@@ -568,7 +568,7 @@ def banded_times(m: TransitModel) -> dict:
         key = kernel_name(part)
         if part == "shell":
             tw = unit.parts[0][0].tw
-            tiles = unit.table[:, 0].astype(np.int64)
+            tiles = unit.blocks[:, 0].cpu().numpy().astype(np.int64)
             ncol = int(np.minimum(m.wns.n - tiles * tw, tw).sum())
             need[key][1] += (nbytes_of(*unit.lines.values(), unit.blocks) +
                              4 * sel.shape[0] * ncol * 2)

@@ -49,8 +49,7 @@ def test_block_table_covers_each_shell_tile_once(name):
                  part == "shell"]
         assert [(p, s) for p, _, s in band.parts] == \
             [(p, s) for p, _, s in parts]
-        table = band.table
-        assert np.array_equal(band.blocks.numpy(), table)
+        table = band.blocks.numpy()
         assert len(set(table[:, 0].tolist())) == table.shape[0]
         tw, nt = parts[0][0].tw, parts[0][0].ntiles
         work = sum(table[:, 2 + 2 * si] * (tw // s + 3)
@@ -94,7 +93,7 @@ def test_banded_counts_unchanged(name):
     targs = [torch.as_tensor(a) for a in args]
     tab = banded.prep_layers(m.bdev[0], *targs, use_kernel=False)
     index = banded.banded_index(m.bplan, m.bdev, "cpu")
-    chains = sum(len(index["rows"][i]) * int(b.table[:, 2::2].sum())
+    chains = sum(len(index["rows"][i]) * int(b.blocks[:, 2::2].sum())
                  for i, b in enumerate(index["shells"]) if b is not None)
     if name == "fine":
         got = banded.banded_counts(m.bplan, m.bdev, tab, targs[0], **kw)
@@ -126,7 +125,7 @@ def _packed_field(band, tab, temps, kw, nrows, n_coarse, full_res):
     """The shells' field computed block by block from the packed lines
     and the block table alone (what the kernel reads), in float64."""
     out = torch.zeros((nrows, n_coarse), dtype=temps.dtype)
-    for row in band.table:
+    for row in band.blocks.numpy():
         tile = int(row[0])
         for si, (plan, _, stride) in enumerate(band.parts):
             off, n = int(row[1 + 2 * si]), int(row[2 + 2 * si])
@@ -144,12 +143,12 @@ def _packed_field(band, tab, temps, kw, nrows, n_coarse, full_res):
     return out
 
 
-@pytest.mark.parametrize("name,full_res", [("fine", False), ("fine", True)])
-def test_packed_lines_give_the_plain_field(name, full_res):
+@pytest.mark.parametrize("full_res", [False, True])
+def test_packed_lines_give_the_plain_field(full_res):
     """The block table and packed lines carry the shells' whole input:
     the field summed block by block from them equals plain_shell_band
     (the class tensors) in float64, on every band's rows."""
-    m = _model(name, torch.float64)
+    m = _model("fine", torch.float64)
     args, kw = state(m, np.float64)
     targs = [torch.as_tensor(a) for a in args]
     tab = banded.prep_layers(m.bdev[0], *targs, use_kernel=False)

@@ -39,8 +39,9 @@
 //     that the layer block's points fill the block), reads each line's
 //     float4 once for its P points and keeps P independent Kahan sums:
 //     P chains to interleave.  Each point's terms and their order (line
-//     order, Kahan compensated) are those of the first design's, so the
-//     sums are the same.
+//     order, Kahan compensated) are those of the first design (one item
+//     of a thread after another, a launch per tile class), and the sums
+//     agree with its to a few ulps.
 //   * The sums live in shared memory between chunks and go to the
 //     upsampling epilogue from there.
 // Rounding as in line_tile.cu: the _rn intrinsics where the plain

@@ -142,9 +142,6 @@ def banded_index(bplan: BandedPlan, devs, device):
         if part == "shell":
             shells[i].append((plan, classes, stride))
             continue
-        if shells[i]:
-            raise ValueError("a decimated shell comes before a near or "
-                             "stride-1 part of its band")
         tiles.append([None if g is None else
                       torch.as_tensor(g, dtype=torch.int32, device=device)
                       for _, g in classes])

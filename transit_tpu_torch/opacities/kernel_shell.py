@@ -201,11 +201,10 @@ class ShellBand:
     contiguous, in line order), "wavn", "elow", "gf" and int32 "iso";
     ``blocks``: (nblk, 1 + 2 nshell) int32, per tile with lines its
     global index, then per shell the offset and count of its lines in
-    ``lines``, heaviest tiles first; ``table``: the same on the host."""
+    ``lines``, heaviest tiles first."""
     parts: list
     lines: dict
     blocks: torch.Tensor
-    table: np.ndarray
 
 
 def shell_band(parts) -> ShellBand:
@@ -214,7 +213,7 @@ def shell_band(parts) -> ShellBand:
     kernel.  The shells share the band's tiles, tile width and line
     weight."""
     p0 = parts[0][0]
-    for plan, _, stride in parts:
+    for plan, _, _ in parts:
         if (plan.tw, plan.ntiles, plan.n_coarse, plan.line_weight) != \
                 (p0.tw, p0.ntiles, p0.n_coarse, p0.line_weight) or \
                 plan.line_weight is None:
@@ -239,24 +238,18 @@ def shell_band(parts) -> ShellBand:
                for si, (_, _, s) in enumerate(parts))
     keep = np.nonzero(work > 0)[0]
     table = table[keep[np.argsort(-work[keep], kind="stable")]]
-    table = table.astype(np.int32)
-    device = parts[0][1][0][0]["mask"].device
-    return ShellBand(parts=list(parts),
-                     lines={k: torch.cat(v) for k, v in packed.items()},
-                     blocks=torch.as_tensor(table, device=device),
-                     table=table)
+    lines = {k: torch.cat(v) for k, v in packed.items()}
+    return ShellBand(parts=list(parts), lines=lines,
+                     blocks=torch.as_tensor(table.astype(np.int32),
+                                            device=lines["iso"].device))
 
 
 def plain_shell_band(band: ShellBand, tab, temps, wn_i: float, dwn: float,
                      ethresh: float, nwidth: float, *, rows=None, out,
-                     stats=None, full_res: bool = False):
+                     full_res: bool = False):
     """The plain PyTorch version of :func:`shell_tile_extinction`: add
     each shell's field, shell after shell, into the rows ``rows`` (None:
-    all) of ``out`` (nl, n_coarse), in place; returns ``out``.  ``stats``
-    is the kernel's only (None here)."""
-    if stats is not None:
-        raise ValueError("plain_shell_band counts nothing: shell_counts "
-                         "does")
+    all) of ``out`` (nl, n_coarse), in place; returns ``out``."""
     sel = (torch.arange(temps.shape[0], device=temps.device) if rows is None
            else rows.long())
     tab_r = {k: v[sel] for k, v in tab.items()}
