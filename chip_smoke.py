@@ -17,13 +17,17 @@ kernels' launch counts set to 0 just before and read just after:
   3. ``bands=6`` on the same files at 0.05 cm-1 (190,001 wavenumbers),
      which adds decimated far-wing shells (strides 2 and 4).
 
-It checks every launch of the banded paths against its plain version,
-the spectra against the plain paths, the unbanded path and the reference
-C spectrum, and the kernels' work counters against host counts of the
-work; it times one ``forward`` and each kernel's launches of one forward,
-their plain versions and their bounds with CUDA events.  With
-``--profile`` it also traces forwards of the main path with
-torch.profiler (device time by kernel, busy share).  Every phase prints
+It checks every launch of the banded paths against its plain version
+(the shell kernel takes a band's decimated shells in one launch),
+layer_kmax bit for bit at five temperature profiles on each path, the
+spectra against the plain paths, the unbanded path and the reference C
+spectrum, the launches per forward against the plan's, and the kernels'
+work counters against host counts of the work; it times one ``forward``
+and each kernel's launches of one forward (layer_kmax over many
+launches), their plain versions, and their bounds (FP32, SFU and memory
+terms).  With ``--profile`` it also traces forwards of the main path
+and of the 0.05 cm-1 path with torch.profiler (device time by kernel,
+busy share, the port's kernels' shares).  Every phase prints
 one line with its seconds; any failed check raises, so the script exits
 non-zero and prints no result.
 
