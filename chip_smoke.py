@@ -2,9 +2,10 @@
 
     python3 chip_smoke.py [--profile chiprun_out/forward_trace.json]
 
-Builds the port's CUDA kernels (csrc/line_tile.cu: the line-tile kernel
-and the per-layer kmax scan; csrc/shell_tile.cu: the decimated far-wing
-shell kernel) from the sources in this checkout, one nvcc per source,
+Builds the port's CUDA kernels (csrc/line_tile.cu: the line-tile kernel,
+its backward and the per-layer kmax scan; csrc/shell_tile.cu: the
+decimated far-wing shell kernel and its backward) from the sources in
+this checkout, one nvcc per source,
 and holds each against its plain PyTorch version on the card.  Then it
 drives three paths of ``transit_tpu_torch.model.TransitModel(mode="fast",
 use_kernel=True)``, each through three ``forward`` requests with the
@@ -27,9 +28,20 @@ and each kernel's launches of one forward (layer_kmax over many
 launches), their plain versions, and their bounds (FP32, SFU and memory
 terms).  With ``--profile`` it also traces forwards of the main path
 and of the 0.05 cm-1 path with torch.profiler (device time by kernel,
-busy share, the port's kernels' shares).  Every phase prints
-one line with its seconds; any failed check raises, so the script exits
-non-zero and prints no result.
+busy share, the port's kernels' shares), and a gradient step of each.
+
+The gradient (phases ``main_path_grad`` and ``fine_path_grad``): three
+steps of ``torch.autograd.grad(forward(T, q).sum(), (T, q))`` on each
+banded path, through the backward kernels ``line_tile_backward`` and
+``shell_tile_backward``; each backward launch against its plain VJP on
+the same inputs (per output, max|a-b| / max|b| < GRAD_LAUNCH_TOL), the
+whole gradient against the plain path's (GRAD_TOL), central differences
+in T on two layers (FD_RTOL); times of a step and of each backward
+kernel beside its bound (FP32, SFU and byte terms).  Phase
+``main_path_batch``: ``forward_batch`` of BATCH perturbed profiles
+against BATCH calls of ``forward``, and its gradient against theirs.
+Every phase prints one line with its seconds; any failed check raises,
+so the script exits non-zero and prints no result.
 
 Output, last three lines: the card's name and power limit as nvidia-smi
 gives them precedes them; then one ``{"kernels": [...]}`` JSON object and,
@@ -54,11 +66,13 @@ from transit_tpu_torch.config import TransitConfig
 from transit_tpu_torch.model import TransitModel
 from transit_tpu_torch.opacities import _build, banded
 from transit_tpu_torch.opacities.kernel_lbl import (
-    kernel_extinction, layer_kmax, layer_tables, line_tile_extinction,
-    plain_extinction, plain_kmax, plain_line_tiles, run_counts,
-    strength_coef, work_counts)
+    acc_grads, kernel_extinction, layer_kmax, layer_tables, line_tile_backward,
+    line_tile_extinction, plain_extinction, plain_kmax, plain_line_tiles,
+    plain_line_tiles_vjp, run_counts, strength_coef, tile_cotangent,
+    work_counts, zero_grads)
 from transit_tpu_torch.opacities.kernel_shell import (
-    plain_shell_band, shell_counts, shell_tile_extinction)
+    plain_shell_band, plain_shell_vjp, shell_counts, shell_tile_backward,
+    shell_tile_extinction)
 
 ROOT = Path(__file__).resolve().parent
 FIX = ROOT / "tests" / "fixtures"
@@ -122,6 +136,39 @@ MUFU_KMAX = 2
 MUFU_LAYER_LINE = 3
 MUFU_REGION = {"II": 2, "III": 1, "IV": 2}
 MUFU_WFN = {"r2": 2, "asym2": 1}
+# The backward function (fast._block_val_bwd, which computes in the
+# forward's dtype: float32 here): per (layer, line) the forward's chain
+# (OPS_LAYER_LINE) and the chain to the cotangents (gk, g_invaD, the
+# strength and temperature terms, the four tables: 26); per (bin or point,
+# line) pair the distance and x (4), the pair w = (Re, Im) (the region's
+# or function's count and the Im part: 6 more), the two Faddeeva partials
+# (9) and the three sums (11); per output bin of a decimated shell the
+# transposed upsampling (8).  MUFU: the chain's two exps and 1/alphaD;
+# each divide's reciprocal.  The bound counts all of it at the FP32 rate.
+# The kernels run the pair, partials, sums and chain in FP64 (a design
+# choice, not the function's): "fp64_design" beside the bound is the
+# time of those operations at the FP64 rate.
+OPS_BWD_CHAIN = 26
+OPS_BWD_PAIR32 = 4
+OPS_BWD_PAIR64 = 26
+OPS_BWD_UPSAMPLE = 8
+MUFU_BWD_REGION = {"II": 2, "III": 1, "IV": 1}
+# H100 SXM FP64 outside the tensor cores at the 700 W limit (NVIDIA data
+# sheet): half the FP32 rate.
+PEAK_FP64 = 34e12
+# Bounds of the gradient phases: each backward launch against its plain
+# VJP on the same inputs, per output max|a-b| / max|b|; the whole
+# gradient of the kernel path against the plain path's (plain VJPs);
+# central differences in T (two layers, step FD_STEP K) against the
+# gradient, float32; forward_batch against a loop of forward, and its
+# gradient against the loop's.
+GRAD_LAUNCH_TOL = 1e-4
+GRAD_TOL = 1e-3
+FD_RTOL = 2e-2
+FD_STEP = 5.0
+BATCH = 8
+BATCH_TOL = 1e-6
+BATCH_GRAD_TOL = 1e-4
 
 
 class CheckFailed(RuntimeError):
@@ -635,18 +682,24 @@ def plan_summary(m: TransitModel) -> str:
 
 def profile_forward(m: TransitModel, T, q, ms_forward: float, trace: str,
                     label: str) -> dict:
-    """Trace RUNS forwards with torch.profiler and print the device time
-    per kernel name (per forward) and the device-busy share: summed device
-    time of one forward over its CUDA-event time ``ms_forward``.  The
-    Chrome trace goes to ``trace``.  Returns {"device_ms", "busy",
-    kernel name: device ms per forward} for the port's kernels."""
+    """:func:`profile_step` of ``forward``."""
+    return profile_step(lambda: m.forward(T, q), ms_forward, trace, label)
+
+
+def profile_step(step, ms_forward: float, trace: str, label: str) -> dict:
+    """Trace RUNS calls of ``step`` (a forward, or a gradient step) with
+    torch.profiler and print the device time per kernel name (per step)
+    and the device-busy share: summed device time of one step over its
+    CUDA-event time ``ms_forward``.  The Chrome trace goes to ``trace``.
+    Returns {"device_ms", "busy", kernel name: device ms per step} for
+    the port's kernels."""
     from torch.autograd import DeviceType
 
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         for _ in range(RUNS):
-            m.forward(T, q)
+            step()
         torch.cuda.synchronize()
     Path(trace).parent.mkdir(parents=True, exist_ok=True)
     prof.export_chrome_trace(trace)
@@ -672,13 +725,326 @@ def profile_forward(m: TransitModel, T, q, ms_forward: float, trace: str,
               flush=True)
     res = {"device_ms": dev_ms, "busy": dev_ms / ms_forward}
     for name in ("line_tile_kernel", "layer_kmax_kernel",
-                 "shell_tile_kernel"):
+                 "shell_tile_kernel", "line_tile_bwd_kernel",
+                 "shell_tile_bwd_kernel"):
         res[name] = sum(r[0] for r in rows if name in r[2])
     print(f"profile {label}: port kernels' device ms per forward and "
           f"share of the device time: " + json.dumps(
               {k: [v, v / dev_ms] for k, v in res.items()
                if k.endswith("kernel")}), flush=True)
     return res
+
+
+GRAD_OUTPUTS = ("temps", "coef0", "densm", "alphal", "alphad_f")
+
+
+def bwd_name(part: str) -> str:
+    return "shell_tile_backward" if part == "shell" else "line_tile_backward"
+
+
+def line_cotangent(m: TransitModel, T0, q0):
+    """The cotangent the main path gives the line extinction: d(sum of
+    the spectrum) / d(extinction) at the profile (T0, q0), (nl, nwn)."""
+    T, q, dens = m._profiles(T0, q0)
+    ex = m.line_extinction(T * m.atm.tfct, dens, m.partition(T)).detach()
+    ex.requires_grad_(True)
+    g, = torch.autograd.grad(m._assemble(T, q, dens, ex, False).sum(), ex)
+    return g.contiguous()
+
+
+def shell_clip(tab, T, kw, unit, r, n_coarse: int):
+    """A shell launch's clip mask, from its forward launch."""
+    clip = torch.zeros((len(unit.parts), r.shape[0], n_coarse),
+                       dtype=torch.uint8, device=T.device)
+    shell_tile_extinction(unit, tab, T, rows=r, clip=clip, out=torch.zeros(
+        (T.shape[0], n_coarse), device=T.device), **kw)
+    return clip
+
+
+def backward_kernel(tab, T, kw, part, unit, r, g, clip):
+    """One backward launch of the banded path: its float64 sums
+    (nl, 1 + 4 niso)."""
+    if part == "shell":
+        return shell_tile_backward(unit, tab, T, g, clip=clip, rows=r, **kw)
+    plan, dc, _, t = unit
+    return line_tile_backward(plan, dc, tab, T, g, tiles=t, rows=r,
+                              bins_first=True, **kw)
+
+
+def backward_plain(tab, T, kw, part, unit, sel, g) -> dict:
+    """The plain VJP of one launch on the band's rows ``sel``: float64
+    sums {output: (nrows, ...)}."""
+    tab_r = {k: v[sel] for k, v in tab.items()}
+    grads = zero_grads(tab_r, T[sel])
+    parts = (unit.parts if part == "shell" else
+             [(unit[0], [(unit[1], unit[2])], 1)])
+    for plan, classes, stride in parts:
+        gt = tile_cotangent(g[sel], plan)
+        for dc, gidx in classes:
+            gc = gt if gidx is None else gt[:, torch.as_tensor(
+                gidx, device=gt.device).long()]
+            if part == "shell":
+                plain_shell_vjp(plan, dc, tab_r, T[sel], gc, stride=stride,
+                                gidx=gidx, grads=grads, **kw)
+            else:
+                plain_line_tiles_vjp(plan, dc, tab_r, T[sel], gc, gidx=gidx,
+                                     bins_first=True, grads=grads, **kw)
+    return grads
+
+
+def backward_vs_plain(m: TransitModel, g, label: str) -> dict:
+    """Every backward launch of the banded path on its own (the shell
+    launch with the clip mask of its forward launch) against its plain
+    VJP on the same inputs and cotangent ``g``: per output max|a-b| /
+    max|b| < GRAD_LAUNCH_TOL.  {kernel: {"max_rel": {output: x},
+    "max_abs_temps", "launches"}}."""
+    args, kw = file_state(m)
+    T = args[0]
+    tab = banded.prep_layers(m.bdev[0], *args, use_kernel=True)
+    res = {}
+    for part, unit, r, sel in banded_launches(m):
+        clip = shell_clip(tab, T, kw, unit, r, m.wns.n) \
+            if part == "shell" else None
+        acc = backward_kernel(tab, T, kw, part, unit, r, g, clip)
+        got = {k: v[sel] for k, v in acc_grads(acc, torch.float64).items()}
+        want = backward_plain(tab, T, kw, part, unit, sel, g)
+        name = bwd_name(part)
+        e = res.setdefault(name, {"max_rel": dict.fromkeys(GRAD_OUTPUTS,
+                                                           0.0),
+                                  "max_abs_temps": 0.0, "launches": 0})
+        for k in GRAD_OUTPUTS:
+            a, b = got[k], want[k]
+            check(bool(torch.isfinite(a).all()),
+                  f"{label} {name}: {k} not finite")
+            diff = float((a - b).abs().max())
+            scale = float(b.abs().max())
+            err = diff / scale if scale > 0 else (0.0 if diff == 0 else
+                                                  float("inf"))
+            check(err < GRAD_LAUNCH_TOL,
+                  f"{label} {name} ({part}): {k} vs plain VJP {err:.3e} >= "
+                  f"{GRAD_LAUNCH_TOL}")
+            e["max_rel"][k] = max(e["max_rel"][k], err)
+            if k == "temps":
+                e["max_abs_temps"] = max(e["max_abs_temps"], diff)
+        e["launches"] += 1
+    return res
+
+
+def grad_leaves(m: TransitModel, T0, q0):
+    return tuple(torch.tensor(np.asarray(a), dtype=torch.float32,
+                              device=m.device, requires_grad=True)
+                 for a in (T0, q0))
+
+
+def grad_step(m: TransitModel, T, q):
+    """One retrieval gradient step: d(sum of forward(T, q)) / d(T, q)."""
+    return torch.autograd.grad(m.forward(T, q).sum(), (T, q))
+
+
+def max_rel(a, b) -> float:
+    """max |a - b| / max |b|."""
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def backward_times(m: TransitModel, g) -> dict:
+    """Per backward kernel: the time of its launches of one gradient step
+    (CUDA events, median of RUNS), of their plain VJPs, and the bound of
+    the work they need on these inputs (FP32, MUFU and byte terms; the
+    FP64 part of the kernels' design beside them)."""
+    args, kw = file_state(m)
+    T = args[0]
+    nl, n = m.atm.nlayers, m.wns.n
+    tab = banded.prep_layers(m.bdev[0], *args, use_kernel=True)
+    niso = tab["alphal"].shape[1]
+    launches = list(banded_launches(m))
+    clips = {id(u): shell_clip(tab, T, kw, u, r, n)
+             for p, u, r, _ in launches if p == "shell"}
+    res = {}
+    for name in ("line_tile_backward", "shell_tile_backward"):
+        mine = [x for x in launches if bwd_name(x[0]) == name]
+        if not mine:
+            continue
+        ms = cuda_ms(lambda: [backward_kernel(tab, T, kw, p, u, r, g,
+                                              clips.get(id(u)))
+                              for p, u, r, _ in mine])
+        plain_ms = cuda_ms(lambda: [backward_plain(tab, T, kw, p, u, sel, g)
+                                    for p, u, _, sel in mine], runs=1)
+        res[name] = {"ms": ms, "plain_ms": plain_ms, "launches": len(mine)}
+    # The work each function needs on these inputs: [FP32 operations,
+    # bytes, MUFU operations, operations the kernels run in FP64].
+    tables = nbytes_of(*(tab[k] for k in ("alphal", "alphad_f", "coef0",
+                                          "densm", "kmax")), T)
+    need = {k: [0, tables, 0, 0] for k in res}
+    for i, (a, b) in enumerate(m.bplan.slices):
+        parts = [(p, pl) for bi, _, p, pl, _, _ in
+                 banded.band_parts(m.bplan, m.bdev) if bi == i]
+        for key in need:
+            plans = [pl for p, pl in parts if bwd_name(p) == key]
+            if plans:
+                chains = (b - a) * distinct_lines(*plans)
+                need[key][0] += OPS_LAYER_LINE * chains
+                need[key][2] += MUFU_LAYER_LINE * chains
+    for part, unit, r, sel in launches:
+        key = bwd_name(part)
+        tab_r = {k: v[sel] for k, v in tab.items()}
+        nrows = sel.shape[0]
+        if part == "shell":
+            tw = unit.parts[0][0].tw
+            tiles = unit.blocks[:, 0].cpu().numpy().astype(np.int64)
+            ncol = int(np.minimum(n - tiles * tw, tw).sum())
+            need[key][1] += (nbytes_of(*unit.lines.values(), unit.blocks) +
+                             nrows * ncol * (4 + len(unit.parts)) +
+                             8 * nrows * (1 + 4 * niso))
+            for plan, classes, stride in unit.parts:
+                if stride > 1:
+                    need[key][0] += OPS_BWD_UPSAMPLE * nrows * ncol
+                for dc, gidx in classes:
+                    c = shell_counts(plan, dc, tab_r, T[sel], stride=stride,
+                                     gidx=gidx, **kw)
+                    need[key][0] += OPS_BWD_PAIR32 * c["evals"]
+                    need[key][3] += (OPS_BWD_CHAIN * c["live"] + c["evals"] *
+                                     (OPS_BWD_PAIR64 +
+                                      OPS_WFN[plan.wfn_tag]))
+                    need[key][2] += MUFU_WFN[plan.wfn_tag] * c["evals"]
+            continue
+        plan, dc, gidx, _ = unit
+        ncol = min(n, plan.ntiles * plan.tw) if gidx is None else \
+            int(np.minimum(n - np.asarray(gidx) * plan.tw, plan.tw).sum())
+        need[key][1] += (nbytes_of(*(dc[k] for k in ("wavn", "elow", "gf",
+                                                     "iso", "mask"))) +
+                         4 * nrows * ncol + 8 * nrows * (1 + 4 * niso))
+        w = work_counts(plan, {**dc, "all_wavn": m.bdev[0]["all_wavn"]},
+                        tab_r, T[sel], gidx=gidx, bins_first=True, **kw)
+        live = run_counts(plan, dc, tab_r, T[sel], gidx=gidx,
+                          bins_first=True, **kw)["live"]
+        ev = sum(w[x] for x in OPS_REGION)
+        need[key][0] += OPS_BWD_PAIR32 * ev
+        need[key][3] += OPS_BWD_CHAIN * live + OPS_BWD_PAIR64 * ev
+        if plan.wfn_tag == "w4":
+            need[key][3] += sum(OPS_REGION[x] * w[x] for x in OPS_REGION)
+            need[key][2] += sum(MUFU_BWD_REGION[x] * w[x]
+                                for x in OPS_REGION)
+        else:
+            need[key][3] += OPS_WFN[plan.wfn_tag] * ev
+            need[key][2] += MUFU_WFN[plan.wfn_tag] * ev
+    for name, (ops, nb, mufu, ops64) in need.items():
+        b_ms, b_by, unit = roofline(ops + ops64, nb, mufu)
+        res[name].update(bound_ms=b_ms, bound_by=b_by, bound_unit=unit,
+                         ops=ops + ops64, ops_fp64_design=ops64, mufu=mufu,
+                         bytes=nb,
+                         terms_ms={"fp32": 1e3 * (ops + ops64) / PEAK_FP32,
+                                   "mufu": 1e3 * mufu / PEAK_MUFU,
+                                   "bytes": 1e3 * nb / PEAK_BYTES,
+                                   "fp64_design": 1e3 * ops64 / PEAK_FP64})
+    return res
+
+
+ALL_KERNELS = (line_tile_extinction, layer_kmax, shell_tile_extinction,
+               line_tile_backward, shell_tile_backward)
+
+
+def grad_phase(m: TransitModel, requests, label: str) -> dict:
+    """Three gradient steps of ``forward`` (launch counts set to 0 just
+    before and read just after), then the checks: finite gradients, one
+    backward launch per forward launch, each backward launch against its
+    plain VJP, the whole gradient against the plain path's, central
+    differences in T on two layers; then the times."""
+    for k in ALL_KERNELS:
+        k.launches = 0
+    leaves = [grad_leaves(m, T0, q0) for T0, q0 in requests]
+    grads = [grad_step(m, T, q) for T, q in leaves]
+    torch.cuda.synchronize()
+    launches = {k.__name__: k.launches for k in ALL_KERNELS}
+    for gT, gq in grads:
+        check(gT.shape == (m.atm.nlayers,) and bool(torch.isfinite(gT).all())
+              and bool(torch.isfinite(gq).all()) and float(gT.abs().max()) > 0,
+              f"{label}: gradient not finite or zero")
+    per_step = {k: 0 for k in ("line_tile_backward", "shell_tile_backward")}
+    for _, part, _ in banded.launch_units(m.bplan, m.bdev, m.bindex):
+        per_step[bwd_name(part)] += 1
+    for k, v in per_step.items():
+        check(launches[k] == 3 * v, f"{label}: {k} launched {launches[k]} "
+              f"times in 3 steps, the plan asks {3 * v}")
+    check(launches["layer_kmax"] == 3, f"{label}: layer_kmax launched "
+          f"{launches['layer_kmax']} times in 3 steps")
+    # The whole gradient: kernel path against the plain path (plain
+    # forward, plain VJPs) on the card.
+    m.use_kernel = False
+    plain = grad_step(m, *leaves[0])
+    m.use_kernel = True
+    err_T, err_q = (max_rel(a, b) for a, b in zip(grads[0], plain))
+    check(max(err_T, err_q) < GRAD_TOL, f"{label}: gradient kernel path vs "
+          f"plain path T {err_T:.3e} q {err_q:.3e} >= {GRAD_TOL}")
+    # Central differences in T at the two layers of largest |dF/dT|.
+    T0, q0 = (np.asarray(a, dtype=np.float64) for a in requests[0])
+    gT = grads[0][0].double().cpu().numpy()
+    fd = {}
+    with torch.no_grad():
+        for layer in np.argsort(-np.abs(gT))[:2].tolist():
+            f = []
+            for sign in (1.0, -1.0):
+                T = T0.copy()
+                T[layer] += sign * FD_STEP
+                f.append(float(m.forward(T, q0).double().sum()))
+            d = (f[0] - f[1]) / (2.0 * FD_STEP)
+            fd[layer] = {"fd": d, "grad": float(gT[layer]),
+                         "rel": abs(d - gT[layer]) / abs(d)}
+            check(fd[layer]["rel"] < FD_RTOL, f"{label}: layer {layer} "
+                  f"central difference {d:.6e} vs gradient {gT[layer]:.6e}")
+    g = line_cotangent(m, T0, q0)
+    launch_err = backward_vs_plain(m, g, label)
+    T, q = leaves[0]
+    Tn, qn = T.detach(), q.detach()
+    ms_fwd = cuda_ms(lambda: m.forward(Tn, qn))
+    ms_fb = cuda_ms(lambda: grad_step(m, T, q))
+    return {"launches": launches, "per_step": {k: v / 3 for k, v in
+                                               launches.items()},
+            "vs_plain_path": {"T": err_T, "q": err_q}, "fd": fd,
+            "launch_vs_plain": launch_err, "forward_ms": ms_fwd,
+            "forward_backward_ms": ms_fb, "ratio": ms_fb / ms_fwd,
+            "times": backward_times(m, g)}
+
+
+def batch_phase(m: TransitModel, label: str) -> dict:
+    """forward_batch on BATCH perturbed profiles (numpy, from a seed)
+    against BATCH calls of forward, and its gradient against the sum of
+    theirs; launch counts of one batched gradient step; times."""
+    rng = np.random.default_rng(11)
+    T0 = np.asarray(m.atm.temp, dtype=np.float64)
+    q0 = np.asarray(m.atm.q, dtype=np.float64)
+    Tb = T0[None] + rng.normal(0.0, 30.0, (BATCH, T0.shape[0]))
+    qb = q0[None] * (1.0 + 0.1 * rng.uniform(-1, 1, (BATCH,) + q0.shape))
+    T, q = grad_leaves(m, Tb, qb)
+    for k in ALL_KERNELS:
+        k.launches = 0
+    spec = m.forward_batch(T, q)
+    gT, gq = torch.autograd.grad(spec.sum(), (T, q))
+    torch.cuda.synchronize()
+    launches = {k.__name__: k.launches for k in ALL_KERNELS}
+    check(spec.shape == (BATCH, m.wns.n) and bool(torch.isfinite(spec).all())
+          and bool(torch.isfinite(gT).all()), f"{label}: batch not finite")
+    loop, gl = [], []
+    for i in range(BATCH):
+        t, qq = grad_leaves(m, Tb[i], qb[i])
+        s = m.forward(t, qq)
+        loop.append(s.detach())
+        gl.append(torch.autograd.grad(s.sum(), (t, qq)))
+    loop = torch.stack(loop)
+    err = float(((spec.detach() - loop).abs() / loop.abs()).max())
+    check(err <= BATCH_TOL, f"{label}: forward_batch vs forward {err:.3e} > "
+          f"{BATCH_TOL}")
+    err_T = max_rel(gT, torch.stack([a for a, _ in gl]))
+    err_q = max_rel(gq, torch.stack([b for _, b in gl]))
+    check(max(err_T, err_q) < BATCH_GRAD_TOL, f"{label}: forward_batch "
+          f"gradient vs the loop's T {err_T:.3e} q {err_q:.3e}")
+    Tn, qn = T.detach(), q.detach()
+    ms = cuda_ms(lambda: m.forward_batch(Tn, qn))
+    ms_fb = cuda_ms(lambda: torch.autograd.grad(m.forward_batch(T, q).sum(),
+                                                (T, q)))
+    return {"launches": launches, "vs_loop": err,
+            "grad_vs_loop": {"T": err_T, "q": err_q}, "ms_batch": ms,
+            "ms_member": ms / BATCH, "ms_batch_grad": ms_fb,
+            "ms_member_grad": ms_fb / BATCH}
 
 
 def main(device: str = "cuda", profile: str | None = None) -> int:
@@ -837,10 +1203,34 @@ def main(device: str = "cuda", profile: str | None = None) -> int:
     print(f"forward banded: {points / (ms_fwd_b * 1e-3):.6e} wavenumber "
           f"points x layers per second ({ms_fwd_b:.3f} ms, {card})",
           flush=True)
+    t0 = time.perf_counter()
+    grad_b = grad_phase(hjb, requests, "main path grad")
+    phase("main_path_grad", t0, f"3 gradient steps; forward "
+          f"{grad_b['forward_ms']:.3f} ms, forward+backward "
+          f"{grad_b['forward_backward_ms']:.3f} ms (ratio "
+          f"{grad_b['ratio']:.3f}); " + json.dumps(
+              {k: v for k, v in grad_b.items() if k not in (
+                  "forward_ms", "forward_backward_ms", "ratio")}))
+    t0 = time.perf_counter()
+    batch = batch_phase(hjb, "main path batch")
+    phase("main_path_batch", t0, f"B = {BATCH}: {batch['ms_batch']:.3f} ms "
+          f"a batch, {batch['ms_member']:.3f} ms a member; with the "
+          f"gradient {batch['ms_batch_grad']:.3f} / "
+          f"{batch['ms_member_grad']:.3f} ms; " + json.dumps(batch))
     if profile:
+        # After the timed phases: a profiler pass slows the host's
+        # dispatch for the rest of the process.
         t0 = time.perf_counter()
         profile_forward(hjb, T0, q0, ms_fwd_b, profile, "banded")
         phase("profile", t0)
+        t0 = time.perf_counter()
+        leaves = grad_leaves(hjb, T0, q0)
+        trace = Path(profile)
+        profile_step(lambda: grad_step(hjb, *leaves),
+                     grad_b["forward_backward_ms"],
+                     str(trace.with_name(f"{trace.stem}_grad{trace.suffix}")),
+                     "banded grad")
+        phase("profile_grad", t0)
 
     # 7. Path 3: bands=6 at 0.05 cm-1, with decimated far-wing shells.
     t0 = time.perf_counter()
@@ -890,6 +1280,16 @@ def main(device: str = "cuda", profile: str | None = None) -> int:
     print(f"forward 0.05 cm-1: {points_f / (ms_fwd_f * 1e-3):.6e} wavenumber "
           f"points x layers per second ({ms_fwd_f:.3f} ms, {card})",
           flush=True)
+    t0 = time.perf_counter()
+    grad_f = grad_phase(hjf, req_f, "0.05 cm-1 grad")
+    check("shell_tile_backward" in grad_f["launch_vs_plain"],
+          "no shell backward launch compared")
+    phase("fine_path_grad", t0, f"3 gradient steps; forward "
+          f"{grad_f['forward_ms']:.3f} ms, forward+backward "
+          f"{grad_f['forward_backward_ms']:.3f} ms (ratio "
+          f"{grad_f['ratio']:.3f}); " + json.dumps(
+              {k: v for k, v in grad_f.items() if k not in (
+                  "forward_ms", "forward_backward_ms", "ratio")}))
     if profile:
         t0 = time.perf_counter()
         trace = Path(profile)
@@ -897,6 +1297,13 @@ def main(device: str = "cuda", profile: str | None = None) -> int:
                         str(trace.with_name(f"{trace.stem}_0.05"
                                             f"{trace.suffix}")), "0.05")
         phase("profile_0.05", t0)
+        t0 = time.perf_counter()
+        leaves = grad_leaves(hjf, T0f, q0f)
+        profile_step(lambda: grad_step(hjf, *leaves),
+                     grad_f["forward_backward_ms"],
+                     str(trace.with_name(f"{trace.stem}_grad_0.05"
+                                         f"{trace.suffix}")), "0.05 grad")
+        phase("profile_grad_0.05", t0)
 
     # 8. Nothing of JAX or of the JAX package was loaded.
     bad = sorted(k for k in sys.modules
@@ -916,6 +1323,17 @@ def main(device: str = "cuda", profile: str | None = None) -> int:
                for k in kernels}
     lt, km, sh = (times_b["line_tile_extinction"], times_b["layer_kmax"],
                   times_f["shell_tile_extinction"])
+    ltb, shb = (grad_b["times"]["line_tile_backward"],
+                grad_f["times"]["shell_tile_backward"])
+
+    def grad_launched(name):
+        return grad_b["launches"][name] + grad_f["launches"][name]
+
+    def bwd_err(name):
+        errs = [g["launch_vs_plain"][name] for g in (grad_b, grad_f)
+                if name in g["launch_vs_plain"]]
+        return (max(e["max_abs_temps"] for e in errs),
+                {k: max(e["max_rel"][k] for e in errs) for k in GRAD_OUTPUTS})
     print(card, flush=True)
     print(json.dumps({"kernels": [{
         "name": "line_tile_extinction",
@@ -975,8 +1393,33 @@ def main(device: str = "cuda", profile: str | None = None) -> int:
         "bound_unit": sh["bound_unit"],
         "library_ms": None,
         "card": card,
-    }], "forward_ms": {"unbanded": ms_forward, "banded": ms_fwd_b,
-                       "banded_0.05": ms_fwd_f}}), flush=True)
+    }] + [{
+        "name": name,
+        "route": "cuda",
+        "source": src,
+        "replaces": "transit_tpu/opacities/fast.py:608",
+        "launches": grad_launched(name),
+        "launches_per_step": {"banded": grad_b["per_step"][name],
+                              "banded_0.05": grad_f["per_step"][name]},
+        "max_abs_err": bwd_err(name)[0],
+        "max_rel_vs_plain_by_output": bwd_err(name)[1],
+        "ms": t["ms"],
+        "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"],
+        "bound_unit": t["bound_unit"],
+        "bound_terms_ms": t["terms_ms"],
+        "library_ms": None,
+        "card": card,
+    } for name, src, t in (
+        ("line_tile_backward", "transit_tpu_torch/csrc/line_tile.cu", ltb),
+        ("shell_tile_backward", "transit_tpu_torch/csrc/shell_tile.cu",
+         shb))], "forward_ms": {"unbanded": ms_forward, "banded": ms_fwd_b,
+                                "banded_0.05": ms_fwd_f},
+        "gradient_ms": {"banded": grad_b["forward_backward_ms"],
+                        "banded_0.05": grad_f["forward_backward_ms"]},
+        "batch_ms": {"B": BATCH, "batch": batch["ms_batch"],
+                     "member": batch["ms_member"]}}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

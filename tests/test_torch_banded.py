@@ -115,7 +115,7 @@ def test_launch_sequence_matches_plain(monkeypatch, config, far_full_res):
         seen["line"] += 1
 
     def shell_tile(band, tab, temps, wn_i, dwn, ethresh, nwidth, *, rows,
-                   out, stats=None, full_res):
+                   out, stats=None, full_res, clip=None):
         kernel_shell.plain_shell_band(band, tab, temps, wn_i, dwn, ethresh,
                                       nwidth, rows=rows, out=out,
                                       full_res=full_res)
@@ -127,8 +127,9 @@ def test_launch_sequence_matches_plain(monkeypatch, config, far_full_res):
     args, kw = state(m, np.float64)
     targs = [torch.as_tensor(a) for a in args]
     index = banded.banded_index(m.bplan, m.bdev, "cpu")
-    got = banded._launch_all(m.bplan, m.bdev, *targs, kw, far_full_res,
-                             index, {})
+    tab = banded.prep_layers(m.bdev[0], *targs, use_kernel=True)
+    got = banded._launch_all(m.bplan, m.bdev, tab, targs[0], kw,
+                             far_full_res, index, {})
     want = banded.plain_banded_extinction(m.bplan, m.bdev, *targs,
                                           far_full_res=far_full_res, **kw)
     assert torch.equal(got, want)

@@ -337,15 +337,193 @@ def test_layer_kmax_floor_zero(card):
     assert torch.count_nonzero(got) == 0
 
 
+def _grad_rel(got: dict, want: dict) -> float:
+    """max over the outputs of max|a - b| / max|b| (an all-zero reference
+    must be matched exactly)."""
+    worst = 0.0
+    for k, b in want.items():
+        a = got[k].to(b.dtype)
+        assert torch.isfinite(a).all(), k
+        scale = float(b.abs().max())
+        diff = float((a - b).abs().max())
+        worst = max(worst, diff / scale if scale > 0 else
+                    (0.0 if diff == 0 else float("inf")))
+    return worst
+
+
 @pytest.mark.cuda
-def test_kernels_refuse_gradients(card):
-    """The kernels have no backward yet: an input that requires grad
-    raises with the slice's name instead of dropping the gradient."""
+@pytest.mark.parametrize("config", ["fixture", "fixture_bands6", "fine"])
+def test_kernel_gradients_match_plain_vjps(card, config):
+    """The gradient through the kernels (LineExtinction: the forward
+    kernels, then line_tile_backward / shell_tile_backward) equals the
+    plain path's (plain forward, plain VJPs) on the card, in (T,
+    densities, Z), on a seeded cotangent; the backward kernels ran."""
+    from transit_tpu_torch.opacities.kernel_lbl import line_tile_backward
+    from transit_tpu_torch.opacities.kernel_shell import shell_tile_backward
+    m = (_fine_model(card) if config == "fine" else
+         _model(card, bands=6 if config == "fixture_bands6" else 0))
+    args, _ = _state(m)
+    rng = np.random.default_rng(8)
+    g = torch.as_tensor(rng.standard_normal((20, m.wns.n)),
+                        dtype=torch.float32, device=card)
+    res = []
+    before = line_tile_backward.launches + shell_tile_backward.launches
+    for use_kernel in (True, False):
+        m.use_kernel = use_kernel
+        leaves = [a.clone().requires_grad_(True) for a in args[:3]]
+        ex = m.line_extinction(*leaves)
+        res.append(dict(zip(("T", "dens", "Z"), torch.autograd.grad(
+            (ex * g).sum(), leaves))))
+    torch.cuda.synchronize()
+    assert line_tile_backward.launches + shell_tile_backward.launches > \
+        before
+    assert _grad_rel(res[0], res[1]) < 1e-4
+
+
+@pytest.mark.cuda
+def test_forward_batch_fine_grid_on_card(card):
+    """forward_batch (B = 2) on the fine-grid fixture with bands=6 runs
+    the decimated shells over the batch's pseudo-layers (the batched
+    view's shell bands with its own rows, clip masks sized from those
+    rows, shell_tile_backward over 2 x 20 rows): its spectra against a
+    loop of forward <= 1e-6 relative, its gradient against the loop's <
+    1e-4 of max."""
+    from transit_tpu_torch.opacities.kernel_shell import (
+        shell_tile_backward, shell_tile_extinction)
+    m = _fine_model(card)
+    rng = np.random.default_rng(12)
+    T0 = np.asarray(m.atm.temp, dtype=np.float64)
+    q0 = np.asarray(m.atm.q, dtype=np.float64)
+    Tb = np.stack([T0, T0 + rng.normal(0.0, 30.0, T0.shape)])
+    qb = np.stack([q0, q0 * (1.0 + 0.1 * rng.uniform(-1, 1, q0.shape))])
+
+    def leaves(t, qq):
+        return tuple(torch.tensor(a, dtype=torch.float32, device=card,
+                                  requires_grad=True) for a in (t, qq))
+
+    T, q = leaves(Tb, qb)
+    before = (shell_tile_extinction.launches, shell_tile_backward.launches)
+    spec = m.forward_batch(T, q)
+    grads = torch.autograd.grad(spec.sum(), (T, q))
+    torch.cuda.synchronize()
+    assert shell_tile_extinction.launches > before[0]
+    assert shell_tile_backward.launches > before[1]
+    loop, lgrads = [], []
+    for i in range(2):
+        t, qq = leaves(Tb[i], qb[i])
+        s = m.forward(t, qq)
+        loop.append(s.detach())
+        lgrads.append(torch.autograd.grad(s.sum(), (t, qq)))
+    loop = torch.stack(loop)
+    assert spec.shape == loop.shape and bool(torch.isfinite(spec).all())
+    assert float(((spec.detach() - loop).abs() / loop.abs()).max()) <= 1e-6
+    for a, b in zip(grads, (torch.stack(g) for g in zip(*lgrads))):
+        assert bool(torch.isfinite(a).all()) and float(b.abs().max()) > 0
+        assert float((a - b).abs().max() / b.abs().max()) < 1e-4
+
+
+def _line_bwd_vs_plain(plan, d, tab, temps, g, kw, rows, tiles=None,
+                       gidx=None, bins_first=False):
+    """line_tile_backward on ``rows`` against plain_line_tiles_vjp on the
+    same rows: max relative error over the outputs; the kernel's sums
+    outside the rows stay 0."""
+    from transit_tpu_torch.opacities.kernel_lbl import (
+        acc_grads, line_tile_backward, plain_line_tiles_vjp,
+        tile_cotangent)
+    acc = line_tile_backward(plan, d, tab, temps, g, tiles=tiles, rows=rows,
+                             bins_first=bins_first, **kw)
+    torch.cuda.synchronize()
+    sel = rows.long()
+    others = torch.ones(temps.shape[0], dtype=torch.bool, device=g.device)
+    others[sel] = False
+    assert int(torch.count_nonzero(acc[others])) == 0
+    gt = tile_cotangent(g[sel], plan)
+    want = plain_line_tiles_vjp(plan, d, {k: v[sel] for k, v in tab.items()},
+                                temps[sel], gt if gidx is None else gt[:, (
+                                    torch.as_tensor(gidx).long())],
+                                gidx=gidx, bins_first=bins_first, **kw)
+    got = {k: v[sel] for k, v in acc_grads(acc, torch.float64).items()}
+    return _grad_rel(got, want)
+
+
+def _wide_plan(m, card, tw):
+    """The fixture's unbanded plan re-planned at tile width ``tw``."""
+    p = m.fplan
+    mw = fast.max_width_bound(m.atm, m.mol, m.iso.mass, m.wns.f,
+                              m.iso.imol)
+    plan = fast.make_fast_plan(p.wavn, p.isoid, p.elow, p.gf, wn_i=m.wns.i,
+                               dwn=m.wns.d, n_coarse=m.wns.n, max_width=mw,
+                               nwidth=m.cfg.nwidth, tw=tw)
+    return plan, {**m.fdev, **fast.fast_device_arrays(
+        plan, m.iso, dtype=torch.float32, device=card)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nrows", [1, 7, 101])
+@pytest.mark.parametrize("tw", [8, 64, 512])
+def test_line_backward_layers_and_widths(card, tw, nrows):
+    """line_tile_backward against its plain VJP at tile widths 8 (the
+    fixture's), 64 and 512 (one tile, ragged against 101 bins), on 1, 7
+    and 101 layer rows (the fixture's 20 layers' tables cycled to 120
+    rows: ragged layer blocks)."""
+    m = _model(card)
+    plan, d = (m.fplan, m.fdev) if tw == 8 else _wide_plan(m, card, tw)
+    args, kw = _state(m)
+    tab = layer_tables(d, *args)
+    idx = torch.arange(120, device=card) % 20
+    tab = {k: v[idx].contiguous() for k, v in tab.items()}
+    temps = args[0][idx].contiguous()
+    rows = torch.arange(7, 7 + nrows, dtype=torch.int32, device=card)
+    g = torch.as_tensor(np.random.default_rng(nrows).standard_normal(
+        (120, m.wns.n)), dtype=torch.float32, device=card)
+    assert _line_bwd_vs_plain(plan, d, tab, temps, g, kw, rows) < 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["empty_tiles", "ethresh_cuts_all"])
+def test_line_backward_empty_and_cut(card, case):
+    """Tiles with no line (the mask cleared on every other tile) give
+    those tiles no cotangent; ethresh above 1 cuts every line: all
+    cotangents 0, as the plain VJP's."""
     m = _model(card)
     args, kw = _state(m)
-    T = args[0].clone().requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="slice"):
-        kernel_extinction(m.fplan, m.fdev, T, *args[1:], **kw)
+    d = dict(m.fdev)
+    if case == "empty_tiles":
+        d["mask"] = d["mask"].clone()
+        d["mask"][::2] = False
+    else:
+        kw["ethresh"] = 2.0
+    tab = layer_tables(d, *args)
+    g = torch.ones((20, m.wns.n), device=card)
+    rows = torch.arange(20, dtype=torch.int32, device=card)
+    assert _line_bwd_vs_plain(m.fplan, d, tab, args[0], g, kw, rows) < 1e-4
+    from transit_tpu_torch.opacities.kernel_lbl import line_tile_backward
+    acc = line_tile_backward(m.fplan, d, tab, args[0], g, **kw)
+    assert (int(torch.count_nonzero(acc)) == 0) == (case ==
+                                                     "ethresh_cuts_all")
+
+
+@pytest.mark.cuda
+def test_banded_line_backward_launches(card):
+    """Every near and stride-1 line-tile launch of the fine grid's banded
+    path (tile classes, tw up to 512, bins_first) against its plain
+    VJP."""
+    from transit_tpu_torch.opacities import banded
+    m = _fine_model(card)
+    args, kw = _state(m)
+    tab = banded.prep_layers(m.bdev[0], *args, use_kernel=True)
+    g = torch.as_tensor(np.random.default_rng(3).standard_normal(
+        (20, m.wns.n)), dtype=torch.float32, device=card)
+    n = 0
+    for i, part, unit in banded.launch_units(m.bplan, m.bdev, m.bindex):
+        if part == "shell":
+            continue
+        plan, dc, gidx, t = unit
+        assert _line_bwd_vs_plain(plan, dc, tab, args[0], g, kw,
+                                  m.bindex["rows"][i], tiles=t, gidx=gidx,
+                                  bins_first=True) < 1e-4
+        n += 1
+    assert n >= len(m.bplan.plans)
 
 
 # --- The shell kernel's launch (one per band) and layer_kmax ---------------
@@ -467,6 +645,84 @@ def test_shell_kernel_empty_and_long_tiles(card, nrows):
     rows = torch.arange(nrows, dtype=torch.int32, device=card)
     assert _shell_vs_plain(band, tab, temps, kw, rows) < 1e-5
     assert _shell_vs_plain(band, tab, temps, kw, rows, full_res=True) < 1e-5
+
+
+def _shell_bwd_vs_plain(band, tab, temps, kw, rows, full_res=False):
+    """shell_tile_backward (with the clip mask of its forward launch)
+    against plain_shell_vjp, shell by shell, on the same rows and a
+    seeded cotangent: max relative error over the outputs."""
+    from transit_tpu_torch.opacities.kernel_lbl import (acc_grads,
+                                                        tile_cotangent,
+                                                        zero_grads)
+    from transit_tpu_torch.opacities.kernel_shell import (
+        plain_shell_vjp, shell_tile_backward, shell_tile_extinction)
+    n = band.parts[0][0].n_coarse
+    clip = torch.zeros((len(band.parts), rows.shape[0], n),
+                       dtype=torch.uint8, device=temps.device)
+    shell_tile_extinction(band, tab, temps, rows=rows, clip=clip,
+                          full_res=full_res,
+                          out=torch.zeros((temps.shape[0], n),
+                                          device=temps.device), **kw)
+    g = torch.as_tensor(np.random.default_rng(rows.shape[0])
+                        .standard_normal((temps.shape[0], n)),
+                        dtype=torch.float32, device=temps.device)
+    acc = shell_tile_backward(band, tab, temps, g, rows=rows,
+                              clip=None if full_res else clip,
+                              full_res=full_res, **kw)
+    torch.cuda.synchronize()
+    sel = rows.long()
+    tab_r = {k: v[sel] for k, v in tab.items()}
+    want = zero_grads(tab_r, temps[sel])
+    for plan, classes, stride in band.parts:
+        gt = tile_cotangent(g[sel], plan)
+        for dc, gidx in classes:
+            gc = gt if gidx is None else gt[:, torch.as_tensor(
+                gidx, device=gt.device).long()]
+            plain_shell_vjp(plan, dc, tab_r, temps[sel], gc,
+                            stride=1 if full_res else stride, gidx=gidx,
+                            grads=want, **kw)
+    got = {k: v[sel] for k, v in acc_grads(acc, torch.float64).items()}
+    return _grad_rel(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nrows", [1, 7])
+@pytest.mark.parametrize("wfn", ["r2", "asym2"])
+@pytest.mark.parametrize("stride", [2, 8])
+def test_shell_backward_matches_plain(card, stride, wfn, nrows):
+    """One shell backward launch (the fine grid's band-0 shells at tw
+    512, Voigt function ``wfn``, ``stride``) on ``nrows`` rows against the
+    plain VJPs."""
+    import dataclasses
+    from transit_tpu_torch.opacities.kernel_shell import shell_band
+    parts, tab, temps, kw = _band_state(_fine_model(card))
+    band = shell_band([(dataclasses.replace(p, wfn_tag=wfn), c, stride)
+                       for p, c, _ in parts[:2]])
+    rows = torch.arange(3, 3 + nrows, dtype=torch.int32, device=card)
+    assert _shell_bwd_vs_plain(band, tab, temps, kw, rows) < 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["empty_and_long", "full_res",
+                                  "ethresh_cuts_all"])
+def test_shell_backward_edge_cases(card, case):
+    """Empty tiles and tiles longer than a staged chunk; full resolution
+    (stride 1, no clip mask); ethresh above 1 (every line cut: no
+    cotangent at all)."""
+    from transit_tpu_torch.opacities.kernel_shell import shell_band
+    parts, tab, temps, kw = _band_state(_fine_model(card))
+    (p0, c0, s0), (p1, c1, s1) = parts[:2]
+    if case == "empty_and_long":
+        band = shell_band([
+            (p0, _dense_class(p0, c0, [0], 100, [2, 5]), s0),
+            (p1, _dense_class(p1, c1, [0, 3], 100, [5]), s1)])
+    else:
+        band = shell_band(parts)
+    if case == "ethresh_cuts_all":
+        kw = {**kw, "ethresh": 2.0}
+    rows = torch.arange(7, dtype=torch.int32, device=card)
+    assert _shell_bwd_vs_plain(band, tab, temps, kw, rows,
+                               full_res=case == "full_res") < 1e-4
 
 
 def _kmax_inputs(card, nl, profile):

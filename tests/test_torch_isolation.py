@@ -33,6 +33,7 @@ _MODS = [
     "transit_tpu_torch.opacities.banded, "
     "transit_tpu_torch.opacities.kernel_shell",
     "chip_smoke",
+    "grad_fd_study",
 ]
 
 
@@ -133,16 +134,18 @@ def test_unported_banded_options_raise():
 
 @pytest.mark.parametrize("bands", [0, 6])
 def test_unported_step_options_raise(bands):
-    """forward_batch and hydrostatic radii raise with their slice's name,
-    on the unbanded and on the banded model."""
+    """Hydrostatic radii raise with their slice's name from forward and
+    forward_batch, on the unbanded and on the banded model (forward_batch
+    itself is ported: it runs on static radii)."""
     from transit_tpu_torch.model import TransitModel
     cfg = _torch_cfg()
     m = TransitModel(cfg, dtype=torch.float64, device="cpu", bands=bands)
     assert (m.bplan is not None) == (bands > 0)
     T = torch.as_tensor(m.atm.temp)
     q = torch.as_tensor(m.atm.q)
-    with pytest.raises(NotImplementedError, match="forward_batch.*slice"):
-        m.forward_batch(T[None], q[None])
+    assert m.forward_batch(T[None], q[None]).shape == (1, m.wns.n)
     cfg.gsurf, cfg.refpress, cfg.refradius = 2000.0, 0.1, 7e9
-    with pytest.raises(NotImplementedError, match="slice"):
+    with pytest.raises(NotImplementedError, match="hydrostatic.*slice"):
         m.forward(T, q)
+    with pytest.raises(NotImplementedError, match="hydrostatic.*slice"):
+        m.forward_batch(T[None], q[None])

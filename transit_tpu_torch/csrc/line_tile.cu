@@ -559,6 +559,113 @@ layer_kmax_kernel(const float* __restrict__ wavn,
   }
 }
 
+// The backward of line_tile_kernel: the counterpart of
+// fast._block_val_bwd without a line weight (fast.py:608-680), the analytic
+// VJP of the JAX path's tile blocks (jnp code that XLA fuses, not Pallas).
+// Given the cotangent g (nl, n_coarse) of the output, for each live (layer,
+// tile, line) entry (kept, and its wing reaches a bin of the tile: the
+// forward's run [b0, b1] from find_run) it takes three sums over the run's
+// bins (add_bin_sums: Voigt pair and Faddeeva partials, recomputed, no
+// residuals), chains them to the line's cotangents (chain_add) and adds
+// those to the layer's temperature and (layer, isotope) table cells.
+// What bounds it: arithmetic on the run's pairs, as in the forward, but
+// the pair w and its partials are float64 (voigt.cuh says why; the card's
+// FP64 rate is half its FP32 rate, and a float64 divide is a loop of
+// FMAs).  The design is the simple one: a block per (tile, block of lb
+// layers), the tile's g columns of its layers staged in shared memory, a
+// thread per (layer, line) that walks the line's run; the cells are
+// float64 in shared memory (atomics), then one float64 atomic per block
+// and cell into the global sums (nl, 1 + 4 niso): a temperature's
+// cotangent sums ~30e6 terms of both signs on the main path, which
+// float32 atomics in a random order would make drift.  No window over
+// the line list (find_run rejects a line that reaches no bin) and no
+// compaction of the pairs: work for a later PR.
+constexpr int BT = 256;           // threads per backward block
+
+template <int WFN>
+__global__ void __launch_bounds__(BT)
+line_tile_bwd_kernel(const float* __restrict__ wavn,
+                     const float* __restrict__ elow,
+                     const float* __restrict__ gf,
+                     const int* __restrict__ iso,
+                     const unsigned char* __restrict__ mask,
+                     const int* __restrict__ tiles,
+                     const int* __restrict__ rows,
+                     const float* __restrict__ temps,
+                     const float* __restrict__ alphal,
+                     const float* __restrict__ alphad_f,
+                     const float* __restrict__ coef0,
+                     const float* __restrict__ densm,
+                     const float* __restrict__ kmax,
+                     const float* __restrict__ g,
+                     double* __restrict__ acc,
+                     int nrows, int lmax, int niso, int tw, int lb,
+                     int n_coarse, int bins_first, float wn_i, float dwn,
+                     float ethresh, float nwidth, float neg_expcte) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int ncell = 1 + 4 * niso;
+  double* s_red = reinterpret_cast<double*>(smem);       // (lb, ncell)
+  float* s_g = reinterpret_cast<float*>(s_red + lb * ncell);  // (lb, tw)
+  const int tile = tiles ? tiles[blockIdx.x] : (int)blockIdx.x;
+  const int l0 = blockIdx.y * lb;
+  const int nlay = min(lb, nrows - l0);
+  const int tid = threadIdx.x;
+  for (int i = tid; i < nlay * ncell; i += BT) s_red[i] = 0.0;
+  for (int i = tid; i < nlay * tw; i += BT) {
+    const int ll = i / tw, col = tile * tw + (i - ll * tw);
+    s_g[i] = col < n_coarse
+                 ? g[(size_t)layer_of(rows, l0 + ll) * n_coarse + col]
+                 : 0.0f;
+  }
+  __syncthreads();
+
+  const float toff = __fmul_rn(dwn, (float)(tile * tw));
+  const float wa = bins_first ? wn_i : __fadd_rn(wn_i, toff);
+  const float wb = bins_first ? toff : 0.0f;
+  const float inv_dwn = 1.0f / dwn;
+  const size_t row = (size_t)blockIdx.x * lmax;
+  const int tpl = BT / lb;                 // threads per layer
+  const int lj = tid / tpl;
+  if (lj < nlay) {
+    const int L = layer_of(rows, l0 + lj);
+    const float T = temps[L];
+    const float thr = __fmul_rn(ethresh, kmax[L]);
+    const float* gl = s_g + lj * tw;
+    double* red = s_red + lj * ncell;
+    for (int j = tid - lj * tpl; j < lmax; j += tpl) {
+      if (!mask[row + j]) continue;
+      const float wv = wavn[row + j];
+      const int is = iso[row + j];
+      const int ti = L * niso + is;
+      const float aL = alphal[ti];
+      const float aD = __fmul_rn(alphad_f[ti], wv);
+      const float wing = __fmul_rn(nwidth, fmaxf(aD, aL));
+      int b0, b1;
+      if (!find_run(wa, wb, dwn, inv_dwn, tw, wv, wing, b0, b1)) continue;
+      const float el = elow[row + j], gfj = gf[row + j], cf0 = coef0[ti];
+      float e1, e2, sj;
+      strength_parts(gfj, el, wv, T, neg_expcte, e1, e2, sj);
+      const float k0 = __fmul_rn(sj, cf0);
+      if (!(k0 >= thr)) continue;
+      const float inv = __fdiv_rn(1.0f, aD);
+      const float y = __fmul_rn(__fmul_rn(SQRTLN2, aL), inv);
+      double s1 = 0.0, s2 = 0.0, s3 = 0.0;
+      for (int b = b0; b <= b1; ++b) {
+        const float gb = gl[b];
+        if (gb == 0.0f) continue;
+        const float dist = fabsf(__fsub_rn(bin_wn(wa, wb, dwn, b), wv));
+        add_bin_sums<WFN>(__fmul_rn(__fmul_rn(SQRTLN2, dist), inv), y, gb,
+                          s1, s2, s3);
+      }
+      const float dd = densm[ti];
+      chain_add(red, niso, is, s1, s2, s3, inv, __fmul_rn(k0, dd), k0, dd,
+                1.0f, cf0, sj, e1, e2, gfj, el, wv, T, -neg_expcte);
+    }
+  }
+  __syncthreads();
+  flush_cells(s_red, acc, rows, l0, nlay, ncell);
+}
+
 }  // namespace
 
 // Launch on `stream`; returns cudaGetLastError() (0 = launched).
@@ -643,4 +750,46 @@ extern "C" int layer_kmax(const void* wavn, const void* elow, const void* gf,
       (const int*)iso, (const float*)temps, (const float*)coef0,
       (float*)kmax, nlines, nl, niso, neg_expcte);
   return (int)cudaGetLastError();
+}
+
+// The backward of line_tile_extinction on the same launch (same line
+// tiles, tiles, rows, temps, tables, kmax, tw, n_coarse, bins_first, wfn):
+// g (nl, n_coarse) f32 is the cotangent of the output; acc (nl, 1 + 4 niso)
+// f64 gets, per layer, the cotangents of temps, then per isotope of coef0,
+// densm, alphal and alphad_f added (float64 atomics).  niso <= 64.
+extern "C" int line_tile_backward(
+    const void* wavn, const void* elow, const void* gf, const void* iso,
+    const void* mask, const void* tiles, const void* rows,
+    const void* temps, const void* alphal, const void* alphad_f,
+    const void* coef0, const void* densm, const void* kmax, const void* g,
+    void* acc, int nrows, int ntiles, int lmax, int niso, int tw,
+    int n_coarse, int bins_first, int wfn, float wn_i, float dwn,
+    float ethresh, float nwidth, float neg_expcte, void* stream) {
+  if (nrows <= 0 || ntiles <= 0 || lmax <= 0 || tw <= 0 || tw > MAX_TW ||
+      niso <= 0 || niso > 64 || wfn < 0 || wfn > 1)
+    return (int)cudaErrorInvalidValue;
+  int lb = BT / tw;
+  if (lb < 1) lb = 1;
+  if (lb > MAX_LB) lb = MAX_LB;
+  if (lb > nrows) lb = nrows;
+  const int nblk = (nrows + lb - 1) / lb;
+  lb = (nrows + nblk - 1) / nblk;
+  const size_t smem = (size_t)lb * (1 + 4 * niso) * sizeof(double) +
+                      (size_t)lb * tw * sizeof(float);
+  auto go = [&](auto kernel) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<dim3(ntiles, nblk), BT, smem, (cudaStream_t)stream>>>(
+        (const float*)wavn, (const float*)elow, (const float*)gf,
+        (const int*)iso, (const unsigned char*)mask, (const int*)tiles,
+        (const int*)rows, (const float*)temps, (const float*)alphal,
+        (const float*)alphad_f, (const float*)coef0, (const float*)densm,
+        (const float*)kmax, (const float*)g, (double*)acc, nrows, lmax, niso,
+        tw, lb, n_coarse, bins_first, wn_i, dwn, ethresh, nwidth,
+        neg_expcte);
+    return (int)cudaGetLastError();
+  };
+  if (wfn == 0) return go(line_tile_bwd_kernel<0>);
+  return go(line_tile_bwd_kernel<1>);
 }

@@ -131,6 +131,7 @@ shell_tile_kernel(const float* __restrict__ wavn,
                   const float* __restrict__ densm,
                   const float* __restrict__ kmax,
                   float* __restrict__ out,
+                  unsigned char* __restrict__ clip,
                   unsigned long long* __restrict__ stats,
                   const Shells shells, int nrows, int lb, int niso, int tw,
                   int n_coarse, float wn_i, float dwn, float ethresh,
@@ -239,6 +240,8 @@ shell_tile_kernel(const float* __restrict__ wavn,
                                           __fmul_rn(xs[g + 1], w1)),
                                 __fmul_rn(xs[g + 2], w2)),
                       __fmul_rn(xs[g + 3], w3));
+        if (clip)
+          clip[((size_t)sh * nrows + l0 + ll) * n_coarse + col] = v > 0.0f;
         v = fmaxf(v, 0.0f);
       } else {
         v = xs[b];
@@ -263,6 +266,151 @@ shell_tile_kernel(const float* __restrict__ wavn,
   }
 }
 
+// Catmull-Rom weight m (0..3) at u = r/stride (_cr_weights), as the
+// forward's epilogue computes it.
+__device__ __forceinline__ float cr_weight(int m, int r, int stride) {
+  const float u = (float)r / (float)stride;
+  const float u2 = u * u, u3 = u2 * u;
+  if (m == 0) return -0.5f * u3 + u2 - 0.5f * u;
+  if (m == 1) return 1.5f * u3 - 2.5f * u2 + 1.0f;
+  if (m == 2) return -1.5f * u3 + 2.0f * u2 + 0.5f * u;
+  return 0.5f * u3 - 0.5f * u2;
+}
+
+// The backward of shell_tile_kernel: fast._block_val_bwd with the halo
+// weight wl folded into k (the density's cotangent carries wl,
+// fast.py:673) and no wing mask, behind the transpose of the Catmull-Rom
+// upsampling and the clip (fast.py:833-836).  A block takes the forward's
+// (tile, block of layers) entry and, shell by shell:
+//   * the point cotangents gp (lb, ne) in shared memory: each point e
+//     gathers W[m, r] g of the bins g*stride + r it fed (g = e - m), where
+//     that shell's own upsampled field was > 0 (the forward's clip mask);
+//     stride 1: the bins' g itself;
+//   * per (layer, line) of the tile's lines, recomputed set-up (strength,
+//     weight, 1/alphaD, y), three sums over the points (add_bin_sums) and
+//     the chain to the cotangents (chain_add), into float64 cells of the
+//     block's layers in shared memory;
+// then one float64 atomic per block and cell into the global sums.  What
+// bounds it: arithmetic, every kept (layer, line) of a tile against every
+// point, as in the forward, with the pair w and its partials in float64
+// (voigt.cuh).  Simple first: a thread per (layer, line), no staging of
+// the line rows.
+__global__ void __launch_bounds__(SNT)
+shell_tile_bwd_kernel(const float* __restrict__ wavn,
+                      const float* __restrict__ elow,
+                      const float* __restrict__ gf,
+                      const int* __restrict__ iso,
+                      const int* __restrict__ blocks,
+                      const int* __restrict__ rows,
+                      const float* __restrict__ temps,
+                      const float* __restrict__ alphal,
+                      const float* __restrict__ alphad_f,
+                      const float* __restrict__ coef0,
+                      const float* __restrict__ densm,
+                      const float* __restrict__ kmax,
+                      const float* __restrict__ g,
+                      const unsigned char* __restrict__ clip,
+                      double* __restrict__ acc,
+                      const Shells shells, int nrows, int lb, int niso,
+                      int tw, int n_coarse, float wn_i, float dwn,
+                      float ethresh, float nwidth, float aL_max,
+                      float aDf_max, float tw_wn, float neg_expcte) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int ncell = 1 + 4 * niso;
+  double* s_red = reinterpret_cast<double*>(smem);            // (lb, ncell)
+  float* s_gp = reinterpret_cast<float*>(s_red + lb * ncell);  // (lb, ne)
+  const int tid = threadIdx.x;
+  const int* blk = blocks + (size_t)blockIdx.x * (1 + 2 * shells.n);
+  const int tile = blk[0];
+  const int l0 = blockIdx.y * lb;
+  const int nlay = min(lb, nrows - l0);
+  for (int i = tid; i < nlay * ncell; i += SNT) s_red[i] = 0.0;
+
+  const float toff = __fmul_rn(dwn, (float)(tile * tw));
+  const float tile_lo = __fadd_rn(wn_i, toff);
+  const float tile_hi = __fadd_rn(tile_lo, tw_wn);
+  const float halo = __fadd_rn(
+      __fmul_rn(nwidth, fmaxf(aL_max, __fmul_rn(aDf_max, tile_hi))), dwn);
+  const float h_hi = __fmul_rn(1.125f, halo), h_w = __fmul_rn(0.25f, halo);
+
+  for (int sh = 0; sh < shells.n; ++sh) {
+    const int l_off = blk[1 + 2 * sh], cnt = blk[2 + 2 * sh];
+    if (cnt == 0) continue;
+    const int stride = shells.stride[sh], wfn = shells.wfn[sh];
+    const int ne = stride > 1 ? tw / stride + 3 : tw;
+    const int off = stride > 1 ? 1 : 0;
+    const float sdwn = __fmul_rn(dwn, (float)stride);
+    __syncthreads();                   // the previous shell's gp is consumed
+    for (int t = tid; t < nlay * ne; t += SNT) {
+      const int ll = t / ne, e = t - ll * ne;
+      const size_t grow =
+          (size_t)(rows ? rows[l0 + ll] : l0 + ll) * n_coarse;
+      float v = 0.0f;
+      if (stride > 1) {
+        const int G = tw / stride;
+        const unsigned char* cm =
+            clip + ((size_t)sh * nrows + l0 + ll) * n_coarse;
+        for (int m = 0; m < 4; ++m) {
+          const int gi = e - m;
+          if (gi < 0 || gi >= G) continue;
+          for (int r = 0; r < stride; ++r) {
+            const int col = tile * tw + gi * stride + r;
+            if (col < n_coarse && cm[col])
+              v += cr_weight(m, r, stride) * g[grow + col];
+          }
+        }
+      } else {
+        const int col = tile * tw + e;
+        v = col < n_coarse ? g[grow + col] : 0.0f;
+      }
+      s_gp[t] = v;
+    }
+    __syncthreads();
+    for (int t = tid; t < nlay * cnt; t += SNT) {
+      const int ll = t / cnt;
+      const size_t gi = (size_t)l_off + (t - ll * cnt);
+      const int L = rows ? rows[l0 + ll] : l0 + ll;
+      const float wv = wavn[gi], el = elow[gi], gfj = gf[gi];
+      const int is = iso[gi];
+      const int ti = L * niso + is;
+      const float T = temps[L], cf0 = coef0[ti];
+      float e1, e2, sj;
+      strength_parts(gfj, el, wv, T, neg_expcte, e1, e2, sj);
+      const float k0 = __fmul_rn(sj, cf0);
+      if (!(k0 >= __fmul_rn(ethresh, kmax[L]))) continue;
+      const float dl = fmaxf(
+          fmaxf(__fsub_rn(tile_lo, wv), __fsub_rn(wv, tile_hi)), 0.0f);
+      const float v = fminf(
+          fmaxf(__fdiv_rn(__fsub_rn(h_hi, dl), h_w), 0.0f), 1.0f);
+      const float wl = __fmul_rn(__fmul_rn(v, v),
+                                 __fsub_rn(3.0f, __fmul_rn(2.0f, v)));
+      if (wl == 0.0f) continue;        // every cotangent carries wl
+      const float dd = densm[ti];
+      const float kk = __fmul_rn(k0, __fmul_rn(dd, wl));
+      const float inv = __fdiv_rn(1.0f, __fmul_rn(alphad_f[ti], wv));
+      const float y = __fmul_rn(__fmul_rn(SQRTLN2, alphal[ti]), inv);
+      const float* gp = s_gp + ll * ne;
+      double s1 = 0.0, s2 = 0.0, s3 = 0.0;
+      for (int e = 0; e < ne; ++e) {
+        const float gb = gp[e];
+        if (gb == 0.0f) continue;
+        const float pos = __fadd_rn(
+            __fadd_rn(wn_i, __fmul_rn(sdwn, (float)(e - off))), toff);
+        const float x_raw = __fmul_rn(
+            __fmul_rn(SQRTLN2, fabsf(__fsub_rn(pos, wv))), inv);
+        if (wfn == 1)
+          add_bin_sums<1>(x_raw, y, gb, s1, s2, s3);
+        else
+          add_bin_sums<2>(x_raw, y, gb, s1, s2, s3);
+      }
+      chain_add(s_red + ll * ncell, niso, is, s1, s2, s3, inv, kk, k0, dd,
+                wl, cf0, sj, e1, e2, gfj, el, wv, T, -neg_expcte);
+    }
+  }
+  __syncthreads();
+  flush_cells(s_red, acc, rows, l0, nlay, ncell);
+}
+
 }  // namespace
 
 // Launch on `stream`; returns cudaGetLastError() (0 = launched).
@@ -277,15 +425,20 @@ shell_tile_kernel(const float* __restrict__ wavn,
 // pairs in plan order: stride a power of two dividing tw (1: full
 // resolution, no upsampling or clip), wfn 1 r2 or 2 asym2.  aL_max and
 // aDf_max are the band's width bounds and tw_wn = tw * dwn (the plans'
-// line_weight).  stats, if not null, is (3,) uint64 and gets the
+// line_weight).  clip, if not null, is (nshell, nrows, n_coarse) uint8 and
+// gets, for each decimated shell (stride > 1) and each bin of a tile the
+// shell has lines in, whether the upsampled field was > 0 before the clip
+// (the backward's mask; rows numbered 0 .. nrows-1 as in `rows`).  stats,
+// if not null, is (3,) uint64 and gets the
 // (layer, tile, line) strength chains, the live ones (k != 0) and their
 // (layer, point, line) evaluations added.
 extern "C" int shell_tile_extinction(
     const void* wavn, const void* elow, const void* gf, const void* iso,
     const void* blocks, const void* rows, const void* temps,
     const void* alphal, const void* alphad_f, const void* coef0,
-    const void* densm, const void* kmax, void* out, void* stats, int nrows,
-    int nblk, int nshell, const int* spec, int niso, int tw, int n_coarse,
+    const void* densm, const void* kmax, void* out, void* clip, void* stats,
+    int nrows, int nblk, int nshell, const int* spec, int niso, int tw,
+    int n_coarse,
     float wn_i, float dwn, float ethresh, float nwidth, float aL_max,
     float aDf_max, float tw_wn, float neg_expcte, void* stream) {
   if (nrows <= 0 || nblk <= 0 || nshell <= 0 || nshell > MAX_SHELLS ||
@@ -318,8 +471,65 @@ extern "C" int shell_tile_extinction(
       (const int*)iso, (const int*)blocks, (const int*)rows,
       (const float*)temps, (const float*)alphal, (const float*)alphad_f,
       (const float*)coef0, (const float*)densm, (const float*)kmax,
-      (float*)out, (unsigned long long*)stats, sh, nrows, lb, niso, tw,
+      (float*)out, (unsigned char*)clip, (unsigned long long*)stats, sh,
+      nrows, lb, niso, tw,
       n_coarse, wn_i, dwn, ethresh, nwidth, aL_max, aDf_max, tw_wn,
       neg_expcte);
+  return (int)cudaGetLastError();
+}
+
+// The backward of shell_tile_extinction on the same launch (same packed
+// lines, blocks, rows, temps, tables, kmax, spec and widths): g
+// (nl, n_coarse) f32 is the cotangent of the output, clip the forward's
+// (nshell, nrows, n_coarse) uint8 mask (read for shells of stride > 1
+// only; may be null when there are none); acc (nl, 1 + 4 niso) f64 gets,
+// per layer, the cotangents of temps, then per isotope of coef0, densm,
+// alphal and alphad_f added (float64 atomics).  niso <= 64.
+extern "C" int shell_tile_backward(
+    const void* wavn, const void* elow, const void* gf, const void* iso,
+    const void* blocks, const void* rows, const void* temps,
+    const void* alphal, const void* alphad_f, const void* coef0,
+    const void* densm, const void* kmax, const void* g, const void* clip,
+    void* acc, int nrows, int nblk, int nshell, const int* spec, int niso,
+    int tw, int n_coarse, float wn_i, float dwn, float ethresh,
+    float nwidth, float aL_max, float aDf_max, float tw_wn,
+    float neg_expcte, void* stream) {
+  if (nrows <= 0 || nblk <= 0 || nshell <= 0 || nshell > MAX_SHELLS ||
+      tw <= 0 || niso <= 0 || niso > 64)
+    return (int)cudaErrorInvalidValue;
+  Shells sh;
+  sh.n = nshell;
+  int ne_max = 0;
+  for (int i = 0; i < nshell; ++i) {
+    const int s = spec[2 * i], w = spec[2 * i + 1];
+    if (s <= 0 || (s & (s - 1)) || tw % s || w < 1 || w > 2 ||
+        (s > 1 && !clip))
+      return (int)cudaErrorInvalidValue;
+    sh.stride[i] = s;
+    sh.wfn[i] = w;
+    const int ne = s > 1 ? tw / s + 3 : tw;
+    if (ne > ne_max) ne_max = ne;
+  }
+  if (ne_max > S_ITEMS) return (int)cudaErrorInvalidValue;
+  int lb = S_ITEMS / ne_max;
+  if (lb > S_MAX_LB) lb = S_MAX_LB;
+  if (lb > nrows) lb = nrows;
+  const int nlb = (nrows + lb - 1) / lb;
+  lb = (nrows + nlb - 1) / nlb;
+  const size_t smem = (size_t)lb * (1 + 4 * niso) * sizeof(double) +
+                      (size_t)lb * ne_max * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      shell_tile_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  shell_tile_bwd_kernel<<<dim3(nblk, nlb), SNT, smem,
+                          (cudaStream_t)stream>>>(
+      (const float*)wavn, (const float*)elow, (const float*)gf,
+      (const int*)iso, (const int*)blocks, (const int*)rows,
+      (const float*)temps, (const float*)alphal, (const float*)alphad_f,
+      (const float*)coef0, (const float*)densm, (const float*)kmax,
+      (const float*)g, (const unsigned char*)clip, (double*)acc, sh, nrows,
+      lb, niso, tw, n_coarse, wn_i, dwn, ethresh, nwidth, aL_max, aDf_max,
+      tw_wn, neg_expcte);
   return (int)cudaGetLastError();
 }

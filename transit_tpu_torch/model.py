@@ -9,7 +9,10 @@ spline operators); ``forward(temps, q)``, the retrieval step, recomputes
 densities and partition functions and runs the spectrum: line extinction
 through the CUDA kernels (opacities/kernel_lbl.py on the unbanded plan,
 opacities/banded.py on the banded one), then CIA, scattering, clouds,
-optical depth, intensities and flux in torch ops.
+optical depth, intensities and flux in torch ops.  ``forward`` and
+``forward_batch`` (B profiles as B*nl layers of one kernel pass) are
+differentiable in T and q: the line extinction's backward runs the
+backward kernels, the rest is autograd.
 
 The model runs on ``cuda`` unless the caller passes ``device="cpu"``;
 with no card and no ``device`` it raises.  On the CPU the kernels' plain
@@ -34,12 +37,10 @@ from transit_tpu_torch.numerics.spline import (splinterp_np,
                                                spline_eval_torch)
 from transit_tpu_torch.opacities import fast
 from transit_tpu_torch.opacities.banded import (banded_index,
-                                                banded_kernel_extinction,
-                                                plain_banded_extinction)
+                                                banded_kernel_extinction)
 from transit_tpu_torch.opacities.cia import cs_extinction, precompute_cs
 from transit_tpu_torch.opacities.clouds import CloudParams, cloud_extinction
-from transit_tpu_torch.opacities.kernel_lbl import (kernel_extinction,
-                                                    plain_extinction)
+from transit_tpu_torch.opacities.kernel_lbl import kernel_extinction
 from transit_tpu_torch.opacities.lbl import IsoConst
 from transit_tpu_torch.opacities.scattering import scattering_extinction
 from transit_tpu_torch.rt import tau as rt_tau
@@ -316,27 +317,33 @@ class TransitModel:
         plan."""
         return self.bdev if self.bplan is not None else self.fdev
 
-    def line_extinction(self, temps_cgs, densities, Z, dev=None):
-        """Per-layer line extinction (nlayer, nwn).  ``dev`` overrides the
-        model's stored tile tensors (device_tree)."""
+    def line_extinction(self, temps_cgs, densities, Z, dev=None,
+                        batch: int = 1):
+        """Per-layer line extinction (nlayer, nwn), differentiable in the
+        temperatures, densities and Z (kernel_lbl.LineExtinction: the
+        backward kernels on the card, the plain VJPs on the CPU or with
+        ``use_kernel=False``).  ``dev`` overrides the model's stored tile
+        tensors (device_tree).  ``batch``: the layers are ``batch``
+        profiles' layers one after another (forward_batch), and the
+        banded plan is its batched view (:meth:`_batched_bplan`)."""
         nl = temps_cgs.shape[0]
         kw = dict(wn_i=self.wns.i, dwn=self.wns.d,
                   ethresh=self.cfg.ethreshold, nwidth=self.cfg.nwidth)
         args = (temps_cgs, densities, Z, self._molm_t, self._molrad_t)
         if self.bplan is not None:
             bdev = dev if dev is not None else self.bdev
-            if self.use_kernel:
-                # The index packs the stored tensors' shell lines.
-                index = self.bindex if bdev is self.bdev else None
-                return banded_kernel_extinction(
-                    self.bplan, bdev, *args, index=index, **kw)
-            return plain_banded_extinction(self.bplan, bdev, *args, **kw)
+            bplan, index = (self.bplan, self.bindex) if batch == 1 else \
+                self._batched_bplan(batch)
+            # The index packs the stored tensors' shell lines.
+            return banded_kernel_extinction(
+                bplan, bdev, *args, index=index if bdev is self.bdev else
+                None, use_kernel=self.use_kernel, **kw)
         if self.fplan is None:
             return torch.zeros((nl, self.wns.n), dtype=self.dtype,
                                device=self.device)
-        fn = kernel_extinction if self.use_kernel else plain_extinction
-        return fn(self.fplan, dev if dev is not None else self.fdev,
-                  *args, **kw)
+        return kernel_extinction(self.fplan,
+                                 dev if dev is not None else self.fdev,
+                                 *args, use_kernel=self.use_kernel, **kw)
 
     # ------------------------------------------------------------------
     def _spectrum(self, temps_raw, q, densities, full_result: bool,
@@ -419,32 +426,94 @@ class TransitModel:
         return self._spectrum(self._t(atm.temp), self._t(atm.q),
                               self._t(atm.d), full_result=True)
 
+    def _profiles(self, temps_raw, q):
+        """T and q as tensors of the model (a tensor that requires grad
+        stays in its graph: as_tensor converts it with a differentiable
+        copy, or returns it as it is) and the ideal-gas densities, for
+        (..., nl) T and (..., nmol, nl) q (reloadatm,
+        readatm.c:722-784)."""
+        cfg, atm = self.cfg, self.atm
+        if cfg.gsurf and cfg.refpress and cfg.refradius:
+            raise _later("hydrostatic radii (gsurf/refpress/refradius)",
+                         "transit-geometry")
+        temps_raw = torch.as_tensor(temps_raw, dtype=self.dtype,
+                                    device=self.device)
+        q = torch.as_tensor(q, dtype=self.dtype, device=self.device)
+        molm = self._molm_t[:, None]
+        if atm.by_mass:
+            mm = 1.0 / torch.sum(q / molm, dim=-2)
+        else:
+            mm = torch.sum(q * molm, dim=-2)
+        rho = (AMU * q * self._press_cgs_t / KB /
+               (temps_raw * atm.tfct)[..., None, :])
+        densities = rho * (mm[..., None, :] if atm.by_mass else molm)
+        return temps_raw, q, densities
+
     def forward(self, temps_raw, q, dev=None):
         """Retrieval step: new T (nl,) / q (nmol, nl) profiles ->
-        spectrum (nwn,).
+        spectrum (nwn,), differentiable in T and q
+        (``torch.autograd.grad(model.forward(T, q).sum(), (T, q))``).
 
         Reproduces reloadatm (readatm.c:722-784) on the static radius
         grid: mean molecular mass, ideal-gas densities, then the full
         spectrum.  ``dev`` optionally supplies the line tile tensors
         (see device_tree)."""
-        cfg = self.cfg
-        if cfg.gsurf and cfg.refpress and cfg.refradius:
-            raise _later("hydrostatic radii (gsurf/refpress/refradius)",
-                         "transit-geometry")
-        atm = self.atm
-        temps_raw = torch.as_tensor(temps_raw, dtype=self.dtype,
-                                    device=self.device)
-        q = torch.as_tensor(q, dtype=self.dtype, device=self.device)
-        molm = self._molm_t
-        if atm.by_mass:
-            mm = 1.0 / torch.sum(q / molm[:, None], dim=0)
-        else:
-            mm = torch.sum(q * molm[:, None], dim=0)
-        rho = (AMU * q * self._press_cgs_t[None, :] / KB /
-               (temps_raw * atm.tfct)[None, :])
-        densities = rho * (mm[None, :] if atm.by_mass else molm[:, None])
+        temps_raw, q, densities = self._profiles(temps_raw, q)
         return self._spectrum(temps_raw, q, densities, full_result=False,
                               dev=dev)
 
+    def _batched_bplan(self, B: int):
+        """The batched view of the banded plan for forward_batch, and its
+        kernel index (transit_tpu model.py:534-555): band i of the view
+        covers every batch member's copy of band i's layers (pseudo-layer
+        b*nl + layer); the tile plans, device tensors and the index's
+        tiles and ShellBands are the model's, only the rows change.
+        Cached per B."""
+        cache = self.__dict__.setdefault("_bplan_batch_cache", {})
+        if B not in cache:
+            bp, nl = self.bplan, self.atm.nlayers
+            parts, slices, off = [], [], 0
+            for a, b in bp.slices:
+                band = np.concatenate([bp.perm[a:b] + k * nl
+                                       for k in range(B)])
+                parts.append(band)
+                slices.append((off, off + band.shape[0]))
+                off += band.shape[0]
+            perm = np.concatenate(parts)
+            inv = np.empty_like(perm)
+            inv[perm] = np.arange(perm.shape[0])
+            view = dataclasses.replace(bp, perm=perm, inv_perm=inv,
+                                       slices=slices)
+            index = None if self.bindex is None else {
+                **self.bindex, "rows": [
+                    torch.as_tensor(r, dtype=torch.int32,
+                                    device=self.device) for r in parts]}
+            cache[B] = (view, index)
+        return cache[B]
+
     def forward_batch(self, temps_raw, q, dev=None):
-        raise _later("forward_batch", "gradients / forward_batch")
+        """Batched retrieval step: (B, nl) temperatures x (B, nmol, nl)
+        abundances -> (B, nwn) spectra, differentiable in both
+        (transit_tpu model.py:557-640).
+
+        The line extinction takes the batch as extra layers: one pass of
+        the kernels (forward and backward) over B*nl pseudo-layers
+        through the same tile plans (the function is independent per
+        layer); the spectrum assembly (scattering, clouds, CIA, tau,
+        eclipse) is torch.func.vmap over ``_assemble``, as JAX vmaps it.
+        Static radii and eclipse only, as ``forward``."""
+        B, nl = temps_raw.shape
+        if B * nl * self.wns.n >= 2 ** 31:
+            raise ValueError(f"forward_batch: {B} x {nl} layers x "
+                             f"{self.wns.n} wavenumbers passes the "
+                             f"kernels' int32 indices")
+        temps_raw, q, densities = self._profiles(temps_raw, q)
+        nm = densities.shape[1]
+        ex = self.line_extinction(
+            (temps_raw * self.atm.tfct).reshape(B * nl),
+            densities.movedim(1, 0).reshape(nm, B * nl),
+            self.partition(temps_raw.reshape(B * nl)), dev=dev, batch=B)
+        ex = ex.reshape(B, nl, self.wns.n)
+        return torch.func.vmap(
+            lambda t, qq, dd, e: self._assemble(t, qq, dd, e, False))(
+                temps_raw, q, densities, ex)

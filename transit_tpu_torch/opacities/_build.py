@@ -36,8 +36,11 @@ _F = ctypes.c_float
 # extern "C" entry points: name -> argument types (all return cudaError_t).
 SIGNATURES = {
     "line_tile_extinction": [_P] * 15 + [_I] * 9 + [_F] * 5 + [_P],
-    "shell_tile_extinction": ([_P] * 14 + [_I] * 3 + [_P] + [_I] * 3 +
+    "line_tile_backward": [_P] * 15 + [_I] * 8 + [_F] * 5 + [_P],
+    "shell_tile_extinction": ([_P] * 15 + [_I] * 3 + [_P] + [_I] * 3 +
                               [_F] * 8 + [_P]),
+    "shell_tile_backward": ([_P] * 15 + [_I] * 3 + [_P] + [_I] * 3 +
+                            [_F] * 8 + [_P]),
     "layer_kmax": [_P] * 7 + [_I] * 3 + [_F] + [_P],
 }
 

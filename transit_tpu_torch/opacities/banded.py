@@ -1,6 +1,8 @@
 """Line extinction on the layer-banded plan — the counterpart of
 transit_tpu.opacities.fast.banded_extinction (fast.py:1202-1245) with
-its per-layer prep (``_prep_layers``, ``_kmax_scan``, fast.py:336-419).
+its per-layer prep (``_prep_layers``, ``_kmax_scan``, fast.py:336-419)
+and, for the gradient, the analytic VJP of its tile blocks
+(``_block_val_bwd``, fast.py:608-680).
 
 Per band (a slice of the width-sorted layers) the extinction is the near
 plan's tiles plus, in order, each far-wing shell's:
@@ -15,8 +17,11 @@ every stride-1 shell class, each writing (near) or adding (shells) its
 band's rows and its tiles' columns of one (nl, n_coarse) output in
 place, and one shell-kernel launch that adds all the band's decimated
 shells, shell after shell.
-:func:`plain_banded_extinction` is the plain PyTorch version, used on
-the CPU and by ``use_kernel=False``.
+It is differentiable (kernel_lbl.LineExtinction with :class:`BandedOp`):
+the backward runs ``line_tile_backward`` and ``shell_tile_backward`` over
+the same launches.  :func:`plain_banded_extinction` is the plain PyTorch
+version; on the CPU and with ``use_kernel=False`` the same Function runs
+it forward and the plain VJPs backward.
 """
 
 from __future__ import annotations
@@ -25,31 +30,51 @@ import torch
 
 from transit_tpu_torch.constants import SIGCTE
 from transit_tpu_torch.opacities.fast import BandedPlan, FastPlan
-from transit_tpu_torch.opacities.kernel_lbl import (layer_kmax,
+from transit_tpu_torch.opacities.kernel_lbl import (LineExtinction,
+                                                    acc_grads, cast_grads,
+                                                    layer_kmax,
+                                                    line_tile_backward,
                                                     line_tile_extinction,
                                                     plain_classes,
                                                     plain_kmax,
                                                     plain_line_tiles,
-                                                    run_counts, width_tables)
+                                                    plain_line_tiles_vjp,
+                                                    run_counts,
+                                                    tile_cotangent,
+                                                    width_tables,
+                                                    zero_grads)
 from transit_tpu_torch.opacities.kernel_shell import (plain_shell_classes,
+                                                      plain_shell_vjp,
                                                       shell_band,
                                                       shell_counts,
+                                                      shell_tile_backward,
                                                       shell_tile_extinction)
+
+
+def band_tables(d, temps, densities, Z, mol_mass, mol_radius):
+    """The (nl, niso) tables of all layers (fast._prep_layers), torch
+    ops: the widths and density (:func:`width_tables`) and the strength
+    coefficient SIGCTE*ratio/mass/Z in fast.py:364's order."""
+    coef0 = ((SIGCTE * d["iso_ratio"] / d["iso_mass"])[None, :] /
+             Z.T).contiguous()
+    return {**width_tables(d, temps, densities, mol_mass, mol_radius),
+            "coef0": coef0}
+
+
+def band_kmax(d, temps, coef0, use_kernel: bool):
+    """The kmax scan with its carry starting at 0 (fast._kmax_scan):
+    ``layer_kmax`` with floor 0 when ``use_kernel``, else
+    :func:`plain_kmax`."""
+    return (layer_kmax if use_kernel else plain_kmax)(d, temps, coef0,
+                                                      floor=0.0)
 
 
 def prep_layers(d, temps, densities, Z, mol_mass, mol_radius,
                 use_kernel: bool):
     """Per-layer tables of all layers, once per step (fast._prep_layers):
-    the widths and density (:func:`width_tables`), the strength
-    coefficient SIGCTE*ratio/mass/Z in fast.py:364's order, and the kmax
-    scan with its carry starting at 0 (fast._kmax_scan) — ``layer_kmax``
-    with floor 0 when ``use_kernel``, else :func:`plain_kmax`."""
-    coef0 = ((SIGCTE * d["iso_ratio"] / d["iso_mass"])[None, :] /
-             Z.T).contiguous()
-    kmax = (layer_kmax if use_kernel else plain_kmax)(d, temps, coef0,
-                                                      floor=0.0)
-    return {**width_tables(d, temps, densities, mol_mass, mol_radius),
-            "coef0": coef0, "kmax": kmax}
+    :func:`band_tables` and the kmax scan (:func:`band_kmax`)."""
+    tab = band_tables(d, temps, densities, Z, mol_mass, mol_radius)
+    return {**tab, "kmax": band_kmax(d, temps, tab["coef0"], use_kernel)}
 
 
 def plan_classes(plan: FastPlan, d):
@@ -100,17 +125,30 @@ def plain_banded_extinction(bplan: BandedPlan, devs, temps, densities, Z,
     plan plus its shells, in JAX's order, rows in the file's layer
     order.  ``far_full_res`` evaluates the decimated shells at every bin
     (same weighting, no upsampling).  ``kmax_override`` (the multi-process
-    path's global kmax) is not ported yet and raises."""
+    path's global kmax) is not ported yet and raises.  Autograd runs
+    through it (the tests' oracle for the plain VJPs)."""
+    _refuse_kmax_override(kmax_override)
+    tab = prep_layers(devs[0], temps, densities, Z, mol_mass, mol_radius,
+                      use_kernel=False)
+    return plain_bands(bplan, devs, tab, temps,
+                       dict(wn_i=wn_i, dwn=dwn, ethresh=ethresh,
+                            nwidth=nwidth), far_full_res)
+
+
+def _refuse_kmax_override(kmax_override):
     if kmax_override is not None:
         raise NotImplementedError(
             "kmax_override is not ported to transit_tpu_torch yet; it "
             "comes with the multi-process bands slice (see ROADMAP.md)")
-    tab = prep_layers(devs[0], temps, densities, Z, mol_mass, mol_radius,
-                      use_kernel=False)
+
+
+def plain_bands(bplan: BandedPlan, devs, tab, temps, kw: dict,
+                far_full_res: bool = False):
+    """The banded function on the tables ``tab`` of all layers (with
+    kmax): the body of :func:`plain_banded_extinction`."""
     n_coarse = bplan.plans[0].n_coarse
     out = torch.empty((temps.shape[0], n_coarse), dtype=temps.dtype,
                       device=temps.device)
-    kw = dict(wn_i=wn_i, dwn=dwn, ethresh=ethresh, nwidth=nwidth)
     band, ex, sel = None, None, None
     for i, rows, part, plan, classes, stride in band_parts(
             bplan, devs, far_full_res):
@@ -126,6 +164,34 @@ def plain_banded_extinction(bplan: BandedPlan, devs, temps, densities, Z,
         ex = val if ex is None else ex + val
     out[sel] = ex[:, :n_coarse]
     return out
+
+
+def plain_bands_vjp(bplan: BandedPlan, devs, tab, temps, g, kw: dict,
+                    far_full_res: bool = False) -> dict:
+    """The VJP of :func:`plain_bands`: the cotangent ``g`` (nl, n_coarse)
+    -> the cotangents of ``temps`` and of the tables, float64 sums
+    (kernel_lbl.zero_grads), part by part on the band's rows
+    (kernel_lbl.plain_line_tiles_vjp, kernel_shell.plain_shell_vjp)."""
+    grads = zero_grads(tab, temps)
+    for _, rows, part, plan, classes, stride in band_parts(
+            bplan, devs, far_full_res):
+        sel = torch.as_tensor(rows, device=temps.device)
+        tab_r = {k: v[sel] for k, v in tab.items()}
+        gr = zero_grads(tab_r, temps[sel])
+        gt = tile_cotangent(g[sel], plan)
+        for dc, gidx in classes:
+            gc = gt if gidx is None else gt[:, torch.as_tensor(
+                gidx, device=gt.device).long()]
+            if part == "shell":
+                plain_shell_vjp(plan, dc, tab_r, temps[sel], gc,
+                                stride=stride, gidx=gidx, grads=gr, **kw)
+            else:
+                plain_line_tiles_vjp(plan, dc, tab_r, temps[sel], gc,
+                                     gidx=gidx, bins_first=True, grads=gr,
+                                     **kw)
+        for k, v in gr.items():
+            grads[k].index_add_(0, sel, v)
+    return grads
 
 
 def banded_index(bplan: BandedPlan, devs, device):
@@ -164,37 +230,80 @@ def launch_units(bplan: BandedPlan, devs, index):
             yield i, "shell", index["shells"][i]
 
 
+class BandedOp:
+    """The banded plan's line extinction for kernel_lbl.LineExtinction:
+    with ``kernel``, ``layer_kmax`` (floor 0) and the launches of
+    :func:`launch_units` forward (:func:`_launch_all`) and backward
+    (:func:`_launch_all_backward`); else their plain versions
+    (:func:`plain_bands`, :func:`plain_bands_vjp`)."""
+
+    def __init__(self, bplan: BandedPlan, devs, index, kw: dict,
+                 far_full_res: bool, kernel: bool, stats=None):
+        self.bplan, self.devs, self.index, self.kw = bplan, devs, index, kw
+        self.far_full_res, self.kernel = far_full_res, kernel
+        self.stats = stats or {}
+
+    def kmax(self, temps, coef0):
+        return band_kmax(self.devs[0], temps, coef0, self.kernel)
+
+    def forward(self, tab, temps, grad: bool):
+        if not self.kernel:
+            return plain_bands(self.bplan, self.devs, tab, temps, self.kw,
+                               self.far_full_res), None
+        clips = None
+        if grad and not self.far_full_res:
+            clips = [None if b is None else torch.empty(
+                (len(b.parts), r.shape[0], self.bplan.plans[0].n_coarse),
+                dtype=torch.uint8, device=temps.device)
+                for b, r in zip(self.index["shells"], self.index["rows"])]
+        return _launch_all(self.bplan, self.devs, tab, temps, self.kw,
+                           self.far_full_res, self.index, self.stats,
+                           clips), clips
+
+    def backward(self, tab, temps, g, clips):
+        if not self.kernel:
+            return cast_grads(plain_bands_vjp(self.bplan, self.devs, tab,
+                                              temps, g, self.kw,
+                                              self.far_full_res),
+                              temps.dtype)
+        return _launch_all_backward(self.bplan, self.devs, tab, temps, g,
+                                    self.kw, self.far_full_res, self.index,
+                                    clips)
+
+
 def banded_kernel_extinction(bplan: BandedPlan, devs, temps, densities, Z,
                              mol_mass, mol_radius, wn_i: float, dwn: float,
                              ethresh: float, nwidth: float,
                              far_full_res: bool = False, index=None,
-                             stats=None, kmax_override=None):
+                             stats=None, kmax_override=None,
+                             use_kernel: bool = True):
     """Extinction (nlayer, n_coarse) on the banded plan through the CUDA
-    kernels (float32), or :func:`plain_banded_extinction` for CPU
-    tensors.  ``index``: :func:`banded_index` (made here when None).
-    ``stats``: optional {"line_tile": t, "shell": t}, (3,) int64 tensors
-    on the card that get the kernels' counters added."""
+    kernels (float32), differentiable in temps, densities and Z
+    (kernel_lbl.LineExtinction).  CPU tensors, or ``use_kernel=False``,
+    take the plain versions (the forward equals
+    :func:`plain_banded_extinction`).  ``index``: :func:`banded_index`
+    (made here when None).  ``stats``: optional {"line_tile": t,
+    "shell": t}, (3,) int64 tensors on the card that get the forward
+    kernels' counters added."""
+    _refuse_kmax_override(kmax_override)
     d0 = devs[0]
-    kw = dict(wn_i=wn_i, dwn=dwn, ethresh=ethresh, nwidth=nwidth)
-    if d0["all_wavn"].device.type == "cpu" or kmax_override is not None:
-        return plain_banded_extinction(bplan, devs, temps, densities, Z,
-                                       mol_mass, mol_radius,
-                                       far_full_res=far_full_res,
-                                       kmax_override=kmax_override, **kw)
-    return _launch_all(bplan, devs, temps, densities, Z, mol_mass,
-                       mol_radius, kw, far_full_res, index, stats or {})
-
-
-def _launch_all(bplan, devs, temps, densities, Z, mol_mass, mol_radius, kw,
-                far_full_res, index, stats):
-    """The kernel launches of :func:`banded_kernel_extinction`."""
-    d0 = devs[0]
-    if index is None:
+    kernel = use_kernel and d0["all_wavn"].device.type == "cuda"
+    if kernel and index is None:
         index = banded_index(bplan, devs, d0["all_wavn"].device)
-    # The kmax scan first: the card runs it while the host builds the
-    # other tables.
-    tab = prep_layers(d0, temps, densities, Z, mol_mass, mol_radius,
-                      use_kernel=True)
+    tab = band_tables(d0, temps, densities, Z, mol_mass, mol_radius)
+    op = BandedOp(bplan, devs, index, dict(wn_i=wn_i, dwn=dwn,
+                                           ethresh=ethresh, nwidth=nwidth),
+                  far_full_res, kernel, stats)
+    return LineExtinction.apply(op, temps, tab["coef0"], tab["densm"],
+                                tab["alphal"], tab["alphad_f"])
+
+
+def _launch_all(bplan, devs, tab, temps, kw, far_full_res, index, stats,
+                clips=None):
+    """The forward kernel launches of :func:`banded_kernel_extinction` on
+    the tables ``tab`` (with kmax): one (nl, n_coarse) output; ``clips``
+    (per band None or a (nshell, nrows, n_coarse) uint8 tensor) gets the
+    shell launches' clip masks."""
     out = torch.empty((temps.shape[0], bplan.plans[0].n_coarse),
                       dtype=temps.dtype, device=temps.device)
     for i, part, unit in launch_units(bplan, devs, index):
@@ -202,7 +311,9 @@ def _launch_all(bplan, devs, temps, densities, Z, mol_mass, mol_radius, kw,
         if part == "shell":
             shell_tile_extinction(unit, tab, temps, rows=rows, out=out,
                                   stats=stats.get("shell"),
-                                  full_res=far_full_res, **kw)
+                                  full_res=far_full_res,
+                                  clip=None if clips is None else clips[i],
+                                  **kw)
         else:
             plan, dc, _, t = unit
             line_tile_extinction(plan, dc, tab, temps, tiles=t, rows=rows,
@@ -210,6 +321,28 @@ def _launch_all(bplan, devs, temps, densities, Z, mol_mass, mol_radius, kw,
                                  bins_first=True,
                                  stats=stats.get("line_tile"), **kw)
     return out
+
+
+def _launch_all_backward(bplan, devs, tab, temps, g, kw, far_full_res,
+                         index, clips):
+    """The backward kernel launches, one per forward launch, in the same
+    order, into one float64 sum (nl, 1 + 4 niso), cast once
+    (kernel_lbl.acc_grads)."""
+    acc = None
+    for i, part, unit in launch_units(bplan, devs, index):
+        rows = index["rows"][i]
+        if part == "shell":
+            acc = shell_tile_backward(
+                unit, tab, temps, g, clip=None if clips is None else clips[i],
+                rows=rows, acc=acc, full_res=far_full_res, **kw)
+        else:
+            plan, dc, _, t = unit
+            acc = line_tile_backward(plan, dc, tab, temps, g, tiles=t,
+                                     rows=rows, bins_first=True, acc=acc,
+                                     **kw)
+    if acc is None:
+        return cast_grads(zero_grads(tab, temps), temps.dtype)
+    return acc_grads(acc, temps.dtype)
 
 
 def banded_counts(bplan: BandedPlan, devs, tab, temps, wn_i: float,

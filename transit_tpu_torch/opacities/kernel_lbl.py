@@ -27,6 +27,11 @@ class of a plan, on the band's layer rows, with the Voigt function of the
 plan's ``wfn_tag`` and the bin wavenumbers rounded as fast._run_tiles
 rounds them (``bins_first``); :func:`plain_line_tiles` is its plain
 version.
+
+The gradient: :class:`LineExtinction`, an autograd Function of the layer
+temperatures and the four tables, whose backward launches
+``line_tile_backward`` (the counterpart of fast._block_val_bwd,
+fast.py:608-680) on a CUDA tensor, or takes :func:`plain_line_tiles_vjp`.
 """
 
 from __future__ import annotations
@@ -35,9 +40,10 @@ import ctypes
 
 import torch
 
-from transit_tpu_torch.constants import SQRTLN2, SIGCTE, EXPCTE
+from transit_tpu_torch.constants import SQRTLN2, SQRTLN2PI, SIGCTE, EXPCTE
 from transit_tpu_torch.opacities.fast import FastPlan, _layer_widths
-from transit_tpu_torch.opacities.voigt import (FAR_KERNELS, WFN_CODE,
+from transit_tpu_torch.opacities.voigt import (FAR_KERNELS, RAW_W,
+                                               WFN_CODE, faddeeva_partials,
                                                humlicek_regions)
 
 # Elements of the (layer, tile, bin, line) volume the plain version
@@ -97,37 +103,48 @@ def layer_tables(d, temps, densities, Z, mol_mass, mol_radius):
             "coef0": coef0, "kmax": plain_kmax(d, temps, coef0)}
 
 
+def block_lines(d, t0: int, t1: int, n: int, tab, temps, ethresh: float):
+    """fast._block_lines (fast.py:515) on rows t0:t1 of the line tensors
+    ``d``, their first n lines: the line rows wv, el, gf, iso (long) and
+    mask, each (tc, L), and per (layer, tile, line), each (nl, tc, L),
+    the strength chain's parts e1, e2, s, coef, k0, the isotope tables'
+    values dd (density), aL, aDf, and ``keep`` (unmasked, k0 >= ethresh
+    kmax) with kd = k0 where kept, else 0."""
+    T = temps[:, None, None]
+    P = {k: d[k][t0:t1, :n] for k in ("wavn", "elow", "gf", "mask")}
+    wv, el, iso = P["wavn"], P["elow"], d["iso"][t0:t1, :n].long()
+    e1 = torch.exp(-EXPCTE * el / T)
+    e2 = torch.exp(-EXPCTE * wv / T)
+    s = P["gf"] * e1 * (1.0 - e2)
+    coef = tab["coef0"][:, iso]
+    k0 = s * coef
+    keep = P["mask"] & (k0 >= (ethresh * tab["kmax"])[:, None, None])
+    return dict(wv=wv, el=el, gf=P["gf"], iso=iso, mask=P["mask"], e1=e1,
+                e2=e2, s=s, coef=coef, k0=k0, dd=tab["densm"][:, iso],
+                aL=tab["alphal"][:, iso], aDf=tab["alphad_f"][:, iso],
+                keep=keep, kd=torch.where(keep, k0, 0.0))
+
+
 def _line_chunks(plan: FastPlan, d, tab, temps, ethresh: float,
                  nwidth: float):
     """Walk the tiles in chunks whose (layer, tile, bin, line) volume stays
-    under PLAIN_ELEMENTS elements.  Yields (t0, t1, wv, keep, k, aD, aL,
-    wing, mask) for tiles t0:t1: wv (tc, L) the line wavenumbers; per
-    (layer, tile, line), each (nl, tc, L): ``keep``, a line that is not
-    masked or dropped by the ethresh cut; the line strength x density k,
-    0 where not kept; alphaD, alphaL, and the wing half-width
-    nwidth * max(alphaD, alphaL); and the line mask (tc, L).  L stops at
-    the chunk's longest line list: the padding after it is masked."""
+    under PLAIN_ELEMENTS elements.  Yields (t0, t1, L, k, aD, wing) for
+    tiles t0:t1: L, :func:`block_lines`' dict of their first lines (L
+    stops at the chunk's longest line list: the padding after it is
+    masked); per (layer, tile, line), each (nl, tc, L): the line strength
+    x density k, 0 where not kept, alphaD, and the wing half-width
+    nwidth * max(alphaD, alphaL)."""
     nl = temps.shape[0]
     ntiles, lmax = d["wavn"].shape
-    T = temps[:, None, None]
-    kthr = (ethresh * tab["kmax"])[:, None, None]
     step = max(1, PLAIN_ELEMENTS[temps.device.type] //
                max(1, nl * plan.tw * lmax))
     for t0 in range(0, ntiles, step):
         t1 = min(ntiles, t0 + step)
         n = max(1, int(d["mask"][t0:t1].sum(dim=1).max()))
-        mask = d["mask"][t0:t1, :n]
-        wv = d["wavn"][t0:t1, :n]                           # (tc, L)
-        el = d["elow"][t0:t1, :n]
-        iso = d["iso"][t0:t1, :n].long()
-        aL = tab["alphal"][:, iso]                          # (nl, tc, L)
-        k0 = (d["gf"][t0:t1, :n] * torch.exp(-EXPCTE * el / T) *
-              (1.0 - torch.exp(-EXPCTE * wv / T)) * tab["coef0"][:, iso])
-        keep = mask & (k0 >= kthr)
-        k = torch.where(keep, k0 * tab["densm"][:, iso], 0.0)
-        aD = tab["alphad_f"][:, iso] * wv
-        yield (t0, t1, wv, keep, k, aD, aL, nwidth * torch.maximum(aD, aL),
-               mask)
+        L = block_lines(d, t0, t1, n, tab, temps, ethresh)
+        aD = L["aDf"] * L["wv"]
+        yield (t0, t1, L, L["kd"] * L["dd"], aD,
+               nwidth * torch.maximum(aD, L["aL"]))
 
 
 def _bin_origin(tile, tw: int, wn_i: float, dwn: float, bins_first: bool):
@@ -155,29 +172,32 @@ def _tile_chunks(plan: FastPlan, d, tab, temps, wn_i: float, dwn: float,
                  ethresh: float, nwidth: float, gidx=None,
                  bins_first: bool = False):
     """Walk the tiles in chunks (:func:`_line_chunks`).  Yields (t0, t1,
-    k, x, y, inv, use) for tiles t0:t1: the line strength x density k
-    (nl, tc, L), 0 where the line is masked or dropped by the ethresh cut;
-    the Voigt arguments x (nl, tc, tw, L), clamped at 1e8 as
-    fast._block_primal does, and y, and 1/alphaD inv, both
-    (nl, tc, 1, L); and ``use`` (nl, tc, tw, L), a kept line inside its
-    wing.  ``gidx``: the global tile index of each row of ``d`` (None:
-    row i is tile i); ``bins_first``: see :func:`_bin_origin`."""
+    L, k, x_raw, y, inv, use) for tiles t0:t1: :func:`block_lines`' dict
+    L; the line strength x density k (nl, tc, L), 0 where the line is
+    masked or dropped by the ethresh cut; the Voigt arguments x_raw (nl,
+    tc, tw, L), which fast._block_primal clamps at 1e8, and y, and
+    1/alphaD inv, both (nl, tc, 1, L); and ``use`` (nl, tc, tw, L), a
+    kept line inside its wing.  ``gidx``: the global tile index of each
+    row of ``d`` (None: row i is tile i); ``bins_first``: see
+    :func:`_bin_origin`."""
     tw = plan.tw
     dtype, device = d["wavn"].dtype, d["wavn"].device
     bins = torch.arange(tw, device=device).to(dtype)
-    for t0, t1, wv, keep, k, aD, aL, wing, _ in _line_chunks(
-            plan, d, tab, temps, ethresh, nwidth):
+    for t0, t1, L, k, aD, wing in _line_chunks(plan, d, tab, temps, ethresh,
+                                               nwidth):
+        wv = L["wv"]
         inv = 1.0 / aD
-        y = SQRTLN2 * aL * inv
+        y = SQRTLN2 * L["aL"] * inv
         # The kernel's bin wavenumber, (wa + dwn*bin) + wb:
         wa, wb = _bin_origin(_tile_ids(gidx, t0, t1, dtype, device), tw,
                              wn_i, dwn, bins_first)
         wn_col = (wa[:, None] + (dwn * bins)[None, :]) + wb[:, None]
         dist = (wn_col[:, :, None] - wv[:, None, :]).abs()  # (tc, tw, L)
         inv = inv[:, :, None, :]
-        x = torch.clamp_max(SQRTLN2 * dist[None] * inv, 1e8)
-        use = (dist[None] <= wing[:, :, None, :]) & keep[:, :, None, :]
-        yield t0, t1, k, x, y[:, :, None, :], inv, use
+        use = ((dist[None] <= wing[:, :, None, :]) &
+               L["keep"][:, :, None, :])
+        yield (t0, t1, L, k, SQRTLN2 * dist[None] * inv, y[:, :, None, :],
+               inv, use)
 
 
 def _find_runs(wa, wb, wv, wing, dwn: float, tw: int):
@@ -237,13 +257,13 @@ def bin_runs(plan: FastPlan, d, tab, temps, wn_i: float, dwn: float,
     (:func:`_find_runs`).  The bins of the live runs are exactly ``use``
     of :func:`_tile_chunks` (same ``gidx`` and ``bins_first``)."""
     dtype, device = d["wavn"].dtype, d["wavn"].device
-    for t0, t1, wv, keep, _, _, _, wing, mask in _line_chunks(
-            plan, d, tab, temps, ethresh, nwidth):
+    for t0, t1, L, _, _, wing in _line_chunks(plan, d, tab, temps, ethresh,
+                                              nwidth):
         wa, wb = _bin_origin(_tile_ids(gidx, t0, t1, dtype, device),
                              plan.tw, wn_i, dwn, bins_first)
-        b0, b1, found = _find_runs(wa, wb, wv, wing, dwn, plan.tw)
-        reach = found & mask[None]
-        yield t0, t1, b0, b1, reach, keep & found
+        b0, b1, found = _find_runs(wa, wb, L["wv"], wing, dwn, plan.tw)
+        reach = found & L["mask"][None]
+        yield t0, t1, b0, b1, reach, L["keep"] & found
 
 
 def run_counts(plan: FastPlan, d, tab, temps, wn_i: float, dwn: float,
@@ -279,13 +299,103 @@ def plain_line_tiles(plan: FastPlan, d, tab, temps, wn_i: float,
     ntiles, tw = d["wavn"].shape[0], plan.tw
     out = torch.zeros((nl, ntiles, tw), dtype=d["wavn"].dtype,
                       device=d["wavn"].device)
-    for t0, t1, k, x, y, inv, use in _tile_chunks(
+    for t0, t1, _, k, x_raw, y, inv, use in _tile_chunks(
             plan, d, tab, temps, wn_i, dwn, ethresh, nwidth, gidx,
             bins_first):
-        prof = voigt(x, y) * inv
+        prof = voigt(torch.clamp_max(x_raw, 1e8), y) * inv
         out[:, t0:t1] = (torch.where(use, prof, 0.0) *
                          k[:, :, None, :]).sum(dim=3)
     return out
+
+
+def voigt_bin_sums(wraw, x_raw, y, B):
+    """The three bin sums of fast._block_val_bwd (fast.py:647-651) before
+    their line factors: with (Re w, Im w) = wraw(x, y), x = min(x_raw,
+    1e8), and the Faddeeva partials Kx', Ky' (voigt.faddeeva_partials),
+    sums over the bin axis (2) of B wr, B (wr + x Kx' [x_raw < 1e8] +
+    y Ky') and B Ky'.  In float64 from the arguments' values, as the
+    backward kernels compute them (csrc/voigt.cuh says why)."""
+    x = torch.clamp_max(x_raw, 1e8).double()
+    y = y.double().expand_as(x)
+    B = B.double()
+    wr, wi = wraw(x, y)
+    kxp, kyp = faddeeva_partials(x, y, wr, wi)
+    free = torch.where(x_raw < 1e8, x * kxp, 0.0)
+    return ((B * wr).sum(dim=2), (B * (wr + free + y * kyp)).sum(dim=2),
+            (B * kyp).sum(dim=2))
+
+
+def chain_vjp(L, inv, k, sums, temps, grads, wl=None):
+    """Chain one chunk's bin sums (:func:`voigt_bin_sums`) to the
+    cotangents of the layer temperatures and of the (nl, niso) tables, as
+    fast._block_val_bwd does (fast.py:651-677), and add them into
+    ``grads`` ({"temps", "coef0", "densm", "alphal", "alphad_f"}).  ``L``
+    is :func:`block_lines`' dict, ``inv`` = 1/alphaD and ``k`` the line
+    strength x density (x ``wl``, a decimated shell's halo weight), each
+    (nl, tc, L).  kmax gets no cotangent (it only sets ``keep``).  In
+    float64 (``grads`` are float64 sums, :func:`zero_grads`), as the
+    backward kernels compute it."""
+    C = SQRTLN2PI
+    s1, s2, s3 = sums
+    L = {k: v.double() if v.is_floating_point() else v for k, v in L.items()}
+    inv, k, temps = inv.double(), k.double(), temps.double()
+    wl = None if wl is None else wl.double()
+    keep, wv = L["keep"], L["wv"]
+    gk = torch.where(keep, C * inv * s1, 0.0)
+    g_inv = torch.where(keep, C * k * s2, 0.0)
+    gaL = torch.where(keep, (C * SQRTLN2) * inv * inv * k * s3, 0.0)
+    gaDf = -g_inv * inv * inv * wv
+    dd = L["dd"] if wl is None else L["dd"] * wl
+    gdd = gk * L["kd"]
+    gk0 = gk * dd
+    gs = gk0 * L["coef"]
+    T = temps[:, None, None]
+    gT = gs * (EXPCTE / (T * T)) * L["gf"] * L["e1"] * (
+        L["el"] * (1.0 - L["e2"]) - wv * L["e2"])
+    grads["temps"] += gT.sum(dim=(1, 2))
+    nl = temps.shape[0]
+    idx = L["iso"].expand(nl, *L["iso"].shape).reshape(nl, -1)
+    for name, v in (("coef0", gk0 * L["s"]),
+                    ("densm", gdd if wl is None else gdd * wl),
+                    ("alphal", gaL), ("alphad_f", gaDf)):
+        grads[name].scatter_add_(1, idx, v.reshape(nl, -1))
+
+
+def zero_grads(tab, temps) -> dict:
+    """Zero float64 sums for the cotangents of ``temps`` and of the
+    (nl, niso) tables."""
+    f64 = dict(dtype=torch.float64)
+    return {"temps": torch.zeros_like(temps, **f64),
+            **{k: torch.zeros_like(tab[k], **f64)
+               for k in ("coef0", "densm", "alphal", "alphad_f")}}
+
+
+def cast_grads(grads: dict, dtype) -> dict:
+    """The float64 sums of :func:`zero_grads` cast once to ``dtype``."""
+    return {k: v.to(dtype) for k, v in grads.items()}
+
+
+def plain_line_tiles_vjp(plan: FastPlan, d, tab, temps, g, wn_i: float,
+                         dwn: float, ethresh: float, nwidth: float,
+                         gidx=None, bins_first: bool = False,
+                         grads=None) -> dict:
+    """The VJP of :func:`plain_line_tiles`: the cotangent ``g`` (nl, nt,
+    tw) of its output -> the cotangents of ``temps`` (nl,) and of the
+    tables ``coef0``, ``densm``, ``alphal`` and ``alphad_f`` (nl, niso),
+    float64 sums (:func:`zero_grads`; added into ``grads`` when given).
+    fast._block_val_bwd without a line weight (fast.py:608-680): per chunk
+    of tiles it recomputes x, y, k and w and keeps no residuals; the
+    geometry (kept lines, wing masks, x) in the tensors' dtype as the
+    forward computes it, w and the sums in float64.  The plain PyTorch
+    version of :func:`line_tile_backward`."""
+    grads = zero_grads(tab, temps) if grads is None else grads
+    for t0, t1, L, k, x_raw, y, inv, use in _tile_chunks(
+            plan, d, tab, temps, wn_i, dwn, ethresh, nwidth, gidx,
+            bins_first):
+        B = torch.where(use, g[:, t0:t1, :, None], 0.0)
+        chain_vjp(L, inv[:, :, 0, :], k, voigt_bin_sums(
+            RAW_W[plan.wfn_tag], x_raw, y, B), temps, grads)
+    return grads
 
 
 def plain_classes(plan: FastPlan, classes, temps, fn):
@@ -325,53 +435,126 @@ def work_counts(plan: FastPlan, d, tab, temps, wn_i: float, dwn: float,
     ``III``, ``IV``)."""
     out = {"layer_lines": temps.shape[0] * d["all_wavn"].shape[0],
            "II": 0, "III": 0, "IV": 0}
-    for *_, x, y, _, use in _tile_chunks(plan, d, tab, temps, wn_i, dwn,
-                                         ethresh, nwidth, gidx, bins_first):
-        for name, region in zip(("II", "III", "IV"),
-                                humlicek_regions(x, y)):
+    for *_, x_raw, y, _, use in _tile_chunks(plan, d, tab, temps, wn_i,
+                                             dwn, ethresh, nwidth, gidx,
+                                             bins_first):
+        for name, region in zip(("II", "III", "IV"), humlicek_regions(
+                torch.clamp_max(x_raw, 1e8), y)):
             out[name] += int((use & region).sum())
     return out
 
 
+class LineExtinction(torch.autograd.Function):
+    """The line extinction as a differentiable function of the layer
+    temperatures and the four (nl, niso) tables ``coef0``, ``densm``,
+    ``alphal`` and ``alphad_f`` (the counterpart of JAX's custom VJP
+    ``fast._block_val``, fast.py:577-680, around a whole plan).  ``op``
+    (:class:`TilesOp`, or banded.BandedOp) gives the per-layer kmax
+    (no gradient: it only sets which lines are kept, fast.py:677), the
+    forward and the backward; the tables' own dependence on T and the
+    densities stays torch ops, so autograd chains it, as JAX does around
+    ``_block_val``.  The forward saves its inputs, kmax (nl,) and what
+    ``op.forward`` returns for its backward (the decimated shells' clip
+    masks); no element-sized residuals: the backward recomputes x, y and
+    w.  Autograd through the plain forward (plain_extinction,
+    banded.plain_banded_extinction) would store the whole evaluation
+    volume and is kept only as the tests' oracle."""
+
+    @staticmethod
+    def forward(ctx, op, temps, coef0, densm, alphal, alphad_f):
+        tab = {"alphal": alphal, "alphad_f": alphad_f, "densm": densm,
+               "coef0": coef0}
+        tab["kmax"] = op.kmax(temps, coef0)
+        out, ctx.state = op.forward(tab, temps,
+                                    grad=any(ctx.needs_input_grad))
+        ctx.op = op
+        ctx.save_for_backward(temps, coef0, densm, alphal, alphad_f,
+                              tab["kmax"])
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        temps, coef0, densm, alphal, alphad_f, kmax = ctx.saved_tensors
+        tab = {"alphal": alphal, "alphad_f": alphad_f, "densm": densm,
+               "coef0": coef0, "kmax": kmax}
+        gr = ctx.op.backward(tab, temps, g.contiguous(), ctx.state)
+        return (None, gr["temps"], gr["coef0"], gr["densm"], gr["alphal"],
+                gr["alphad_f"])
+
+
+class TilesOp:
+    """The unbanded plan's line extinction for :class:`LineExtinction`:
+    ``layer_kmax`` (floor -inf), one ``line_tile_extinction`` launch and
+    one ``line_tile_backward`` launch with ``kernel``, else their plain
+    versions (:func:`plain_kmax`, :func:`plain_line_tiles`,
+    :func:`plain_line_tiles_vjp`)."""
+
+    def __init__(self, plan: FastPlan, d, kw: dict, kernel: bool):
+        self.plan, self.d, self.kw, self.kernel = plan, d, kw, kernel
+
+    def kmax(self, temps, coef0):
+        return (layer_kmax if self.kernel else plain_kmax)(self.d, temps,
+                                                           coef0)
+
+    def forward(self, tab, temps, grad: bool):
+        if self.kernel:
+            return line_tile_extinction(self.plan, self.d, tab, temps,
+                                        **self.kw), None
+        out = plain_line_tiles(self.plan, self.d, tab, temps, **self.kw)
+        return out.reshape(temps.shape[0], -1)[:, :self.plan.n_coarse], None
+
+    def backward(self, tab, temps, g, state):
+        if self.kernel:
+            return acc_grads(line_tile_backward(self.plan, self.d, tab,
+                                                temps, g, **self.kw),
+                             temps.dtype)
+        return cast_grads(plain_line_tiles_vjp(
+            self.plan, self.d, tab, temps, tile_cotangent(g, self.plan),
+            **self.kw), temps.dtype)
+
+
+def tile_cotangent(g, plan: FastPlan):
+    """A cotangent (nl, n_coarse) of a plan's output as (nl, ntiles, tw):
+    zero on the last tile's bins past n_coarse."""
+    pad = plan.ntiles * plan.tw - g.shape[1]
+    return torch.nn.functional.pad(g, (0, pad)).reshape(
+        g.shape[0], plan.ntiles, plan.tw)
+
+
 def kernel_extinction(plan: FastPlan, d, temps, densities, Z, mol_mass,
                       mol_radius, wn_i: float, dwn: float, ethresh: float,
-                      nwidth: float):
-    """Extinction (nlayer, n_coarse) through the CUDA kernels.
+                      nwidth: float, use_kernel: bool = True):
+    """Extinction (nlayer, n_coarse) through the CUDA kernels,
+    differentiable in temps, densities and Z (:class:`LineExtinction`).
 
     Same arguments as pallas_extinction: the plan, its device arrays
     (fast.fast_device_arrays), layer temperatures (cgs), densities
     (nmol, nl), partition functions Z (niso, nl) and the molecules'
-    masses and radii.  A CPU tensor takes :func:`plain_extinction`; a
-    CUDA tensor launches :func:`layer_kmax` and then the line-tile
-    kernel, which take float32 only.
+    masses and radii.  A CUDA tensor launches :func:`layer_kmax` and the
+    line-tile kernel, which take float32 only (and ``line_tile_backward``
+    for a gradient); a CPU tensor, or ``use_kernel=False``, takes their
+    plain versions (the forward equals :func:`plain_extinction`).
     """
-    if d["wavn"].device.type == "cpu":
-        return plain_extinction(plan, d, temps, densities, Z, mol_mass,
-                                mol_radius, wn_i, dwn, ethresh, nwidth)
-    # The kmax scan first: the card runs it while the host builds the
-    # other tables.
+    kernel = use_kernel and d["wavn"].device.type == "cuda"
     coef0 = strength_coef(d, Z)
-    kmax = layer_kmax(d, temps, coef0)
-    tab = {**width_tables(d, temps, densities, mol_mass, mol_radius),
-           "coef0": coef0, "kmax": kmax}
-    return line_tile_extinction(plan, d, tab, temps, wn_i, dwn, ethresh,
-                                nwidth)
+    tab = width_tables(d, temps, densities, mol_mass, mol_radius)
+    op = TilesOp(plan, d, dict(wn_i=wn_i, dwn=dwn, ethresh=ethresh,
+                               nwidth=nwidth), kernel)
+    return LineExtinction.apply(op, temps, coef0, tab["densm"],
+                                tab["alphal"], tab["alphad_f"])
 
 
 def _check_cuda(fn: str, args: dict, ints=("iso",)):
-    """Raise unless every tensor of ``args`` is on one CUDA device,
-    float32 (int32 for ``ints``, bool for ``mask``) and needs no
-    gradient (the kernels have no backward yet); returns the device."""
+    """Raise unless every tensor of ``args`` is on one CUDA device and
+    float32 (int32 for ``ints``, bool for ``mask``, uint8 for ``clip``);
+    returns the device.  A kernel reads its inputs' values: the gradient
+    comes from the backward kernels (:class:`LineExtinction`)."""
     device = next(iter(args.values())).device
     if device.type != "cuda":
         raise ValueError(f"{fn} runs on CUDA tensors, not {device}")
     for name, t in args.items():
-        if t.requires_grad:
-            raise NotImplementedError(
-                f"{fn}: {name} requires grad; gradients through the CUDA "
-                f"kernels come with the gradients / forward_batch slice "
-                f"(see ROADMAP.md)")
         want = (torch.int32 if name in ints else
+                torch.uint8 if name == "clip" else
                 torch.bool if name == "mask" else torch.float32)
         if t.dtype != want:
             raise TypeError(f"{fn}: {name} is {t.dtype}, the kernel takes "
@@ -426,6 +609,46 @@ def layer_kmax(d, temps, coef0, floor: float = -torch.inf):
     return kmax
 
 
+def _line_launch(fn: str, plan: FastPlan, d, tab, temps, tiles, rows,
+                 extra: dict):
+    """Check one line-tile launch's arguments (:func:`line_tile_extinction`
+    or :func:`line_tile_backward`, whose further tensors are ``extra``):
+    returns (device, its tensors made contiguous, nl, niso, ntiles, lmax,
+    nrows)."""
+    lines = {k: d[k] for k in ("wavn", "elow", "gf", "iso", "mask")}
+    idx = {k: v for k, v in (("tiles", tiles), ("rows", rows))
+           if v is not None}
+    args = {**lines, **tab, "temps": temps, **extra, **idx}
+    device = _check_cuda(fn, args, ints=("iso", "tiles", "rows"))
+    ntiles, lmax = d["wavn"].shape
+    if tiles is None and (plan.ntiles != ntiles or plan.lmax != lmax):
+        raise ValueError("line tensors do not match the plan")
+    if tiles is not None and tuple(tiles.shape) != (ntiles,):
+        raise ValueError(f"{fn}: one tile index per row")
+    for name in lines:
+        if tuple(d[name].shape) != (ntiles, lmax):
+            raise ValueError(f"{fn}: {name} has shape "
+                             f"{tuple(d[name].shape)}")
+    nl = temps.shape[0]
+    niso = tab["alphal"].shape[1]
+    for name in ("alphal", "alphad_f", "coef0", "densm"):
+        if tuple(tab[name].shape) != (nl, niso):
+            raise ValueError(f"{fn}: {name} has shape "
+                             f"{tuple(tab[name].shape)}")
+    if tuple(tab["kmax"].shape) != (nl,):
+        raise ValueError(f"{fn}: kmax must be (nl,)")
+    if rows is not None and rows.dim() != 1:
+        raise ValueError(f"{fn}: rows must be 1-d")
+    if plan.tw > 512:
+        raise ValueError(f"{fn}: tile width {plan.tw} > 512")
+    if plan.wfn_tag not in ("w4", "r2"):
+        raise ValueError(f"{fn}: Voigt function {plan.wfn_tag!r}; the "
+                         f"kernel has w4 and r2")
+    nrows = nl if rows is None else rows.shape[0]
+    return (device, {k: v.contiguous() for k, v in args.items()}, nl, niso,
+            ntiles, lmax, nrows)
+
+
 def line_tile_extinction(plan: FastPlan, d, tab, temps, wn_i: float,
                          dwn: float, ethresh: float, nwidth: float,
                          stats=None, *, tiles=None, rows=None, out=None,
@@ -448,37 +671,8 @@ def line_tile_extinction(plan: FastPlan, d, tab, temps, wn_i: float,
     other device, type or shape, and when the launch fails."""
     from transit_tpu_torch.opacities._build import load_library
 
-    lines = {k: d[k] for k in ("wavn", "elow", "gf", "iso", "mask")}
-    idx = {k: v for k, v in (("tiles", tiles), ("rows", rows))
-           if v is not None}
-    args = {**lines, **tab, "temps": temps, **idx}
-    device = _check_cuda("line_tile_extinction", args,
-                         ints=("iso", "tiles", "rows"))
-    ntiles, lmax = d["wavn"].shape
-    if tiles is None and (plan.ntiles != ntiles or plan.lmax != lmax):
-        raise ValueError("line tensors do not match the plan")
-    if tiles is not None and tuple(tiles.shape) != (ntiles,):
-        raise ValueError("line_tile_extinction: one tile index per row")
-    for name in lines:
-        if tuple(d[name].shape) != (ntiles, lmax):
-            raise ValueError(f"line_tile_extinction: {name} has shape "
-                             f"{tuple(d[name].shape)}")
-    nl = temps.shape[0]
-    niso = tab["alphal"].shape[1]
-    for name in ("alphal", "alphad_f", "coef0", "densm"):
-        if tuple(tab[name].shape) != (nl, niso):
-            raise ValueError(f"line_tile_extinction: {name} has shape "
-                             f"{tuple(tab[name].shape)}")
-    if tuple(tab["kmax"].shape) != (nl,):
-        raise ValueError("line_tile_extinction: kmax must be (nl,)")
-    if rows is not None and rows.dim() != 1:
-        raise ValueError("line_tile_extinction: rows must be 1-d")
-    if plan.tw > 512:
-        raise ValueError(f"line_tile_extinction: tile width {plan.tw} > "
-                         f"512")
-    if plan.wfn_tag not in ("w4", "r2"):
-        raise ValueError(f"line_tile_extinction: Voigt function "
-                         f"{plan.wfn_tag!r}; the kernel has w4 and r2")
+    device, args, nl, niso, ntiles, lmax, nrows = _line_launch(
+        "line_tile_extinction", plan, d, tab, temps, tiles, rows, {})
     _check_stats("line_tile_extinction", stats, device)
     if out is None:
         if accumulate:
@@ -492,23 +686,18 @@ def line_tile_extinction(plan: FastPlan, d, tab, temps, wn_i: float,
         raise ValueError(f"line_tile_extinction: out must be a contiguous "
                          f"({nl}, {plan.n_coarse}) float32 tensor on "
                          f"{device}")
-    nrows = nl if rows is None else rows.shape[0]
     if nrows == 0 or plan.n_coarse == 0 or ntiles == 0:
         return out
-    args = {k: v.contiguous() for k, v in args.items()}
-
-    def ptr(t):
-        return ctypes.c_void_p(None if t is None else t.data_ptr())
 
     with torch.cuda.device(device):
         lib = load_library()
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.line_tile_extinction(
-            *(ptr(args[k]) for k in ("wavn", "elow", "gf", "iso", "mask")),
-            ptr(args.get("tiles")), ptr(args.get("rows")),
-            *(ptr(args[k]) for k in ("temps", "alphal", "alphad_f", "coef0",
+            *(_ptr(args[k]) for k in ("wavn", "elow", "gf", "iso", "mask")),
+            _ptr(args.get("tiles")), _ptr(args.get("rows")),
+            *(_ptr(args[k]) for k in ("temps", "alphal", "alphad_f", "coef0",
                                      "densm", "kmax")),
-            ptr(out), ptr(stats), nrows, ntiles, lmax, niso, plan.tw,
+            _ptr(out), _ptr(stats), nrows, ntiles, lmax, niso, plan.tw,
             plan.n_coarse, int(accumulate), int(bins_first),
             WFN_CODE[plan.wfn_tag], wn_i, dwn, ethresh, nwidth,
             -EXPCTE, ctypes.c_void_p(stream))
@@ -517,6 +706,79 @@ def line_tile_extinction(plan: FastPlan, d, tab, temps, wn_i: float,
                            f"error {err}")
     line_tile_extinction.launches += 1
     return out
+
+
+def line_tile_backward(plan: FastPlan, d, tab, temps, g, wn_i: float,
+                       dwn: float, ethresh: float, nwidth: float, *,
+                       tiles=None, rows=None, bins_first: bool = False,
+                       acc=None):
+    """Launch ``line_tile_backward`` (csrc/line_tile.cu), the backward of
+    one :func:`line_tile_extinction` launch with the same arguments: ``g``
+    (nlayer, n_coarse) float32, the cotangent of the output, gives per
+    layer the cotangents of ``temps`` and of the tables ``coef0``,
+    ``densm``, ``alphal`` and ``alphad_f``, added in float64 into ``acc``
+    (nlayer, 1 + 4 niso) (:func:`acc_grads` splits it; made here, zero,
+    when None); returns ``acc``.  :func:`plain_line_tiles_vjp` is its
+    plain version.  Raises on any other device, type or shape, and when
+    the launch fails."""
+    from transit_tpu_torch.opacities._build import load_library
+
+    device, args, nl, niso, ntiles, lmax, nrows = _line_launch(
+        "line_tile_backward", plan, d, tab, temps, tiles, rows, {"g": g})
+    if tuple(g.shape) != (nl, plan.n_coarse):
+        raise ValueError("line_tile_backward: g must be (nl, n_coarse)")
+    if niso > 64:
+        raise ValueError(f"line_tile_backward: {niso} > 64 isotopes")
+    acc = _check_acc("line_tile_backward", acc, nl, niso, device)
+    if nrows == 0 or plan.n_coarse == 0 or ntiles == 0:
+        return acc
+
+    with torch.cuda.device(device):
+        lib = load_library()
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.line_tile_backward(
+            *(_ptr(args[k]) for k in ("wavn", "elow", "gf", "iso", "mask")),
+            _ptr(args.get("tiles")), _ptr(args.get("rows")),
+            *(_ptr(args[k]) for k in ("temps", "alphal", "alphad_f", "coef0",
+                                     "densm", "kmax", "g")),
+            _ptr(acc), nrows, ntiles, lmax, niso, plan.tw, plan.n_coarse,
+            int(bins_first), WFN_CODE[plan.wfn_tag], wn_i, dwn, ethresh,
+            nwidth, -EXPCTE, ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"line_tile_backward failed to launch: CUDA "
+                           f"error {err}")
+    line_tile_backward.launches += 1
+    return acc
+
+
+def _check_acc(fn: str, acc, nl: int, niso: int, device):
+    """The backward kernels' float64 sums (nl, 1 + 4 niso): ``acc``
+    checked, or a new zero one."""
+    shape = (nl, 1 + 4 * niso)
+    if acc is None:
+        return torch.zeros(shape, dtype=torch.float64, device=device)
+    if (acc.dtype != torch.float64 or tuple(acc.shape) != shape or
+            acc.device != device or not acc.is_contiguous()):
+        raise ValueError(f"{fn}: acc must be a contiguous {shape} float64 "
+                         f"tensor on {device}")
+    return acc
+
+
+def acc_grads(acc, dtype) -> dict:
+    """The backward kernels' float64 sums (nl, 1 + 4 niso) as the
+    cotangents {"temps": (nl,), "coef0", "densm", "alphal", "alphad_f":
+    (nl, niso)} in ``dtype``, cast once."""
+    niso = (acc.shape[1] - 1) // 4
+    a = acc.to(dtype)
+    return {"temps": a[:, 0],
+            **{k: a[:, 1 + i * niso:1 + (i + 1) * niso]
+               for i, k in enumerate(("coef0", "densm", "alphal",
+                                      "alphad_f"))}}
+
+
+def _ptr(t):
+    """A tensor's device pointer for ctypes (None: a null pointer)."""
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
 
 
 def _check_stats(fn: str, stats, device):
@@ -531,4 +793,5 @@ def _check_stats(fn: str, stats, device):
 # Kernel launches since the last reset (plain counts; set one to 0 to
 # start a new count).
 line_tile_extinction.launches = 0
+line_tile_backward.launches = 0
 layer_kmax.launches = 0

@@ -1,5 +1,4 @@
-"""Humlicek w4 Voigt profile and the far-wing kernels on tensors (forward
-only).
+"""Humlicek w4 Voigt profile and the far-wing kernels on tensors.
 
 The plain PyTorch counterpart of transit_tpu.opacities.voigt's
 ``_humlicek_w`` / ``voigt_k_humlicek`` (voigt.py:116-249), its region II
@@ -18,6 +17,12 @@ contracts carry over unchanged:
   * the three rationals share one divide, numerator and denominator
     selected per element, and masked-out elements are fed safe values so
     they stay finite.
+
+The three K functions are ``torch.autograd.Function``s with JAX's custom
+VJP (voigt.py:209-269): the gradient comes from the Faddeeva identity
+w'(z) = -2 z w(z) + 2i/sqrt(pi) on the computed (Re w, Im w), not from
+autograd through the rationals, so it is the derivative of the true Voigt
+function to the approximation's accuracy, as in JAX.
 """
 
 from __future__ import annotations
@@ -106,11 +111,55 @@ def _humlicek_w(x: torch.Tensor, y: torch.Tensor):
     return wr, wi
 
 
+def _reduce_to(g: torch.Tensor, shape) -> torch.Tensor:
+    """Sum a broadcast gradient back down to an input's shape
+    (voigt.py:209)."""
+    shape = tuple(shape)
+    if tuple(g.shape) == shape:
+        return g
+    nd = g.dim() - len(shape)
+    if nd:
+        g = g.sum(dim=tuple(range(nd)))
+    ax = tuple(i for i, n in enumerate(shape) if n == 1 and g.shape[i] != 1)
+    if ax:
+        g = g.sum(dim=ax, keepdim=True)
+    return g
+
+
+def faddeeva_partials(x, y, wr, wi):
+    """(Kx', Ky') = (dK/dx, dK/dy) / sqrt(ln2/pi) from the Faddeeva
+    identity (voigt.py:_vkh_bwd): -2 (x wr - y wi) and
+    2 (x wi + y wr) - 2/sqrt(pi)."""
+    return -2.0 * (x * wr - y * wi), 2.0 * (x * wi + y * wr) - TWOOSQRTPI
+
+
+class _VoigtK(torch.autograd.Function):
+    """K = sqrt(ln2/pi) Re w of the pair function ``raw_w``, with JAX's
+    backward ``_vkh_bwd`` (voigt.py:257): dK/dx = -2C (x wr - y wi),
+    dK/dy = 2C (x wi + y wr) - 2C/sqrt(pi), reduced to the inputs'
+    shapes."""
+
+    @staticmethod
+    def forward(ctx, raw_w, x, y):
+        wr, wi = raw_w(x, y)
+        ctx.save_for_backward(x, y, wr, wi)
+        return SQRTLN2PI * wr
+
+    @staticmethod
+    def backward(ctx, ct):
+        x, y, wr, wi = ctx.saved_tensors
+        kxp, kyp = faddeeva_partials(x.to(wr.dtype), y.to(wr.dtype), wr, wi)
+        ct = ct * SQRTLN2PI
+        return (None, _reduce_to(ct * kxp, x.shape),
+                _reduce_to(ct * kyp, y.shape))
+
+
 def voigt_k_humlicek(x: torch.Tensor, y: torch.Tensor):
     """K(x, y) = sqrt(ln2/pi) Re[w(x + iy)] via the Humlicek w4
-    rational approximation (voigt.py:225, forward only).  Multiply by
-    1/alphaD for the area-normalised profile value."""
-    return SQRTLN2PI * _humlicek_w(x, y)[0]
+    rational approximation (voigt.py:225), with the Faddeeva-identity
+    gradient.  Multiply by 1/alphaD for the area-normalised profile
+    value."""
+    return _VoigtK.apply(_humlicek_w, x, y)
 
 
 def _humlicek_w_r2(x: torch.Tensor, y: torch.Tensor):
@@ -138,8 +187,8 @@ def _humlicek_w_r2(x: torch.Tensor, y: torch.Tensor):
 def voigt_k_humlicek_r2(x: torch.Tensor, y: torch.Tensor):
     """K(x, y) from region II of w4 alone (voigt.py:310): equal to
     :func:`voigt_k_humlicek` wherever |x| + y >= 5.5 — the far-wing
-    stride-1 shells."""
-    return SQRTLN2PI * _humlicek_w_r2(x, y)[0]
+    stride-1 shells.  Faddeeva-identity gradient."""
+    return _VoigtK.apply(_humlicek_w_r2, x, y)
 
 
 def _w_asym2(x: torch.Tensor, y: torch.Tensor):
@@ -161,12 +210,15 @@ def _w_asym2(x: torch.Tensor, y: torch.Tensor):
 
 def voigt_k_asym2(x: torch.Tensor, y: torch.Tensor):
     """K(x, y) from the two-term asymptotic pair (voigt.py:365): the outer
-    far-wing shells, where every line sits at x >= X_ASYM."""
-    return SQRTLN2PI * _w_asym2(x, y)[0]
+    far-wing shells, where every line sits at x >= X_ASYM.
+    Faddeeva-identity gradient."""
+    return _VoigtK.apply(_w_asym2, x, y)
 
 
 # Voigt function of a plan by its ``wfn_tag`` (fast.py:125), and the
 # kernels' selector for it (csrc/*.cu: template argument WFN).
 FAR_KERNELS = {"w4": voigt_k_humlicek, "r2": voigt_k_humlicek_r2,
                "asym2": voigt_k_asym2}
+# Their (Re w, Im w) pairs, which the plain VJPs evaluate (fast.py:_RAW_W).
+RAW_W = {"w4": _humlicek_w, "r2": _humlicek_w_r2, "asym2": _w_asym2}
 WFN_CODE = {"w4": 0, "r2": 1, "asym2": 2}
