@@ -35,7 +35,8 @@ steps of ``torch.autograd.grad(forward(T, q).sum(), (T, q))`` on each
 banded path, through the backward kernels ``line_tile_backward`` and
 ``shell_tile_backward``; each backward launch against its plain VJP on
 the same inputs (per output, max|a-b| / max|b| < GRAD_LAUNCH_TOL), the
-whole gradient against the plain path's (GRAD_TOL), central differences
+whole gradient against the plain path's, and against the plain path's
+with the Voigt pair in float64 (GRAD_TOL), central differences
 in T on two layers (FD_RTOL); times of a step and of each backward
 kernel beside its bound (FP32, SFU and byte terms).  Phase
 ``main_path_batch``: ``forward_batch`` of BATCH perturbed profiles
@@ -52,7 +53,10 @@ with code 1 at once.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import ctypes
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -63,8 +67,10 @@ import numpy as np
 import torch
 
 from transit_tpu_torch.config import TransitConfig
+from transit_tpu_torch.constants import EXPCTE
 from transit_tpu_torch.model import TransitModel
-from transit_tpu_torch.opacities import _build, banded
+from transit_tpu_torch.opacities import _build, banded, kernel_lbl
+from transit_tpu_torch.opacities.voigt import WFN_CODE
 from transit_tpu_torch.opacities.kernel_lbl import (
     acc_grads, kernel_extinction, layer_kmax, layer_tables, line_tile_backward,
     line_tile_extinction, plain_extinction, plain_kmax, plain_line_tiles,
@@ -145,12 +151,14 @@ MUFU_WFN = {"r2": 2, "asym2": 1}
 # (9) and the three sums (11); per output bin of a decimated shell the
 # transposed upsampling (8).  MUFU: the chain's two exps and 1/alphaD;
 # each divide's reciprocal.  The bound counts all of it at the FP32 rate.
-# The kernels run the pair, partials, sums and chain in FP64 (a design
-# choice, not the function's): "fp64_design" beside the bound is the
-# time of those operations at the FP64 rate.
+# The kernels run the sums' three adds per pair and the chain in FP64 (a
+# design choice, not the function's; the pair is float32):
+# "fp64_design" beside the bound is the time of those operations at the
+# FP64 rate.
 OPS_BWD_CHAIN = 26
 OPS_BWD_PAIR32 = 4
 OPS_BWD_PAIR64 = 26
+OPS_BWD_SUM64 = 3
 OPS_BWD_UPSAMPLE = 8
 MUFU_BWD_REGION = {"II": 2, "III": 1, "IV": 1}
 # H100 SXM FP64 outside the tensor cores at the 700 W limit (NVIDIA data
@@ -178,6 +186,29 @@ class CheckFailed(RuntimeError):
 def check(cond, msg: str):
     if not cond:
         raise CheckFailed(msg)
+
+
+def ptxas_summary(log: str) -> dict:
+    """{kernel: "N registers, S bytes stack"} of the backward kernels,
+    from nvcc's -Xptxas -v output (one entry function after another)."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?([\w$]+)", line)
+        if m:
+            name = next((k for k in ("line_tile_bwd_kernel",
+                                     "shell_tile_bwd_kernel")
+                         if k in m.group(1)), None)
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame", line)
+        if m:
+            out.setdefault(name, {})["stack_bytes"] = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out.setdefault(name, {})["registers"] = int(m.group(1))
+    return out
 
 
 def phase(name: str, t0: float, text: str = ""):
@@ -761,23 +792,33 @@ def shell_clip(tab, T, kw, unit, r, n_coarse: int):
     return clip
 
 
+def backward_launches(m: TransitModel):
+    """The backward kernel launches of one gradient step, in order:
+    yields (part, unit, the band's rows as an int32 and a long tensor)
+    with part "lines" (one line_tile_backward launch over the band's
+    near and stride-1 classes, unit its LineBand) or "shell" (one
+    shell_tile_backward launch, unit the band's ShellBand)."""
+    for i, part, unit in banded.backward_units(m.bplan, m.bdev, m.bindex):
+        r = m.bindex["rows"][i]
+        yield part, unit, r, r.long()
+
+
 def backward_kernel(tab, T, kw, part, unit, r, g, clip):
     """One backward launch of the banded path: its float64 sums
     (nl, 1 + 4 niso)."""
     if part == "shell":
         return shell_tile_backward(unit, tab, T, g, clip=clip, rows=r, **kw)
-    plan, dc, _, t = unit
-    return line_tile_backward(plan, dc, tab, T, g, tiles=t, rows=r,
-                              bins_first=True, **kw)
+    return line_tile_backward(unit, tab, T, g, rows=r, bins_first=True,
+                              **kw)
 
 
 def backward_plain(tab, T, kw, part, unit, sel, g) -> dict:
-    """The plain VJP of one launch on the band's rows ``sel``: float64
-    sums {output: (nrows, ...)}."""
+    """The plain VJP of one backward launch on the band's rows ``sel``:
+    float64 sums {output: (nrows, ...)}."""
     tab_r = {k: v[sel] for k, v in tab.items()}
     grads = zero_grads(tab_r, T[sel])
     parts = (unit.parts if part == "shell" else
-             [(unit[0], [(unit[1], unit[2])], 1)])
+             [(p, [(dc, gidx)], 1) for p, dc, gidx, _ in unit.units])
     for plan, classes, stride in parts:
         gt = tile_cotangent(g[sel], plan)
         for dc, gidx in classes:
@@ -793,16 +834,17 @@ def backward_plain(tab, T, kw, part, unit, sel, g) -> dict:
 
 
 def backward_vs_plain(m: TransitModel, g, label: str) -> dict:
-    """Every backward launch of the banded path on its own (the shell
-    launch with the clip mask of its forward launch) against its plain
-    VJP on the same inputs and cotangent ``g``: per output max|a-b| /
-    max|b| < GRAD_LAUNCH_TOL.  {kernel: {"max_rel": {output: x},
+    """Every backward launch of the banded path on its own (one
+    line_tile_backward per band over its classes; the shell launch with
+    the clip mask of its forward launch) against its plain VJP on the
+    same inputs and cotangent ``g``: per output max|a-b| / max|b| <
+    GRAD_LAUNCH_TOL.  {kernel: {"max_rel": {output: x},
     "max_abs_temps", "launches"}}."""
     args, kw = file_state(m)
     T = args[0]
     tab = banded.prep_layers(m.bdev[0], *args, use_kernel=True)
     res = {}
-    for part, unit, r, sel in banded_launches(m):
+    for part, unit, r, sel in backward_launches(m):
         clip = shell_clip(tab, T, kw, unit, r, m.wns.n) \
             if part == "shell" else None
         acc = backward_kernel(tab, T, kw, part, unit, r, g, clip)
@@ -856,7 +898,7 @@ def backward_times(m: TransitModel, g) -> dict:
     nl, n = m.atm.nlayers, m.wns.n
     tab = banded.prep_layers(m.bdev[0], *args, use_kernel=True)
     niso = tab["alphal"].shape[1]
-    launches = list(banded_launches(m))
+    launches = list(backward_launches(m))
     clips = {id(u): shell_clip(tab, T, kw, u, r, n)
              for p, u, r, _ in launches if p == "shell"}
     res = {}
@@ -901,32 +943,38 @@ def backward_times(m: TransitModel, g) -> dict:
                 for dc, gidx in classes:
                     c = shell_counts(plan, dc, tab_r, T[sel], stride=stride,
                                      gidx=gidx, **kw)
-                    need[key][0] += OPS_BWD_PAIR32 * c["evals"]
-                    need[key][3] += (OPS_BWD_CHAIN * c["live"] + c["evals"] *
-                                     (OPS_BWD_PAIR64 +
-                                      OPS_WFN[plan.wfn_tag]))
+                    need[key][0] += c["evals"] * (
+                        OPS_BWD_PAIR32 + OPS_BWD_PAIR64 - OPS_BWD_SUM64 +
+                        OPS_WFN[plan.wfn_tag])
+                    need[key][3] += (OPS_BWD_CHAIN * c["live"] +
+                                     OPS_BWD_SUM64 * c["evals"])
                     need[key][2] += MUFU_WFN[plan.wfn_tag] * c["evals"]
             continue
-        plan, dc, gidx, _ = unit
-        ncol = min(n, plan.ntiles * plan.tw) if gidx is None else \
-            int(np.minimum(n - np.asarray(gidx) * plan.tw, plan.tw).sum())
-        need[key][1] += (nbytes_of(*(dc[k] for k in ("wavn", "elow", "gf",
-                                                     "iso", "mask"))) +
-                         4 * nrows * ncol + 8 * nrows * (1 + 4 * niso))
-        w = work_counts(plan, {**dc, "all_wavn": m.bdev[0]["all_wavn"]},
-                        tab_r, T[sel], gidx=gidx, bins_first=True, **kw)
-        live = run_counts(plan, dc, tab_r, T[sel], gidx=gidx,
-                          bins_first=True, **kw)["live"]
-        ev = sum(w[x] for x in OPS_REGION)
-        need[key][0] += OPS_BWD_PAIR32 * ev
-        need[key][3] += OPS_BWD_CHAIN * live + OPS_BWD_PAIR64 * ev
-        if plan.wfn_tag == "w4":
-            need[key][3] += sum(OPS_REGION[x] * w[x] for x in OPS_REGION)
-            need[key][2] += sum(MUFU_BWD_REGION[x] * w[x]
-                                for x in OPS_REGION)
-        else:
-            need[key][3] += OPS_WFN[plan.wfn_tag] * ev
-            need[key][2] += MUFU_WFN[plan.wfn_tag] * ev
+        # Per class, as PR 8's launches counted them: its line tensors,
+        # its columns of the cotangent, the sums.
+        for plan, dc, gidx, _ in unit.units:
+            ncol = min(n, plan.ntiles * plan.tw) if gidx is None else \
+                int(np.minimum(n - np.asarray(gidx) * plan.tw,
+                               plan.tw).sum())
+            need[key][1] += (nbytes_of(*(dc[k] for k in ("wavn", "elow",
+                                                         "gf", "iso",
+                                                         "mask"))) +
+                             4 * nrows * ncol + 8 * nrows * (1 + 4 * niso))
+            w = work_counts(plan, {**dc, "all_wavn": m.bdev[0]["all_wavn"]},
+                            tab_r, T[sel], gidx=gidx, bins_first=True, **kw)
+            live = run_counts(plan, dc, tab_r, T[sel], gidx=gidx,
+                              bins_first=True, **kw)["live"]
+            ev = sum(w[x] for x in OPS_REGION)
+            need[key][0] += (OPS_BWD_PAIR32 + OPS_BWD_PAIR64 -
+                             OPS_BWD_SUM64) * ev
+            need[key][3] += OPS_BWD_CHAIN * live + OPS_BWD_SUM64 * ev
+            if plan.wfn_tag == "w4":
+                need[key][0] += sum(OPS_REGION[x] * w[x] for x in OPS_REGION)
+                need[key][2] += sum(MUFU_BWD_REGION[x] * w[x]
+                                    for x in OPS_REGION)
+            else:
+                need[key][0] += OPS_WFN[plan.wfn_tag] * ev
+                need[key][2] += MUFU_WFN[plan.wfn_tag] * ev
     for name, (ops, nb, mufu, ops64) in need.items():
         b_ms, b_by, unit = roofline(ops + ops64, nb, mufu)
         res[name].update(bound_ms=b_ms, bound_by=b_by, bound_unit=unit,
@@ -960,7 +1008,7 @@ def grad_phase(m: TransitModel, requests, label: str) -> dict:
               and bool(torch.isfinite(gq).all()) and float(gT.abs().max()) > 0,
               f"{label}: gradient not finite or zero")
     per_step = {k: 0 for k in ("line_tile_backward", "shell_tile_backward")}
-    for _, part, _ in banded.launch_units(m.bplan, m.bdev, m.bindex):
+    for part, *_ in backward_launches(m):
         per_step[bwd_name(part)] += 1
     for k, v in per_step.items():
         check(launches[k] == 3 * v, f"{label}: {k} launched {launches[k]} "
@@ -971,10 +1019,20 @@ def grad_phase(m: TransitModel, requests, label: str) -> dict:
     # forward, plain VJPs) on the card.
     m.use_kernel = False
     plain = grad_step(m, *leaves[0])
+    # And against the plain path with the Voigt pair in float64 (the
+    # kernels' pair is float32, as JAX's).
+    kernel_lbl.PAIR_DTYPE = torch.float64
+    try:
+        plain64 = grad_step(m, *leaves[0])
+    finally:
+        kernel_lbl.PAIR_DTYPE = None
     m.use_kernel = True
     err_T, err_q = (max_rel(a, b) for a, b in zip(grads[0], plain))
     check(max(err_T, err_q) < GRAD_TOL, f"{label}: gradient kernel path vs "
           f"plain path T {err_T:.3e} q {err_q:.3e} >= {GRAD_TOL}")
+    err64 = {x: max_rel(a, b) for x, a, b in zip("Tq", grads[0], plain64)}
+    check(max(err64.values()) < GRAD_TOL, f"{label}: gradient kernel path "
+          f"vs the plain path with a float64 pair {err64} >= {GRAD_TOL}")
     # Central differences in T at the two layers of largest |dF/dT|.
     T0, q0 = (np.asarray(a, dtype=np.float64) for a in requests[0])
     gT = grads[0][0].double().cpu().numpy()
@@ -999,7 +1057,8 @@ def grad_phase(m: TransitModel, requests, label: str) -> dict:
     ms_fb = cuda_ms(lambda: grad_step(m, T, q))
     return {"launches": launches, "per_step": {k: v / 3 for k, v in
                                                launches.items()},
-            "vs_plain_path": {"T": err_T, "q": err_q}, "fd": fd,
+            "vs_plain_path": {"T": err_T, "q": err_q},
+            "vs_plain_path_pair64": err64, "fd": fd,
             "launch_vs_plain": launch_err, "forward_ms": ms_fwd,
             "forward_backward_ms": ms_fb, "ratio": ms_fb / ms_fwd,
             "times": backward_times(m, g)}
@@ -1047,7 +1106,135 @@ def batch_phase(m: TransitModel, label: str) -> dict:
             "ms_member_grad": ms_fb / BATCH}
 
 
-def main(device: str = "cuda", profile: str | None = None) -> int:
+def old_library(ab_dir: str):
+    """The parent design's kernels (the PR 8 backward), built from the
+    sources of the checkout under ``ab_dir`` by that checkout's own
+    _build into its own library; returns the loaded ctypes library."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "parent_build", Path(ab_dir) / "transit_tpu_torch" / "opacities" /
+        "_build.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    mod.build(verbose=True)
+    return mod.load_library()
+
+
+@contextlib.contextmanager
+def library(lib):
+    """Route the wrappers' launches to ``lib`` (the forward kernels and
+    shell_tile_backward keep their C interface across the two builds)."""
+    saved = _build.load_library
+    _build.load_library = lambda: lib
+    try:
+        yield
+    finally:
+        _build.load_library = saved
+
+
+def old_line_backward(lib, tab, T, g, kw, unit, r, acc):
+    """One per-class launch of the parent design's line_tile_backward."""
+    plan, dc, _, t = unit
+    ptr = lambda x: ctypes.c_void_p(None if x is None else x.data_ptr())
+    err = lib.line_tile_backward(
+        *(ptr(dc[k]) for k in ("wavn", "elow", "gf", "iso", "mask")), ptr(t),
+        ptr(r), ptr(T), *(ptr(tab[k]) for k in ("alphal", "alphad_f",
+                                                "coef0", "densm", "kmax")),
+        ptr(g), ptr(acc), r.shape[0], dc["wavn"].shape[0],
+        dc["wavn"].shape[1], tab["alphal"].shape[1], plan.tw, plan.n_coarse,
+        1, WFN_CODE[plan.wfn_tag], kw["wn_i"], kw["dwn"], kw["ethresh"],
+        kw["nwidth"], -EXPCTE,
+        ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    check(err == 0, f"parent line_tile_backward failed: CUDA error {err}")
+
+
+def ab_phase(m: TransitModel, g, old, label: str) -> dict:
+    """The parent design (old) against this one (new) on the same inputs:
+    the forward kernels' outputs (every forward launch of the path into
+    one output, the shell launch's clip masks, layer_kmax) bit for bit;
+    the backward launches' sums, and their times in turns old / new /
+    new / old (CUDA events around the wrappers' calls, median of RUNS
+    each; and device time, graph_ms)."""
+    args, kw = file_state(m)
+    T, n, nl = args[0], m.wns.n, m.atm.nlayers
+    tab = {k: v.contiguous() for k, v in banded.prep_layers(
+        m.bdev[0], *args, use_kernel=True).items()}
+    fwd = list(banded_launches(m))
+    outs = []
+    for lib in (old, None):
+        with library(lib) if lib else contextlib.nullcontext():
+            out = torch.zeros((nl, n), device=T.device)
+            clips = []
+            for part, unit, r, _ in fwd:
+                if part == "shell":
+                    clips.append(torch.zeros((len(unit.parts), r.shape[0], n),
+                                             dtype=torch.uint8,
+                                             device=T.device))
+                    shell_tile_extinction(unit, tab, T, rows=r, out=out,
+                                          clip=clips[-1], **kw)
+                else:
+                    launch_kernel(tab, T, kw, part, unit, r, out)
+            km = layer_kmax(m.bdev[0], T, tab["coef0"], floor=0.0)
+            torch.cuda.synchronize()
+            outs.append((out, clips, km))
+    same = (torch.equal(outs[0][0], outs[1][0]) and
+            torch.equal(outs[0][2], outs[1][2]) and
+            all(torch.equal(a, b) for a, b in zip(outs[0][1], outs[1][1])))
+    check(same, f"{label}: the forward kernels' outputs differ between "
+          f"the parent build and this one")
+    clips = {id(u): shell_clip(tab, T, kw, u, r, n)
+             for p, u, r, _ in fwd if p == "shell"}
+    niso = tab["alphal"].shape[1]
+    lines = [(u, r) for p, u, r, _ in fwd if p != "shell"]
+    shells = [(u, r) for p, u, r, _ in fwd if p == "shell"]
+
+    def line_old():
+        acc = torch.zeros((nl, 1 + 4 * niso), dtype=torch.float64,
+                          device=T.device)
+        for u, r in lines:
+            old_line_backward(old, tab, T, g, kw, u, r, acc)
+        return acc
+
+    def line_new():
+        acc = None
+        for p, u, r, _ in backward_launches(m):
+            if p == "lines":
+                acc = line_tile_backward(u, tab, T, g, rows=r,
+                                         bins_first=True, acc=acc, **kw)
+        return acc
+
+    def shell_step(lib):
+        def step():
+            acc = None
+            with library(lib) if lib else contextlib.nullcontext():
+                for u, r in shells:
+                    acc = shell_tile_backward(u, tab, T, g, clip=clips[id(u)],
+                                              rows=r, acc=acc, **kw)
+            return acc
+        return step
+
+    res = {"forward_bitwise": same}
+    for name, fo, fn in (("line_tile_backward", line_old, line_new),
+                         ("shell_tile_backward", shell_step(old),
+                          shell_step(None))):
+        if name == "shell_tile_backward" and not shells:
+            continue
+        a, b = fo(), fn()
+        torch.cuda.synchronize()
+        ga, gb = (acc_grads(x, torch.float64) for x in (a, b))
+        turns = [cuda_ms(f) for f in (fo, fn, fn, fo)]
+        dev = [graph_ms(f, n=10) for f in (fo, fn, fn, fo)]
+        res[name] = {"old_new_new_old_ms": turns,
+                     "old_ms": statistics.median([turns[0], turns[3]]),
+                     "new_ms": statistics.median([turns[1], turns[2]]),
+                     "device_old_new_new_old_ms": dev,
+                     "new_vs_old": {k: max_rel(gb[k], ga[k]) for k in ga
+                                    if float(ga[k].abs().max()) > 0}}
+    return res
+
+
+def main(device: str = "cuda", profile: str | None = None,
+         ab: str | None = None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the smoke run needs one card",
               file=sys.stderr)
@@ -1072,7 +1259,10 @@ def main(device: str = "cuda", profile: str | None = None) -> int:
     t0 = time.perf_counter()
     so = _build.build(verbose=True)
     _build.load_library()
-    phase("build", t0, f"({so.relative_to(ROOT)})")
+    ptxas = ptxas_summary(_build.build.log)
+    old = old_library(ab) if ab else None
+    phase("build", t0, f"({so.relative_to(ROOT)}); backward kernels' "
+          f"ptxas: {json.dumps(ptxas)}")
 
     # 3. Kernels against their plain versions at the fixture and
     #    hot-Jupiter shapes, float32.
@@ -1211,6 +1401,10 @@ def main(device: str = "cuda", profile: str | None = None) -> int:
           f"{grad_b['ratio']:.3f}); " + json.dumps(
               {k: v for k, v in grad_b.items() if k not in (
                   "forward_ms", "forward_backward_ms", "ratio")}))
+    if ab:
+        t0 = time.perf_counter()
+        ab_b = ab_phase(hjb, line_cotangent(hjb, T0, q0), old, "main path")
+        phase("main_path_ab", t0, json.dumps(ab_b))
     t0 = time.perf_counter()
     batch = batch_phase(hjb, "main path batch")
     phase("main_path_batch", t0, f"B = {BATCH}: {batch['ms_batch']:.3f} ms "
@@ -1290,6 +1484,10 @@ def main(device: str = "cuda", profile: str | None = None) -> int:
           f"{grad_f['ratio']:.3f}); " + json.dumps(
               {k: v for k, v in grad_f.items() if k not in (
                   "forward_ms", "forward_backward_ms", "ratio")}))
+    if ab:
+        t0 = time.perf_counter()
+        ab_f = ab_phase(hjf, line_cotangent(hjf, T0f, q0f), old, "0.05 cm-1")
+        phase("fine_path_ab", t0, json.dumps(ab_f))
     if profile:
         t0 = time.perf_counter()
         trace = Path(profile)
@@ -1432,4 +1630,9 @@ if __name__ == "__main__":
                     help="also trace forwards with torch.profiler, print "
                     "the device time by kernel and the busy share, and "
                     "write the Chrome trace to TRACE")
-    sys.exit(main(profile=ap.parse_args().profile))
+    ap.add_argument("--ab", metavar="DIR", default=None,
+                    help="also build the parent design's kernels from the "
+                    "checkout under DIR and compare them with this one's "
+                    "(forward bit for bit, backward times in turns)")
+    a = ap.parse_args()
+    sys.exit(main(profile=a.profile, ab=a.ab))

@@ -380,18 +380,13 @@ def test_kernel_gradients_match_plain_vjps(card, config):
     assert _grad_rel(res[0], res[1]) < 1e-4
 
 
-@pytest.mark.cuda
-def test_forward_batch_fine_grid_on_card(card):
-    """forward_batch (B = 2) on the fine-grid fixture with bands=6 runs
-    the decimated shells over the batch's pseudo-layers (the batched
-    view's shell bands with its own rows, clip masks sized from those
-    rows, shell_tile_backward over 2 x 20 rows): its spectra against a
-    loop of forward <= 1e-6 relative, its gradient against the loop's <
-    1e-4 of max."""
-    from transit_tpu_torch.opacities.kernel_shell import (
-        shell_tile_backward, shell_tile_extinction)
-    m = _fine_model(card)
-    rng = np.random.default_rng(12)
+def _batch_vs_loop(m, card, seed):
+    """forward_batch (B = 2) against a loop of forward: spectra <= 1e-6
+    relative, gradients < 1e-4 of max; returns the backward kernels'
+    launches of the batched gradient step."""
+    from transit_tpu_torch.opacities.kernel_lbl import line_tile_backward
+    from transit_tpu_torch.opacities.kernel_shell import shell_tile_backward
+    rng = np.random.default_rng(seed)
     T0 = np.asarray(m.atm.temp, dtype=np.float64)
     q0 = np.asarray(m.atm.q, dtype=np.float64)
     Tb = np.stack([T0, T0 + rng.normal(0.0, 30.0, T0.shape)])
@@ -402,12 +397,12 @@ def test_forward_batch_fine_grid_on_card(card):
                                   requires_grad=True) for a in (t, qq))
 
     T, q = leaves(Tb, qb)
-    before = (shell_tile_extinction.launches, shell_tile_backward.launches)
     spec = m.forward_batch(T, q)
+    before = (line_tile_backward.launches, shell_tile_backward.launches)
     grads = torch.autograd.grad(spec.sum(), (T, q))
     torch.cuda.synchronize()
-    assert shell_tile_extinction.launches > before[0]
-    assert shell_tile_backward.launches > before[1]
+    launched = (line_tile_backward.launches - before[0],
+                shell_tile_backward.launches - before[1])
     loop, lgrads = [], []
     for i in range(2):
         t, qq = leaves(Tb[i], qb[i])
@@ -420,28 +415,62 @@ def test_forward_batch_fine_grid_on_card(card):
     for a, b in zip(grads, (torch.stack(g) for g in zip(*lgrads))):
         assert bool(torch.isfinite(a).all()) and float(b.abs().max()) > 0
         assert float((a - b).abs().max() / b.abs().max()) < 1e-4
+    return launched
 
 
-def _line_bwd_vs_plain(plan, d, tab, temps, g, kw, rows, tiles=None,
-                       gidx=None, bins_first=False):
-    """line_tile_backward on ``rows`` against plain_line_tiles_vjp on the
-    same rows: max relative error over the outputs; the kernel's sums
-    outside the rows stay 0."""
+@pytest.mark.cuda
+def test_forward_batch_fine_grid_on_card(card):
+    """forward_batch (B = 2) on the fine-grid fixture with bands=6 runs
+    the decimated shells over the batch's pseudo-layers (the batched
+    view's shell bands with its own rows, clip masks sized from those
+    rows, shell_tile_backward over 2 x 20 rows): its spectra against a
+    loop of forward <= 1e-6 relative, its gradient against the loop's <
+    1e-4 of max."""
+    from transit_tpu_torch.opacities.kernel_shell import shell_tile_extinction
+    m = _fine_model(card)
+    before = shell_tile_extinction.launches
+    lines, shells = _batch_vs_loop(m, card, 12)
+    assert shell_tile_extinction.launches > before and shells > 0
+    assert lines == len(m.bplan.plans)
+
+
+@pytest.mark.cuda
+def test_forward_batch_fixture_bands6_on_card(card):
+    """forward_batch (B = 2) on the fixture with bands=6: the batched
+    gradient runs one line_tile_backward launch per band over the class
+    table on the batch's rows; spectra and gradient as the loop's."""
+    m = _model(card, bands=6)
+    lines, shells = _batch_vs_loop(m, card, 13)
+    assert (lines, shells) == (len(m.bplan.plans), 0)
+
+
+def _line_bwd_vs_plain(units, tab, temps, g, kw, rows, bins_first=False):
+    """One line_tile_backward launch over the classes ``units`` [(plan,
+    line tensors, int32 tiles or None, global tiles (numpy) or None)] on
+    ``rows`` against the sum of their plain_line_tiles_vjp on the same
+    rows: max relative error over the outputs; the kernel's sums outside
+    the rows stay 0."""
     from transit_tpu_torch.opacities.kernel_lbl import (
-        acc_grads, line_tile_backward, plain_line_tiles_vjp,
-        tile_cotangent)
-    acc = line_tile_backward(plan, d, tab, temps, g, tiles=tiles, rows=rows,
-                             bins_first=bins_first, **kw)
+        LineBand, acc_grads, line_tile_backward, plain_line_tiles_vjp,
+        tile_cotangent, zero_grads)
+    acc = line_tile_backward(LineBand([(p, d, gidx, t)
+                                       for p, d, t, gidx in units]),
+                             tab, temps, g, rows=rows, bins_first=bins_first,
+                             **kw)
     torch.cuda.synchronize()
     sel = rows.long()
     others = torch.ones(temps.shape[0], dtype=torch.bool, device=g.device)
     others[sel] = False
     assert int(torch.count_nonzero(acc[others])) == 0
-    gt = tile_cotangent(g[sel], plan)
-    want = plain_line_tiles_vjp(plan, d, {k: v[sel] for k, v in tab.items()},
-                                temps[sel], gt if gidx is None else gt[:, (
-                                    torch.as_tensor(gidx).long())],
-                                gidx=gidx, bins_first=bins_first, **kw)
+    tab_r = {k: v[sel] for k, v in tab.items()}
+    want = zero_grads(tab_r, temps[sel])
+    for plan, d, _, gidx in units:
+        gt = tile_cotangent(g[sel], plan)
+        plain_line_tiles_vjp(plan, d, tab_r, temps[sel],
+                             gt if gidx is None else gt[:, (
+                                 torch.as_tensor(gidx).long())],
+                             gidx=gidx, bins_first=bins_first, grads=want,
+                             **kw)
     got = {k: v[sel] for k, v in acc_grads(acc, torch.float64).items()}
     return _grad_rel(got, want)
 
@@ -476,7 +505,8 @@ def test_line_backward_layers_and_widths(card, tw, nrows):
     rows = torch.arange(7, 7 + nrows, dtype=torch.int32, device=card)
     g = torch.as_tensor(np.random.default_rng(nrows).standard_normal(
         (120, m.wns.n)), dtype=torch.float32, device=card)
-    assert _line_bwd_vs_plain(plan, d, tab, temps, g, kw, rows) < 1e-4
+    assert _line_bwd_vs_plain([(plan, d, None, None)], tab, temps, g, kw,
+                              rows) < 1e-4
 
 
 @pytest.mark.cuda
@@ -496,34 +526,71 @@ def test_line_backward_empty_and_cut(card, case):
     tab = layer_tables(d, *args)
     g = torch.ones((20, m.wns.n), device=card)
     rows = torch.arange(20, dtype=torch.int32, device=card)
-    assert _line_bwd_vs_plain(m.fplan, d, tab, args[0], g, kw, rows) < 1e-4
-    from transit_tpu_torch.opacities.kernel_lbl import line_tile_backward
-    acc = line_tile_backward(m.fplan, d, tab, args[0], g, **kw)
+    assert _line_bwd_vs_plain([(m.fplan, d, None, None)], tab, args[0], g,
+                              kw, rows) < 1e-4
+    from transit_tpu_torch.opacities.kernel_lbl import (LineBand,
+                                                        line_tile_backward)
+    acc = line_tile_backward(LineBand([(m.fplan, d, None, None)]), tab,
+                             args[0], g, **kw)
     assert (int(torch.count_nonzero(acc)) == 0) == (case ==
                                                      "ethresh_cuts_all")
 
 
-@pytest.mark.cuda
-def test_banded_line_backward_launches(card):
-    """Every near and stride-1 line-tile launch of the fine grid's banded
-    path (tile classes, tw up to 512, bins_first) against its plain
-    VJP."""
+def _band_line_backward(m, seed):
+    """Every line_tile_backward launch of a banded model (one per band,
+    over its near and stride-1 classes) against its plain VJPs: the
+    worst relative error, and the number of launches."""
     from transit_tpu_torch.opacities import banded
-    m = _fine_model(card)
     args, kw = _state(m)
     tab = banded.prep_layers(m.bdev[0], *args, use_kernel=True)
-    g = torch.as_tensor(np.random.default_rng(3).standard_normal(
-        (20, m.wns.n)), dtype=torch.float32, device=card)
-    n = 0
-    for i, part, unit in banded.launch_units(m.bplan, m.bdev, m.bindex):
-        if part == "shell":
+    g = torch.as_tensor(np.random.default_rng(seed).standard_normal(
+        (20, m.wns.n)), dtype=torch.float32, device=args[0].device)
+    worst, n = 0.0, 0
+    for i, part, unit in banded.backward_units(m.bplan, m.bdev, m.bindex):
+        if part != "lines":
             continue
-        plan, dc, gidx, t = unit
-        assert _line_bwd_vs_plain(plan, dc, tab, args[0], g, kw,
-                                  m.bindex["rows"][i], tiles=t, gidx=gidx,
-                                  bins_first=True) < 1e-4
+        worst = max(worst, _line_bwd_vs_plain(
+            [(p, dc, t, gidx) for p, dc, gidx, t in unit.units], tab,
+            args[0], g, kw, m.bindex["rows"][i], bins_first=True))
         n += 1
-    assert n >= len(m.bplan.plans)
+    return worst, n
+
+
+@pytest.mark.cuda
+def test_banded_line_backward_launches(card):
+    """Every line_tile_backward launch of the fine grid's banded path
+    (one per band over its tile classes, tw up to 512, bins_first)
+    against its plain VJPs."""
+    m = _fine_model(card)
+    worst, n = _band_line_backward(m, 3)
+    assert worst < 1e-4 and n == len(m.bplan.plans)
+
+
+@pytest.mark.cuda
+def test_banded_line_backward_launches_fixture(card):
+    """The same on the fixture with bands=6 (near classes and stride-1
+    shells, tw 8)."""
+    m = _model(card, bands=6)
+    worst, n = _band_line_backward(m, 4)
+    assert worst < 1e-4 and n == len(m.bplan.plans)
+
+
+@pytest.mark.cuda
+def test_banded_shell_backward_launches(card):
+    """Every shell_tile_backward launch of the fine grid's banded path
+    (one per band with decimated shells, its forward launch's clip mask)
+    against its plain VJPs."""
+    m = _fine_model(card)
+    args, kw = _state(m)
+    from transit_tpu_torch.opacities import banded
+    tab = banded.prep_layers(m.bdev[0], *args, use_kernel=True)
+    n = 0
+    for i, part, unit in banded.backward_units(m.bplan, m.bdev, m.bindex):
+        if part == "shell":
+            assert _shell_bwd_vs_plain(unit, tab, args[0], kw,
+                                       m.bindex["rows"][i]) < 1e-4
+            n += 1
+    assert n == sum(b is not None for b in m.bindex["shells"]) > 0
 
 
 # --- The shell kernel's launch (one per band) and layer_kmax ---------------

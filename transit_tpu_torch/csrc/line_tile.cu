@@ -565,31 +565,89 @@ layer_kmax_kernel(const float* __restrict__ wavn,
 // Given the cotangent g (nl, n_coarse) of the output, for each live (layer,
 // tile, line) entry (kept, and its wing reaches a bin of the tile: the
 // forward's run [b0, b1] from find_run) it takes three sums over the run's
-// bins (add_bin_sums: Voigt pair and Faddeeva partials, recomputed, no
-// residuals), chains them to the line's cotangents (chain_add) and adds
-// those to the layer's temperature and (layer, isotope) table cells.
-// What bounds it: arithmetic on the run's pairs, as in the forward, but
-// the pair w and its partials are float64 (voigt.cuh says why; the card's
-// FP64 rate is half its FP32 rate, and a float64 divide is a loop of
-// FMAs).  The design is the simple one: a block per (tile, block of lb
-// layers), the tile's g columns of its layers staged in shared memory, a
-// thread per (layer, line) that walks the line's run; the cells are
-// float64 in shared memory (atomics), then one float64 atomic per block
-// and cell into the global sums (nl, 1 + 4 niso): a temperature's
-// cotangent sums ~30e6 terms of both signs on the main path, which
-// float32 atomics in a random order would make drift.  No window over
-// the line list (find_run rejects a line that reaches no bin) and no
-// compaction of the pairs: work for a later PR.
-constexpr int BT = 256;           // threads per backward block
+// bins (add_bin_sums: the Voigt pair and its Faddeeva partials recomputed
+// in float32, no residuals, the sums float64), chains them to the line's
+// cotangents (chain_terms, float64) and adds those to the layer's
+// temperature and (layer, isotope) table cells.
+//
+// What bounds it: per live entry its set-up and chain (on the main path
+// 13.0e6 entries with 2.3 pairs each), per pair the Voigt pair (30.3e6 on
+// the main path; 297.5e6 at 0.05 cm-1, 13 per entry).  The design:
+//   * one launch per band: a block takes one tile of one of the band's
+//     tile classes (near and stride-1 shell classes, from a table passed
+//     by value) and a block of lb of the band's layer rows (all of them,
+//     as shared memory allows); the layers' temperatures, thresholds and
+//     table rows and the tile's g columns are staged in shared memory;
+//   * the forward's window [jlo, jhi) of lines that can reach the tile,
+//     walked in chunks of BNE lines staged in shared memory;
+//   * one pass: thread tid keeps to layer tid % nlay and takes every
+//     ns-th line of a chunk, so the lanes of a warp read one line for
+//     their layers and find similar runs; per element its set-up
+//     (find_run, the strength with T's reciprocal hoisted, the keep
+//     test), its run of pairs and its chain;
+//   * the thread sums its entries' cotangents in its own shared slots
+//     (CellAcc) and adds them once, summed over the lanes of a warp with
+//     the same cell, before one shared atomic per cell;
+//   * one float64 atomic per block and nonzero cell into the global sums
+//     (nl, 1 + 4 niso): a temperature's cotangent sums ~30e6 terms of both
+//     signs on the main path, which float32 atomics would make drift.
+// Measured and dropped (PERF.md, PR 9): the pair in float64 (no faster
+// than the first design); a set-up pass, a block scan listing the live
+// entries and the pairs dealt out evenly to the lanes (slower than one
+// pass on both paths, 7.78 against 3.96 ms at 0.05 cm-1); the cells
+// summed over the warp per element instead of per thread.
+constexpr int BT = 256;               // threads per backward block
+constexpr int BNE = 512;              // lines per chunk
+constexpr int BWARP = BT / 32;
+constexpr int MAX_CLASSES = 16;
+constexpr int BWD_MAX_LB = 256;       // layers per block
+
+// One tile class of a backward launch: its line tensors (ntiles, lmax),
+// the global tile of each row (null: row i is tile i), tile width, Voigt
+// function (0 w4, 1 r2) and its first block.
+struct LineClass {
+  const float* wavn;
+  const float* elow;
+  const float* gf;
+  const int* iso;
+  const unsigned char* mask;
+  const int* tiles;
+  int ntiles, lmax, tw, wfn, blk0;
+};
+struct LineClasses {
+  int n;
+  LineClass c[MAX_CLASSES];
+};
+
+// Shared memory of line_tile_bwd_kernel: fixed arrays, then per layer its
+// table rows (lb, niso) float4 (alphal, alphad_f, coef0, densm), cells
+// (lb, ncell) f64, staged cotangents (lb, tw), T and threshold.
+struct BwdShared {
+  double acc[NACC * BT];              // the threads' CellAcc slots
+  double scr[BWARP * 32 * 4];         // warp_cells scratch
+  float wv[BNE], el[BNE], gf[BNE];    // a chunk's line rows
+  int iso[BNE];                       // -1: masked
+  int win[2 * BWARP];
+};
+constexpr size_t BWD_FIXED = (sizeof(BwdShared) + 15) / 16 * 16;
 
 template <int WFN>
-__global__ void __launch_bounds__(BT)
-line_tile_bwd_kernel(const float* __restrict__ wavn,
-                     const float* __restrict__ elow,
-                     const float* __restrict__ gf,
-                     const int* __restrict__ iso,
-                     const unsigned char* __restrict__ mask,
-                     const int* __restrict__ tiles,
+__device__ __forceinline__ void run_sums(const float* gl, int b0, int b1,
+                                         float wa, float wb, float dwn,
+                                         float wv, float inv, float y,
+                                         double& s1, double& s2,
+                                         double& s3) {
+  for (int b = b0; b <= b1; ++b) {
+    const float gb = gl[b];
+    if (gb == 0.0f) continue;
+    const float dist = fabsf(__fsub_rn(bin_wn(wa, wb, dwn, b), wv));
+    add_bin_sums<WFN>(__fmul_rn(__fmul_rn(SQRTLN2, dist), inv), y, gb, s1,
+                      s2, s3);
+  }
+}
+
+__global__ void __launch_bounds__(BT, 3)
+line_tile_bwd_kernel(const __grid_constant__ LineClasses cls,
                      const int* __restrict__ rows,
                      const float* __restrict__ temps,
                      const float* __restrict__ alphal,
@@ -599,69 +657,143 @@ line_tile_bwd_kernel(const float* __restrict__ wavn,
                      const float* __restrict__ kmax,
                      const float* __restrict__ g,
                      double* __restrict__ acc,
-                     int nrows, int lmax, int niso, int tw, int lb,
-                     int n_coarse, int bins_first, float wn_i, float dwn,
-                     float ethresh, float nwidth, float neg_expcte) {
+                     int nrows, int lb, int tw_max, int niso, int n_coarse,
+                     int bins_first, float wn_i, float dwn, float ethresh,
+                     float nwidth, float neg_expcte) {
   extern __shared__ __align__(16) unsigned char smem[];
+  BwdShared& sh = *reinterpret_cast<BwdShared*>(smem);
   const int ncell = 1 + 4 * niso;
-  double* s_red = reinterpret_cast<double*>(smem);       // (lb, ncell)
+  float4* s_tab = reinterpret_cast<float4*>(smem + BWD_FIXED);
+  double* s_red = reinterpret_cast<double*>(s_tab + lb * niso);
   float* s_g = reinterpret_cast<float*>(s_red + lb * ncell);  // (lb, tw)
-  const int tile = tiles ? tiles[blockIdx.x] : (int)blockIdx.x;
+  float* s_T = s_g + lb * tw_max;
+  float* s_thr = s_T + lb;
+
+  // The block's class and tile.
+  int c = 0;
+  while (c + 1 < cls.n && (int)blockIdx.x >= cls.c[c + 1].blk0) ++c;
+  const float* wavn = cls.c[c].wavn;
+  const float* elow = cls.c[c].elow;
+  const float* gfa = cls.c[c].gf;
+  const int* isoa = cls.c[c].iso;
+  const unsigned char* mask = cls.c[c].mask;
+  const int lmax = cls.c[c].lmax, tw = cls.c[c].tw, wfn = cls.c[c].wfn;
+  const int r = (int)blockIdx.x - cls.c[c].blk0;
+  const int tile = cls.c[c].tiles ? cls.c[c].tiles[r] : r;
+
   const int l0 = blockIdx.y * lb;
   const int nlay = min(lb, nrows - l0);
   const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+
+  // The layers' values, the tile's cotangents, zero cells.
   for (int i = tid; i < nlay * ncell; i += BT) s_red[i] = 0.0;
+  for (int i = tid; i < nlay; i += BT) {
+    const int L = layer_of(rows, l0 + i);
+    s_T[i] = temps[L];
+    s_thr[i] = __fmul_rn(ethresh, kmax[L]);
+  }
+  for (int i = tid; i < nlay * niso; i += BT) {
+    const int ti = layer_of(rows, l0 + i / niso) * niso + i % niso;
+    s_tab[i] = make_float4(alphal[ti], alphad_f[ti], coef0[ti], densm[ti]);
+  }
   for (int i = tid; i < nlay * tw; i += BT) {
     const int ll = i / tw, col = tile * tw + (i - ll * tw);
     s_g[i] = col < n_coarse
                  ? g[(size_t)layer_of(rows, l0 + ll) * n_coarse + col]
                  : 0.0f;
   }
+  CellAcc cells(sh.acc, BT);
   __syncthreads();
 
   const float toff = __fmul_rn(dwn, (float)(tile * tw));
   const float wa = bins_first ? wn_i : __fadd_rn(wn_i, toff);
   const float wb = bins_first ? toff : 0.0f;
   const float inv_dwn = 1.0f / dwn;
-  const size_t row = (size_t)blockIdx.x * lmax;
-  const int tpl = BT / lb;                 // threads per layer
-  const int lj = tid / tpl;
-  if (lj < nlay) {
-    const int L = layer_of(rows, l0 + lj);
-    const float T = temps[L];
-    const float thr = __fmul_rn(ethresh, kmax[L]);
-    const float* gl = s_g + lj * tw;
-    double* red = s_red + lj * ncell;
-    for (int j = tid - lj * tpl; j < lmax; j += tpl) {
-      if (!mask[row + j]) continue;
-      const float wv = wavn[row + j];
-      const int is = iso[row + j];
-      const int ti = L * niso + is;
-      const float aL = alphal[ti];
-      const float aD = __fmul_rn(alphad_f[ti], wv);
-      const float wing = __fmul_rn(nwidth, fmaxf(aD, aL));
-      int b0, b1;
-      if (!find_run(wa, wb, dwn, inv_dwn, tw, wv, wing, b0, b1)) continue;
-      const float el = elow[row + j], gfj = gf[row + j], cf0 = coef0[ti];
-      float e1, e2, sj;
-      strength_parts(gfj, el, wv, T, neg_expcte, e1, e2, sj);
-      const float k0 = __fmul_rn(sj, cf0);
-      if (!(k0 >= thr)) continue;
-      const float inv = __fdiv_rn(1.0f, aD);
-      const float y = __fmul_rn(__fmul_rn(SQRTLN2, aL), inv);
-      double s1 = 0.0, s2 = 0.0, s3 = 0.0;
-      for (int b = b0; b <= b1; ++b) {
-        const float gb = gl[b];
-        if (gb == 0.0f) continue;
-        const float dist = fabsf(__fsub_rn(bin_wn(wa, wb, dwn, b), wv));
-        add_bin_sums<WFN>(__fmul_rn(__fmul_rn(SQRTLN2, dist), inv), y, gb,
-                          s1, s2, s3);
-      }
-      const float dd = densm[ti];
-      chain_add(red, niso, is, s1, s2, s3, inv, __fmul_rn(k0, dd), k0, dd,
-                1.0f, cf0, sj, e1, e2, gfj, el, wv, T, -neg_expcte);
+  const size_t row = (size_t)r * lmax;
+
+  // The block's window of lines [jlo, jhi), as line_tile_kernel finds it.
+  float dfmax = 0.0f, almax = 0.0f;
+  for (int t = lane; t < nlay * niso; t += 32) {
+    dfmax = fmaxf(dfmax, s_tab[t].y);
+    almax = fmaxf(almax, s_tab[t].x);
+  }
+#pragma unroll
+  for (int o = 16; o; o >>= 1) {
+    dfmax = fmaxf(dfmax, __shfl_xor_sync(FULL, dfmax, o));
+    almax = fmaxf(almax, __shfl_xor_sync(FULL, almax, o));
+  }
+  const double wn_first = bin_wn(wa, wb, dwn, 0);
+  const double wn_last = bin_wn(wa, wb, dwn, tw - 1);
+  int jlo = lmax, jhi = 0;
+  for (int t = tid; t < lmax; t += BT) {
+    const bool on = mask[row + t];
+    const float wvf = wavn[row + t];
+    const double wv = wvf, reach = 1.000001 * (double)__fmul_rn(
+        nwidth, fmaxf(__fmul_rn(dfmax, wvf), almax));
+    if (on && wn_first - wv <= reach && wv - wn_last <= reach) {
+      jlo = min(jlo, t);
+      jhi = t + 1;
     }
   }
+  jlo = __reduce_min_sync(FULL, jlo);
+  jhi = __reduce_max_sync(FULL, jhi);
+  if (lane == 0) {
+    sh.win[warp] = jlo;
+    sh.win[BWARP + warp] = jhi;
+  }
+  __syncthreads();
+  for (int w = 0; w < BWARP; ++w) {
+    jlo = min(jlo, sh.win[w]);
+    jhi = max(jhi, sh.win[BWARP + w]);
+  }
+
+  // The thread's layer and lines: layer tid % nlay, every ns-th line from
+  // tid / nlay.
+  const int ll = tid % nlay, s0 = tid / nlay;
+  const int ns = BT / nlay + (ll < BT % nlay ? 1 : 0);
+  const float T = s_T[ll], rT = __frcp_rn(T), thr = s_thr[ll];
+  const double expcte = -(double)neg_expcte;
+  const float* gl = s_g + ll * tw;
+  for (int c0 = jlo; c0 < jhi; c0 += BNE) {
+    const int cn = min(BNE, jhi - c0);
+    __syncthreads();                      // the previous chunk is consumed
+    for (int j = tid; j < cn; j += BT) {
+      const size_t gi = row + c0 + j;
+      sh.wv[j] = wavn[gi];
+      sh.el[j] = elow[gi];
+      sh.gf[j] = gfa[gi];
+      sh.iso[j] = mask[gi] ? isoa[gi] : -1;
+    }
+    __syncthreads();
+    for (int j = s0; j < cn; j += ns) {
+      const int is = sh.iso[j];
+      if (is < 0) continue;
+      const float4 tb = s_tab[ll * niso + is];
+      const float wv = sh.wv[j];
+      const float aD = __fmul_rn(tb.y, wv);
+      const float wing = __fmul_rn(nwidth, fmaxf(aD, tb.x));
+      int b0, b1;
+      if (!find_run(wa, wb, dwn, inv_dwn, tw, wv, wing, b0, b1)) continue;
+      float e1, e2, sj;
+      strength_parts(sh.gf[j], sh.el[j], wv, T, rT, neg_expcte, e1, e2,
+                       sj);
+      const float k0 = __fmul_rn(sj, tb.z);
+      if (!(k0 >= thr)) continue;
+      const float inv = __fdiv_rn(1.0f, aD);
+      const float y = __fmul_rn(__fmul_rn(SQRTLN2, tb.x), inv);
+      double s1 = 0.0, s2 = 0.0, s3 = 0.0;
+      if (wfn == 0)
+        run_sums<0>(gl, b0, b1, wa, wb, dwn, wv, inv, y, s1, s2, s3);
+      else
+        run_sums<1>(gl, b0, b1, wa, wb, dwn, wv, inv, y, s1, s2, s3);
+      double t[5];
+      chain_terms(t, s1, s2, s3, inv, __fmul_rn(k0, tb.w), k0, tb.w, 1.0,
+                  tb.z, sj, e1, e2, sh.gf[j], sh.el[j], wv, T, expcte);
+      cells.add(t, is, s_red + ll * ncell, niso);
+    }
+  }
+  cells.flush(s_red, sh.scr + warp * 32 * 4, true, ll, ncell, niso);
   __syncthreads();
   flush_cells(s_red, acc, rows, l0, nlay, ncell);
 }
@@ -752,44 +884,72 @@ extern "C" int layer_kmax(const void* wavn, const void* elow, const void* gf,
   return (int)cudaGetLastError();
 }
 
-// The backward of line_tile_extinction on the same launch (same line
-// tiles, tiles, rows, temps, tables, kmax, tw, n_coarse, bins_first, wfn):
-// g (nl, n_coarse) f32 is the cotangent of the output; acc (nl, 1 + 4 niso)
-// f64 gets, per layer, the cotangents of temps, then per isotope of coef0,
-// densm, alphal and alphad_f added (float64 atomics).  niso <= 64.
+// The backward of the line-tile launches of one band (or of the unbanded
+// plan's one launch), in one launch: nclass tile classes, each as
+// line_tile_extinction takes it, given by the HOST arrays ptrs (nclass x
+// 6: wavn, elow, gf, iso, mask, tiles, device pointers; tiles may be
+// null) and ints (nclass x 4: ntiles, lmax, tw <= 512, wfn 0 w4 or 1
+// r2); the same rows, temps, tables, kmax, n_coarse and bins_first for
+// all.  g (nl, n_coarse) f32 is the cotangent of the output; acc (nl, 1 +
+// 4 niso) f64 gets, per layer, the cotangents of temps, then per isotope
+// of coef0, densm, alphal and alphad_f added (float64 atomics).
+// niso <= 64, nclass <= 16.
 extern "C" int line_tile_backward(
-    const void* wavn, const void* elow, const void* gf, const void* iso,
-    const void* mask, const void* tiles, const void* rows,
+    const long long* ptrs, const int* ints, int nclass, const void* rows,
     const void* temps, const void* alphal, const void* alphad_f,
     const void* coef0, const void* densm, const void* kmax, const void* g,
-    void* acc, int nrows, int ntiles, int lmax, int niso, int tw,
-    int n_coarse, int bins_first, int wfn, float wn_i, float dwn,
-    float ethresh, float nwidth, float neg_expcte, void* stream) {
-  if (nrows <= 0 || ntiles <= 0 || lmax <= 0 || tw <= 0 || tw > MAX_TW ||
-      niso <= 0 || niso > 64 || wfn < 0 || wfn > 1)
+    void* acc, int nrows, int niso, int n_coarse, int bins_first,
+    float wn_i, float dwn, float ethresh, float nwidth, float neg_expcte,
+    void* stream) {
+  if (nrows <= 0 || nclass <= 0 || nclass > MAX_CLASSES || niso <= 0 ||
+      niso > 64)
     return (int)cudaErrorInvalidValue;
-  int lb = BT / tw;
-  if (lb < 1) lb = 1;
-  if (lb > MAX_LB) lb = MAX_LB;
+  LineClasses cls;
+  cls.n = nclass;
+  int nblk = 0, tw_max = 0;
+  for (int i = 0; i < nclass; ++i) {
+    LineClass& c = cls.c[i];
+    const long long* p = ptrs + 6 * i;
+    c.wavn = (const float*)p[0];
+    c.elow = (const float*)p[1];
+    c.gf = (const float*)p[2];
+    c.iso = (const int*)p[3];
+    c.mask = (const unsigned char*)p[4];
+    c.tiles = (const int*)p[5];
+    c.ntiles = ints[4 * i];
+    c.lmax = ints[4 * i + 1];
+    c.tw = ints[4 * i + 2];
+    c.wfn = ints[4 * i + 3];
+    if (c.ntiles <= 0 || c.lmax <= 0 || c.tw <= 0 || c.tw > MAX_TW ||
+        c.wfn < 0 || c.wfn > 1 || !c.wavn || !c.elow || !c.gf || !c.iso ||
+        !c.mask)
+      return (int)cudaErrorInvalidValue;
+    c.blk0 = nblk;
+    nblk += c.ntiles;
+    if (c.tw > tw_max) tw_max = c.tw;
+  }
+  // Layers per block: all the band's layers, as many as BWD_MAX_LB and
+  // 24 KB of staging allow (three blocks on an SM), halved while the grid
+  // has fewer than 1024 blocks.
+  const size_t per_layer = (1 + 4 * niso) * sizeof(double) +
+                           niso * sizeof(float4) + tw_max * sizeof(float) +
+                           2 * sizeof(float);
+  const int fit = (int)((24 << 10) / per_layer);
+  int lb = fit < BWD_MAX_LB ? fit : BWD_MAX_LB;
   if (lb > nrows) lb = nrows;
-  const int nblk = (nrows + lb - 1) / lb;
-  lb = (nrows + nblk - 1) / nblk;
-  const size_t smem = (size_t)lb * (1 + 4 * niso) * sizeof(double) +
-                      (size_t)lb * tw * sizeof(float);
-  auto go = [&](auto kernel) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    kernel<<<dim3(ntiles, nblk), BT, smem, (cudaStream_t)stream>>>(
-        (const float*)wavn, (const float*)elow, (const float*)gf,
-        (const int*)iso, (const unsigned char*)mask, (const int*)tiles,
-        (const int*)rows, (const float*)temps, (const float*)alphal,
-        (const float*)alphad_f, (const float*)coef0, (const float*)densm,
-        (const float*)kmax, (const float*)g, (double*)acc, nrows, lmax, niso,
-        tw, lb, n_coarse, bins_first, wn_i, dwn, ethresh, nwidth,
-        neg_expcte);
-    return (int)cudaGetLastError();
-  };
-  if (wfn == 0) return go(line_tile_bwd_kernel<0>);
-  return go(line_tile_bwd_kernel<1>);
+  while (lb > 1 && (long long)nblk * ((nrows + lb - 1) / lb) < 1024)
+    lb = (lb + 1) / 2;
+  const int nlb = (nrows + lb - 1) / lb;
+  lb = (nrows + nlb - 1) / nlb;           // balance the ragged layer block
+  const size_t smem = BWD_FIXED + lb * per_layer;
+  cudaError_t err = cudaFuncSetAttribute(
+      line_tile_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  line_tile_bwd_kernel<<<dim3(nblk, nlb), BT, smem, (cudaStream_t)stream>>>(
+      cls, (const int*)rows, (const float*)temps, (const float*)alphal,
+      (const float*)alphad_f, (const float*)coef0, (const float*)densm,
+      (const float*)kmax, (const float*)g, (double*)acc, nrows, lb, tw_max,
+      niso, n_coarse, bins_first, wn_i, dwn, ethresh, nwidth, neg_expcte);
+  return (int)cudaGetLastError();
 }

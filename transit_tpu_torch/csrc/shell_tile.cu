@@ -58,6 +58,7 @@ constexpr int SCH_MAX = 512;        // lines per chunk
 constexpr int S_MAX_LB = 32;        // layers per block
 constexpr int S_ITEMS = 2048;       // (layer, point) sums per block
 constexpr int MAX_SHELLS = 8;
+constexpr int SB_G = 4096;          // the backward's staged g: lb * tw
 constexpr size_t S_SMEM = S_ENTRIES * sizeof(float4) +
                           2 * S_ITEMS * sizeof(float);
 
@@ -281,21 +282,42 @@ __device__ __forceinline__ float cr_weight(int m, int r, int stride) {
 // weight wl folded into k (the density's cotangent carries wl,
 // fast.py:673) and no wing mask, behind the transpose of the Catmull-Rom
 // upsampling and the clip (fast.py:833-836).  A block takes the forward's
-// (tile, block of layers) entry and, shell by shell:
-//   * the point cotangents gp (lb, ne) in shared memory: each point e
-//     gathers W[m, r] g of the bins g*stride + r it fed (g = e - m), where
-//     that shell's own upsampled field was > 0 (the forward's clip mask);
+// (tile, block of layers) entry; it stages its layers' temperatures,
+// thresholds and table rows and the tile's g columns once, and per shell:
+//   * the point cotangents gp (lb, ne): each point e gathers W[m, r] g of
+//     the bins g*stride + r it fed (g = e - m), where that shell's own
+//     upsampled field was > 0 (the forward's clip mask, staged beside g);
 //     stride 1: the bins' g itself;
-//   * per (layer, line) of the tile's lines, recomputed set-up (strength,
-//     weight, 1/alphaD, y), three sums over the points (add_bin_sums) and
-//     the chain to the cotangents (chain_add), into float64 cells of the
-//     block's layers in shared memory;
-// then one float64 atomic per block and cell into the global sums.  What
-// bounds it: arithmetic, every kept (layer, line) of a tile against every
-// point, as in the forward, with the pair w and its partials in float64
-// (voigt.cuh).  Simple first: a thread per (layer, line), no staging of
-// the line rows.
-__global__ void __launch_bounds__(SNT)
+//   * the tile's lines of the shell in chunks staged in shared memory; a
+//     thread keeps to one layer (tid % nlay) and takes every ns-th line,
+//     so the lanes of a warp read one line for their layers; per (layer,
+//     line) its strength, keep test and weight, then, if it is live, its
+//     three sums over the ne points (add_bin_sums, float32 pair, float64
+//     sums; the shell's Voigt function a template argument) and its chain
+//     (chain_terms), summed in the thread's own shared slots (CellAcc):
+//     every live element has the same points, so the lanes stay in step;
+// then the slots into the block's cells (one shared atomic per warp,
+// layer and cell) and one float64 atomic per block and cell into the
+// global sums.  What bounds it: the pairs, every live (layer, line) of a
+// tile against every point (84.3e6 at 0.05 cm-1).
+constexpr int SB_LINES = 512;       // staged lines per chunk
+
+template <int WFN>
+__device__ __forceinline__ void shell_point_sums(const float* gp,
+                                                 const float* pos, int ne,
+                                                 float wv, float inv,
+                                                 float y, double& s1,
+                                                 double& s2, double& s3) {
+  for (int p = 0; p < ne; ++p) {
+    const float gb = gp[p];
+    if (gb == 0.0f) continue;
+    const float x_raw =
+        __fmul_rn(__fmul_rn(SQRTLN2, fabsf(__fsub_rn(pos[p], wv))), inv);
+    add_bin_sums<WFN>(x_raw, y, gb, s1, s2, s3);
+  }
+}
+
+__global__ void __launch_bounds__(SNT, 3)
 shell_tile_bwd_kernel(const float* __restrict__ wavn,
                       const float* __restrict__ elow,
                       const float* __restrict__ gf,
@@ -312,19 +334,50 @@ shell_tile_bwd_kernel(const float* __restrict__ wavn,
                       const unsigned char* __restrict__ clip,
                       double* __restrict__ acc,
                       const Shells shells, int nrows, int lb, int niso,
-                      int tw, int n_coarse, float wn_i, float dwn,
-                      float ethresh, float nwidth, float aL_max,
+                      int tw, int ne_max, int n_coarse, float wn_i,
+                      float dwn, float ethresh, float nwidth, float aL_max,
                       float aDf_max, float tw_wn, float neg_expcte) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int ncell = 1 + 4 * niso;
-  double* s_red = reinterpret_cast<double*>(smem);            // (lb, ncell)
-  float* s_gp = reinterpret_cast<float*>(s_red + lb * ncell);  // (lb, ne)
+  float4* s_tab = reinterpret_cast<float4*>(smem);           // (lb, niso)
+  float4* s_line = s_tab + lb * niso;                         // SB_LINES
+  int* s_iso = reinterpret_cast<int*>(s_line + SB_LINES);     // SB_LINES
+  double* s_scr = reinterpret_cast<double*>(s_iso + SB_LINES);  // 8x32x4
+  double* s_acc = s_scr + (SNT / 32) * 32 * 4;          // NACC x SNT
+  double* s_red = s_acc + NACC * SNT;                        // (lb, ncell)
+  float* s_g = reinterpret_cast<float*>(s_red + lb * ncell);  // (lb, tw)
+  float* s_gm = s_g + lb * tw;                               // (lb, tw)
+  float* s_gp = s_gm + lb * tw;                              // (lb, ne)
+  float* s_pos = s_gp + lb * ne_max;                         // ne
+  float* s_w = s_pos + ne_max;               // Catmull-Rom weights (4, s)
+
   const int tid = threadIdx.x;
   const int* blk = blocks + (size_t)blockIdx.x * (1 + 2 * shells.n);
   const int tile = blk[0];
   const int l0 = blockIdx.y * lb;
   const int nlay = min(lb, nrows - l0);
+  double* scr = s_scr + (tid >> 5) * 32 * 4;
   for (int i = tid; i < nlay * ncell; i += SNT) s_red[i] = 0.0;
+  for (int i = tid; i < nlay * niso; i += SNT) {
+    const int ti = (rows ? rows[l0 + i / niso] : l0 + i / niso) * niso +
+                   i % niso;
+    s_tab[i] = make_float4(alphal[ti], alphad_f[ti], coef0[ti], densm[ti]);
+  }
+  for (int i = tid; i < nlay * tw; i += SNT) {
+    const int ll = i / tw, col = tile * tw + (i - ll * tw);
+    s_g[i] = col < n_coarse
+                 ? g[(size_t)(rows ? rows[l0 + ll] : l0 + ll) * n_coarse +
+                     col]
+                 : 0.0f;
+  }
+  // The thread's layer and lines.
+  const int ll = tid % nlay, s0 = tid / nlay;
+  const int ns = SNT / nlay + (ll < SNT % nlay ? 1 : 0);
+  const int L = rows ? rows[l0 + ll] : l0 + ll;
+  const float T = temps[L], thr = __fmul_rn(ethresh, kmax[L]);
+  const float rT = __frcp_rn(T);
+  const double expcte = -(double)neg_expcte;
+  CellAcc cells(s_acc, SNT);
 
   const float toff = __fmul_rn(dwn, (float)(tile * tw));
   const float tile_lo = __fadd_rn(wn_i, toff);
@@ -340,73 +393,82 @@ shell_tile_bwd_kernel(const float* __restrict__ wavn,
     const int ne = stride > 1 ? tw / stride + 3 : tw;
     const int off = stride > 1 ? 1 : 0;
     const float sdwn = __fmul_rn(dwn, (float)stride);
-    __syncthreads();                   // the previous shell's gp is consumed
+    __syncthreads();            // g staged; the previous shell is consumed
+    // The shell's masked cotangent: g where its upsampled field was > 0.
+    if (stride > 1)
+      for (int i = tid; i < nlay * tw; i += SNT) {
+        const int lq = i / tw, col = tile * tw + (i - lq * tw);
+        s_gm[i] = col < n_coarse &&
+                          clip[((size_t)sh * nrows + l0 + lq) * n_coarse +
+                               col]
+                      ? s_g[i]
+                      : 0.0f;
+      }
+    for (int p = tid; p < ne; p += SNT)
+      s_pos[p] = __fadd_rn(
+          __fadd_rn(wn_i, __fmul_rn(sdwn, (float)(p - off))), toff);
+    for (int i = tid; i < 4 * stride; i += SNT)
+      s_w[i] = cr_weight(i / stride, i % stride, stride);
+    __syncthreads();
     for (int t = tid; t < nlay * ne; t += SNT) {
-      const int ll = t / ne, e = t - ll * ne;
-      const size_t grow =
-          (size_t)(rows ? rows[l0 + ll] : l0 + ll) * n_coarse;
+      const int lq = t / ne, e = t - lq * ne;
       float v = 0.0f;
       if (stride > 1) {
         const int G = tw / stride;
-        const unsigned char* cm =
-            clip + ((size_t)sh * nrows + l0 + ll) * n_coarse;
+        const float* gm = s_gm + lq * tw;
         for (int m = 0; m < 4; ++m) {
           const int gi = e - m;
           if (gi < 0 || gi >= G) continue;
-          for (int r = 0; r < stride; ++r) {
-            const int col = tile * tw + gi * stride + r;
-            if (col < n_coarse && cm[col])
-              v += cr_weight(m, r, stride) * g[grow + col];
-          }
+          for (int r = 0; r < stride; ++r)
+            v += s_w[m * stride + r] * gm[gi * stride + r];
         }
       } else {
-        const int col = tile * tw + e;
-        v = col < n_coarse ? g[grow + col] : 0.0f;
+        v = s_g[lq * tw + e];
       }
-      s_gp[t] = v;
+      s_gp[lq * ne + e] = v;
     }
-    __syncthreads();
-    for (int t = tid; t < nlay * cnt; t += SNT) {
-      const int ll = t / cnt;
-      const size_t gi = (size_t)l_off + (t - ll * cnt);
-      const int L = rows ? rows[l0 + ll] : l0 + ll;
-      const float wv = wavn[gi], el = elow[gi], gfj = gf[gi];
-      const int is = iso[gi];
-      const int ti = L * niso + is;
-      const float T = temps[L], cf0 = coef0[ti];
-      float e1, e2, sj;
-      strength_parts(gfj, el, wv, T, neg_expcte, e1, e2, sj);
-      const float k0 = __fmul_rn(sj, cf0);
-      if (!(k0 >= __fmul_rn(ethresh, kmax[L]))) continue;
-      const float dl = fmaxf(
-          fmaxf(__fsub_rn(tile_lo, wv), __fsub_rn(wv, tile_hi)), 0.0f);
-      const float v = fminf(
-          fmaxf(__fdiv_rn(__fsub_rn(h_hi, dl), h_w), 0.0f), 1.0f);
-      const float wl = __fmul_rn(__fmul_rn(v, v),
-                                 __fsub_rn(3.0f, __fmul_rn(2.0f, v)));
-      if (wl == 0.0f) continue;        // every cotangent carries wl
-      const float dd = densm[ti];
-      const float kk = __fmul_rn(k0, __fmul_rn(dd, wl));
-      const float inv = __fdiv_rn(1.0f, __fmul_rn(alphad_f[ti], wv));
-      const float y = __fmul_rn(__fmul_rn(SQRTLN2, alphal[ti]), inv);
-      const float* gp = s_gp + ll * ne;
-      double s1 = 0.0, s2 = 0.0, s3 = 0.0;
-      for (int e = 0; e < ne; ++e) {
-        const float gb = gp[e];
-        if (gb == 0.0f) continue;
-        const float pos = __fadd_rn(
-            __fadd_rn(wn_i, __fmul_rn(sdwn, (float)(e - off))), toff);
-        const float x_raw = __fmul_rn(
-            __fmul_rn(SQRTLN2, fabsf(__fsub_rn(pos, wv))), inv);
-        if (wfn == 1)
-          add_bin_sums<1>(x_raw, y, gb, s1, s2, s3);
-        else
-          add_bin_sums<2>(x_raw, y, gb, s1, s2, s3);
+    for (int c0 = 0; c0 < cnt; c0 += SB_LINES) {
+      const int cn = min(SB_LINES, cnt - c0);
+      __syncthreads();          // gp ready; the previous chunk is consumed
+      for (int j = tid; j < cn; j += SNT) {
+        const size_t gi = (size_t)l_off + c0 + j;
+        s_line[j] = make_float4(wavn[gi], elow[gi], gf[gi], 0.0f);
+        s_iso[j] = iso[gi];
       }
-      chain_add(s_red + ll * ncell, niso, is, s1, s2, s3, inv, kk, k0, dd,
-                wl, cf0, sj, e1, e2, gfj, el, wv, T, -neg_expcte);
+      __syncthreads();
+      for (int j = s0; j < cn; j += ns) {
+        const float4 ln = s_line[j];           // wv, El, gf
+        const int is = s_iso[j];
+        const float4 tb = s_tab[ll * niso + is];
+        float e1, e2, sj;
+        strength_parts(ln.z, ln.y, ln.x, T, rT, neg_expcte, e1, e2, sj);
+        const float k0 = __fmul_rn(sj, tb.z);
+        if (!(k0 >= thr)) continue;
+        const float dl = fmaxf(
+            fmaxf(__fsub_rn(tile_lo, ln.x), __fsub_rn(ln.x, tile_hi)), 0.0f);
+        const float u = fminf(
+            fmaxf(__fdiv_rn(__fsub_rn(h_hi, dl), h_w), 0.0f), 1.0f);
+        const float wl = __fmul_rn(__fmul_rn(u, u),
+                                   __fsub_rn(3.0f, __fmul_rn(2.0f, u)));
+        if (wl == 0.0f) continue;        // every cotangent carries wl
+        const float inv = __fdiv_rn(1.0f, __fmul_rn(tb.y, ln.x));
+        const float y = __fmul_rn(__fmul_rn(SQRTLN2, tb.x), inv);
+        double s1 = 0.0, s2 = 0.0, s3 = 0.0;
+        if (wfn == 1)
+          shell_point_sums<1>(s_gp + ll * ne, s_pos, ne, ln.x, inv, y, s1,
+                              s2, s3);
+        else
+          shell_point_sums<2>(s_gp + ll * ne, s_pos, ne, ln.x, inv, y, s1,
+                              s2, s3);
+        double v[5];
+        chain_terms(v, s1, s2, s3, inv,
+                    __fmul_rn(k0, __fmul_rn(tb.w, wl)), k0, tb.w, wl, tb.z,
+                    sj, e1, e2, ln.z, ln.y, ln.x, T, expcte);
+        cells.add(v, is, s_red + ll * ncell, niso);
+      }
     }
   }
+  cells.flush(s_red, scr, true, ll, ncell, niso);
   __syncthreads();
   flush_cells(s_red, acc, rows, l0, nlay, ncell);
 }
@@ -511,13 +573,20 @@ extern "C" int shell_tile_backward(
     if (ne > ne_max) ne_max = ne;
   }
   if (ne_max > S_ITEMS) return (int)cudaErrorInvalidValue;
+  // The forward's layer blocks, at most SB_G / tw layers.
   int lb = S_ITEMS / ne_max;
   if (lb > S_MAX_LB) lb = S_MAX_LB;
+  if (lb > SB_G / tw) lb = SB_G / tw > 0 ? SB_G / tw : 1;
   if (lb > nrows) lb = nrows;
   const int nlb = (nrows + lb - 1) / lb;
   lb = (nrows + nlb - 1) / nlb;
-  const size_t smem = (size_t)lb * (1 + 4 * niso) * sizeof(double) +
-                      (size_t)lb * ne_max * sizeof(float);
+  const size_t smem = (size_t)lb * niso * sizeof(float4) +
+                      SB_LINES * (sizeof(float4) + sizeof(int)) +
+                      (SNT / 32) * 32 * 4 * sizeof(double) +
+                      NACC * SNT * sizeof(double) +
+                      (size_t)lb * (1 + 4 * niso) * sizeof(double) +
+                      (size_t)(2 * lb * tw + lb * ne_max + ne_max + 4 * tw) *
+                          sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       shell_tile_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
@@ -529,7 +598,7 @@ extern "C" int shell_tile_backward(
       (const float*)temps, (const float*)alphal, (const float*)alphad_f,
       (const float*)coef0, (const float*)densm, (const float*)kmax,
       (const float*)g, (const unsigned char*)clip, (double*)acc, sh, nrows,
-      lb, niso, tw, n_coarse, wn_i, dwn, ethresh, nwidth, aL_max, aDf_max,
-      tw_wn, neg_expcte);
+      lb, niso, tw, ne_max, n_coarse, wn_i, dwn, ethresh, nwidth, aL_max,
+      aDf_max, tw_wn, neg_expcte);
   return (int)cudaGetLastError();
 }

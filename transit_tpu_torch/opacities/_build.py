@@ -36,7 +36,8 @@ _F = ctypes.c_float
 # extern "C" entry points: name -> argument types (all return cudaError_t).
 SIGNATURES = {
     "line_tile_extinction": [_P] * 15 + [_I] * 9 + [_F] * 5 + [_P],
-    "line_tile_backward": [_P] * 15 + [_I] * 8 + [_F] * 5 + [_P],
+    "line_tile_backward": [_P] * 2 + [_I] + [_P] * 9 + [_I] * 4 +
+                          [_F] * 5 + [_P],
     "shell_tile_extinction": ([_P] * 15 + [_I] * 3 + [_P] + [_I] * 3 +
                               [_F] * 8 + [_P]),
     "shell_tile_backward": ([_P] * 15 + [_I] * 3 + [_P] + [_I] * 3 +
@@ -76,7 +77,8 @@ def build(verbose: bool = False) -> Path:
     """Compile the sources with nvcc unless the keyed library exists: one
     nvcc per ``.cu`` file, all at once, then one link.  Returns the
     library's path.  ``verbose`` adds ``-Xptxas -v`` (registers, shared
-    memory and spills per kernel) and prints the compiler's output."""
+    memory and spills per kernel), prints the compiler's output and keeps
+    it in ``build.log``."""
     so = library_path()
     if so.exists() and not verbose:
         return so
@@ -99,6 +101,7 @@ def build(verbose: bool = False) -> Path:
                                    f"\n{text}")
             if verbose:
                 print(f"{' '.join(cmd)}\n{text}")
+        build.log = "\n".join(text for _, _, text, _ in outs)
         tmp = os.path.join(tmpdir, "lib.so")
         cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", tmp,
                *(obj for _, obj, _, _ in outs)]
@@ -108,6 +111,9 @@ def build(verbose: bool = False) -> Path:
                                f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
         os.replace(tmp, so)      # atomic: a reader never sees a partial .so
     return so
+
+
+build.log = ""
 
 
 @functools.cache

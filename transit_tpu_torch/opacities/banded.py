@@ -18,10 +18,12 @@ band's rows and its tiles' columns of one (nl, n_coarse) output in
 place, and one shell-kernel launch that adds all the band's decimated
 shells, shell after shell.
 It is differentiable (kernel_lbl.LineExtinction with :class:`BandedOp`):
-the backward runs ``line_tile_backward`` and ``shell_tile_backward`` over
-the same launches.  :func:`plain_banded_extinction` is the plain PyTorch
-version; on the CPU and with ``use_kernel=False`` the same Function runs
-it forward and the plain VJPs backward.
+the backward runs, per band, one ``line_tile_backward`` launch over all
+the band's near and stride-1 classes and one ``shell_tile_backward``
+launch over its decimated shells (:func:`backward_units`).
+:func:`plain_banded_extinction` is the plain PyTorch version; on the CPU
+and with ``use_kernel=False`` the same Function runs it forward and the
+plain VJPs backward.
 """
 
 from __future__ import annotations
@@ -30,7 +32,8 @@ import torch
 
 from transit_tpu_torch.constants import SIGCTE
 from transit_tpu_torch.opacities.fast import BandedPlan, FastPlan
-from transit_tpu_torch.opacities.kernel_lbl import (LineExtinction,
+from transit_tpu_torch.opacities.kernel_lbl import (LineBand,
+                                                    LineExtinction,
                                                     acc_grads, cast_grads,
                                                     layer_kmax,
                                                     line_tile_backward,
@@ -200,7 +203,8 @@ def banded_index(bplan: BandedPlan, devs, device):
     global tiles of each class of each near or stride-1 part, in
     :func:`band_parts` order (None for a plan without classes); "shells",
     per band the :class:`~kernel_shell.ShellBand` of its decimated shells
-    (None without)."""
+    (None without); "lines", per band the :class:`~kernel_lbl.LineBand`
+    of its near and stride-1 classes (one backward launch)."""
     rows = [torch.as_tensor(bplan.perm[a:b], dtype=torch.int32,
                             device=device) for a, b in bplan.slices]
     tiles, shells = [], [[] for _ in bplan.slices]
@@ -211,8 +215,14 @@ def banded_index(bplan: BandedPlan, devs, device):
         tiles.append([None if g is None else
                       torch.as_tensor(g, dtype=torch.int32, device=device)
                       for _, g in classes])
-    return {"rows": rows, "tiles": tiles,
-            "shells": [shell_band(p) if p else None for p in shells]}
+    index = {"rows": rows, "tiles": tiles,
+             "shells": [shell_band(p) if p else None for p in shells]}
+    lines = [[] for _ in bplan.slices]
+    for i, part, unit in launch_units(bplan, devs, index):
+        if part != "shell":
+            lines[i].append(unit)
+    index["lines"] = [LineBand(u) for u in lines]
+    return index
 
 
 def launch_units(bplan: BandedPlan, devs, index):
@@ -230,11 +240,24 @@ def launch_units(bplan: BandedPlan, devs, index):
             yield i, "shell", index["shells"][i]
 
 
+def backward_units(bplan: BandedPlan, devs, index):
+    """The backward kernel launches, band by band: yields (band, part,
+    unit): part "lines", unit the band's LineBand (its near and stride-1
+    classes, as :func:`launch_units` gives them), one
+    ``line_tile_backward`` launch; then part "shell", unit the band's
+    ShellBand, one ``shell_tile_backward`` launch."""
+    for i in range(len(bplan.slices)):
+        yield i, "lines", index["lines"][i]
+        if index["shells"][i] is not None:
+            yield i, "shell", index["shells"][i]
+
+
 class BandedOp:
     """The banded plan's line extinction for kernel_lbl.LineExtinction:
     with ``kernel``, ``layer_kmax`` (floor 0) and the launches of
-    :func:`launch_units` forward (:func:`_launch_all`) and backward
-    (:func:`_launch_all_backward`); else their plain versions
+    :func:`launch_units` forward (:func:`_launch_all`) and those of
+    :func:`backward_units` backward (:func:`_launch_all_backward`); else
+    their plain versions
     (:func:`plain_bands`, :func:`plain_bands_vjp`)."""
 
     def __init__(self, bplan: BandedPlan, devs, index, kw: dict,
@@ -325,21 +348,18 @@ def _launch_all(bplan, devs, tab, temps, kw, far_full_res, index, stats,
 
 def _launch_all_backward(bplan, devs, tab, temps, g, kw, far_full_res,
                          index, clips):
-    """The backward kernel launches, one per forward launch, in the same
-    order, into one float64 sum (nl, 1 + 4 niso), cast once
-    (kernel_lbl.acc_grads)."""
+    """The backward kernel launches of :func:`backward_units` into one
+    float64 sum (nl, 1 + 4 niso), cast once (kernel_lbl.acc_grads)."""
     acc = None
-    for i, part, unit in launch_units(bplan, devs, index):
+    for i, part, unit in backward_units(bplan, devs, index):
         rows = index["rows"][i]
         if part == "shell":
             acc = shell_tile_backward(
                 unit, tab, temps, g, clip=None if clips is None else clips[i],
                 rows=rows, acc=acc, full_res=far_full_res, **kw)
         else:
-            plan, dc, _, t = unit
-            acc = line_tile_backward(plan, dc, tab, temps, g, tiles=t,
-                                     rows=rows, bins_first=True, acc=acc,
-                                     **kw)
+            acc = line_tile_backward(unit, tab, temps, g, rows=rows,
+                                     bins_first=True, acc=acc, **kw)
     if acc is None:
         return cast_grads(zero_grads(tab, temps), temps.dtype)
     return acc_grads(acc, temps.dtype)

@@ -37,7 +37,9 @@ fast.py:608-680) on a CUDA tensor, or takes :func:`plain_line_tiles_vjp`.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
+import numpy as np
 import torch
 
 from transit_tpu_torch.constants import SQRTLN2, SQRTLN2PI, SIGCTE, EXPCTE
@@ -53,6 +55,13 @@ from transit_tpu_torch.opacities.voigt import (FAR_KERNELS, RAW_W,
 PLAIN_ELEMENTS = {"cpu": 1 << 18, "cuda": 1 << 25}
 # Lines per chunk of the strength pre-pass (kmax scan).
 KMAX_CHUNK = 1 << 16
+# The plain VJPs' Voigt-pair dtype (voigt_bin_sums): None takes the
+# forward's, as fast._block_val_bwd (fast.py:612) and the backward kernels
+# do; a dtype forces it (float64 in a float32 model for the precision
+# study, tests/test_torch_grad_precision_main.py).
+PAIR_DTYPE = None
+# Tile classes one line_tile_backward launch takes (csrc/line_tile.cu).
+MAX_CLASSES = 16
 
 
 def strength_coef(d, Z):
@@ -308,21 +317,26 @@ def plain_line_tiles(plan: FastPlan, d, tab, temps, wn_i: float,
     return out
 
 
-def voigt_bin_sums(wraw, x_raw, y, B):
+def voigt_bin_sums(wraw, x_raw, y, B, pair=None):
     """The three bin sums of fast._block_val_bwd (fast.py:647-651) before
     their line factors: with (Re w, Im w) = wraw(x, y), x = min(x_raw,
     1e8), and the Faddeeva partials Kx', Ky' (voigt.faddeeva_partials),
     sums over the bin axis (2) of B wr, B (wr + x Kx' [x_raw < 1e8] +
-    y Ky') and B Ky'.  In float64 from the arguments' values, as the
-    backward kernels compute them (csrc/voigt.cuh says why)."""
-    x = torch.clamp_max(x_raw, 1e8).double()
-    y = y.double().expand_as(x)
-    B = B.double()
+    y Ky') and B Ky'.  The pair w, the partials and the per-pair terms
+    are computed in ``pair`` (None: :data:`PAIR_DTYPE`, else the
+    arguments' dtype, as JAX and the backward kernels compute them), the
+    sums over pairs in float64.  In float32, every operation in the order
+    the kernels' pair functions take (csrc/voigt.cuh), so that a kernel's
+    terms equal these bit for bit."""
+    dt = pair or PAIR_DTYPE or x_raw.dtype
+    x = torch.clamp_max(x_raw, 1e8).to(dt)
+    y = y.to(dt).expand_as(x)
+    B = B.to(dt)
     wr, wi = wraw(x, y)
     kxp, kyp = faddeeva_partials(x, y, wr, wi)
     free = torch.where(x_raw < 1e8, x * kxp, 0.0)
-    return ((B * wr).sum(dim=2), (B * (wr + free + y * kyp)).sum(dim=2),
-            (B * kyp).sum(dim=2))
+    return tuple(t.double().sum(dim=2) for t in (
+        B * wr, B * (wr + free + y * kyp), B * kyp))
 
 
 def chain_vjp(L, inv, k, sums, temps, grads, wl=None):
@@ -385,9 +399,9 @@ def plain_line_tiles_vjp(plan: FastPlan, d, tab, temps, g, wn_i: float,
     float64 sums (:func:`zero_grads`; added into ``grads`` when given).
     fast._block_val_bwd without a line weight (fast.py:608-680): per chunk
     of tiles it recomputes x, y, k and w and keeps no residuals; the
-    geometry (kept lines, wing masks, x) in the tensors' dtype as the
-    forward computes it, w and the sums in float64.  The plain PyTorch
-    version of :func:`line_tile_backward`."""
+    geometry (kept lines, wing masks, x) and the pair w in the tensors'
+    dtype (:func:`voigt_bin_sums`), the sums and the chain in float64.
+    The plain PyTorch version of :func:`line_tile_backward`."""
     grads = zero_grads(tab, temps) if grads is None else grads
     for t0, t1, L, k, x_raw, y, inv, use in _tile_chunks(
             plan, d, tab, temps, wn_i, dwn, ethresh, nwidth, gidx,
@@ -505,9 +519,9 @@ class TilesOp:
 
     def backward(self, tab, temps, g, state):
         if self.kernel:
-            return acc_grads(line_tile_backward(self.plan, self.d, tab,
-                                                temps, g, **self.kw),
-                             temps.dtype)
+            band = LineBand([(self.plan, self.d, None, None)])
+            return acc_grads(line_tile_backward(band, tab, temps, g,
+                                                **self.kw), temps.dtype)
         return cast_grads(plain_line_tiles_vjp(
             self.plan, self.d, tab, temps, tile_cotangent(g, self.plan),
             **self.kw), temps.dtype)
@@ -708,47 +722,136 @@ def line_tile_extinction(plan: FastPlan, d, tab, temps, wn_i: float,
     return out
 
 
-def line_tile_backward(plan: FastPlan, d, tab, temps, g, wn_i: float,
+@dataclasses.dataclass
+class LineBand:
+    """The tile classes of one :func:`line_tile_backward` launch (a band's
+    near and stride-1 shell classes, or the unbanded plan):
+    ``units`` [(plan, line tensors, global tiles (numpy) or None, their
+    int32 tensor or None)], in launch order.  The class table the kernel
+    takes is checked and packed at the first launch and kept in
+    ``packed``; the layer rows are a launch's own argument, so a batched
+    view of the plan launches the same band on its rows."""
+    units: list
+    packed: tuple | None = None
+
+
+def _pack_classes(units):
+    """Check a launch's tile classes once and pack them as the C entry
+    takes them: (ptrs, ints (ctypes arrays), device, n_coarse, the
+    contiguous tensors the pointers refer to)."""
+    if not 0 < len(units) <= MAX_CLASSES:
+        raise ValueError(f"line_tile_backward: {len(units)} tile classes; "
+                         f"a launch takes 1 to {MAX_CLASSES}")
+    n_coarse = units[0][0].n_coarse
+    ptrs, ints, keep, device = [], [], [], None
+    for plan, d, _, tiles in units:
+        lines = {k: d[k] for k in ("wavn", "elow", "gf", "iso", "mask")}
+        args = {**lines, **({} if tiles is None else {"tiles": tiles})}
+        dev = _check_cuda("line_tile_backward", args, ints=("iso", "tiles"))
+        if device not in (None, dev):
+            raise ValueError("line_tile_backward: classes on two devices")
+        device = dev
+        ntiles, lmax = d["wavn"].shape
+        for name in lines:
+            if tuple(d[name].shape) != (ntiles, lmax):
+                raise ValueError(f"line_tile_backward: {name} has shape "
+                                 f"{tuple(d[name].shape)}")
+        if tiles is None and (plan.ntiles, plan.lmax) != (ntiles, lmax):
+            raise ValueError("line tensors do not match the plan")
+        if tiles is not None and tuple(tiles.shape) != (ntiles,):
+            raise ValueError("line_tile_backward: one tile index per row")
+        if plan.tw > 512:
+            raise ValueError(f"line_tile_backward: tile width {plan.tw} > "
+                             f"512")
+        if plan.wfn_tag not in ("w4", "r2"):
+            raise ValueError(f"line_tile_backward: Voigt function "
+                             f"{plan.wfn_tag!r}; the kernel has w4 and r2")
+        if plan.n_coarse != n_coarse:
+            raise ValueError("line_tile_backward: the classes' plans differ "
+                             "in n_coarse")
+        args = {k: v.contiguous() for k, v in args.items()}
+        keep.append(args)
+        ptrs += [args[k].data_ptr() for k in ("wavn", "elow", "gf", "iso",
+                                              "mask")]
+        ptrs.append(args["tiles"].data_ptr() if "tiles" in args else 0)
+        ints += [ntiles, lmax, plan.tw, WFN_CODE[plan.wfn_tag]]
+    return ((ctypes.c_longlong * len(ptrs))(*ptrs),
+            (ctypes.c_int * len(ints))(*ints), device, n_coarse, keep)
+
+
+def line_tile_backward(band: LineBand, tab, temps, g, wn_i: float,
                        dwn: float, ethresh: float, nwidth: float, *,
-                       tiles=None, rows=None, bins_first: bool = False,
-                       acc=None):
-    """Launch ``line_tile_backward`` (csrc/line_tile.cu), the backward of
-    one :func:`line_tile_extinction` launch with the same arguments: ``g``
-    (nlayer, n_coarse) float32, the cotangent of the output, gives per
-    layer the cotangents of ``temps`` and of the tables ``coef0``,
-    ``densm``, ``alphal`` and ``alphad_f``, added in float64 into ``acc``
-    (nlayer, 1 + 4 niso) (:func:`acc_grads` splits it; made here, zero,
-    when None); returns ``acc``.  :func:`plain_line_tiles_vjp` is its
-    plain version.  Raises on any other device, type or shape, and when
-    the launch fails."""
+                       rows=None, bins_first: bool = False, acc=None):
+    """Launch ``line_tile_backward`` (csrc/line_tile.cu) once for the
+    backward of the :func:`line_tile_extinction` launches of ``band``
+    (:class:`LineBand`), which share ``rows``, ``tab``, ``temps`` and
+    ``bins_first``: ``g`` (nlayer, n_coarse) float32, the cotangent of the
+    output, gives per layer the cotangents of ``temps`` and of the tables
+    ``coef0``, ``densm``, ``alphal`` and ``alphad_f``, added in float64
+    into ``acc`` (nlayer, 1 + 4 niso) (:func:`acc_grads` splits it; made
+    here, zero, when None); returns ``acc``.  :func:`plain_line_tiles_vjp`,
+    class by class, is its plain version; :func:`backward_blocks` lists
+    the launch's blocks.  Raises on any other device, type or shape, and
+    when the launch fails."""
     from transit_tpu_torch.opacities._build import load_library
 
-    device, args, nl, niso, ntiles, lmax, nrows = _line_launch(
-        "line_tile_backward", plan, d, tab, temps, tiles, rows, {"g": g})
-    if tuple(g.shape) != (nl, plan.n_coarse):
+    if band.packed is None:
+        band.packed = _pack_classes(band.units)
+    ptrs, ints, device, n_coarse, _ = band.packed
+    args = {**{k: tab[k] for k in ("alphal", "alphad_f", "coef0", "densm",
+                                   "kmax")},
+            "temps": temps, "g": g, **({} if rows is None else
+                                       {"rows": rows})}
+    if _check_cuda("line_tile_backward", args, ints=("rows",)) != device:
+        raise ValueError(f"line_tile_backward: the tables are not on "
+                         f"{device}, the classes' device")
+    nl = temps.shape[0]
+    niso = tab["alphal"].shape[1]
+    for name in ("alphal", "alphad_f", "coef0", "densm"):
+        if tuple(tab[name].shape) != (nl, niso):
+            raise ValueError(f"line_tile_backward: {name} has shape "
+                             f"{tuple(tab[name].shape)}")
+    if tuple(tab["kmax"].shape) != (nl,) or temps.dim() != 1:
+        raise ValueError("line_tile_backward: kmax and temps must be (nl,)")
+    if rows is not None and rows.dim() != 1:
+        raise ValueError("line_tile_backward: rows must be 1-d")
+    if tuple(g.shape) != (nl, n_coarse):
         raise ValueError("line_tile_backward: g must be (nl, n_coarse)")
     if niso > 64:
         raise ValueError(f"line_tile_backward: {niso} > 64 isotopes")
     acc = _check_acc("line_tile_backward", acc, nl, niso, device)
-    if nrows == 0 or plan.n_coarse == 0 or ntiles == 0:
+    nrows = nl if rows is None else rows.shape[0]
+    if nrows == 0 or n_coarse == 0:
         return acc
-
+    args = {k: v.contiguous() for k, v in args.items()}
     with torch.cuda.device(device):
         lib = load_library()
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.line_tile_backward(
-            *(_ptr(args[k]) for k in ("wavn", "elow", "gf", "iso", "mask")),
-            _ptr(args.get("tiles")), _ptr(args.get("rows")),
+            ptrs, ints, len(band.units), _ptr(args.get("rows")),
             *(_ptr(args[k]) for k in ("temps", "alphal", "alphad_f", "coef0",
-                                     "densm", "kmax", "g")),
-            _ptr(acc), nrows, ntiles, lmax, niso, plan.tw, plan.n_coarse,
-            int(bins_first), WFN_CODE[plan.wfn_tag], wn_i, dwn, ethresh,
-            nwidth, -EXPCTE, ctypes.c_void_p(stream))
+                                      "densm", "kmax", "g")),
+            _ptr(acc), nrows, niso, n_coarse, int(bins_first), wn_i, dwn,
+            ethresh, nwidth, -EXPCTE, ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"line_tile_backward failed to launch: CUDA "
                            f"error {err}")
     line_tile_backward.launches += 1
     return acc
+
+
+def backward_blocks(band: LineBand):
+    """The grid of one :func:`line_tile_backward` launch over ``band``, as
+    the kernel reads its class table: per block (grid x) its class (index
+    into ``band.units``), its row of the class's line tensors and its
+    global tile, an (nblk, 3) int64 array.  A class's blocks follow the
+    previous class's; a row is its tile unless the class has tiles."""
+    out = []
+    for c, (_, d, gidx, _) in enumerate(band.units):
+        n = d["wavn"].shape[0]
+        t = np.arange(n) if gidx is None else np.asarray(gidx, np.int64)
+        out.append(np.stack([np.full(n, c), np.arange(n), t], axis=1))
+    return np.concatenate(out).astype(np.int64)
 
 
 def _check_acc(fn: str, acc, nl: int, niso: int, device):

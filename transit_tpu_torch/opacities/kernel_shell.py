@@ -187,8 +187,8 @@ def plain_shell_vjp(plan: FastPlan, d, tab, temps, g, wn_i: float,
     tw) of one shell class's field -> the cotangents of ``temps`` (nl,)
     and of the tables ``coef0``, ``densm``, ``alphal`` and ``alphad_f``
     (nl, niso), float64 sums (kernel_lbl.zero_grads; added into
-    ``grads`` when given), w and the sums in float64 as in
-    kernel_lbl.plain_line_tiles_vjp.  fast._block_val_bwd with the halo
+    ``grads`` when given), w in the tensors' dtype and the sums in
+    float64 as in kernel_lbl.plain_line_tiles_vjp.  fast._block_val_bwd with the halo
     weight wl folded into k (so the density's cotangent is x wl,
     fast.py:673) and no wing mask, behind the transpose of the
     Catmull-Rom upsampling; for stride > 1 the cotangent passes only
