@@ -53,8 +53,6 @@ with code 1 at once.
 from __future__ import annotations
 
 import argparse
-import contextlib
-import ctypes
 import json
 import re
 import statistics
@@ -67,10 +65,8 @@ import numpy as np
 import torch
 
 from transit_tpu_torch.config import TransitConfig
-from transit_tpu_torch.constants import EXPCTE
 from transit_tpu_torch.model import TransitModel
 from transit_tpu_torch.opacities import _build, banded, kernel_lbl
-from transit_tpu_torch.opacities.voigt import WFN_CODE
 from transit_tpu_torch.opacities.kernel_lbl import (
     acc_grads, kernel_extinction, layer_kmax, layer_tables, line_tile_backward,
     line_tile_extinction, plain_extinction, plain_kmax, plain_line_tiles,
@@ -1106,135 +1102,7 @@ def batch_phase(m: TransitModel, label: str) -> dict:
             "ms_member_grad": ms_fb / BATCH}
 
 
-def old_library(ab_dir: str):
-    """The parent design's kernels (the PR 8 backward), built from the
-    sources of the checkout under ``ab_dir`` by that checkout's own
-    _build into its own library; returns the loaded ctypes library."""
-    import importlib.util
-    spec = importlib.util.spec_from_file_location(
-        "parent_build", Path(ab_dir) / "transit_tpu_torch" / "opacities" /
-        "_build.py")
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    mod.build(verbose=True)
-    return mod.load_library()
-
-
-@contextlib.contextmanager
-def library(lib):
-    """Route the wrappers' launches to ``lib`` (the forward kernels and
-    shell_tile_backward keep their C interface across the two builds)."""
-    saved = _build.load_library
-    _build.load_library = lambda: lib
-    try:
-        yield
-    finally:
-        _build.load_library = saved
-
-
-def old_line_backward(lib, tab, T, g, kw, unit, r, acc):
-    """One per-class launch of the parent design's line_tile_backward."""
-    plan, dc, _, t = unit
-    ptr = lambda x: ctypes.c_void_p(None if x is None else x.data_ptr())
-    err = lib.line_tile_backward(
-        *(ptr(dc[k]) for k in ("wavn", "elow", "gf", "iso", "mask")), ptr(t),
-        ptr(r), ptr(T), *(ptr(tab[k]) for k in ("alphal", "alphad_f",
-                                                "coef0", "densm", "kmax")),
-        ptr(g), ptr(acc), r.shape[0], dc["wavn"].shape[0],
-        dc["wavn"].shape[1], tab["alphal"].shape[1], plan.tw, plan.n_coarse,
-        1, WFN_CODE[plan.wfn_tag], kw["wn_i"], kw["dwn"], kw["ethresh"],
-        kw["nwidth"], -EXPCTE,
-        ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
-    check(err == 0, f"parent line_tile_backward failed: CUDA error {err}")
-
-
-def ab_phase(m: TransitModel, g, old, label: str) -> dict:
-    """The parent design (old) against this one (new) on the same inputs:
-    the forward kernels' outputs (every forward launch of the path into
-    one output, the shell launch's clip masks, layer_kmax) bit for bit;
-    the backward launches' sums, and their times in turns old / new /
-    new / old (CUDA events around the wrappers' calls, median of RUNS
-    each; and device time, graph_ms)."""
-    args, kw = file_state(m)
-    T, n, nl = args[0], m.wns.n, m.atm.nlayers
-    tab = {k: v.contiguous() for k, v in banded.prep_layers(
-        m.bdev[0], *args, use_kernel=True).items()}
-    fwd = list(banded_launches(m))
-    outs = []
-    for lib in (old, None):
-        with library(lib) if lib else contextlib.nullcontext():
-            out = torch.zeros((nl, n), device=T.device)
-            clips = []
-            for part, unit, r, _ in fwd:
-                if part == "shell":
-                    clips.append(torch.zeros((len(unit.parts), r.shape[0], n),
-                                             dtype=torch.uint8,
-                                             device=T.device))
-                    shell_tile_extinction(unit, tab, T, rows=r, out=out,
-                                          clip=clips[-1], **kw)
-                else:
-                    launch_kernel(tab, T, kw, part, unit, r, out)
-            km = layer_kmax(m.bdev[0], T, tab["coef0"], floor=0.0)
-            torch.cuda.synchronize()
-            outs.append((out, clips, km))
-    same = (torch.equal(outs[0][0], outs[1][0]) and
-            torch.equal(outs[0][2], outs[1][2]) and
-            all(torch.equal(a, b) for a, b in zip(outs[0][1], outs[1][1])))
-    check(same, f"{label}: the forward kernels' outputs differ between "
-          f"the parent build and this one")
-    clips = {id(u): shell_clip(tab, T, kw, u, r, n)
-             for p, u, r, _ in fwd if p == "shell"}
-    niso = tab["alphal"].shape[1]
-    lines = [(u, r) for p, u, r, _ in fwd if p != "shell"]
-    shells = [(u, r) for p, u, r, _ in fwd if p == "shell"]
-
-    def line_old():
-        acc = torch.zeros((nl, 1 + 4 * niso), dtype=torch.float64,
-                          device=T.device)
-        for u, r in lines:
-            old_line_backward(old, tab, T, g, kw, u, r, acc)
-        return acc
-
-    def line_new():
-        acc = None
-        for p, u, r, _ in backward_launches(m):
-            if p == "lines":
-                acc = line_tile_backward(u, tab, T, g, rows=r,
-                                         bins_first=True, acc=acc, **kw)
-        return acc
-
-    def shell_step(lib):
-        def step():
-            acc = None
-            with library(lib) if lib else contextlib.nullcontext():
-                for u, r in shells:
-                    acc = shell_tile_backward(u, tab, T, g, clip=clips[id(u)],
-                                              rows=r, acc=acc, **kw)
-            return acc
-        return step
-
-    res = {"forward_bitwise": same}
-    for name, fo, fn in (("line_tile_backward", line_old, line_new),
-                         ("shell_tile_backward", shell_step(old),
-                          shell_step(None))):
-        if name == "shell_tile_backward" and not shells:
-            continue
-        a, b = fo(), fn()
-        torch.cuda.synchronize()
-        ga, gb = (acc_grads(x, torch.float64) for x in (a, b))
-        turns = [cuda_ms(f) for f in (fo, fn, fn, fo)]
-        dev = [graph_ms(f, n=10) for f in (fo, fn, fn, fo)]
-        res[name] = {"old_new_new_old_ms": turns,
-                     "old_ms": statistics.median([turns[0], turns[3]]),
-                     "new_ms": statistics.median([turns[1], turns[2]]),
-                     "device_old_new_new_old_ms": dev,
-                     "new_vs_old": {k: max_rel(gb[k], ga[k]) for k in ga
-                                    if float(ga[k].abs().max()) > 0}}
-    return res
-
-
-def main(device: str = "cuda", profile: str | None = None,
-         ab: str | None = None) -> int:
+def main(device: str = "cuda", profile: str | None = None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the smoke run needs one card",
               file=sys.stderr)
@@ -1260,7 +1128,6 @@ def main(device: str = "cuda", profile: str | None = None,
     so = _build.build(verbose=True)
     _build.load_library()
     ptxas = ptxas_summary(_build.build.log)
-    old = old_library(ab) if ab else None
     phase("build", t0, f"({so.relative_to(ROOT)}); backward kernels' "
           f"ptxas: {json.dumps(ptxas)}")
 
@@ -1401,10 +1268,6 @@ def main(device: str = "cuda", profile: str | None = None,
           f"{grad_b['ratio']:.3f}); " + json.dumps(
               {k: v for k, v in grad_b.items() if k not in (
                   "forward_ms", "forward_backward_ms", "ratio")}))
-    if ab:
-        t0 = time.perf_counter()
-        ab_b = ab_phase(hjb, line_cotangent(hjb, T0, q0), old, "main path")
-        phase("main_path_ab", t0, json.dumps(ab_b))
     t0 = time.perf_counter()
     batch = batch_phase(hjb, "main path batch")
     phase("main_path_batch", t0, f"B = {BATCH}: {batch['ms_batch']:.3f} ms "
@@ -1484,10 +1347,6 @@ def main(device: str = "cuda", profile: str | None = None,
           f"{grad_f['ratio']:.3f}); " + json.dumps(
               {k: v for k, v in grad_f.items() if k not in (
                   "forward_ms", "forward_backward_ms", "ratio")}))
-    if ab:
-        t0 = time.perf_counter()
-        ab_f = ab_phase(hjf, line_cotangent(hjf, T0f, q0f), old, "0.05 cm-1")
-        phase("fine_path_ab", t0, json.dumps(ab_f))
     if profile:
         t0 = time.perf_counter()
         trace = Path(profile)
@@ -1630,9 +1489,4 @@ if __name__ == "__main__":
                     help="also trace forwards with torch.profiler, print "
                     "the device time by kernel and the busy share, and "
                     "write the Chrome trace to TRACE")
-    ap.add_argument("--ab", metavar="DIR", default=None,
-                    help="also build the parent design's kernels from the "
-                    "checkout under DIR and compare them with this one's "
-                    "(forward bit for bit, backward times in turns)")
-    a = ap.parse_args()
-    sys.exit(main(profile=a.profile, ab=a.ab))
+    sys.exit(main(profile=ap.parse_args().profile))
