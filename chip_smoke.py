@@ -946,8 +946,8 @@ def backward_times(m: TransitModel, g) -> dict:
                                      OPS_BWD_SUM64 * c["evals"])
                     need[key][2] += MUFU_WFN[plan.wfn_tag] * c["evals"]
             continue
-        # Per class, as PR 8's launches counted them: its line tensors,
-        # its columns of the cotangent, the sums.
+        # Per class, as one launch per class would count them: its line
+        # tensors, its columns of the cotangent, the sums.
         for plan, dc, gidx, _ in unit.units:
             ncol = min(n, plan.ntiles * plan.tw) if gidx is None else \
                 int(np.minimum(n - np.asarray(gidx) * plan.tw,

@@ -1,5 +1,5 @@
 """The backward kernels' launch layout on the CPU (opacities/banded.py
-backward_units, kernel_lbl.backward_blocks): one line_tile_backward
+backward_units, kernel_lbl.LineBand): one line_tile_backward
 launch per band takes all the band's near and stride-1 shell classes
 through a class table, and one shell_tile_backward launch its decimated
 shells.  The table is checked on the planner's output (the fixture, the
@@ -30,6 +30,21 @@ CONFIGS = {"fixture": lambda: make_config("eclipse", 1e30),
 def _model(name, dtype=torch.float32):
     return TransitModel(port_config(CONFIGS[name]()), dtype=dtype,
                         device="cpu", bands=6)
+
+
+def backward_blocks(band):
+    """The grid of one line_tile_backward launch over ``band``, as the
+    kernel reads its class table (csrc/line_tile.cu): per block (grid x)
+    its class (index into ``band.units``), its row of the class's line
+    tensors and its global tile, an (nblk, 3) array.  A class's blocks
+    follow the previous class's; a row is its tile unless the class has
+    tiles."""
+    out = []
+    for c, (_, d, gidx, _) in enumerate(band.units):
+        n = d["wavn"].shape[0]
+        t = np.arange(n) if gidx is None else np.asarray(gidx, np.int64)
+        out.append(np.stack([np.full(n, c), np.arange(n), t], axis=1))
+    return np.concatenate(out)
 
 
 def _units_tiles(units):
@@ -75,7 +90,7 @@ def test_class_table_covers_each_class_tile_once(name):
         units = unit.units
         assert 0 < len(units) <= kernel_lbl.MAX_CLASSES
         assert [u[1] for u in units] == [u[1] for u in fwd[i]]
-        blocks = kernel_lbl.backward_blocks(unit)
+        blocks = backward_blocks(unit)
         got = collections.Counter((id(units[c][1]), int(t))
                                   for c, _, t in blocks.tolist())
         want = _units_tiles(units)

@@ -591,11 +591,10 @@ layer_kmax_kernel(const float* __restrict__ wavn,
 //   * one float64 atomic per block and nonzero cell into the global sums
 //     (nl, 1 + 4 niso): a temperature's cotangent sums ~30e6 terms of both
 //     signs on the main path, which float32 atomics would make drift.
-// Measured and dropped (PERF.md, PR 9): the pair in float64 (no faster
-// than the first design); a set-up pass, a block scan listing the live
-// entries and the pairs dealt out evenly to the lanes (slower than one
-// pass on both paths, 7.78 against 3.96 ms at 0.05 cm-1); the cells
-// summed over the warp per element instead of per thread.
+// One pass, not a set-up pass, a block scan and the pairs dealt out
+// evenly to the lanes: with 2.3 pairs an entry on the main path the
+// compaction costs more than the imbalance it removes, and it measured
+// slower at 0.05 cm-1 too (PERF.md).
 constexpr int BT = 256;               // threads per backward block
 constexpr int BNE = 512;              // lines per chunk
 constexpr int BWARP = BT / 32;

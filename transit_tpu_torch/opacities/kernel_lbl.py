@@ -39,7 +39,6 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 
-import numpy as np
 import torch
 
 from transit_tpu_torch.constants import SQRTLN2, SQRTLN2PI, SIGCTE, EXPCTE
@@ -790,9 +789,10 @@ def line_tile_backward(band: LineBand, tab, temps, g, wn_i: float,
     ``coef0``, ``densm``, ``alphal`` and ``alphad_f``, added in float64
     into ``acc`` (nlayer, 1 + 4 niso) (:func:`acc_grads` splits it; made
     here, zero, when None); returns ``acc``.  :func:`plain_line_tiles_vjp`,
-    class by class, is its plain version; :func:`backward_blocks` lists
-    the launch's blocks.  Raises on any other device, type or shape, and
-    when the launch fails."""
+    class by class, is its plain version.  The grid: a class's blocks (one
+    per row of its line tensors) follow the previous class's, times the
+    layer blocks.  Raises on any other device, type or shape, and when the
+    launch fails."""
     from transit_tpu_torch.opacities._build import load_library
 
     if band.packed is None:
@@ -838,20 +838,6 @@ def line_tile_backward(band: LineBand, tab, temps, g, wn_i: float,
                            f"error {err}")
     line_tile_backward.launches += 1
     return acc
-
-
-def backward_blocks(band: LineBand):
-    """The grid of one :func:`line_tile_backward` launch over ``band``, as
-    the kernel reads its class table: per block (grid x) its class (index
-    into ``band.units``), its row of the class's line tensors and its
-    global tile, an (nblk, 3) int64 array.  A class's blocks follow the
-    previous class's; a row is its tile unless the class has tiles."""
-    out = []
-    for c, (_, d, gidx, _) in enumerate(band.units):
-        n = d["wavn"].shape[0]
-        t = np.arange(n) if gidx is None else np.asarray(gidx, np.int64)
-        out.append(np.stack([np.full(n, c), np.arange(n), t], axis=1))
-    return np.concatenate(out).astype(np.int64)
 
 
 def _check_acc(fn: str, acc, nl: int, niso: int, device):
