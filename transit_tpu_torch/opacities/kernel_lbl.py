@@ -622,42 +622,54 @@ def layer_kmax(d, temps, coef0, floor: float = -torch.inf):
     return kmax
 
 
-def _line_launch(fn: str, plan: FastPlan, d, tab, temps, tiles, rows,
-                 extra: dict):
-    """Check one line-tile launch's arguments (:func:`line_tile_extinction`
-    or :func:`line_tile_backward`, whose further tensors are ``extra``):
-    returns (device, its tensors made contiguous, nl, niso, ntiles, lmax,
-    nrows)."""
-    lines = {k: d[k] for k in ("wavn", "elow", "gf", "iso", "mask")}
-    idx = {k: v for k, v in (("tiles", tiles), ("rows", rows))
-           if v is not None}
-    args = {**lines, **tab, "temps": temps, **extra, **idx}
-    device = _check_cuda(fn, args, ints=("iso", "tiles", "rows"))
+def _check_lines(fn: str, plan: FastPlan, d, tiles):
+    """Check one tile class's line tensors ``d`` and global ``tiles``
+    against the plan (shapes, tile width, Voigt function): returns
+    (ntiles, lmax)."""
     ntiles, lmax = d["wavn"].shape
     if tiles is None and (plan.ntiles != ntiles or plan.lmax != lmax):
         raise ValueError("line tensors do not match the plan")
     if tiles is not None and tuple(tiles.shape) != (ntiles,):
         raise ValueError(f"{fn}: one tile index per row")
-    for name in lines:
+    for name in ("wavn", "elow", "gf", "iso", "mask"):
         if tuple(d[name].shape) != (ntiles, lmax):
             raise ValueError(f"{fn}: {name} has shape "
                              f"{tuple(d[name].shape)}")
+    if plan.tw > 512:
+        raise ValueError(f"{fn}: tile width {plan.tw} > 512")
+    if plan.wfn_tag not in ("w4", "r2"):
+        raise ValueError(f"{fn}: Voigt function {plan.wfn_tag!r}; the "
+                         f"kernel has w4 and r2")
+    return ntiles, lmax
+
+
+def _check_tables(fn: str, tab, temps, rows):
+    """Check a line-tile launch's per-layer arguments (the tables (nl,
+    niso), kmax and temps (nl,), 1-d rows): returns (nl, niso, nrows)."""
     nl = temps.shape[0]
     niso = tab["alphal"].shape[1]
     for name in ("alphal", "alphad_f", "coef0", "densm"):
         if tuple(tab[name].shape) != (nl, niso):
             raise ValueError(f"{fn}: {name} has shape "
                              f"{tuple(tab[name].shape)}")
-    if tuple(tab["kmax"].shape) != (nl,):
-        raise ValueError(f"{fn}: kmax must be (nl,)")
+    if tuple(tab["kmax"].shape) != (nl,) or temps.dim() != 1:
+        raise ValueError(f"{fn}: kmax and temps must be (nl,)")
     if rows is not None and rows.dim() != 1:
         raise ValueError(f"{fn}: rows must be 1-d")
-    if plan.tw > 512:
-        raise ValueError(f"{fn}: tile width {plan.tw} > 512")
-    if plan.wfn_tag not in ("w4", "r2"):
-        raise ValueError(f"{fn}: Voigt function {plan.wfn_tag!r}; the "
-                         f"kernel has w4 and r2")
-    nrows = nl if rows is None else rows.shape[0]
+    return nl, niso, nl if rows is None else rows.shape[0]
+
+
+def _line_launch(fn: str, plan: FastPlan, d, tab, temps, tiles, rows):
+    """Check one :func:`line_tile_extinction` launch's arguments: returns
+    (device, its tensors made contiguous, nl, niso, ntiles, lmax,
+    nrows)."""
+    lines = {k: d[k] for k in ("wavn", "elow", "gf", "iso", "mask")}
+    idx = {k: v for k, v in (("tiles", tiles), ("rows", rows))
+           if v is not None}
+    args = {**lines, **tab, "temps": temps, **idx}
+    device = _check_cuda(fn, args, ints=("iso", "tiles", "rows"))
+    ntiles, lmax = _check_lines(fn, plan, d, tiles)
+    nl, niso, nrows = _check_tables(fn, tab, temps, rows)
     return (device, {k: v.contiguous() for k, v in args.items()}, nl, niso,
             ntiles, lmax, nrows)
 
@@ -685,7 +697,7 @@ def line_tile_extinction(plan: FastPlan, d, tab, temps, wn_i: float,
     from transit_tpu_torch.opacities._build import load_library
 
     device, args, nl, niso, ntiles, lmax, nrows = _line_launch(
-        "line_tile_extinction", plan, d, tab, temps, tiles, rows, {})
+        "line_tile_extinction", plan, d, tab, temps, tiles, rows)
     _check_stats("line_tile_extinction", stats, device)
     if out is None:
         if accumulate:
@@ -750,21 +762,7 @@ def _pack_classes(units):
         if device not in (None, dev):
             raise ValueError("line_tile_backward: classes on two devices")
         device = dev
-        ntiles, lmax = d["wavn"].shape
-        for name in lines:
-            if tuple(d[name].shape) != (ntiles, lmax):
-                raise ValueError(f"line_tile_backward: {name} has shape "
-                                 f"{tuple(d[name].shape)}")
-        if tiles is None and (plan.ntiles, plan.lmax) != (ntiles, lmax):
-            raise ValueError("line tensors do not match the plan")
-        if tiles is not None and tuple(tiles.shape) != (ntiles,):
-            raise ValueError("line_tile_backward: one tile index per row")
-        if plan.tw > 512:
-            raise ValueError(f"line_tile_backward: tile width {plan.tw} > "
-                             f"512")
-        if plan.wfn_tag not in ("w4", "r2"):
-            raise ValueError(f"line_tile_backward: Voigt function "
-                             f"{plan.wfn_tag!r}; the kernel has w4 and r2")
+        ntiles, lmax = _check_lines("line_tile_backward", plan, d, tiles)
         if plan.n_coarse != n_coarse:
             raise ValueError("line_tile_backward: the classes' plans differ "
                              "in n_coarse")
@@ -805,22 +803,12 @@ def line_tile_backward(band: LineBand, tab, temps, g, wn_i: float,
     if _check_cuda("line_tile_backward", args, ints=("rows",)) != device:
         raise ValueError(f"line_tile_backward: the tables are not on "
                          f"{device}, the classes' device")
-    nl = temps.shape[0]
-    niso = tab["alphal"].shape[1]
-    for name in ("alphal", "alphad_f", "coef0", "densm"):
-        if tuple(tab[name].shape) != (nl, niso):
-            raise ValueError(f"line_tile_backward: {name} has shape "
-                             f"{tuple(tab[name].shape)}")
-    if tuple(tab["kmax"].shape) != (nl,) or temps.dim() != 1:
-        raise ValueError("line_tile_backward: kmax and temps must be (nl,)")
-    if rows is not None and rows.dim() != 1:
-        raise ValueError("line_tile_backward: rows must be 1-d")
+    nl, niso, nrows = _check_tables("line_tile_backward", tab, temps, rows)
     if tuple(g.shape) != (nl, n_coarse):
         raise ValueError("line_tile_backward: g must be (nl, n_coarse)")
     if niso > 64:
         raise ValueError(f"line_tile_backward: {niso} > 64 isotopes")
     acc = _check_acc("line_tile_backward", acc, nl, niso, device)
-    nrows = nl if rows is None else rows.shape[0]
     if nrows == 0 or n_coarse == 0:
         return acc
     args = {k: v.contiguous() for k, v in args.items()}
