@@ -1125,9 +1125,9 @@ def main(device: str = "cuda", profile: str | None = None) -> int:
 
     # 2. Build the kernels from this checkout's sources.
     t0 = time.perf_counter()
-    so = _build.build(verbose=True)
+    so, log = _build.build(verbose=True)
     _build.load_library()
-    ptxas = ptxas_summary(_build.build.log)
+    ptxas = ptxas_summary(log)
     phase("build", t0, f"({so.relative_to(ROOT)}); backward kernels' "
           f"ptxas: {json.dumps(ptxas)}")
 

@@ -382,10 +382,14 @@ def test_kernel_gradients_match_plain_vjps(card, config):
 
 def _batch_vs_loop(m, card, seed):
     """forward_batch (B = 2) against a loop of forward: spectra <= 1e-6
-    relative, gradients < 1e-4 of max; returns the backward kernels'
-    launches of the batched gradient step."""
-    from transit_tpu_torch.opacities.kernel_lbl import line_tile_backward
-    from transit_tpu_torch.opacities.kernel_shell import shell_tile_backward
+    relative, gradients < 1e-4 of max; returns the launches of the
+    batched step alone: (line_tile_extinction, shell_tile_extinction) of
+    forward_batch and (line_tile_backward, shell_tile_backward) of its
+    gradient."""
+    from transit_tpu_torch.opacities.kernel_lbl import (
+        line_tile_backward, line_tile_extinction)
+    from transit_tpu_torch.opacities.kernel_shell import (
+        shell_tile_backward, shell_tile_extinction)
     rng = np.random.default_rng(seed)
     T0 = np.asarray(m.atm.temp, dtype=np.float64)
     q0 = np.asarray(m.atm.q, dtype=np.float64)
@@ -397,12 +401,15 @@ def _batch_vs_loop(m, card, seed):
                                   requires_grad=True) for a in (t, qq))
 
     T, q = leaves(Tb, qb)
+    before = (line_tile_extinction.launches, shell_tile_extinction.launches)
     spec = m.forward_batch(T, q)
+    fwd = (line_tile_extinction.launches - before[0],
+           shell_tile_extinction.launches - before[1])
     before = (line_tile_backward.launches, shell_tile_backward.launches)
     grads = torch.autograd.grad(spec.sum(), (T, q))
     torch.cuda.synchronize()
-    launched = (line_tile_backward.launches - before[0],
-                shell_tile_backward.launches - before[1])
+    bwd = (line_tile_backward.launches - before[0],
+           shell_tile_backward.launches - before[1])
     loop, lgrads = [], []
     for i in range(2):
         t, qq = leaves(Tb[i], qb[i])
@@ -415,7 +422,7 @@ def _batch_vs_loop(m, card, seed):
     for a, b in zip(grads, (torch.stack(g) for g in zip(*lgrads))):
         assert bool(torch.isfinite(a).all()) and float(b.abs().max()) > 0
         assert float((a - b).abs().max() / b.abs().max()) < 1e-4
-    return launched
+    return fwd, bwd
 
 
 @pytest.mark.cuda
@@ -426,11 +433,9 @@ def test_forward_batch_fine_grid_on_card(card):
     rows, shell_tile_backward over 2 x 20 rows): its spectra against a
     loop of forward <= 1e-6 relative, its gradient against the loop's <
     1e-4 of max."""
-    from transit_tpu_torch.opacities.kernel_shell import shell_tile_extinction
     m = _fine_model(card)
-    before = shell_tile_extinction.launches
-    lines, shells = _batch_vs_loop(m, card, 12)
-    assert shell_tile_extinction.launches > before and shells > 0
+    (fwd_lines, fwd_shells), (lines, shells) = _batch_vs_loop(m, card, 12)
+    assert fwd_lines > 0 and fwd_shells > 0 and shells > 0
     assert lines == len(m.bplan.plans)
 
 
@@ -440,7 +445,8 @@ def test_forward_batch_fixture_bands6_on_card(card):
     gradient runs one line_tile_backward launch per band over the class
     table on the batch's rows; spectra and gradient as the loop's."""
     m = _model(card, bands=6)
-    lines, shells = _batch_vs_loop(m, card, 13)
+    (fwd_lines, fwd_shells), (lines, shells) = _batch_vs_loop(m, card, 13)
+    assert fwd_lines > 0 and fwd_shells == 0
     assert (lines, shells) == (len(m.bplan.plans), 0)
 
 

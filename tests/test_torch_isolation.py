@@ -34,7 +34,7 @@ _MODS = [
     "transit_tpu_torch.opacities.kernel_shell",
     "chip_smoke",
     "grad_fd_study",
-    "bwd_ablation",
+    "line_tile_ablation",
 ]
 
 

@@ -592,9 +592,10 @@ layer_kmax_kernel(const float* __restrict__ wavn,
 //     (nl, 1 + 4 niso): a temperature's cotangent sums ~30e6 terms of both
 //     signs on the main path, which float32 atomics would make drift.
 // One pass, not a set-up pass, a block scan and the pairs dealt out
-// evenly to the lanes: with 2.3 pairs an entry on the main path the
-// compaction costs more than the imbalance it removes, and it measured
-// slower at 0.05 cm-1 too (PERF.md).
+// evenly to the lanes: timed with per-element cell adds, that compacted
+// design was slower than one pass at 0.05 cm-1 (13 pairs an entry) and
+// 10% faster on the main path (2.3 pairs an entry); one pass with the
+// per-thread cell slots is faster than both (PERF.md §6).
 constexpr int BT = 256;               // threads per backward block
 constexpr int BNE = 512;              // lines per chunk
 constexpr int BWARP = BT / 32;

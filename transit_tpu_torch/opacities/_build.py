@@ -73,15 +73,16 @@ def library_path() -> Path:
     return BUILD_DIR / f"libtransit_kernels_{h.hexdigest()[:16]}.so"
 
 
-def build(verbose: bool = False) -> Path:
+def build(verbose: bool = False) -> tuple[Path, str]:
     """Compile the sources with nvcc unless the keyed library exists: one
     nvcc per ``.cu`` file, all at once, then one link.  Returns the
-    library's path.  ``verbose`` adds ``-Xptxas -v`` (registers, shared
-    memory and spills per kernel), prints the compiler's output and keeps
-    it in ``build.log``."""
+    library's path and the compilers' output ("" when the library was
+    already built).  ``verbose`` always compiles, adds ``-Xptxas -v``
+    (registers, shared memory and spills per kernel) and prints the
+    compilers' output."""
     so = library_path()
     if so.exists() and not verbose:
-        return so
+        return so, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = nvcc_path()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
@@ -101,7 +102,6 @@ def build(verbose: bool = False) -> Path:
                                    f"\n{text}")
             if verbose:
                 print(f"{' '.join(cmd)}\n{text}")
-        build.log = "\n".join(text for _, _, text, _ in outs)
         tmp = os.path.join(tmpdir, "lib.so")
         cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", tmp,
                *(obj for _, obj, _, _ in outs)]
@@ -110,16 +110,13 @@ def build(verbose: bool = False) -> Path:
             raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
                                f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
         os.replace(tmp, so)      # atomic: a reader never sees a partial .so
-    return so
-
-
-build.log = ""
+    return so, "\n".join(text for _, _, text, _ in outs)
 
 
 @functools.cache
 def load_library() -> ctypes.CDLL:
     """Build if needed, load, and declare the entry points' C types."""
-    lib = ctypes.CDLL(str(build()))
+    lib = ctypes.CDLL(str(build()[0]))
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes

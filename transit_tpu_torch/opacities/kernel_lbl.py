@@ -316,18 +316,18 @@ def plain_line_tiles(plan: FastPlan, d, tab, temps, wn_i: float,
     return out
 
 
-def voigt_bin_sums(wraw, x_raw, y, B, pair=None):
+def voigt_bin_sums(wraw, x_raw, y, B):
     """The three bin sums of fast._block_val_bwd (fast.py:647-651) before
     their line factors: with (Re w, Im w) = wraw(x, y), x = min(x_raw,
     1e8), and the Faddeeva partials Kx', Ky' (voigt.faddeeva_partials),
     sums over the bin axis (2) of B wr, B (wr + x Kx' [x_raw < 1e8] +
     y Ky') and B Ky'.  The pair w, the partials and the per-pair terms
-    are computed in ``pair`` (None: :data:`PAIR_DTYPE`, else the
-    arguments' dtype, as JAX and the backward kernels compute them), the
+    are computed in :data:`PAIR_DTYPE` (None: the arguments' dtype, as
+    JAX and the backward kernels compute them), the
     sums over pairs in float64.  In float32, every operation in the order
     the kernels' pair functions take (csrc/voigt.cuh), so that a kernel's
     terms equal these bit for bit."""
-    dt = pair or PAIR_DTYPE or x_raw.dtype
+    dt = PAIR_DTYPE or x_raw.dtype
     x = torch.clamp_max(x_raw, 1e8).to(dt)
     y = y.to(dt).expand_as(x)
     B = B.to(dt)
