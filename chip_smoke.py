@@ -7,7 +7,7 @@ its backward and the per-layer kmax scan; csrc/shell_tile.cu: the
 decimated far-wing shell kernel and its backward) from the sources in
 this checkout, one nvcc per source,
 and holds each against its plain PyTorch version on the card.  Then it
-drives three paths of ``transit_tpu_torch.model.TransitModel(mode="fast",
+drives four paths of ``transit_tpu_torch.model.TransitModel(mode="fast",
 use_kernel=True)``, each through three ``forward`` requests with the
 kernels' launch counts set to 0 just before and read just after:
 
@@ -16,7 +16,11 @@ kernels' launch counts set to 0 just before and read just after:
   2. the main path, ``bands=6`` (the JAX package's benchmarked model),
      on the same workload: near tile classes and stride-1 far shells;
   3. ``bands=6`` on the same files at 0.05 cm-1 (190,001 wavenumbers),
-     which adds decimated far-wing shells (strides 2 and 4).
+     which adds decimated far-wing shells (strides 2 and 4);
+  4. the transit path: the main path's model in transit geometry
+     (toomuch 20) with hydrostatic radii (gsurf 2479 cm s-2, refpress
+     1 bar, refradius 73760 km), so that every step rebuilds the radii,
+     the path weights and the modulation table from T and q.
 
 It checks every launch of the banded paths against its plain version
 (the shell kernel takes a band's decimated shells in one launch),
@@ -26,9 +30,10 @@ spectrum, the launches per forward against the plan's, and the kernels'
 work counters against host counts of the work; it times one ``forward``
 and each kernel's launches of one forward (layer_kmax over many
 launches), their plain versions, and their bounds (FP32, SFU and memory
-terms).  With ``--profile`` it also traces forwards of the main path
-and of the 0.05 cm-1 path with torch.profiler (device time by kernel,
-busy share, the port's kernels' shares), and a gradient step of each.
+terms).  With ``--profile`` it also traces forwards of the main path,
+of the 0.05 cm-1 path and of the transit path with torch.profiler
+(device time by kernel, busy share, the port's kernels' shares), a
+gradient step of each, and the transit step's geometry alone.
 
 The gradient (phases ``main_path_grad`` and ``fine_path_grad``): three
 steps of ``torch.autograd.grad(forward(T, q).sum(), (T, q))`` on each
@@ -41,6 +46,16 @@ in T on two layers (FD_RTOL); times of a step and of each backward
 kernel beside its bound (FP32, SFU and byte terms).  Phase
 ``main_path_batch``: ``forward_batch`` of BATCH perturbed profiles
 against BATCH calls of ``forward``, and its gradient against theirs.
+The transit phases (``transit_path*``) check the spectra against the
+plain path, the ``modlevel=-1`` spectrum against its plain path, and the
+card's float32 radii against float64 radpress on the CPU; time the
+forward, the geometry and both forms of the modulation integral; run
+the gradient and ``forward_batch`` checks above on the transit path
+(central differences over the wavenumbers whose tau.last the step does
+not move).  Phase ``hmc``: ``transit_tpu_torch.retrieval.hmc_sample``
+over HMC_CHAINS chains through ``forward_batch`` on the transit path (an
+8-knot log-temperature profile, 1% noise on the model's own spectrum);
+it fails on a non-finite sample or an acceptance of 0.
 Every phase prints one line with its seconds; any failed check raises,
 so the script exits non-zero and prints no result.
 
@@ -65,6 +80,7 @@ import numpy as np
 import torch
 
 from transit_tpu_torch.config import TransitConfig
+from transit_tpu_torch.constants import SUNRADIUS
 from transit_tpu_torch.model import TransitModel
 from transit_tpu_torch.opacities import _build, banded, kernel_lbl
 from transit_tpu_torch.opacities.kernel_lbl import (
@@ -75,6 +91,11 @@ from transit_tpu_torch.opacities.kernel_lbl import (
 from transit_tpu_torch.opacities.kernel_shell import (
     plain_shell_band, plain_shell_vjp, shell_counts, shell_tile_backward,
     shell_tile_extinction)
+from transit_tpu_torch.retrieval import (batched_value_and_grad,
+                                         gaussian_logprob, hmc_sample,
+                                         knot_profile)
+from transit_tpu_torch.rt.geometry import radpress_torch
+from transit_tpu_torch.rt.transmission import modulation
 
 ROOT = Path(__file__).resolve().parent
 FIX = ROOT / "tests" / "fixtures"
@@ -164,15 +185,44 @@ PEAK_FP64 = 34e12
 # VJP on the same inputs, per output max|a-b| / max|b|; the whole
 # gradient of the kernel path against the plain path's (plain VJPs);
 # central differences in T (two layers, step FD_STEP K) against the
-# gradient, float32; forward_batch against a loop of forward, and its
-# gradient against the loop's.
+# gradient, float32, of the spectrum summed over the wavenumbers whose
+# tau.last does not move at T +- step (a difference across a jump of
+# last is not a derivative; their count is printed); on the transit
+# path the differences are the float64 plain model's, at FD_STEP_64 (the
+# float32 forward stores radii of ~7e4 km in steps of 0.008 km, and its
+# 5 K differences missed the gradient by 5%; the float64 model's 0.5 K
+# differences still missed by 2.5%, where bins cross a line's wing
+# cutoff, as grad_fd_study.py shows for eclipse; at 0.05 K few do);
+# forward_batch against a loop of forward, and its gradient against the
+# loop's.
 GRAD_LAUNCH_TOL = 1e-4
 GRAD_TOL = 1e-3
 FD_RTOL = 2e-2
 FD_STEP = 5.0
+FD_STEP_64 = 0.05
 BATCH = 8
 BATCH_TOL = 1e-6
 BATCH_GRAD_TOL = 1e-4
+# The transit path (bench.py:167-199's transit workload on the
+# hot-Jupiter files: toomuch 20, the modulation1 endpoint) with
+# hydrostatic radii: gsurf in cm s-2, refpress and refradius in the
+# atmosphere file's units (bar, km: hj.atm's 1-bar layer).  The card's
+# float32 radii against float64 radpress_torch on the CPU: max
+# |a - b| / |b| < RADII_TOL (float32 rounding over 99 steps of the
+# recurrence, ~1e-6); the two forms of the modulation integral against
+# each other < SPECTRUM_REL_TOL.
+TRANSIT_TOOMUCH = 20.0
+HYDRO = {"gsurf": 2479.0, "refpress": 1.0, "refradius": 73760.0}
+RADII_TOL = 1e-5
+# The HMC phase (benchmarks/retrieval_demo.py:hmc_demo on the transit
+# path): chains through forward_batch, an 8-knot log-temperature
+# profile, 1% noise on the model's own spectrum, leapfrog steps of
+# HMC_STEP in log T.
+HMC_CHAINS = 16
+HMC_KNOTS = 8
+HMC_LEAPFROG = 8
+HMC_SAMPLES = 4
+HMC_STEP = 1e-4
 
 
 class CheckFailed(RuntimeError):
@@ -237,6 +287,18 @@ def hotjupiter_config(wndelt: float = 0.5) -> TransitConfig:
         molfile=f"{HJ}/molecules.dat", wnlow=500.0, wnhigh=10000.0,
         wndelt=wndelt, wnosamp=2160 if wndelt >= 0.5 else 2, wnfct=1.0,
         nwidth=20.0, ethreshold=1e-8, solution="eclipse", toomuch=1e30)
+
+
+def transit_config() -> TransitConfig:
+    """The hot-Jupiter workload at 0.5 cm-1 in transit geometry
+    (toomuch 20, as bench.py:167-199's transit workload) with
+    hydrostatic radii (HYDRO); starrad at its default."""
+    cfg = hotjupiter_config()
+    cfg.solution = "transit"
+    cfg.toomuch = TRANSIT_TOOMUCH
+    for k, v in HYDRO.items():
+        setattr(cfg, k, v)
+    return cfg
 
 
 def file_state(m: TransitModel, temps_raw=None):
@@ -762,6 +824,27 @@ def profile_step(step, ms_forward: float, trace: str, label: str) -> dict:
     return res
 
 
+def device_ms(fn, runs: int = RUNS) -> dict:
+    """{"device_ms", "kernels"} per call of fn(): torch.profiler's
+    device-side time and count of device kernels over ``runs`` calls
+    after a warm-up."""
+    from torch.autograd import DeviceType
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    ms, n = 0.0, 0
+    for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CUDA:
+            us = getattr(ev, "self_device_time_total", None)
+            ms += (ev.self_cuda_time_total if us is None else us) / 1e3
+            n += ev.count
+    return {"device_ms": ms / runs, "kernels": n / runs}
+
+
 GRAD_OUTPUTS = ("temps", "coef0", "densm", "alphal", "alphad_f")
 
 
@@ -771,12 +854,34 @@ def bwd_name(part: str) -> str:
 
 def line_cotangent(m: TransitModel, T0, q0):
     """The cotangent the main path gives the line extinction: d(sum of
-    the spectrum) / d(extinction) at the profile (T0, q0), (nl, nwn)."""
+    the spectrum) / d(extinction) at the profile (T0, q0), (nl, nwn),
+    with the step's geometry (hydrostatic radii on the transit path)."""
     T, q, dens = m._profiles(T0, q0)
     ex = m.line_extinction(T * m.atm.tfct, dens, m.partition(T)).detach()
     ex.requires_grad_(True)
-    g, = torch.autograd.grad(m._assemble(T, q, dens, ex, False).sum(), ex)
+    g, = torch.autograd.grad(m._assemble(T, q, dens, ex, False,
+                                         *m.geometry(T, q)).sum(), ex)
     return g.contiguous()
+
+
+def step_last(m: TransitModel, T, q):
+    """tau.last per wavenumber of forward(T, q)."""
+    with torch.no_grad():
+        Tt, qt, dens = m._profiles(T, q)
+        return m._spectrum(Tt, qt, dens, True,
+                           geom=m.geometry(Tt, qt)).last
+
+
+def fd_keep(m: TransitModel, T0, q0, layer: int, h: float):
+    """The mask of the wavenumbers whose tau.last stays the same at T0
+    and at T0 +- h at ``layer``."""
+    base = step_last(m, T0, q0)
+    keep = torch.ones_like(base, dtype=torch.bool)
+    for sign in (1.0, -1.0):
+        T = T0.copy()
+        T[layer] += sign * h
+        keep &= step_last(m, T, q0) == base
+    return keep
 
 
 def shell_clip(tab, T, kw, unit, r, n_coarse: int):
@@ -987,12 +1092,15 @@ ALL_KERNELS = (line_tile_extinction, layer_kmax, shell_tile_extinction,
                line_tile_backward, shell_tile_backward)
 
 
-def grad_phase(m: TransitModel, requests, label: str) -> dict:
+def grad_phase(m: TransitModel, requests, label: str,
+               fd_model: TransitModel | None = None,
+               fd_step: float = FD_STEP) -> dict:
     """Three gradient steps of ``forward`` (launch counts set to 0 just
     before and read just after), then the checks: finite gradients, one
     backward launch per forward launch, each backward launch against its
     plain VJP, the whole gradient against the plain path's, central
-    differences in T on two layers; then the times."""
+    differences in T on two layers (of ``fd_model``'s forward, default
+    m's, at ``fd_step``); then the times."""
     for k in ALL_KERNELS:
         k.launches = 0
     leaves = [grad_leaves(m, T0, q0) for T0, q0 in requests]
@@ -1029,22 +1137,29 @@ def grad_phase(m: TransitModel, requests, label: str) -> dict:
     err64 = {x: max_rel(a, b) for x, a, b in zip("Tq", grads[0], plain64)}
     check(max(err64.values()) < GRAD_TOL, f"{label}: gradient kernel path "
           f"vs the plain path with a float64 pair {err64} >= {GRAD_TOL}")
-    # Central differences in T at the two layers of largest |dF/dT|.
+    # Central differences in T at the two layers of largest |dF/dT|, over
+    # the wavenumbers whose tau.last the step does not move.
     T0, q0 = (np.asarray(a, dtype=np.float64) for a in requests[0])
     gT = grads[0][0].double().cpu().numpy()
+    fdm = m if fd_model is None else fd_model
     fd = {}
-    with torch.no_grad():
-        for layer in np.argsort(-np.abs(gT))[:2].tolist():
-            f = []
+    for layer in np.argsort(-np.abs(gT))[:2].tolist():
+        keep = fd_keep(fdm, T0, q0, layer, fd_step)
+        T, q = grad_leaves(m, T0, q0)
+        g = float(torch.autograd.grad((m.forward(T, q) * keep).sum(),
+                                      T)[0][layer])
+        f = []
+        with torch.no_grad():
             for sign in (1.0, -1.0):
                 T = T0.copy()
-                T[layer] += sign * FD_STEP
-                f.append(float(m.forward(T, q0).double().sum()))
-            d = (f[0] - f[1]) / (2.0 * FD_STEP)
-            fd[layer] = {"fd": d, "grad": float(gT[layer]),
-                         "rel": abs(d - gT[layer]) / abs(d)}
-            check(fd[layer]["rel"] < FD_RTOL, f"{label}: layer {layer} "
-                  f"central difference {d:.6e} vs gradient {gT[layer]:.6e}")
+                T[layer] += sign * fd_step
+                f.append(float((fdm.forward(T, q0) * keep).double().sum()))
+        d = (f[0] - f[1]) / (2.0 * fd_step)
+        fd[layer] = {"fd": d, "grad": g, "rel": abs(d - g) / abs(d),
+                     "fd_dtype": str(fdm.dtype), "step": fd_step,
+                     "last_moved": int((~keep).sum())}
+        check(fd[layer]["rel"] < FD_RTOL, f"{label}: layer {layer} "
+              f"central difference {d:.6e} vs gradient {g:.6e}")
     g = line_cotangent(m, T0, q0)
     launch_err = backward_vs_plain(m, g, label)
     T, q = leaves[0]
@@ -1100,6 +1215,161 @@ def batch_phase(m: TransitModel, label: str) -> dict:
             "grad_vs_loop": {"T": err_T, "q": err_q}, "ms_batch": ms,
             "ms_member": ms / BATCH, "ms_batch_grad": ms_fb,
             "ms_member_grad": ms_fb / BATCH}
+
+
+def radii_vs_float64(m: TransitModel, T0, q0) -> float:
+    """The card's float32 hydrostatic radii of the step at (T0, q0)
+    against radpress_torch in float64 on the CPU: max |a - b| / |b|."""
+    got = m.geometry(m._t(T0), m._t(q0))[0].double().cpu()
+    q64 = torch.as_tensor(q0, dtype=torch.float64)
+    mass = torch.as_tensor(m.mol.mass, dtype=torch.float64)[:, None]
+    mm = (1.0 / torch.sum(q64 / mass, dim=0) if m.atm.by_mass
+          else torch.sum(q64 * mass, dim=0))
+    cfg = m.cfg
+    want = radpress_torch(cfg.gsurf, cfg.refpress, cfg.refradius,
+                          torch.as_tensor(T0, dtype=torch.float64), mm,
+                          m.atm.press, m.rfct)
+    return float(((got - want).abs() / want.abs()).max())
+
+
+def modlevel_m1_vs_plain(m: TransitModel, requests) -> dict:
+    """modlevel = -1 (the opaque-disc modulation, modulationm1) through
+    the kernels against the plain path: the same wavenumbers reach
+    toomuch, the radii squared agree within SPECTRUM_REL_TOL."""
+    m.cfg.modlevel = -1
+    try:
+        got = [m.forward(T, q) for T, q in requests]
+        m.use_kernel = False
+        want = [m.forward(T, q) for T, q in requests]
+    finally:
+        m.use_kernel = True
+        m.cfg.modlevel = 1
+    err, reached = 0.0, 0
+    for a, b in zip(got, want):
+        check(torch.equal(a == -1.0, b == -1.0),
+              "modlevel -1: toomuch reached at other wavenumbers")
+        ok = b != -1.0
+        check(bool(torch.isfinite(a).all()), "modlevel -1: not finite")
+        reached += int(ok.sum())
+        err = max(err, float(((a - b).abs() / b.abs())[ok].max()))
+    check(err <= SPECTRUM_REL_TOL, f"modlevel -1: kernel path vs plain "
+          f"{err:.3e} > {SPECTRUM_REL_TOL}")
+    return {"max_rel": err, "reached": reached / len(requests)}
+
+
+def modulation_gather(tau, last, ips, ip_fct, srad, Wmod):
+    """The modulation integral as transit_tpu writes it
+    (rt/transmission.py:76-78): each wavenumber gathers its weight row
+    Wmod[count], (nwn, nip), and sums; timed against the port's form, a
+    matrix product and one gather per row (rt/transmission.py)."""
+    nwn, ipn = tau.shape
+    ipv_desc = ips * ip_fct
+    ipv_asc = ipv_desc.flip(-1)
+    idx = torch.arange(ipn, device=tau.device)
+    rint = torch.where(idx[None, :] <= last[:, None],
+                       torch.exp(-tau) * ipv_desc[None, :],
+                       torch.zeros((), device=tau.device)).flip(-1)
+    count = torch.clamp(last + 2, max=ipn)
+    integ = torch.sum(Wmod[count] * rint, dim=1)
+    return (ipv_asc[-1] * ipv_asc[-1] - 2.0 * integ) / (srad * srad)
+
+
+def transit_times(m: TransitModel, T0, q0) -> dict:
+    """Times of the transit step's own parts (CUDA events, median of
+    RUNS): the geometry (radii, path weights, modulation table) forward
+    and with its backward; the modulation integral in both forms, with
+    the backward into tau and a traced table (as under hydrostatic
+    radii), and the two forms against each other."""
+    T = m._t(T0).requires_grad_(True)
+    q = m._t(q0)
+    geom = m.geometry(T, q)
+    wts = [torch.randn(g.shape, device=g.device,
+                       generator=torch.Generator(g.device).manual_seed(i))
+           for i, g in enumerate(geom)]
+
+    def geom_grad():
+        out = m.geometry(T, q)
+        return torch.autograd.grad(sum((g * w).sum() for g, w in
+                                       zip(out, wts)), T)
+
+    Tn = T.detach()
+    ms_geom = cuda_ms(lambda: m.geometry(Tn, q))
+    ms_geom_grad = cuda_ms(geom_grad)
+    with torch.no_grad():
+        Tt, qt, dens = m._profiles(Tn, q)
+        r = m._spectrum(Tt, qt, dens, True, geom=m.geometry(Tt, qt))
+    radii, _, Wmod = (g.detach() for g in m.geometry(Tn, q))
+    tau = r.tau.detach().requires_grad_(True)
+    Wmod = Wmod.requires_grad_(True)
+    ips = radii.flip(0)
+    srad = m.cfg.starrad * SUNRADIUS
+    forms = {
+        "matmul": lambda: modulation(tau, r.last, ips, m.rfct, srad,
+                                     m.cfg.toomuch, Wmod=Wmod),
+        "gather": lambda: modulation_gather(tau, r.last, ips, m.rfct, srad,
+                                            Wmod)}
+    with torch.no_grad():
+        a, b = (f() for f in forms.values())
+    err = float(((a - b).abs() / b.abs()).max())
+    check(err <= SPECTRUM_REL_TOL, f"modulation forms differ by {err:.3e}")
+    res = {"geometry_ms": ms_geom, "geometry_grad_ms": ms_geom_grad,
+           "modulation_forms_max_rel": err}
+    steps = {"geometry": lambda: m.geometry(Tn, q),
+             "geometry_grad": geom_grad}
+    for name, f in forms.items():
+        steps[f"modulation_{name}"] = f
+        steps[f"modulation_{name}_grad"] = (
+            lambda f=f: torch.autograd.grad(f().sum(), (tau, Wmod)))
+    for name, f in steps.items():
+        if name.startswith("modulation"):
+            res[f"{name}_ms"] = cuda_ms(f)
+    return res, steps
+
+
+def hmc_phase(m: TransitModel) -> dict:
+    """HMC (transit_tpu_torch.retrieval) over HMC_CHAINS chains through
+    forward_batch: an HMC_KNOTS-knot log-temperature profile
+    (knot_profile), 1% noise on the spectrum the model makes at the
+    truth, HMC_LEAPFROG leapfrog steps, HMC_SAMPLES samples, a seeded
+    generator on the card.  Fails on a non-finite sample or log
+    posterior, or on no accepted proposal."""
+    nl = m.atm.nlayers
+    q = m._t(m.atm.q)
+
+    def fwd(z):
+        T = knot_profile(torch.exp(z), nl)
+        return m.forward_batch(T, q.expand((z.shape[0],) + q.shape))
+
+    z_true = torch.full((HMC_KNOTS,), float(np.log(np.mean(m.atm.temp))),
+                        dtype=m.dtype, device=m.device)
+    with torch.no_grad():
+        obs = fwd(z_true[None])[0]
+    sigma = 1e-2 * float(obs.abs().mean())
+    vg = batched_value_and_grad(gaussian_logprob(
+        fwd, obs, sigma, prior_mean=float(z_true[0]), prior_sigma=0.5))
+    gen = torch.Generator(device=m.device).manual_seed(7)
+    x0 = z_true[None] + 0.01 * torch.randn(
+        (HMC_CHAINS, HMC_KNOTS), generator=gen, dtype=m.dtype,
+        device=m.device)
+    ms_eval = cuda_ms(lambda: vg(x0))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    samples, accept, (xf, lpf) = hmc_sample(
+        None, x0, gen, step_size=HMC_STEP, n_leapfrog=HMC_LEAPFROG,
+        n_samples=HMC_SAMPLES, vg_fn=vg)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    acc = float(accept.float().mean())
+    check(samples.shape == (HMC_SAMPLES, HMC_CHAINS, HMC_KNOTS)
+          and bool(torch.isfinite(samples).all())
+          and bool(torch.isfinite(lpf).all()),
+          "hmc: a sample or log posterior is not finite")
+    check(acc > 0, "hmc: no proposal accepted")
+    return {"chains": HMC_CHAINS, "knots": HMC_KNOTS,
+            "leapfrog": HMC_LEAPFROG, "samples": HMC_SAMPLES,
+            "acceptance": acc, "ms_per_gradient_eval": ms_eval,
+            "ms_per_sample": 1e3 * dt / HMC_SAMPLES,
+            "max_abs_dz": float((samples - z_true).abs().max())}
 
 
 def main(device: str = "cuda", profile: str | None = None) -> int:
@@ -1362,21 +1632,101 @@ def main(device: str = "cuda", profile: str | None = None) -> int:
                                          f"{trace.suffix}")), "0.05 grad")
         phase("profile_grad_0.05", t0)
 
-    # 8. Nothing of JAX or of the JAX package was loaded.
+    # 8. The transit path: the main path's files and plan in transit
+    #    geometry with hydrostatic radii (radii, path weights and the
+    #    modulation table rebuilt from T and q at every step).
+    t0 = time.perf_counter()
+    hjt = TransitModel(transit_config(), dtype=torch.float32, device=dev,
+                       bands=6)
+    check((hjt.wns.n, hjt.atm.nlayers) == HJ_SHAPE and hjt.hydrostatic,
+          f"transit grid {hjt.wns.n} x {hjt.atm.nlayers}")
+    torch.cuda.synchronize()
+    phase("transit_model_setup", t0, plan_summary(hjt))
+    t0 = time.perf_counter()
+    specs_t, launches_t = run_requests(hjt, requests, kernels)
+    phase("transit_path", t0, f"3 forward requests, kernel launches "
+          f"{launches_t}, per forward {per_forward(launches_t)}")
+    check_launches(hjt, launches_t, "transit path")
+    t0 = time.perf_counter()
+    spec_rel_t = check_spectra(hjt, specs_t, requests, "transit")
+    m1 = modlevel_m1_vs_plain(hjt, requests)
+    radii_err = max(radii_vs_float64(hjt, T, q) for T, q in requests)
+    check(radii_err < RADII_TOL, f"transit: float32 radii vs float64 "
+          f"{radii_err:.3e} >= {RADII_TOL}")
+    phase("transit_path_checks", t0,
+          f"vs plain path max_rel {spec_rel_t:.3e}; modlevel -1 vs plain "
+          f"max_rel {m1['max_rel']:.3e} ({m1['reached']:.0f} of "
+          f"{hjt.wns.n} wavenumbers reach toomuch); hydrostatic radii, "
+          f"float32 on the card vs float64 on the CPU, max_rel "
+          f"{radii_err:.3e} (bound {RADII_TOL})")
+    t0 = time.perf_counter()
+    ms_fwd_t = cuda_ms(lambda: hjt.forward(T0, q0))
+    times_t, steps_t = transit_times(hjt, T0, q0)
+    phase("transit_path_times", t0, f"forward {ms_fwd_t:.3f} ms (the "
+          f"eclipse main path's {ms_fwd_b:.3f}); kernel launches per "
+          f"forward {per_forward(launches_t)}; " + json.dumps(times_t))
+    t0 = time.perf_counter()
+    hjt64 = TransitModel(transit_config(), dtype=torch.float64, device=dev,
+                         bands=6, use_kernel=False)
+    grad_t = grad_phase(hjt, requests, "transit grad", fd_model=hjt64,
+                        fd_step=FD_STEP_64)
+    del hjt64
+    phase("transit_path_grad", t0, f"3 gradient steps; forward "
+          f"{grad_t['forward_ms']:.3f} ms, forward+backward "
+          f"{grad_t['forward_backward_ms']:.3f} ms (ratio "
+          f"{grad_t['ratio']:.3f}); " + json.dumps(
+              {k: v for k, v in grad_t.items() if k not in (
+                  "forward_ms", "forward_backward_ms", "ratio")}))
+    t0 = time.perf_counter()
+    batch_t = batch_phase(hjt, "transit batch")
+    phase("transit_path_batch", t0, f"B = {BATCH}: {batch_t['ms_batch']:.3f}"
+          f" ms a batch, {batch_t['ms_member']:.3f} ms a member; with the "
+          f"gradient {batch_t['ms_batch_grad']:.3f} / "
+          f"{batch_t['ms_member_grad']:.3f} ms; " + json.dumps(batch_t))
+
+    # 9. HMC over the transit path.
+    t0 = time.perf_counter()
+    hmc = hmc_phase(hjt)
+    phase("hmc", t0, f"{hmc['ms_per_gradient_eval']:.3f} ms per leapfrog "
+          f"gradient evaluation ({HMC_CHAINS} chains), "
+          f"{hmc['ms_per_sample']:.3f} ms per sample, acceptance "
+          f"{hmc['acceptance']:.3f}; " + json.dumps(hmc))
+    if profile:
+        t0 = time.perf_counter()
+        trace = Path(profile)
+        prof_t = profile_forward(hjt, T0, q0, ms_fwd_t, str(
+            trace.with_name(f"{trace.stem}_transit{trace.suffix}")),
+            "transit")
+        dev_t = {k: device_ms(f) for k, f in steps_t.items()}
+        phase("profile_transit", t0, "device ms and kernels per call: " +
+              json.dumps(dev_t) + "; line kernels "
+              f"{prof_t['line_tile_kernel'] + prof_t['layer_kmax_kernel']:.4f}"
+              f" ms of the forward's {prof_t['device_ms']:.4f}")
+        t0 = time.perf_counter()
+        leaves = grad_leaves(hjt, T0, q0)
+        profile_step(lambda: grad_step(hjt, *leaves),
+                     grad_t["forward_backward_ms"],
+                     str(trace.with_name(f"{trace.stem}_grad_transit"
+                                         f"{trace.suffix}")), "transit grad")
+        phase("profile_grad_transit", t0)
+
+    # 10. Nothing of JAX or of the JAX package was loaded.
     bad = sorted(k for k in sys.modules
                  if k.split(".")[0] in ("jax", "jaxlib", "transit_tpu"))
     check(not bad, f"JAX modules loaded: {bad[:5]}")
     phase("total", t_start)
     check(not deferred, "; ".join(deferred))
 
-    # 9. Result lines, after the card's line.  Launches: the banded
-    #    paths' (main path and 0.05 cm-1); times and bounds per forward of
-    #    the main path, the shell kernel's of the 0.05 cm-1 path.
+    # 11. Result lines, after the card's line.  Launches: the banded
+    #    paths' (main path, 0.05 cm-1 and transit); times and bounds per
+    #    forward of the main path, the shell kernel's of the 0.05 cm-1
+    #    path.
     def launched(name):
-        return launches_b[name] + launches_f[name]
+        return launches_b[name] + launches_f[name] + launches_t[name]
     by_path = {k.__name__: {"unbanded": launches_unb[k.__name__],
                             "banded": launches_b[k.__name__],
-                            "banded_0.05": launches_f[k.__name__]}
+                            "banded_0.05": launches_f[k.__name__],
+                            "transit": launches_t[k.__name__]}
                for k in kernels}
     lt, km, sh = (times_b["line_tile_extinction"], times_b["layer_kmax"],
                   times_f["shell_tile_extinction"])
@@ -1384,10 +1734,10 @@ def main(device: str = "cuda", profile: str | None = None) -> int:
                 grad_f["times"]["shell_tile_backward"])
 
     def grad_launched(name):
-        return grad_b["launches"][name] + grad_f["launches"][name]
+        return sum(g["launches"][name] for g in (grad_b, grad_f, grad_t))
 
     def bwd_err(name):
-        errs = [g["launch_vs_plain"][name] for g in (grad_b, grad_f)
+        errs = [g["launch_vs_plain"][name] for g in (grad_b, grad_f, grad_t)
                 if name in g["launch_vs_plain"]]
         return (max(e["max_abs_temps"] for e in errs),
                 {k: max(e["max_rel"][k] for e in errs) for k in GRAD_OUTPUTS})
@@ -1457,7 +1807,8 @@ def main(device: str = "cuda", profile: str | None = None) -> int:
         "replaces": "transit_tpu/opacities/fast.py:608",
         "launches": grad_launched(name),
         "launches_per_step": {"banded": grad_b["per_step"][name],
-                              "banded_0.05": grad_f["per_step"][name]},
+                              "banded_0.05": grad_f["per_step"][name],
+                              "transit": grad_t["per_step"][name]},
         "max_abs_err": bwd_err(name)[0],
         "max_rel_vs_plain_by_output": bwd_err(name)[1],
         "ms": t["ms"],
@@ -1472,11 +1823,17 @@ def main(device: str = "cuda", profile: str | None = None) -> int:
         ("line_tile_backward", "transit_tpu_torch/csrc/line_tile.cu", ltb),
         ("shell_tile_backward", "transit_tpu_torch/csrc/shell_tile.cu",
          shb))], "forward_ms": {"unbanded": ms_forward, "banded": ms_fwd_b,
-                                "banded_0.05": ms_fwd_f},
+                                "banded_0.05": ms_fwd_f,
+                                "transit": ms_fwd_t},
         "gradient_ms": {"banded": grad_b["forward_backward_ms"],
-                        "banded_0.05": grad_f["forward_backward_ms"]},
+                        "banded_0.05": grad_f["forward_backward_ms"],
+                        "transit": grad_t["forward_backward_ms"]},
         "batch_ms": {"B": BATCH, "batch": batch["ms_batch"],
-                     "member": batch["ms_member"]}}), flush=True)
+                     "member": batch["ms_member"],
+                     "transit_batch": batch_t["ms_batch"],
+                     "transit_member": batch_t["ms_member"]},
+        "hmc": {k: hmc[k] for k in ("acceptance", "ms_per_gradient_eval",
+                                    "ms_per_sample")}}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -835,3 +835,94 @@ def test_layer_kmax_bitwise_layers_and_profiles(card, nl, profile, floor):
     want = plain_kmax(d, T, coef0, floor=floor)
     torch.cuda.synchronize()
     assert torch.isfinite(want).all() and torch.equal(got, want)
+
+
+def _transit_hj(card):
+    """chip_smoke.py's transit path cut in wavenumber: the hot-Jupiter
+    files at 3000-3020 cm-1 (41 wavenumbers, 100 layers), bands=6,
+    transit geometry (toomuch 20) with hydrostatic radii (gsurf 2479 cm
+    s-2 at the file's 1-bar layer, 73760 km)."""
+    hj = os.path.join(os.path.dirname(FIX), "..", "benchmarks", "data", "hj")
+    cfg = TransitConfig(
+        atm=f"{hj}/hj.atm", linedb=f"{hj}/hj.tli",
+        csfile=f"{hj}/cia_H2_H2.dat,{hj}/cia_H2_He.dat",
+        molfile=f"{hj}/molecules.dat", wnlow=3000.0, wnhigh=3020.0,
+        wndelt=0.5, wnosamp=2, wnfct=1.0, nwidth=20.0, ethreshold=1e-8,
+        solution="transit", toomuch=20.0, gsurf=2479.0, refpress=1.0,
+        refradius=73760.0)
+    return TransitModel(cfg, dtype=torch.float32, device=card, bands=6)
+
+
+@pytest.mark.cuda
+def test_transit_path_launches_match_plain(card):
+    """The transit path with hydrostatic radii launches the line-tile
+    kernels and layer_kmax in its forward and line_tile_backward in its
+    gradient; spectrum (<= 1e-4) and gradient (< 1e-3 of max) against
+    its plain path."""
+    from transit_tpu_torch.opacities.kernel_lbl import line_tile_backward
+    m = _transit_hj(card)
+    assert m.hydrostatic and m.solution == "transit"
+
+    def step():
+        T, q = (torch.tensor(np.asarray(a, dtype=np.float64),
+                             dtype=torch.float32, device=card,
+                             requires_grad=True)
+                for a in (m.atm.temp + 25.0, m.atm.q))
+        s = m.forward(T, q)
+        return s.detach(), torch.autograd.grad(s.sum(), (T, q))
+
+    before = (line_tile_extinction.launches, layer_kmax.launches,
+              line_tile_backward.launches)
+    s, g = step()
+    torch.cuda.synchronize()
+    after = (line_tile_extinction.launches, layer_kmax.launches,
+             line_tile_backward.launches)
+    assert after[0] > before[0] and after[1] == before[1] + 1
+    assert after[2] - before[2] == len(m.bplan.plans)
+    m.use_kernel = False
+    sp, gp = step()
+    assert bool(torch.isfinite(s).all()) and float(s.min()) > 0
+    assert float(((s - sp).abs() / sp.abs()).max()) <= 1e-4
+    for a, b in zip(g, gp):
+        assert float((a - b).abs().max() / b.abs().max()) < 1e-3
+
+
+@pytest.mark.cuda
+def test_forward_batch_hydrostatic_on_card(card):
+    """forward_batch (B = 2) on the transit path with hydrostatic radii:
+    every member's radii, path weights and modulation table; spectra and
+    gradient as the loop's, one line_tile_backward launch per band."""
+    m = _transit_hj(card)
+    (fwd_lines, _), (lines, shells) = _batch_vs_loop(m, card, 17)
+    assert fwd_lines > 0 and (lines, shells) == (len(m.bplan.plans), 0)
+
+
+@pytest.mark.cuda
+def test_hmc_steps_on_card(card):
+    """A few HMC steps through forward_batch on the transit path: 4
+    chains of a 4-knot log-temperature profile, a seeded generator on the
+    card; finite samples and log posteriors, some proposal accepted."""
+    from transit_tpu_torch.retrieval import (batched_value_and_grad,
+                                             gaussian_logprob, hmc_sample,
+                                             knot_profile)
+    m = _transit_hj(card)
+    nl = m.atm.nlayers
+    q = m._t(m.atm.q)
+
+    def fwd(z):
+        return m.forward_batch(knot_profile(torch.exp(z), nl),
+                               q.expand((z.shape[0],) + q.shape))
+
+    z0 = torch.full((4,), float(np.log(np.mean(m.atm.temp))), device=card)
+    with torch.no_grad():
+        obs = fwd(z0[None])[0]
+    lp = gaussian_logprob(fwd, obs, 1e-2 * float(obs.abs().mean()),
+                          prior_mean=float(z0[0]), prior_sigma=0.5)
+    gen = torch.Generator(device=card).manual_seed(5)
+    x0 = z0[None] + 0.01 * torch.randn((4, 4), generator=gen, device=card)
+    samples, accept, (xf, lpf) = hmc_sample(
+        None, x0, gen, step_size=1e-4, n_leapfrog=2, n_samples=2,
+        vg_fn=batched_value_and_grad(lp))
+    assert samples.shape == (2, 4, 4) and samples.device.type == "cuda"
+    assert bool(torch.isfinite(samples).all())
+    assert bool(torch.isfinite(lpf).all()) and bool(accept.any())

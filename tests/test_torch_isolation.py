@@ -32,6 +32,8 @@ _MODS = [
     "transit_tpu_torch.opacities._build, "
     "transit_tpu_torch.opacities.banded, "
     "transit_tpu_torch.opacities.kernel_shell",
+    "transit_tpu_torch.rt.geometry, transit_tpu_torch.rt.transmission, "
+    "transit_tpu_torch.rt.orbit, transit_tpu_torch.retrieval",
     "chip_smoke",
     "grad_fd_study",
     "line_tile_ablation",
@@ -99,8 +101,7 @@ def test_model_without_device_or_card_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("change", [
-    dict(mode="exact"), dict(solution="transit"),
-    dict(raddelt=100.0), dict(opacityfile="grid.bin"),
+    dict(mode="exact"), dict(opacityfile="grid.bin"),
     dict(saveext="ext.save")])
 def test_unported_options_raise(change):
     from transit_tpu_torch.model import TransitModel
@@ -135,18 +136,21 @@ def test_unported_banded_options_raise():
 
 @pytest.mark.parametrize("bands", [0, 6])
 def test_unported_step_options_raise(bands):
-    """Hydrostatic radii raise with their slice's name from forward and
-    forward_batch, on the unbanded and on the banded model (forward_batch
-    itself is ported: it runs on static radii)."""
+    """No step option raises NotImplementedError any more: hydrostatic
+    radii run in forward and forward_batch, on the unbanded and on the
+    banded model (tests/test_torch_transit_hydro*.py hold them to JAX);
+    forward_batch refuses only the raddelt resampling, with a ValueError
+    (tests/test_torch_raddelt.py)."""
     from transit_tpu_torch.model import TransitModel
     cfg = _torch_cfg()
     m = TransitModel(cfg, dtype=torch.float64, device="cpu", bands=bands)
     assert (m.bplan is not None) == (bands > 0)
     T = torch.as_tensor(m.atm.temp)
     q = torch.as_tensor(m.atm.q)
-    assert m.forward_batch(T[None], q[None]).shape == (1, m.wns.n)
+    static = m.forward_batch(T[None], q[None])
+    assert static.shape == (1, m.wns.n)
     cfg.gsurf, cfg.refpress, cfg.refradius = 2000.0, 0.1, 7e9
-    with pytest.raises(NotImplementedError, match="hydrostatic.*slice"):
-        m.forward(T, q)
-    with pytest.raises(NotImplementedError, match="hydrostatic.*slice"):
-        m.forward_batch(T[None], q[None])
+    hydro = m.forward_batch(T[None], q[None])
+    assert hydro.shape == (1, m.wns.n) and bool(torch.isfinite(hydro).all())
+    assert torch.equal(hydro[0], m.forward(T, q))
+    assert not torch.equal(hydro, static)

@@ -2,17 +2,20 @@
 
 The counterpart of transit_tpu.model (model.py:65-272, 360-754) on the
 path this package ports so far: fast mode on the unbanded or the
-layer-banded tile plan (``bands``, with far-wing shells), eclipse
-geometry, the atmosphere file's radius grid.  Init loads and precomputes
-everything static on the host (grids, line plans, path-weight matrix,
-spline operators); ``forward(temps, q)``, the retrieval step, recomputes
-densities and partition functions and runs the spectrum: line extinction
-through the CUDA kernels (opacities/kernel_lbl.py on the unbanded plan,
-opacities/banded.py on the banded one), then CIA, scattering, clouds,
-optical depth, intensities and flux in torch ops.  ``forward`` and
-``forward_batch`` (B profiles as B*nl layers of one kernel pass) are
-differentiable in T and q: the line extinction's backward runs the
-backward kernels, the rest is autograd.
+layer-banded tile plan (``bands``, with far-wing shells), eclipse and
+transit geometry, the atmosphere file's radius grid or its resampling
+(``raddelt``), static or hydrostatic radii (gsurf/refpress/refradius).
+Init loads and precomputes everything static on the host (grids, line
+plans, path-weight matrices, spline operators); ``forward(temps, q)``,
+the retrieval step, recomputes densities, partition functions and, with
+hydrostatic radii, the radii and path weights, and runs the spectrum:
+line extinction through the CUDA kernels (opacities/kernel_lbl.py on the
+unbanded plan, opacities/banded.py on the banded one), then CIA,
+scattering, clouds, optical depth and the eclipse flux or the transit
+modulation in torch ops.  ``forward`` and ``forward_batch`` (B profiles
+as B*nl layers of one kernel pass) are differentiable in T and q: the
+line extinction's backward runs the backward kernels, the rest is
+autograd.
 
 The model runs on ``cuda`` unless the caller passes ``device="cpu"``;
 with no card and no ``device`` it raises.  On the CPU the kernels' plain
@@ -27,14 +30,17 @@ import numpy as np
 import torch
 
 from transit_tpu_torch import grids
-from transit_tpu_torch.config import TransitConfig
-from transit_tpu_torch.constants import AMU, KB, NAVOGADRO, TLI_WAV_UNITS
+from transit_tpu_torch.config import ConfigError, TransitConfig
+from transit_tpu_torch.constants import (AMU, KB, NAVOGADRO, SUNRADIUS,
+                                         TLI_WAV_UNITS)
 from transit_tpu_torch.io.atmosphere import read_atmosphere
 from transit_tpu_torch.io.crosssec import read_cross_section
 from transit_tpu_torch.io.tli import read_tli, select_lines
 from transit_tpu_torch.numerics.spline import (splinterp_np,
+                                               spline_eval_torch,
+                                               spline_operator_np,
                                                spline_second_derivs_np,
-                                               spline_eval_torch)
+                                               spline_second_derivs_torch)
 from transit_tpu_torch.opacities import fast
 from transit_tpu_torch.opacities.banded import (banded_index,
                                                 banded_kernel_extinction)
@@ -43,8 +49,12 @@ from transit_tpu_torch.opacities.clouds import CloudParams, cloud_extinction
 from transit_tpu_torch.opacities.kernel_lbl import kernel_extinction
 from transit_tpu_torch.opacities.lbl import IsoConst
 from transit_tpu_torch.opacities.scattering import scattering_extinction
+from transit_tpu_torch.rt import geometry as rt_geom
 from transit_tpu_torch.rt import tau as rt_tau
 from transit_tpu_torch.rt.emission import eclipse_intensities, flux
+from transit_tpu_torch.rt.transmission import (
+    modulation, modulation_m1, modulation_weight_table,
+    modulation_weight_table_torch)
 
 
 def _later(what: str, slice_: str):
@@ -68,8 +78,8 @@ def resolve_device(device=None) -> torch.device:
 @dataclasses.dataclass
 class SpectrumResult:
     wns: np.ndarray                    # coarse wavenumber grid (cm-1)
-    spectrum: torch.Tensor             # flux (eclipse)
-    intensity: torch.Tensor = None     # (nangle, nwn)
+    spectrum: torch.Tensor             # flux (eclipse) or modulation (transit)
+    intensity: torch.Tensor = None     # (nangle, nwn), eclipse only
     tau: torch.Tensor = None           # (nwn, nh)
     last: torch.Tensor = None          # (nwn,)
     extinction: torch.Tensor = None    # (nlayer, nwn) line extinction
@@ -102,15 +112,10 @@ class TransitModel:
             raise ValueError(f"unknown mode {mode!r}")
         if wn_window is not None:
             raise _later("wn_window", "multi-process bands")
-        if cfg.solution == "transit":
-            raise _later("transit geometry", "transit-geometry")
-        if cfg.solution != "eclipse":
+        if cfg.solution not in ("eclipse", "transit"):
             raise ValueError(f"unknown solution {cfg.solution!r}")
         if cfg.opacityfile:
             raise _later("the opacity grid (opacityfile)", "opacity-grid")
-        if cfg.raddelt != -1.0:
-            raise _later("radius resampling (raddelt > 0)",
-                         "transit-geometry")
         if cfg.saveext:
             raise _later("the extinction savefile (saveext)", "opacity-grid")
         self.device = resolve_device(device)
@@ -135,9 +140,39 @@ class TransitModel:
         self.atm, self.mol = read_atmosphere(cfg.atm, cfg.molfile,
                                              qmol=qmol, qscale=qscale,
                                              allowq=cfg.allowq)
-        # Radius sampling: the atmosphere grid (makesample.c:472-482):
+        # Radius sampling: the atmosphere grid (makesample.c:472-482,
+        # raddelt = -1), or, for a positive raddelt, an equidistant grid
+        # with every atmospheric quantity splined onto it
+        # (makesample.c:483-531):
         self.rfct = cfg.radfct if cfg.radfct > 0 else self.atm.rfct
-        self.rads_v = self.atm.radius
+        self._atm0 = None
+        if cfg.raddelt == -1.0:
+            self.rads_v = self.atm.radius
+        else:
+            if self.hydrostatic:
+                raise ConfigError(
+                    "raddelt > 0 combined with hydrostatic retrieval "
+                    "(gsurf/refpress/refradius) is not supported: the "
+                    "radius grid would change every step while the "
+                    "resampling target is fixed.  Use raddelt -1 (keep "
+                    "the atmosphere grid, the reference's default).")
+            ini = cfg.radlow if cfg.radlow > 0 else self.atm.radius[0]
+            fin = cfg.radhigh if cfg.radhigh > 0 else self.atm.radius[-1]
+            rs = grids.make_sampling(ini, fin, cfg.raddelt)
+            a = self.atm
+            old = a.radius
+            # The file's layers, on which forward() takes T and q
+            # (reloadatm, readatm.c:722-784, re-splined onto the radius
+            # grid as makeradsample does, makesample.c:483-531):
+            self._atm0 = {"radius": old.copy(), "press": a.press.copy()}
+            a.temp = splinterp_np(old, a.temp, rs.v)
+            a.press = splinterp_np(old, a.press, rs.v)
+            a.mm = splinterp_np(old, a.mm, rs.v)
+            a.q = np.stack([splinterp_np(old, qi, rs.v) for qi in a.q])
+            a.d = np.stack([splinterp_np(old, di, rs.v) for di in a.d])
+            a.radius = rs.v
+            self.rads_v = rs.v
+        self.ips_v = self.rads_v[::-1].copy()
 
         # --- line list (transit.c:52 readlineinfo) ---
         self.tli = tli if tli is not None else (
@@ -191,10 +226,15 @@ class TransitModel:
                               for s in tb.species]))
         self.cs_pre = precompute_cs(self.cs_tables)
 
-        # --- geometry / path weights (static-radius eclipse) ---
+        # --- geometry / path weights (static radii) ---
         self.solution = cfg.solution
         self.angles = cfg.raygrid_list()
-        self.W = rt_tau.eclipse_weights(self.rads_v)
+        if self.solution == "eclipse":
+            self.W = rt_tau.eclipse_weights(self.rads_v)
+            self.Wmod = None
+        else:
+            self.W = rt_tau.transit_weights(self.rads_v, self.ips_v)
+            self.Wmod = modulation_weight_table(self.ips_v[::-1] * self.rfct)
 
         self._scatter_flag, self._scatter_logext = self._parse_scattering()
         self._cloud = self._parse_cloud()
@@ -210,6 +250,7 @@ class TransitModel:
         # Static tensors the step reads:
         t = self._t
         self._W_t = t(self.W)
+        self._Wmod_t = None if self.Wmod is None else t(self.Wmod)
         self._radii_t = t(self.rads_v)
         self._press_t = t(self.atm.press)
         self._press_cgs_t = t(self.atm.press * self.atm.pfct)
@@ -220,6 +261,18 @@ class TransitModel:
         self._wns_cgs_t = t(self.wns.v * self.wns.fct)
         self._pf_t = [(t(tt), t(z), t(z2))
                       for (tt, z), z2 in zip(self._pf, self._pf_z2)]
+        if self._atm0 is not None:
+            r0 = self._atm0["radius"]
+            self._r0_t = t(r0)
+            self._r0_op_t = t(spline_operator_np(r0))
+            self._press0_cgs_t = t(self._atm0["press"] * self.atm.pfct)
+
+    @property
+    def hydrostatic(self) -> bool:
+        """Radii from hydrostatic balance at every step (gsurf, refpress
+        and refradius all set), as transit_tpu's forward decides."""
+        cfg = self.cfg
+        return bool(cfg.gsurf and cfg.refpress and cfg.refradius)
 
     def _t(self, a):
         """Host array -> tensor in the model's dtype and device."""
@@ -347,16 +400,24 @@ class TransitModel:
 
     # ------------------------------------------------------------------
     def _spectrum(self, temps_raw, q, densities, full_result: bool,
-                  dev=None):
-        """Shared spectrum core."""
+                  dev=None, geom=()):
+        """Shared spectrum core; ``geom``: (radii, W, Wmod) of the step,
+        or () for the static geometry."""
         temps_cgs = temps_raw * self.atm.tfct
         Z = self.partition(temps_raw)
         ex = self.line_extinction(temps_cgs, densities, Z, dev=dev)
-        return self._assemble(temps_raw, q, densities, ex, full_result)
+        return self._assemble(temps_raw, q, densities, ex, full_result,
+                              *geom)
 
-    def _assemble(self, temps_raw, q, densities, ex, full_result: bool):
+    def _assemble(self, temps_raw, q, densities, ex, full_result: bool,
+                  radii=None, W=None, Wmod=None):
         """Everything downstream of the line extinction: scattering,
-        clouds, CIA, optical depth, eclipse spectrum."""
+        clouds, CIA, optical depth, and the eclipse flux or the transit
+        modulation (transit_tpu model.py:456-531).  radii, W and Wmod
+        (transit only) are the step's geometry (:meth:`geometry`); None
+        takes the static one."""
+        if W is None:
+            radii, W, Wmod = self._radii_t, self._W_t, self._Wmod_t
         atm = self.atm
         nl = atm.nlayers
         temps_cgs = temps_raw * atm.tfct
@@ -387,13 +448,25 @@ class TransitModel:
                             device=self.device))
 
         er = ex.T + e_s + e_c + e_cs            # (nwn, nl)
-        tau = rt_tau.optical_depth(er, self._W_t, self.rfct)
+        tau = rt_tau.optical_depth(er, W, self.rfct)
         last = rt_tau.last_index(tau, self.cfg.toomuch)
 
-        temp_rev = temps_cgs.flip(0)
-        intens = eclipse_intensities(tau, last, wns_cgs, temp_rev,
-                                     self.angles)
-        spec = flux(intens, self.angles)
+        intens = None
+        if self.solution == "eclipse":
+            intens = eclipse_intensities(tau, last, wns_cgs,
+                                         temps_cgs.flip(0), self.angles)
+            spec = flux(intens, self.angles)
+        else:
+            cfg = self.cfg
+            srad = cfg.starrad * SUNRADIUS
+            ips = radii.flip(0)
+            if cfg.modlevel == -1:
+                spec = modulation_m1(tau, last, ips, self.rfct, srad,
+                                     cfg.toomuch)
+            else:
+                spec = modulation(tau, last, ips, self.rfct, srad,
+                                  cfg.toomuch, transparent=cfg.transparent,
+                                  Wmod=Wmod)
         if not full_result:
             return spec
         return SpectrumResult(wns=self.wns.v, spectrum=spec,
@@ -401,6 +474,43 @@ class TransitModel:
                               extinction=ex, cia=e_cs,
                               scatt=e_s.expand(er.shape),
                               cloud=e_c.expand(er.shape), total=er)
+
+    def mean_mass(self, q):
+        """Mean molecular mass (..., nl) of abundances (..., nmol, nl)
+        (checkaddmm, readatm.c:122-159)."""
+        molm = self._molm_t[:, None]
+        if self.atm.by_mass:
+            return 1.0 / torch.sum(q / molm, dim=-2)
+        return torch.sum(q * molm, dim=-2)
+
+    def geometry(self, temps_raw, q):
+        """(radii, W, Wmod) of a step for T (..., nl) and q (..., nmol,
+        nl): with hydrostatic radii rebuilt from T and the mean molecular
+        mass (radpress, then the path weights and, for transit, the
+        modulation table; transit_tpu model.py:737-751), batched over the
+        leading dimensions; otherwise () (the static geometry).
+
+        The path weights are built in float64 from the radii and cast to
+        the model's dtype, as the static path's numpy weights are (JAX
+        builds them in the model's dtype): in float32 the tangent-point
+        terms (r^2 - r0^2 of radii ~300 times their spacing, the
+        parabola's cancelling powers of r/dr) make the gradient in T
+        move by ~5e-2 of its max under a 1e-6 relative change of the
+        extinction, by ~3e-7 when they are built in float64
+        (tests/test_torch_transit_precision.py)."""
+        if not self.hydrostatic:
+            return ()
+        cfg = self.cfg
+        radii = rt_geom.radpress_torch(cfg.gsurf, cfg.refpress,
+                                       cfg.refradius, temps_raw,
+                                       self.mean_mass(q), self.atm.press,
+                                       self.rfct)
+        weights = (rt_geom.eclipse_weights_torch if self.solution ==
+                   "eclipse" else rt_geom.transit_weights_torch)
+        W = weights(radii.double()).to(self.dtype)
+        if self.solution == "eclipse":
+            return radii, W, None
+        return radii, W, modulation_weight_table_torch(radii * self.rfct)
 
     # ------------------------------------------------------------------
     # The reference's re-entrant interface (transit.c:98-115
@@ -430,23 +540,29 @@ class TransitModel:
         """T and q as tensors of the model (a tensor that requires grad
         stays in its graph: as_tensor converts it with a differentiable
         copy, or returns it as it is) and the ideal-gas densities, for
-        (..., nl) T and (..., nmol, nl) q (reloadatm,
-        readatm.c:722-784)."""
-        cfg, atm = self.cfg, self.atm
-        if cfg.gsurf and cfg.refpress and cfg.refradius:
-            raise _later("hydrostatic radii (gsurf/refpress/refradius)",
-                         "transit-geometry")
+        (..., nl) T and (..., nmol, nl) q (reloadatm, readatm.c:722-784).
+        With raddelt > 0, T and q come on the atmosphere file's layers:
+        the densities are computed there, then T, q and the densities
+        are splined onto the radius grid (makesample.c:483-531;
+        transit_tpu model.py:714-729)."""
+        atm = self.atm
         temps_raw = torch.as_tensor(temps_raw, dtype=self.dtype,
                                     device=self.device)
         q = torch.as_tensor(q, dtype=self.dtype, device=self.device)
         molm = self._molm_t[:, None]
-        if atm.by_mass:
-            mm = 1.0 / torch.sum(q / molm, dim=-2)
-        else:
-            mm = torch.sum(q * molm, dim=-2)
-        rho = (AMU * q * self._press_cgs_t / KB /
-               (temps_raw * atm.tfct)[..., None, :])
+        mm = self.mean_mass(q)
+        press = self._press_cgs_t if self._atm0 is None else \
+            self._press0_cgs_t
+        rho = AMU * q * press / KB / (temps_raw * atm.tfct)[..., None, :]
         densities = rho * (mm[..., None, :] if atm.by_mass else molm)
+        if self._atm0 is not None:
+            # One spline pass over the columns [T, q..., densities...]
+            # on the static abscissae r0:
+            nm = q.shape[-2]
+            Y = torch.cat([temps_raw[None], q, densities]).T  # (nl0, 1+2nm)
+            z = spline_second_derivs_torch(self._r0_t, Y, self._r0_op_t)
+            out = spline_eval_torch(self._r0_t, Y, z, self._radii_t).T
+            temps_raw, q, densities = out[0], out[1:1 + nm], out[1 + nm:]
         return temps_raw, q, densities
 
     def forward(self, temps_raw, q, dev=None):
@@ -454,13 +570,29 @@ class TransitModel:
         spectrum (nwn,), differentiable in T and q
         (``torch.autograd.grad(model.forward(T, q).sum(), (T, q))``).
 
-        Reproduces reloadatm (readatm.c:722-784) on the static radius
-        grid: mean molecular mass, ideal-gas densities, then the full
-        spectrum.  ``dev`` optionally supplies the line tile tensors
-        (see device_tree)."""
+        Reproduces reloadatm (readatm.c:722-784): mean molecular mass,
+        ideal-gas densities, hydrostatic radii and their path weights
+        when gsurf/refpress/refradius are set (:meth:`geometry`), then
+        the full spectrum.  With raddelt > 0, T and q are on the
+        atmosphere file's layers (:meth:`_profiles`).  ``dev`` optionally
+        supplies the line tile tensors (see device_tree)."""
         temps_raw, q, densities = self._profiles(temps_raw, q)
         return self._spectrum(temps_raw, q, densities, full_result=False,
-                              dev=dev)
+                              dev=dev, geom=self.geometry(temps_raw, q))
+
+    def run_transit(self, flat_input):
+        """The reference's retrieval entry point (transit.c:118-122
+        run_transit via SWIG, transit.i:103; transit_tpu model.py:643):
+        one flat array [T_0..T_nl-1, q_mol0_0.., ..., q_molN_..] of
+        length nlayers*(nmol+1) -> spectrum; differentiable like
+        :meth:`forward`."""
+        nl = (len(self._atm0["radius"]) if self._atm0 is not None
+              else self.atm.nlayers)
+        nmol = len(self.atm.species)
+        flat = torch.as_tensor(flat_input, dtype=self.dtype,
+                               device=self.device)
+        return self.forward(flat[:nl], flat[nl:nl * (nmol + 1)].reshape(
+            nmol, nl))
 
     def _batched_bplan(self, B: int):
         """The batched view of the banded plan for forward_batch, and its
@@ -500,8 +632,14 @@ class TransitModel:
         the kernels (forward and backward) over B*nl pseudo-layers
         through the same tile plans (the function is independent per
         layer); the spectrum assembly (scattering, clouds, CIA, tau,
-        eclipse) is torch.func.vmap over ``_assemble``, as JAX vmaps it.
-        Static radii and eclipse only, as ``forward``."""
+        eclipse or transit) is torch.func.vmap over ``_assemble``, as JAX
+        vmaps it.  With hydrostatic radii every member's radii, W and
+        Wmod are built in one batched :meth:`geometry` call outside the
+        vmap and enter it as inputs.  The raddelt resampling is not
+        supported (loop over ``forward`` there)."""
+        if self._atm0 is not None:
+            raise ValueError("forward_batch requires raddelt -1; call "
+                             "forward per profile")
         B, nl = temps_raw.shape
         if B * nl * self.wns.n >= 2 ** 31:
             raise ValueError(f"forward_batch: {B} x {nl} layers x "
@@ -514,6 +652,10 @@ class TransitModel:
             densities.movedim(1, 0).reshape(nm, B * nl),
             self.partition(temps_raw.reshape(B * nl)), dev=dev, batch=B)
         ex = ex.reshape(B, nl, self.wns.n)
+        radii, W, Wmod = self.geometry(temps_raw, q) or (None,) * 3
+        g = None if W is None else 0
         return torch.func.vmap(
-            lambda t, qq, dd, e: self._assemble(t, qq, dd, e, False))(
-                temps_raw, q, densities, ex)
+            lambda t, qq, dd, e, r, w, wm: self._assemble(
+                t, qq, dd, e, False, r, w, wm),
+            in_dims=(0, 0, 0, 0, g, g, None if Wmod is None else 0))(
+                temps_raw, q, densities, ex, radii, W, Wmod)

@@ -1,10 +1,11 @@
 """Optical depth as a matmul.
 
 The reference computes tau per (wavenumber, height) with a scalar Simpson
-integration along the ray (transit/src/eclipse.c:28-105 eclipsetau).  The
-integral is *linear* in the per-layer extinction, including the parabolic
-tangent-point interpolation (numerical.c:182-195 interp_parab), so the
-geometry reduces to a precomputed path-weight matrix W with
+integration along the ray (transit/src/eclipse.c:28-105 eclipsetau;
+transit/src/slantpath.c:18-108 totaltau1).  Both integrals are *linear* in
+the per-layer extinction, including the parabolic tangent-point
+interpolation (numerical.c:182-195 interp_parab), so each geometry
+reduces to a precomputed path-weight matrix W with
 
     tau[wn, height] = er[wn, :] @ W[height, :].T
 
@@ -76,6 +77,50 @@ def eclipse_weights(rad: np.ndarray) -> np.ndarray:
             w = simpson_weights_np(s)
             W[ri, rs:] = w
             W[ri, rs:rs + 3] += w[0] * p - w[0] * np.array([1.0, 0, 0])
+    return W
+
+
+def transit_weights(rad: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """W (nb, nrad): slant-path optical depth at impact parameters b
+    (same units as rad), totaltau1 (slantpath.c:18-108).
+
+    tau = rfct * er @ W.T (the x2 chord symmetry factor is included).
+    """
+    rad = np.asarray(rad, dtype=np.float64)
+    b = np.asarray(b, dtype=np.float64)
+    n = rad.shape[0]
+    W = np.zeros((b.shape[0], n))
+    for k, bk in enumerate(b):
+        r0 = bk  # refraction index = 1
+        # binsearch(rad, 0, n-1, r0) semantics (numerical.c:16-45):
+        if r0 >= rad[n - 1]:
+            continue          # outermost layer or above: tau = 0
+        if r0 < rad[0]:
+            raise ValueError(f"impact parameter {bk} below bottom layer")
+        rs = int(np.searchsorted(rad, r0, side="right") - 1)
+        nseg = n - rs
+        if nseg == 2:
+            # slantpath.c:57,62-74: parabola over (rs-1, rs, rs+1) at r0,
+            # then 3 points with averaged midpoint:
+            p = _parab_coeffs(rad[rs - 1:rs + 2], r0)
+            r3 = np.array([r0, (r0 + rad[rs + 1]) / 2.0, rad[rs + 1]])
+            s = np.zeros(3)
+            s[1:] = np.sqrt(r3[1:] ** 2 - r0 * r0)
+            w = simpson_weights_np(s)
+            C = np.zeros((3, n))
+            C[0, rs - 1:rs + 2] = p
+            C[1, rs - 1:rs + 2] = p / 2.0
+            C[1, rs + 1] += 0.5
+            C[2, rs + 1] = 1.0
+            W[k] = 2.0 * (w @ C)
+        else:
+            p = _parab_coeffs(rad[rs:rs + 3], r0)
+            s = np.zeros(nseg)
+            s[1:] = np.sqrt(rad[rs + 1:] ** 2 - r0 * r0)
+            w = simpson_weights_np(s)
+            W[k, rs:] = w
+            W[k, rs:rs + 3] += w[0] * p - w[0] * np.array([1.0, 0, 0])
+            W[k] *= 2.0
     return W
 
 
