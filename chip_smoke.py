@@ -4,12 +4,14 @@
 
 Builds the port's CUDA kernels (csrc/line_tile.cu: the line-tile kernel,
 its backward and the per-layer kmax scan; csrc/shell_tile.cu: the
-decimated far-wing shell kernel and its backward) from the sources in
-this checkout, one nvcc per source,
+decimated far-wing shell kernel and its backward; csrc/profile_scatter.cu:
+exact mode's profile scatter and its backward) from the sources in this
+checkout, one nvcc per source,
 and holds each against its plain PyTorch version on the card.  Then it
 drives four paths of ``transit_tpu_torch.model.TransitModel(mode="fast",
-use_kernel=True)``, each through three ``forward`` requests with the
-kernels' launch counts set to 0 just before and read just after:
+use_kernel=True)`` and exact mode's (5. below), each through three
+``forward`` requests with the kernels' launch counts set to 0 just
+before and read just after:
 
   1. the unbanded plan on the hot-Jupiter workload (benchmarks/data/hj:
      100 layers, 19001 wavenumbers at 0.5 cm-1, 194,349 lines, eclipse);
@@ -20,7 +22,10 @@ kernels' launch counts set to 0 just before and read just after:
   4. the transit path: the main path's model in transit geometry
      (toomuch 20) with hydrostatic radii (gsurf 2479 cm s-2, refpress
      1 bar, refradius 73760 km), so that every step rebuilds the radii,
-     the path weights and the modulation table from T and q.
+     the path weights and the modulation table from T and q;
+  5. exact mode, the default (the reference's profile-table scheme), on
+     benchmarks/data/hj/hj_ref.cfg as the reference C binary ran it
+     (0.5 cm-1 oversampled 2160 times, the 60 x 60 profile table).
 
 It checks every launch of the banded paths against its plain version
 (the shell kernel takes a band's decimated shells in one launch),
@@ -56,6 +61,15 @@ not move).  Phase ``hmc``: ``transit_tpu_torch.retrieval.hmc_sample``
 over HMC_CHAINS chains through ``forward_batch`` on the transit path (an
 8-knot log-temperature profile, 1% noise on the model's own spectrum);
 it fails on a non-finite sample or an acceptance of 0.
+The exact phases (``exact_*``) build the profile table on the card
+(and on the CPU, within 1 float32 ulp of it), hold ``profile_scatter``
+and ``profile_scatter_backward`` against their plain versions at the
+file's T and +-50 K (pair counters against host counts), check the
+spectra against the plain path and the reference C spectrum (median
+|flux/C - 1| < EXACT_C_MEDIAN_TOL), time the forward and both kernels
+beside their bounds, and run three gradient steps (against the plain
+path's, central differences at a step that moves no profile index and
+no keep flag).
 Every phase prints one line with its seconds; any failed check raises,
 so the script exits non-zero and prints no result.
 
@@ -79,10 +93,16 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from transit_tpu_torch.config import TransitConfig
+from transit_tpu_torch.config import TransitConfig, load_config
 from transit_tpu_torch.constants import SUNRADIUS
+from transit_tpu_torch.grids import make_wn_sampling
 from transit_tpu_torch.model import TransitModel
 from transit_tpu_torch.opacities import _build, banded, kernel_lbl
+from transit_tpu_torch.opacities.kernel_profile import (
+    profile_scatter, profile_scatter_backward)
+from transit_tpu_torch.opacities.lbl import (
+    layer_groups, profile_scatter_plain, profile_scatter_plain_vjp,
+    scatter_pairs, scatter_tables)
 from transit_tpu_torch.opacities.kernel_lbl import (
     acc_grads, kernel_extinction, layer_kmax, layer_tables, line_tile_backward,
     line_tile_extinction, plain_extinction, plain_kmax, plain_line_tiles,
@@ -91,6 +111,7 @@ from transit_tpu_torch.opacities.kernel_lbl import (
 from transit_tpu_torch.opacities.kernel_shell import (
     plain_shell_band, plain_shell_vjp, shell_counts, shell_tile_backward,
     shell_tile_extinction)
+from transit_tpu_torch.opacities.voigt import build_profile_table
 from transit_tpu_torch.retrieval import (batched_value_and_grad,
                                          gaussian_logprob, hmc_sample,
                                          knot_profile)
@@ -223,6 +244,19 @@ HMC_KNOTS = 8
 HMC_LEAPFROG = 8
 HMC_SAMPLES = 4
 HMC_STEP = 1e-4
+# Exact mode (phases exact_*, on hj_ref.cfg): the median of |flux/C - 1|
+# against the reference C spectrum, which the C code computed in this
+# mode with this table (the gap should be float32 rounding; the CPU
+# port's float32 spectrum is 1.9e-7 from it); central differences in T
+# of the float64 plain model at the largest step from EXACT_FD_STEP down,
+# halving, that moves no profile index and no keep flag (at least
+# EXACT_FD_MIN K), on the first two of the EXACT_FD_LAYERS layers of
+# largest |dF/dT| that have such a step (a group can sit on an index's
+# jump: hj.atm's layer 31 moves a Doppler index at +1e-5 K).
+EXACT_C_MEDIAN_TOL = 1e-4
+EXACT_FD_STEP = 0.05
+EXACT_FD_MIN = 1e-5
+EXACT_FD_LAYERS = 8
 
 
 class CheckFailed(RuntimeError):
@@ -632,16 +666,18 @@ def check_spectra(m: TransitModel, specs, requests, label: str) -> float:
     return err
 
 
-def c_median(m: TransitModel, spec) -> tuple:
-    """Median and 90th percentile of |flux/C - 1| against the reference C
-    spectrum (listed from 20 um down: ascending wavenumber)."""
+def c_median(m: TransitModel, spec, with_max: bool = False) -> tuple:
+    """Median and 90th percentile (and with ``with_max`` the max) of
+    |flux/C - 1| against the reference C spectrum (listed from 20 um
+    down: ascending wavenumber)."""
     ref = np.loadtxt(HJ / "hj_ref_spectrum.dat")
     wl = 1e4 / m.wns.v
     check(ref.shape == (m.wns.n, 2) and
           np.allclose(ref[:, 0], wl, rtol=1e-6),
           "reference C spectrum is on another grid")
     rel = np.abs(spec.double().cpu().numpy() / ref[:, 1] - 1.0)
-    return float(np.median(rel)), float(np.quantile(rel, 0.9))
+    out = (float(np.median(rel)), float(np.quantile(rel, 0.9)))
+    return out + (float(rel.max()),) if with_max else out
 
 
 def banded_times(m: TransitModel) -> dict:
@@ -1090,6 +1126,7 @@ def backward_times(m: TransitModel, g) -> dict:
 
 ALL_KERNELS = (line_tile_extinction, layer_kmax, shell_tile_extinction,
                line_tile_backward, shell_tile_backward)
+EXACT_KERNELS = (profile_scatter, profile_scatter_backward)
 
 
 def grad_phase(m: TransitModel, requests, label: str,
@@ -1372,6 +1409,289 @@ def hmc_phase(m: TransitModel) -> dict:
             "max_abs_dz": float((samples - z_true).abs().max())}
 
 
+def exact_config() -> TransitConfig:
+    """benchmarks/data/hj/hj_ref.cfg, the configuration the reference C
+    binary ran (exact mode's table at its defaults, 60 x 60 widths), its
+    files taken from this checkout; no output file."""
+    cfg = load_config(str(HJ / "hj_ref.cfg"))
+    for k in ("atm", "linedb", "molfile"):
+        setattr(cfg, k, str(HJ / Path(getattr(cfg, k)).name))
+    cfg.csfile = ",".join(str(HJ / Path(f).name)
+                          for f in cfg.csfile.split(","))
+    cfg.outspec = None
+    return cfg
+
+
+def exact_table(cfg: TransitConfig, device):
+    """Exact mode's profile table of cfg built on ``device``, as the
+    model builds it."""
+    wns, owns = make_wn_sampling(wnlow=cfg.wnlow, wnhigh=cfg.wnhigh,
+                                 wndelt=cfg.wndelt, wnosamp=cfg.wnosamp,
+                                 wnfct=cfg.wnfct)
+    return build_profile_table(
+        dwn=wns.d / owns.o, nwave=owns.n, nwidth=cfg.nwidth, ndop=cfg.ndop,
+        nlor=cfg.nlor, dmin=cfg.dmin, dmax=cfg.dmax, lmin=cfg.lmin,
+        lmax=cfg.lmax, device=device)
+
+
+def exact_groups(m: TransitModel, T=None):
+    """lbl.layer_groups of the exact model's forward at the temperatures
+    T (numpy; default the file's) and the file's abundances, and its
+    ScatterTables."""
+    Tt, qt, dens = m._profiles(m.atm.temp if T is None else T, m.atm.q)
+    grp = layer_groups(m.dev, Tt * m.atm.tfct, dens, m.partition(Tt),
+                       m._molm_t, m._molrad_t, wn0=float(m.wns.v[0]),
+                       ethresh=m.cfg.ethreshold)
+    return grp, scatter_tables(m.plan, m.dev)
+
+
+def exact_vs_plain(m: TransitModel, g, label: str) -> dict:
+    """profile_scatter and profile_scatter_backward against their plain
+    versions at the file's temperatures and 50 K above and below: the
+    forward max|a-b| / (|a| + 1e-6 max|a|) < KERNEL_REL_TOL, its pair
+    counter equal to the host count (lbl.scatter_pairs); the backward,
+    on the main path's cotangent ``g``, max|a-b| / max|b| <
+    GRAD_LAUNCH_TOL."""
+    T = np.asarray(m.atm.temp, dtype=np.float64)
+    res = {"fwd_max_rel": 0.0, "fwd_max_abs": 0.0, "bwd_max_rel": 0.0,
+           "bwd_max_abs": 0.0, "pairs": {}}
+    for name, t in (("file", T), ("+50K", T + 50.0), ("-50K", T - 50.0)):
+        grp, s = exact_groups(m, t)
+        args = (grp["g_k"], grp["g_idop"], grp["ilor"], s)
+        stats = torch.zeros(1, dtype=torch.int64, device=m.device)
+        got = profile_scatter(*args, stats=stats)
+        want = profile_scatter_plain(*args)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(got).all()) and float(want.max()) > 0,
+              f"{label} {name}: profile_scatter not finite, or plain zero")
+        err = rel_err(want, got)
+        check(err < KERNEL_REL_TOL, f"{label} {name}: profile_scatter vs "
+              f"plain {err:.3e} >= {KERNEL_REL_TOL}")
+        host = scatter_pairs(*args)
+        check(int(stats[0]) == host, f"{label} {name}: pair counter "
+              f"{int(stats[0])} != host count {host}")
+        a = profile_scatter_backward(g, grp["keep"], *args[1:])
+        b = profile_scatter_plain_vjp(g, grp["keep"], *args[1:])
+        berr = max_rel(a, b)
+        check(bool(torch.isfinite(a).all()) and berr < GRAD_LAUNCH_TOL,
+              f"{label} {name}: profile_scatter_backward vs plain VJP "
+              f"{berr:.3e} >= {GRAD_LAUNCH_TOL}")
+        res["fwd_max_rel"] = max(res["fwd_max_rel"], err)
+        res["fwd_max_abs"] = max(res["fwd_max_abs"],
+                                 float((got - want).abs().max()))
+        res["bwd_max_rel"] = max(res["bwd_max_rel"], berr)
+        res["bwd_max_abs"] = max(res["bwd_max_abs"],
+                                 float((a - b).abs().max()))
+        res["pairs"][name] = host
+    return res
+
+
+def table_ulps(a, b) -> tuple:
+    """(max ulp distance, count of values that differ) of two float32
+    profile tables of equal layout; raises on another layout."""
+    for k in ("aDop", "aLor", "profsize", "base"):
+        check(np.array_equal(getattr(a, k), getattr(b, k)),
+              f"profile tables differ in {k}")
+    check(a.flat.shape == b.flat.shape, "profile tables differ in size")
+    d = np.abs(a.flat.view(np.int32).astype(np.int64) -
+               b.flat.view(np.int32).astype(np.int64))
+    return int(d.max()), int((d != 0).sum())
+
+
+def exact_bounds(m: TransitModel, grp, pairs: int) -> dict:
+    """(bound_ms, bound_by) of the two profile-scatter functions on this
+    data: per (layer, group, j) pair 2 FP32 operations (a multiply, an
+    add) and 8 bytes (the table value and the output or cotangent
+    element); besides, the forward reads g_k and g_idop and writes the
+    output, the backward reads keep and g_idop and the cotangent and
+    writes the (nl, ng) cotangent of g_k."""
+    ng = grp["g_k"].numel()
+    per_group = nbytes_of(grp["g_idop"], grp["ilor"])
+    out = 4 * m.atm.nlayers * m.wns.n
+    fwd = roofline(2 * pairs, 8 * pairs + per_group + 4 * ng + out)
+    bwd = roofline(2 * pairs, 8 * pairs + per_group + ng + 4 * ng + out)
+    return {"profile_scatter": fwd[:2], "profile_scatter_backward": bwd[:2]}
+
+
+def exact_fd_step(m64: TransitModel, T0, layer: int):
+    """The largest step h (EXACT_FD_STEP halved, down to EXACT_FD_MIN K)
+    at which T0 +- h at ``layer`` moves no (layer, group) Doppler index,
+    no (layer, isotope) Lorentz index and no keep flag of the float64
+    model ``m64`` (a central difference across such a jump is not a
+    derivative); None when every step moves one."""
+    def state(T):
+        grp, _ = exact_groups(m64, T)
+        return [grp[k] for k in ("g_idop", "ilor", "keep")]
+
+    base = state(T0)
+    h = EXACT_FD_STEP
+    while h >= EXACT_FD_MIN:
+        same = True
+        for sign in (1.0, -1.0):
+            T = T0.copy()
+            T[layer] += sign * h
+            same &= all(torch.equal(a, b) for a, b in zip(state(T), base))
+        if same:
+            return h
+        h /= 2.0
+    return None
+
+
+def exact_grad_phase(m: TransitModel, requests, label: str) -> dict:
+    """Three gradient steps of the exact path (launch counts set to 0
+    just before and read just after): finite, one profile_scatter and
+    one profile_scatter_backward launch each; each against the plain
+    path's gradient (GRAD_TOL); central differences in T with the
+    float64 plain model, FD_RTOL, on two layers of large |dF/dT| at a
+    step that moves no index and no keep flag (exact_fd_step); the
+    gradient step's time."""
+    kernels = ALL_KERNELS + EXACT_KERNELS
+    for k in kernels:
+        k.launches = 0
+    leaves = [grad_leaves(m, T0, q0) for T0, q0 in requests]
+    grads = [grad_step(m, T, q) for T, q in leaves]
+    torch.cuda.synchronize()
+    launches = {k.__name__: k.launches for k in kernels}
+    want = {k.__name__: 3 if k in EXACT_KERNELS else 0 for k in kernels}
+    check(launches == want, f"{label}: launches in 3 steps {launches}, "
+          f"the path asks {want}")
+    m.use_kernel = False
+    plain = [grad_step(m, T, q) for T, q in leaves]
+    m.use_kernel = True
+    err = {"T": 0.0, "q": 0.0}
+    for (gT, gq), (pT, pq) in zip(grads, plain):
+        check(bool(torch.isfinite(gT).all()) and bool(torch.isfinite(
+            gq).all()) and float(gT.abs().max()) > 0,
+            f"{label}: gradient not finite or zero")
+        err["T"] = max(err["T"], max_rel(gT, pT))
+        err["q"] = max(err["q"], max_rel(gq, pq))
+    check(max(err.values()) < GRAD_TOL, f"{label}: gradient kernel path vs "
+          f"plain path {err} >= {GRAD_TOL}")
+    m64 = TransitModel(m.cfg, dtype=torch.float64, device=m.device,
+                       use_kernel=False, table=m.table)
+    T0, q0 = (np.asarray(a, dtype=np.float64) for a in requests[0])
+    gT = grads[0][0].double().cpu().numpy()
+    fd, jumps = {}, []
+    for layer in np.argsort(-np.abs(gT))[:EXACT_FD_LAYERS].tolist():
+        if len(fd) == 2:
+            break
+        h = exact_fd_step(m64, T0, layer)
+        if h is None:
+            jumps.append(layer)
+            continue
+        f = []
+        with torch.no_grad():
+            for sign in (1.0, -1.0):
+                T = T0.copy()
+                T[layer] += sign * h
+                f.append(float(m64.forward(T, q0).sum()))
+        d = (f[0] - f[1]) / (2.0 * h)
+        fd[layer] = {"fd": d, "grad": float(gT[layer]), "step": h,
+                     "rel": abs(d - gT[layer]) / abs(d)}
+        check(fd[layer]["rel"] < FD_RTOL, f"{label}: layer {layer} central "
+              f"difference {d:.6e} vs gradient {gT[layer]:.6e}")
+    check(len(fd) == 2, f"{label}: of the {EXACT_FD_LAYERS} layers of "
+          f"largest |dF/dT|, {len(jumps)} have an index or keep flag within "
+          f"{EXACT_FD_MIN} K of their T")
+    del m64
+    T, q = leaves[0]
+    return {"launches": launches, "vs_plain_path": err, "fd": fd,
+            "fd_layers_at_a_jump": jumps,
+            "forward_backward_ms": cuda_ms(lambda: grad_step(m, T, q))}
+
+
+def exact_phases(dev) -> dict:
+    """The exact path's phases (exact_model_setup, exact_kernels_vs_plain,
+    exact_path, exact_path_checks, exact_path_times, exact_path_grad) on
+    exact_config(): the model's profile table built on the card, three
+    forward requests at the file's T and +-50 K, every check raising on
+    a miss.  Returns what the result line reads."""
+    t0 = time.perf_counter()
+    cfg_e = exact_config()
+    t_tab = time.perf_counter()
+    table = exact_table(cfg_e, dev)
+    table_s = time.perf_counter() - t_tab
+    hje = TransitModel(cfg_e, dtype=torch.float32, device=dev, table=table)
+    check(hje.mode == "exact" and (hje.wns.n, hje.atm.nlayers) == HJ_SHAPE
+          and hje.owns.o == cfg_e.wnosamp, f"exact grid {hje.wns.n} x "
+          f"{hje.atm.nlayers} x {hje.owns.o}")
+    grp_e, st_e = exact_groups(hje)
+    pairs_e = scatter_pairs(grp_e["g_k"], grp_e["g_idop"], grp_e["ilor"],
+                            st_e)
+    torch.cuda.synchronize()
+    nprof = int(np.unique(table.base).shape[0])
+    phase("exact_model_setup", t0,
+          f"profile table {table_s:.2f} s on the card: {nprof} profiles, "
+          f"{table.flat.nbytes / 1e6:.1f} MB ({table.flat.shape[0]} "
+          f"values); {hje.plan.n_lines} lines in {hje.plan.n_groups} "
+          f"groups; {int(grp_e['keep'].sum())} kept (layer, group) of "
+          f"{grp_e['keep'].numel()}; {pairs_e} live (layer, kept group, j) "
+          f"pairs (host count)")
+    t0 = time.perf_counter()
+    T0 = np.asarray(hje.atm.temp, dtype=np.float64)
+    q0 = np.asarray(hje.atm.q, dtype=np.float64)
+    requests = [(T0, q0), (T0 + 50.0, q0), (T0 - 50.0, q0)]
+    g_e = line_cotangent(hje, T0, q0)
+    err_e = exact_vs_plain(hje, g_e, "exact")
+    phase("exact_kernels_vs_plain", t0, "profile_scatter and its backward "
+          "against their plain versions at the file's T and +-50 K, pair "
+          "counters equal to the host counts: " + json.dumps(err_e))
+    t0 = time.perf_counter()
+    specs_e, launches_e = run_requests(hje, requests,
+                                       ALL_KERNELS + EXACT_KERNELS)
+    phase("exact_path", t0, f"3 forward requests, kernel launches "
+          f"{launches_e}, per forward {per_forward(launches_e)}")
+    want_e = {k.__name__: 3 if k is profile_scatter else 0
+              for k in ALL_KERNELS + EXACT_KERNELS}
+    check(launches_e == want_e, f"exact path: launches {launches_e}, the "
+          f"path asks {want_e}")
+    t0 = time.perf_counter()
+    spec_rel_e = check_spectra(hje, specs_e, requests, "exact")
+    ce_med, ce_p90, ce_max = c_median(hje, specs_e[0], with_max=True)
+    check(ce_med < EXACT_C_MEDIAN_TOL, f"exact median vs reference C "
+          f"{ce_med:.3e} >= {EXACT_C_MEDIAN_TOL}")
+    t_cpu = time.perf_counter()
+    table_cpu = exact_table(cfg_e, "cpu")
+    cpu_s = time.perf_counter() - t_cpu
+    ulp_max, ulp_n = table_ulps(table, table_cpu)
+    check(ulp_max <= 1, f"profile table card vs CPU: {ulp_max} ulp")
+    del table_cpu
+    phase("exact_path_checks", t0,
+          f"vs plain path max_rel {spec_rel_e:.3e}; vs reference C median "
+          f"{ce_med:.4e} (p90 {ce_p90:.4e}, max {ce_max:.4e}; bound "
+          f"{EXACT_C_MEDIAN_TOL}); profile table card vs CPU ({cpu_s:.2f} "
+          f"s): {ulp_n} of {table.flat.shape[0]} values differ, max "
+          f"{ulp_max} ulp")
+    t0 = time.perf_counter()
+    ms_fwd_e = cuda_ms(lambda: hje.forward(T0, q0))
+    sargs = (grp_e["g_k"], grp_e["g_idop"], grp_e["ilor"], st_e)
+    keep_e = grp_e["keep"]
+    bounds_e = exact_bounds(hje, grp_e, pairs_e)
+    times_e = {
+        "profile_scatter": {
+            "ms": cuda_ms(lambda: profile_scatter(*sargs)),
+            "plain_ms": cuda_ms(lambda: profile_scatter_plain(*sargs),
+                                runs=1)},
+        "profile_scatter_backward": {
+            "ms": cuda_ms(lambda: profile_scatter_backward(
+                g_e, keep_e, *sargs[1:])),
+            "plain_ms": cuda_ms(lambda: profile_scatter_plain_vjp(
+                g_e, keep_e, *sargs[1:]), runs=1)}}
+    for k, (b_ms, b_by) in bounds_e.items():
+        times_e[k].update(bound_ms=b_ms, bound_by=b_by, pairs=pairs_e)
+    phase("exact_path_times", t0, f"forward {ms_fwd_e:.3f} ms; " +
+          json.dumps(times_e))
+    t0 = time.perf_counter()
+    grad_e = exact_grad_phase(hje, requests, "exact grad")
+    phase("exact_path_grad", t0, f"3 gradient steps; forward+backward "
+          f"{grad_e['forward_backward_ms']:.3f} ms; backward kernel "
+          f"{times_e['profile_scatter_backward']['ms']:.4f} ms (bound "
+          f"{times_e['profile_scatter_backward']['bound_ms']:.4f} ms); " +
+          json.dumps(grad_e))
+    return {"err": err_e, "launches": launches_e, "times": times_e,
+            "grad": grad_e, "forward_ms": ms_fwd_e, "pairs": pairs_e}
+
+
 def main(device: str = "cuda", profile: str | None = None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the smoke run needs one card",
@@ -1404,14 +1724,16 @@ def main(device: str = "cuda", profile: str | None = None) -> int:
     # 3. Kernels against their plain versions at the fixture and
     #    hot-Jupiter shapes, float32.
     t0 = time.perf_counter()
-    fix = TransitModel(fixture_config(), dtype=torch.float32, device=dev)
+    fix = TransitModel(fixture_config(), mode="fast",
+                       dtype=torch.float32, device=dev)
     kmax_vs_plain(fix, "fixture")
     err_fix = kernel_vs_plain(fix, "fixture")
     phase("kernel_vs_plain_fixture", t0,
           f"max_rel {err_fix['max_rel']:.3e} (nl, ntiles, lmax, tw) "
           f"{err_fix['shape']}")
     t0 = time.perf_counter()
-    hj = TransitModel(hotjupiter_config(), dtype=torch.float32, device=dev)
+    hj = TransitModel(hotjupiter_config(), mode="fast",
+                      dtype=torch.float32, device=dev)
     check((hj.wns.n, hj.atm.nlayers) == HJ_SHAPE,
           f"hot-Jupiter grid {hj.wns.n} x {hj.atm.nlayers}")
     nlines = hj.fplan.wavn.shape[0]
@@ -1491,7 +1813,8 @@ def main(device: str = "cuda", profile: str | None = None) -> int:
 
     # 6. Path 2, the main path: bands=6 on the same workload.
     t0 = time.perf_counter()
-    hjb = TransitModel(hotjupiter_config(), dtype=torch.float32, device=dev,
+    hjb = TransitModel(hotjupiter_config(), mode="fast",
+                       dtype=torch.float32, device=dev,
                        bands=6)
     torch.cuda.synchronize()
     phase("banded_model_setup", t0, plan_summary(hjb))
@@ -1561,7 +1884,8 @@ def main(device: str = "cuda", profile: str | None = None) -> int:
 
     # 7. Path 3: bands=6 at 0.05 cm-1, with decimated far-wing shells.
     t0 = time.perf_counter()
-    hjf = TransitModel(hotjupiter_config(0.05), dtype=torch.float32,
+    hjf = TransitModel(hotjupiter_config(0.05), mode="fast",
+                       dtype=torch.float32,
                        device=dev, bands=6)
     check((hjf.wns.n, hjf.atm.nlayers) == HJ_FINE_SHAPE,
           f"0.05 cm-1 grid {hjf.wns.n} x {hjf.atm.nlayers}")
@@ -1590,7 +1914,8 @@ def main(device: str = "cuda", profile: str | None = None) -> int:
           f"0.05 cm-1 path: more than 2 shell launches per forward")
     t0 = time.perf_counter()
     spec_rel_f = check_spectra(hjf, specs_f, req_f, "fine")
-    exact = TransitModel(hotjupiter_config(0.05), dtype=torch.float32,
+    exact = TransitModel(hotjupiter_config(0.05), mode="fast",
+                         dtype=torch.float32,
                          device=dev, bands=6, far_decimate=False)
     s_exact = exact.forward(T0f, q0f)
     dec_shift = float(((specs_f[0] - s_exact).abs() / s_exact.abs()).max())
@@ -1636,7 +1961,8 @@ def main(device: str = "cuda", profile: str | None = None) -> int:
     #    geometry with hydrostatic radii (radii, path weights and the
     #    modulation table rebuilt from T and q at every step).
     t0 = time.perf_counter()
-    hjt = TransitModel(transit_config(), dtype=torch.float32, device=dev,
+    hjt = TransitModel(transit_config(), mode="fast",
+                       dtype=torch.float32, device=dev,
                        bands=6)
     check((hjt.wns.n, hjt.atm.nlayers) == HJ_SHAPE and hjt.hydrostatic,
           f"transit grid {hjt.wns.n} x {hjt.atm.nlayers}")
@@ -1666,7 +1992,8 @@ def main(device: str = "cuda", profile: str | None = None) -> int:
           f"eclipse main path's {ms_fwd_b:.3f}); kernel launches per "
           f"forward {per_forward(launches_t)}; " + json.dumps(times_t))
     t0 = time.perf_counter()
-    hjt64 = TransitModel(transit_config(), dtype=torch.float64, device=dev,
+    hjt64 = TransitModel(transit_config(), mode="fast",
+                         dtype=torch.float64, device=dev,
                          bands=6, use_kernel=False)
     grad_t = grad_phase(hjt, requests, "transit grad", fd_model=hjt64,
                         fd_step=FD_STEP_64)
@@ -1710,17 +2037,24 @@ def main(device: str = "cuda", profile: str | None = None) -> int:
                                          f"{trace.suffix}")), "transit grad")
         phase("profile_grad_transit", t0)
 
-    # 10. Nothing of JAX or of the JAX package was loaded.
+    # 10. Exact mode, the JAX package's default and the reference C's
+    #     scheme, on hj_ref.cfg as the C binary ran it (194,349 lines on
+    #     0.5 cm-1 x 2160, the 60 x 60 profile table): the profile
+    #     scatter kernels.
+    ex = exact_phases(dev)
+
+    # 11. Nothing of JAX or of the JAX package was loaded.
     bad = sorted(k for k in sys.modules
                  if k.split(".")[0] in ("jax", "jaxlib", "transit_tpu"))
     check(not bad, f"JAX modules loaded: {bad[:5]}")
     phase("total", t_start)
     check(not deferred, "; ".join(deferred))
 
-    # 11. Result lines, after the card's line.  Launches: the banded
-    #    paths' (main path, 0.05 cm-1 and transit); times and bounds per
-    #    forward of the main path, the shell kernel's of the 0.05 cm-1
-    #    path.
+    # 12. Result lines, after the card's line.  Launches: the banded
+    #    paths' (main path, 0.05 cm-1 and transit), the exact path's for
+    #    the profile-scatter kernels; times and bounds per forward of the
+    #    main path, the shell kernel's of the 0.05 cm-1 path, the
+    #    profile-scatter kernels' of the exact path.
     def launched(name):
         return launches_b[name] + launches_f[name] + launches_t[name]
     by_path = {k.__name__: {"unbanded": launches_unb[k.__name__],
@@ -1822,12 +2156,35 @@ def main(device: str = "cuda", profile: str | None = None) -> int:
     } for name, src, t in (
         ("line_tile_backward", "transit_tpu_torch/csrc/line_tile.cu", ltb),
         ("shell_tile_backward", "transit_tpu_torch/csrc/shell_tile.cu",
-         shb))], "forward_ms": {"unbanded": ms_forward, "banded": ms_fwd_b,
-                                "banded_0.05": ms_fwd_f,
-                                "transit": ms_fwd_t},
+         shb))] + [{
+        "name": name,
+        "route": "cuda",
+        "source": "transit_tpu_torch/csrc/profile_scatter.cu",
+        "replaces": "transit_tpu/opacities/lbl.py:245",
+        "launches": n,
+        "max_abs_err": ex["err"][f"{kind}_max_abs"],
+        "max_rel_vs_plain": ex["err"][f"{kind}_max_rel"],
+        "ms": ex["times"][name]["ms"],
+        "plain_ms": ex["times"][name]["plain_ms"],
+        "bound_ms": ex["times"][name]["bound_ms"],
+        "bound_by": ex["times"][name]["bound_by"],
+        "pairs": ex["pairs"],
+        # No one PyTorch call computes this ragged gather and scatter-add
+        # from these inputs: index_add_ needs the (pair) index and value
+        # tensors, which are the plain version's work.
+        "library_ms": None,
+        "card": card,
+    } for name, kind, n in (
+        ("profile_scatter", "fwd", ex["launches"]["profile_scatter"]),
+        ("profile_scatter_backward", "bwd",
+         ex["grad"]["launches"]["profile_scatter_backward"]))],
+        "forward_ms": {"unbanded": ms_forward, "banded": ms_fwd_b,
+                       "banded_0.05": ms_fwd_f, "transit": ms_fwd_t,
+                       "exact": ex["forward_ms"]},
         "gradient_ms": {"banded": grad_b["forward_backward_ms"],
                         "banded_0.05": grad_f["forward_backward_ms"],
-                        "transit": grad_t["forward_backward_ms"]},
+                        "transit": grad_t["forward_backward_ms"],
+                        "exact": ex["grad"]["forward_backward_ms"]},
         "batch_ms": {"B": BATCH, "batch": batch["ms_batch"],
                      "member": batch["ms_member"],
                      "transit_batch": batch_t["ms_batch"],

@@ -45,7 +45,8 @@ def model(nwidth: float, ethresh: float) -> TransitModel:
         molfile=f"{HJ}/molecules.dat", wnlow=3000.0, wnhigh=3200.0,
         wndelt=0.5, wnosamp=2160, wnfct=1.0, nwidth=nwidth,
         ethreshold=ethresh, solution="eclipse", toomuch=1e30)
-    return TransitModel(cfg, dtype=torch.float64, device="cpu", bands=6)
+    return TransitModel(cfg, mode="fast",
+                        dtype=torch.float64, device="cpu", bands=6)
 
 
 def case(nwidth: float, ethresh: float) -> dict:

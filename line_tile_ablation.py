@@ -137,8 +137,8 @@ def build_variants(suite: str) -> dict:
 
 def forward_targets() -> dict:
     """{target: (fn, timer)}: the unbanded line-tile launch."""
-    hj = cs.TransitModel(cs.hotjupiter_config(), dtype=torch.float32,
-                         device="cuda")
+    hj = cs.TransitModel(cs.hotjupiter_config(), mode="fast",
+                         dtype=torch.float32, device="cuda")
     args, kw = cs.file_state(hj)
     tab = kernel_lbl.layer_tables(hj.fdev, *args)
     return {"unbanded line_tile_extinction": (
@@ -154,7 +154,7 @@ def backward_targets() -> dict:
     as they are)."""
     out = {}
     for label, wndelt in (("main", 0.5), ("0.05", 0.05)):
-        m = cs.TransitModel(cs.hotjupiter_config(wndelt),
+        m = cs.TransitModel(cs.hotjupiter_config(wndelt), mode="fast",
                             dtype=torch.float32, device="cuda", bands=6)
         args, kw = cs.file_state(m)
         T = args[0]

@@ -28,7 +28,7 @@ CONFIGS = {"fixture": lambda: make_config("eclipse", 1e30),
 
 
 def _model(name, dtype=torch.float32):
-    return TransitModel(port_config(CONFIGS[name]()), dtype=dtype,
+    return TransitModel(port_config(CONFIGS[name]()), mode="fast", dtype=dtype,
                         device="cpu", bands=6)
 
 
@@ -195,9 +195,9 @@ def test_backward_launches_match_plain_vjp(monkeypatch, config,
     temps = targs[0].clone().requires_grad_(True)
     op = banded.BandedOp(m.bplan, m.bdev, index, kw, far_full_res,
                          kernel=True)
-    out = kernel_lbl.LineExtinction.apply(op, temps, leaves["coef0"],
-                                          leaves["densm"], leaves["alphal"],
-                                          leaves["alphad_f"])
+    out = kernel_lbl.line_extinction(op, temps, leaves["coef0"],
+                                     leaves["densm"], leaves["alphal"],
+                                     leaves["alphad_f"])
     g = torch.as_tensor(np.random.default_rng(5).standard_normal(
         tuple(out.shape)))
     got = dict(zip(("temps", "coef0", "densm", "alphal", "alphad_f"),

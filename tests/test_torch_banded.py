@@ -36,7 +36,7 @@ def jax_banded():
 
 @pytest.fixture(scope="module")
 def port64():
-    return TransitModel(port_config(make_config("eclipse", 1e30)),
+    return TransitModel(port_config(make_config("eclipse", 1e30)), mode="fast",
                         dtype=torch.float64, device="cpu", bands=6)
 
 
@@ -100,7 +100,8 @@ def test_launch_sequence_matches_plain(monkeypatch, config, far_full_res):
     from tests.test_torch_common import fine_grid_config
     cfg = (make_config("eclipse", 1e30) if config == "fixture" else
            fine_grid_config())
-    m = TransitModel(port_config(cfg), dtype=torch.float64, device="cpu",
+    m = TransitModel(port_config(cfg), mode="fast",
+                     dtype=torch.float64, device="cpu",
                      bands=6)
     seen = {"line": 0, "shell": 0}
 

@@ -28,7 +28,7 @@ def jax_banded():
 
 @pytest.fixture(scope="module")
 def port64():
-    return TransitModel(port_config(make_config("eclipse", 1e30)),
+    return TransitModel(port_config(make_config("eclipse", 1e30)), mode="fast",
                         dtype=torch.float64, device="cpu", bands=6)
 
 
@@ -70,9 +70,10 @@ def test_split_far_false_matches_unbanded():
     test_banded_matches_unbanded bound, 5e-7): the banded plan without
     far shells against the port's unbanded plain path."""
     cfg = port_config(make_config("eclipse", 1e30))
-    mb = TransitModel(cfg, dtype=torch.float64, device="cpu", bands=6,
+    mb = TransitModel(cfg, mode="fast",
+                      dtype=torch.float64, device="cpu", bands=6,
                       split_far=False)
-    m0 = TransitModel(cfg, dtype=torch.float64, device="cpu")
+    m0 = TransitModel(cfg, mode="fast", dtype=torch.float64, device="cpu")
     assert mb.bplan.far_plans is None and len(mb.bplan.plans) >= 2
     args, kw = state(m0, np.float64)
     targs = [torch.as_tensor(a) for a in args]

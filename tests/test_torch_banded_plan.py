@@ -55,7 +55,7 @@ def inputs():
     def get(name):
         if name not in cache:
             cfg = port_config(CONFIGS[name]())
-            m = TransitModel(cfg, device="cpu", bands=6)
+            m = TransitModel(cfg, mode="fast", device="cpu", bands=6)
             wl, isoid, elow, gf = select_lines(read_tli(cfg.linedb),
                                                m.wns.i, m.wns.f)
             cache[name] = m, (1.0 / (np.asarray(wl) * 1e-4), isoid, elow,
@@ -112,7 +112,8 @@ def test_banded_device_arrays_from_numpy(npdt):
     cfg = fine_grid_config()
     jm = JModel(cfg, mode="fast", bands=6, dtype=jnp.float64)
     tdt = torch_dtype(npdt)
-    m = TransitModel(port_config(cfg), dtype=tdt, device="cpu", bands=6)
+    m = TransitModel(port_config(cfg), mode="fast",
+                     dtype=tdt, device="cpu", bands=6)
     conv = device_arrays_from_numpy(to_numpy(jm.bdev, npdt), dtype=tdt,
                                     device="cpu")
 

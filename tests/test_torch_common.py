@@ -100,7 +100,7 @@ def banded_pair(jcfg, npdt, far_full_res=False):
     from transit_tpu_torch.opacities.banded import plain_banded_extinction
 
     jm = JModel(jcfg, mode="fast", bands=6)
-    tm = TransitModel(port_config(jcfg), dtype=torch_dtype(npdt),
+    tm = TransitModel(port_config(jcfg), mode="fast", dtype=torch_dtype(npdt),
                       device="cpu", bands=6)
     args, kw = state(jm, npdt)
     dn = to_numpy(jm.bdev, npdt)

@@ -31,13 +31,13 @@ def card():
     return torch.device("cuda")
 
 
-def _model(device, dtype=torch.float32, **kw):
+def _model(device, dtype=torch.float32, mode="fast", **kw):
     cfg = TransitConfig(
         atm=f"{FIX}/test.atm", linedb=f"{FIX}/test.tli",
         csfile=f"{FIX}/test_cia.dat", molfile=f"{FIX}/molecules.dat",
         wnlow=2000.0, wnhigh=2100.0, wndelt=1.0, wnosamp=216, wnfct=1.0,
         nwidth=20.0, ethreshold=1e-8, solution="eclipse", toomuch=1e30)
-    return TransitModel(cfg, dtype=dtype, device=device, **kw)
+    return TransitModel(cfg, mode=mode, dtype=dtype, device=device, **kw)
 
 
 def _state(m):
@@ -192,8 +192,8 @@ def _fine_model(device, **kw):
         csfile=f"{FIX}/test_cia.dat", molfile=f"{FIX}/molecules.dat",
         wnlow=2000.0, wnhigh=2040.0, wndelt=0.01, wnosamp=2, wnfct=1.0,
         nwidth=20.0, ethreshold=1e-8, solution="eclipse", toomuch=1e30)
-    return TransitModel(cfg, dtype=torch.float32, device=device, bands=6,
-                        **kw)
+    return TransitModel(cfg, mode="fast", dtype=torch.float32, device=device,
+                        bands=6, **kw)
 
 
 def _rel(a, b):
@@ -850,7 +850,8 @@ def _transit_hj(card):
         wndelt=0.5, wnosamp=2, wnfct=1.0, nwidth=20.0, ethreshold=1e-8,
         solution="transit", toomuch=20.0, gsurf=2479.0, refpress=1.0,
         refradius=73760.0)
-    return TransitModel(cfg, dtype=torch.float32, device=card, bands=6)
+    return TransitModel(cfg, mode="fast",
+                        dtype=torch.float32, device=card, bands=6)
 
 
 @pytest.mark.cuda
@@ -926,3 +927,105 @@ def test_hmc_steps_on_card(card):
     assert samples.shape == (2, 4, 4) and samples.device.type == "cuda"
     assert bool(torch.isfinite(samples).all())
     assert bool(torch.isfinite(lpf).all()) and bool(accept.any())
+
+
+def _exact_pair(card):
+    """The fixture's exact model in float32 on the card and in float64 on
+    the CPU, sharing the CPU's profile table (the card would build the
+    same one: chip_smoke.py checks that)."""
+    m64 = _model("cpu", torch.float64, mode="exact")
+    return _model(card, mode="exact", table=m64.table), m64
+
+
+@pytest.mark.cuda
+def test_profile_scatter_kernels_match_plain(card):
+    """profile_scatter and profile_scatter_backward on the fixture's
+    exact model at three temperature profiles: the forward against the
+    plain scatter (max|a-b| / (|a| + 1e-6 max|a|) < 1e-5), its pair
+    counter equal to lbl.scatter_pairs, the backward against the plain
+    VJP (max|a-b| / max|b| < 1e-4)."""
+    from transit_tpu_torch.opacities import lbl
+    from transit_tpu_torch.opacities.kernel_profile import (
+        profile_scatter, profile_scatter_backward)
+    m, _ = _exact_pair(card)
+    s = lbl.scatter_tables(m.plan, m.dev)
+    for dT in (0.0, 150.0, -150.0):
+        t = m._t(m.atm.temp + dT)
+        grp = lbl.layer_groups(m.dev, t * m.atm.tfct, m._t(m.atm.d),
+                               m.partition(t), m._molm_t, m._molrad_t,
+                               float(m.wns.v[0]), m.cfg.ethreshold)
+        args = (grp["g_k"], grp["g_idop"], grp["ilor"], s)
+        stats = torch.zeros(1, dtype=torch.int64, device=card)
+        got = profile_scatter(*args, stats=stats)
+        want = lbl.profile_scatter_plain(*args)
+        torch.cuda.synchronize()
+        assert float(want.max()) > 0
+        assert _rel(want, got) < 1e-5
+        assert int(stats[0]) == lbl.scatter_pairs(*args) > 0
+        ct = torch.as_tensor(np.random.default_rng(3).standard_normal(
+            tuple(got.shape)), dtype=torch.float32, device=card)
+        a = profile_scatter_backward(ct, grp["keep"], *args[1:])
+        b = lbl.profile_scatter_plain_vjp(ct, grp["keep"], *args[1:])
+        assert float((a - b).abs().max() / b.abs().max()) < 1e-4
+        assert bool((a[~grp["keep"]] == 0).all())
+
+
+@pytest.mark.cuda
+def test_exact_spectrum_card_vs_cpu_float64(card):
+    """The exact float32 spectrum on the card (the profile-scatter
+    kernels) against the float64 port on the CPU: max |a/b - 1| < 1e-5
+    (tests/test_torch_exact_model.py's float32 bound); the kernels ran,
+    and the gradient's backward launched."""
+    from transit_tpu_torch.opacities.kernel_profile import (
+        profile_scatter, profile_scatter_backward)
+    m, m64 = _exact_pair(card)
+    n0, b0 = profile_scatter.launches, profile_scatter_backward.launches
+    T = torch.tensor(m.atm.temp, dtype=torch.float32, device=card,
+                     requires_grad=True)
+    spec = m.forward(T, m._t(m.atm.q))
+    g, = torch.autograd.grad(spec.sum(), T)
+    torch.cuda.synchronize()
+    assert profile_scatter.launches == n0 + 1
+    assert profile_scatter_backward.launches == b0 + 1
+    want = m64.forward(m64.atm.temp, m64.atm.q)
+    rel = (spec.detach().double().cpu() / want - 1.0).abs().max()
+    assert float(rel) < 1e-5 and bool(torch.isfinite(g).all())
+
+
+@pytest.mark.cuda
+def test_exact_vmap_forward_on_card(card):
+    """torch.func.vmap(m.forward) of the exact model on the card equals a
+    loop of forward (the kernels' vmap rule folds the batch into layers;
+    float32 sums in another order: 1e-5 of max)."""
+    m, _ = _exact_pair(card)
+    T = m._t(np.stack([m.atm.temp, m.atm.temp + 40.0]))
+    q = m._t(np.stack([m.atm.q, m.atm.q]))
+    got = torch.func.vmap(m.forward)(T, q)
+    for i in range(2):
+        want = m.forward(T[i], q[i])
+        assert float((got[i] - want).abs().max()) <= 1e-5 * float(
+            want.abs().max())
+
+
+@pytest.mark.cuda
+def test_forward_batch_split_on_card(card, monkeypatch):
+    """forward_batch on the card with model.INDEX_LIMIT lowered so that 3
+    profiles run as three sub-batches: spectra and gradient as one pass's
+    (float32: 1e-5 and 1e-4 of max)."""
+    from transit_tpu_torch import model as model_module
+    m = _model(card, bands=6)
+    T = np.stack([m.atm.temp + d for d in (0.0, 30.0, -30.0)])
+    q = np.stack([m.atm.q] * 3)
+
+    def run():
+        Tt, qt = (torch.tensor(a, dtype=torch.float32, device=card,
+                               requires_grad=True) for a in (T, q))
+        spec = m.forward_batch(Tt, qt)
+        return (spec.detach(), *torch.autograd.grad(spec.sum(), (Tt, qt)))
+
+    one = run()
+    monkeypatch.setattr(model_module, "INDEX_LIMIT",
+                        2 * m.atm.nlayers * m.wns.n)
+    assert len(m.batch_splits(3)) == 3
+    for (a, b), tol in zip(zip(run(), one), (1e-5, 1e-4, 1e-4)):
+        assert float((a - b).abs().max()) <= tol * float(b.abs().max())

@@ -14,6 +14,7 @@ import torch
 from tests.test_conformance import make_config
 from tests.test_torch_common import port_config
 from transit_tpu.model import TransitModel as JModel
+from transit_tpu_torch import model as model_module
 from transit_tpu_torch.model import TransitModel
 
 torch.set_num_threads(1)
@@ -32,7 +33,7 @@ def _batch(m):
 
 @pytest.fixture(scope="module", params=[0, 6], ids=["unbanded", "bands6"])
 def model(request):
-    return TransitModel(port_config(make_config("eclipse", 1e30)),
+    return TransitModel(port_config(make_config("eclipse", 1e30)), mode="fast",
                         dtype=torch.float64, device="cpu",
                         bands=request.param)
 
@@ -83,10 +84,12 @@ def test_forward_batch_matches_jax(model, batch_and_loop):
     assert float(np.abs(got - ref).max()) <= 1e-10 * np.abs(ref).max()
 
 
-def test_batched_view_shares_the_plan(model):
+def test_batched_view_shares_the_plan(model, monkeypatch):
     """The batched view (cached per B) reuses the model's tile plans, and
     the batch's layer bound is checked against the kernels' int32
-    indices."""
+    indices: a batch past it is split into sub-batches below it
+    (tests/test_torch_forward_batch_split.py runs them), and a model
+    whose single member passes it raises."""
     if model.bplan is None:
         assert model.forward_batch(*_batch(model)).shape[0] == B
     else:
@@ -98,7 +101,12 @@ def test_batched_view_shares_the_plan(model):
         assert sorted(view.perm.tolist()) == list(range(B * 20))
         assert index is None           # the CPU model has no kernel index
     big = 2 ** 31 // (20 * model.wns.n) + 1
-    T = torch.as_tensor(model.atm.temp).expand(big, -1)
-    q = torch.as_tensor(model.atm.q).expand(big, -1, -1)
+    splits = model.batch_splits(big)
+    assert len(splits) == 2 and splits[0][0] == 0 and splits[-1][1] == big
+    assert all(a < b and (b - a) * 20 * model.wns.n < 2 ** 31
+               for a, b in splits)
+    monkeypatch.setattr(model_module, "INDEX_LIMIT", 20 * model.wns.n)
+    T = torch.as_tensor(model.atm.temp)[None]
+    q = torch.as_tensor(model.atm.q)[None]
     with pytest.raises(ValueError, match="int32"):
         model.forward_batch(T, q)

@@ -85,11 +85,16 @@ def test_simpson_weights_rows_have_their_own_counts():
         np.testing.assert_array_equal(got[row], want)
 
 
-@pytest.mark.parametrize("name", ["eclipse", "transit"])
-def test_weights_match_jax(name):
+def weights_match_jax(name):
+    """check_fn on the path weights of ``name`` (eclipse or transit)."""
     jfn = getattr(jgeom, f"{name}_weights_jnp")
     tfn = getattr(tgeom, f"{name}_weights_torch")
     check_fn(jfn, tfn, (radii(),))
+
+
+# Each case (10-20 s, the jitted JAX gradient) runs in a file of its own
+# so that each file stays under 30 s: tests/test_torch_geometry_eclipse.py
+# and tests/test_torch_geometry_transit.py.
 
 
 def test_weights_batched_equal_per_member():

@@ -84,7 +84,7 @@ def test_voigt_gradients_match_jax(name):
 
 @pytest.fixture(scope="module")
 def port0():
-    return TransitModel(port_config(make_config("eclipse", 1e30)),
+    return TransitModel(port_config(make_config("eclipse", 1e30)), mode="fast",
                         dtype=torch.float64, device="cpu")
 
 
@@ -160,7 +160,7 @@ def test_model_gradient_matches_jax(jax_grads, bands):
     model (the line extinction through LineExtinction and the plain VJPs
     on the CPU) against jax.grad of the JAX model: max|a-b| <= 1e-9
     max|b|."""
-    m = TransitModel(port_config(make_config("eclipse", 1e30)),
+    m = TransitModel(port_config(make_config("eclipse", 1e30)), mode="fast",
                      dtype=torch.float64, device="cpu", bands=bands)
     T = torch.tensor(m.atm.temp, requires_grad=True)
     q = torch.tensor(m.atm.q, requires_grad=True)
@@ -193,7 +193,7 @@ def test_forward_keeps_the_graph_of_other_dtypes():
     """A float64 T and q that require grad, given to a float32 model, stay
     in the graph (forward's as_tensor copies them differentiably): their
     gradients equal those of float32 leaves."""
-    m = TransitModel(port_config(make_config("eclipse", 1e30)),
+    m = TransitModel(port_config(make_config("eclipse", 1e30)), mode="fast",
                      dtype=torch.float32, device="cpu", bands=6)
     grads = []
     for dt in (torch.float64, torch.float32):

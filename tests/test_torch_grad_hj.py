@@ -20,12 +20,9 @@ from transit_tpu_torch.model import TransitModel
 torch.set_num_threads(1)
 
 
-@pytest.mark.parametrize("wndelt,wnlow,wnhigh", [(0.5, 3000.0, 3020.0),
-                                                 (0.05, 2000.0, 2020.0)],
-                         ids=["main", "fine"])
-def test_model_gradient_matches_jax_hot_jupiter_slice(wndelt, wnlow,
-                                                      wnhigh):
-    """max|a-b| <= 1e-9 max|b| for dF/dT and dF/dq, F = sum(forward)."""
+def gradient_matches_jax(wndelt, wnlow, wnhigh):
+    """max|a-b| <= 1e-9 max|b| for dF/dT and dF/dq, F = sum(forward), on
+    the hot-Jupiter slice [wnlow, wnhigh] at ``wndelt``."""
     cfg = hotjupiter_config(wndelt)
     cfg.wnlow, cfg.wnhigh = wnlow, wnhigh
     jm = JModel(cfg, mode="fast", bands=6)
@@ -33,8 +30,8 @@ def test_model_gradient_matches_jax_hot_jupiter_slice(wndelt, wnlow,
                           argnums=(0, 1)))
     ref = [np.asarray(a) for a in fn(jnp.asarray(jm.atm.temp),
                                      jnp.asarray(jm.atm.q))]
-    m = TransitModel(port_config(cfg), dtype=torch.float64, device="cpu",
-                     bands=6)
+    m = TransitModel(port_config(cfg), mode="fast", dtype=torch.float64,
+                     device="cpu", bands=6)
     shells = {(fp.wfn_tag, s) for far in m.bplan.far_plans if far
               for fp, _, s in far}
     assert shells == ({("r2", 1)} if wndelt == 0.5 else
@@ -45,3 +42,12 @@ def test_model_gradient_matches_jax_hot_jupiter_slice(wndelt, wnlow,
     for a, b in zip(got, ref):
         assert a.shape == b.shape and np.abs(b).max() > 0
         assert float(np.abs(a.numpy() - b).max()) <= 1e-9 * np.abs(b).max()
+
+
+# The 0.05 cm-1 case runs in tests/test_torch_grad_hj_fine.py, each file
+# under 30 s.
+@pytest.mark.parametrize("wndelt,wnlow,wnhigh", [(0.5, 3000.0, 3020.0)],
+                         ids=["main"])
+def test_model_gradient_matches_jax_hot_jupiter_slice(wndelt, wnlow,
+                                                      wnhigh):
+    gradient_matches_jax(wndelt, wnlow, wnhigh)

@@ -70,7 +70,8 @@ def precision_study(wndelt: float, wnlow: float, wnhigh: float,
                               argnums=(0, 1)))
         ref[name] = [np.asarray(a, np.float64) for a in fn(
             jnp.asarray(jm.atm.temp, dt), jnp.asarray(jm.atm.q, dt))]
-    m = TransitModel(port_config(cfg), dtype=torch.float32, device="cpu",
+    m = TransitModel(port_config(cfg), mode="fast",
+                     dtype=torch.float32, device="cpu",
                      bands=6)
     T0, q0 = m._t(m.atm.temp), m._t(m.atm.q)
     g = _line_cotangent(m, T0, q0)

@@ -30,7 +30,8 @@ TABLES = ("coef0", "densm", "alphal", "alphad_f")
 
 @pytest.fixture(scope="module")
 def fine():
-    m = TransitModel(port_config(fine_grid_config()), dtype=torch.float64,
+    m = TransitModel(port_config(fine_grid_config()), mode="fast",
+                     dtype=torch.float64,
                      device="cpu", bands=6)
     assert any(fp.lanes == "bins" and s > 1 for far in m.bplan.far_plans
                if far for fp, _, s in far)
@@ -114,7 +115,8 @@ def test_banded_vjp_matches_autograd(fine, config, far_full_res):
     on the CPU) against autograd through plain_banded_extinction, the
     whole banded function, on a seeded random cotangent."""
     m = fine if config == "fine" else TransitModel(
-        port_config(make_config("eclipse", 1e30)), dtype=torch.float64,
+        port_config(make_config("eclipse", 1e30)), mode="fast",
+        dtype=torch.float64,
         device="cpu", bands=6)
     kw = _kw(m)
     leaves = _leaves(m)

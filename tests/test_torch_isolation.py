@@ -32,6 +32,8 @@ _MODS = [
     "transit_tpu_torch.opacities._build, "
     "transit_tpu_torch.opacities.banded, "
     "transit_tpu_torch.opacities.kernel_shell",
+    "transit_tpu_torch.opacities.lbl, transit_tpu_torch.opacities.voigt, "
+    "transit_tpu_torch.opacities.kernel_profile",
     "transit_tpu_torch.rt.geometry, transit_tpu_torch.rt.transmission, "
     "transit_tpu_torch.rt.orbit, transit_tpu_torch.retrieval",
     "chip_smoke",
@@ -97,23 +99,26 @@ def test_model_without_device_or_card_raises(monkeypatch):
     from transit_tpu_torch.model import TransitModel
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        TransitModel(_torch_cfg())
+        TransitModel(_torch_cfg(), mode="fast")
 
 
 @pytest.mark.parametrize("change", [
-    dict(mode="exact"), dict(opacityfile="grid.bin"),
+    dict(wn_window=(0, 50)), dict(opacityfile="grid.bin"),
     dict(saveext="ext.save")])
 def test_unported_options_raise(change):
+    """Options of slices not ported yet raise with the slice's name, in
+    either mode (exact mode is ported: tests/test_torch_exact_*.py)."""
     from transit_tpu_torch.model import TransitModel
     cfg = _torch_cfg()
     kw = {}
     for k, v in change.items():
-        if k == "mode":
+        if k == "wn_window":
             kw[k] = v
         else:
             setattr(cfg, k, v)
-    with pytest.raises(NotImplementedError, match="slice"):
-        TransitModel(cfg, device="cpu", **kw)
+    for mode in ("exact", "fast"):
+        with pytest.raises(NotImplementedError, match="slice"):
+            TransitModel(cfg, mode=mode, device="cpu", **kw)
 
 
 def test_unported_banded_options_raise():
@@ -122,8 +127,10 @@ def test_unported_banded_options_raise():
     from transit_tpu_torch.model import TransitModel
     from transit_tpu_torch.opacities.banded import banded_kernel_extinction
     with pytest.raises(NotImplementedError, match="wn_window.*slice"):
-        TransitModel(_torch_cfg(), device="cpu", bands=6, wn_window=(0, 50))
-    m = TransitModel(_torch_cfg(), dtype=torch.float64, device="cpu",
+        TransitModel(_torch_cfg(), mode="fast",
+                     device="cpu", bands=6, wn_window=(0, 50))
+    m = TransitModel(_torch_cfg(), mode="fast",
+                     dtype=torch.float64, device="cpu",
                      bands=6)
     t = m._t(m.atm.temp)
     with pytest.raises(NotImplementedError, match="kmax_override.*slice"):
@@ -143,7 +150,8 @@ def test_unported_step_options_raise(bands):
     (tests/test_torch_raddelt.py)."""
     from transit_tpu_torch.model import TransitModel
     cfg = _torch_cfg()
-    m = TransitModel(cfg, dtype=torch.float64, device="cpu", bands=bands)
+    m = TransitModel(cfg, mode="fast",
+                     dtype=torch.float64, device="cpu", bands=bands)
     assert (m.bplan is not None) == (bands > 0)
     T = torch.as_tensor(m.atm.temp)
     q = torch.as_tensor(m.atm.q)

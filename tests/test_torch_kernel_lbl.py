@@ -44,7 +44,7 @@ def _bench_config():
 def _pair(jcfg, dtype=torch.float64):
     """JAX fast model (f64) and the port's model on the CPU."""
     jm = JModel(jcfg, mode="fast")
-    tm = TransitModel(TransitConfig(**dataclasses.asdict(jcfg)),
+    tm = TransitModel(TransitConfig(**dataclasses.asdict(jcfg)), mode="fast",
                       dtype=dtype, device="cpu")
     return jm, tm
 
@@ -94,7 +94,7 @@ def test_plan_equals_jax_bench():
 def test_device_arrays_from_numpy(fixture_pair, dtype):
     jm, _ = fixture_pair
     npdt = np.float64 if dtype == torch.float64 else np.float32
-    tm = TransitModel(TransitConfig(**dataclasses.asdict(jm.cfg)),
+    tm = TransitModel(TransitConfig(**dataclasses.asdict(jm.cfg)), mode="fast",
                       dtype=dtype, device="cpu")
     conv = device_arrays_from_numpy(_np_fdev(jm, npdt), dtype=dtype,
                                     device="cpu")
@@ -163,7 +163,8 @@ def test_bin_runs_mark_exactly_the_used_bins(case, dtype, tw):
     replans the tiles at that width (the planner's own is 8 here)."""
     jcfg = make_config("eclipse", 1e30) if case == "fixture" \
         else _bench_config()
-    m = TransitModel(TransitConfig(**dataclasses.asdict(jcfg)), dtype=dtype,
+    m = TransitModel(TransitConfig(**dataclasses.asdict(jcfg)), mode="fast",
+                     dtype=dtype,
                      device="cpu")
     if tw is not None:
         p = m.fplan
@@ -195,7 +196,7 @@ def test_bin_runs_mark_exactly_the_used_bins(case, dtype, tw):
 def test_kernel_wrappers_refuse_cpu_tensors(fixture_pair):
     _, tm = fixture_pair
     args, kw = _state(tm, np.float32)
-    tm32 = TransitModel(tm.cfg, dtype=torch.float32, device="cpu")
+    tm32 = TransitModel(tm.cfg, mode="fast", dtype=torch.float32, device="cpu")
     targs = [torch.as_tensor(a) for a in args]
     tab = layer_tables(tm32.fdev, *targs)
     with pytest.raises(ValueError, match="CUDA"):

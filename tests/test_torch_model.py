@@ -64,7 +64,7 @@ def ref():
 
 def _model(dtype, cfg=None):
     cfg = cfg if cfg is not None else make_config("eclipse", 1e30)
-    return TransitModel(TransitConfig(**dataclasses.asdict(cfg)),
+    return TransitModel(TransitConfig(**dataclasses.asdict(cfg)), mode="fast",
                         dtype=dtype, device="cpu")
 
 

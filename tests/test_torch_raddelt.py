@@ -32,12 +32,13 @@ def _config(solution="eclipse"):
 
 
 def _model(cfg):
-    return TransitModel(port_config(cfg), dtype=torch.float64, device="cpu")
+    return TransitModel(port_config(cfg), mode="fast",
+                        dtype=torch.float64, device="cpu")
 
 
 def _file_profile():
     """T and q on the atmosphere file's layers."""
-    m = TransitModel(port_config(make_config("eclipse", 1e30)),
+    m = TransitModel(port_config(make_config("eclipse", 1e30)), mode="fast",
                      dtype=torch.float64, device="cpu")
     return m.atm.temp.copy(), m.atm.q.copy()
 

@@ -141,7 +141,8 @@ def test_gaussian_logprob_batched_equals_per_chain():
 def test_hmc_model_posterior_recovery():
     cfg = make_config("eclipse", 1e30)
     cfg.wnhigh = WNHIGH_HMC             # keep the CPU test small
-    m = TransitModel(port_config(cfg), dtype=torch.float64, device="cpu")
+    m = TransitModel(port_config(cfg), mode="fast",
+                     dtype=torch.float64, device="cpu")
     nl = m.atm.nlayers
     q = torch.as_tensor(m.atm.q)
     nk, nchain = 4, NCHAIN

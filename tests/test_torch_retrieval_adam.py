@@ -21,7 +21,8 @@ def test_adam_recovers_temperature_profile():
     descent on the emission spectrum (bands=4, as the JAX test)."""
     cfg = make_config("eclipse", 1e30)
     cfg.wnhigh = WNHIGH_ADAM
-    m = TransitModel(port_config(cfg), dtype=torch.float64, device="cpu",
+    m = TransitModel(port_config(cfg), mode="fast",
+                     dtype=torch.float64, device="cpu",
                      bands=4)
     t_true = torch.as_tensor(m.atm.temp)
     q = torch.as_tensor(m.atm.q)

@@ -24,7 +24,7 @@ CONFIGS = {"fixture": lambda: make_config("eclipse", 1e30),
 
 
 def _model(name, dtype=torch.float32):
-    return TransitModel(port_config(CONFIGS[name]()), dtype=dtype,
+    return TransitModel(port_config(CONFIGS[name]()), mode="fast", dtype=dtype,
                         device="cpu", bands=6)
 
 

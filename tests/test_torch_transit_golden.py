@@ -51,7 +51,7 @@ def test_transit_golden(name):
     spec_j = np.asarray(jax.jit(lambda T, q, d: jm._spectrum(
         T, q, d, *geom, full_result=False))(
             *(jnp.asarray(a) for a in (jm.atm.temp, jm.atm.q, jm.atm.d))))
-    r = TransitModel(port_config(cfg), dtype=torch.float64,
+    r = TransitModel(port_config(cfg), mode="fast", dtype=torch.float64,
                      device="cpu").compute()
     dev_j = np.max(np.abs(spec_j / g - 1.0))
     dev_t = np.max(np.abs(r.spectrum.numpy() / g - 1.0))

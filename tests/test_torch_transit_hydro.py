@@ -69,7 +69,8 @@ def test_eclipse_hydrostatic_matches_jax():
     for k, v in HYDRO.items():
         setattr(cfg, k, v)
     jm = JModel(cfg, mode="fast")
-    tm = TransitModel(port_config(cfg), dtype=torch.float64, device="cpu")
+    tm = TransitModel(port_config(cfg), mode="fast",
+                      dtype=torch.float64, device="cpu")
     prof = profiles(jm)
     fwd = jax.jit(jm.forward)
     for T, q in prof:

@@ -69,7 +69,8 @@ def make_pair(hydro: bool, bands: int):
     of both (all jitted)."""
     cfg = transit_config(hydro)
     jm = JModel(cfg, mode="fast", bands=bands)
-    tm = TransitModel(port_config(cfg), dtype=torch.float64, device="cpu",
+    tm = TransitModel(port_config(cfg), mode="fast",
+                      dtype=torch.float64, device="cpu",
                       bands=bands)
     radii, W = jnp.asarray(jm.rads_v), jnp.asarray(jm.W)
     Wmod = jnp.asarray(jm.Wmod)
@@ -131,7 +132,8 @@ def check_float32(hydro: bool, bands: int):
     profiles."""
     cfg = transit_config(hydro)
     jm = JModel(cfg, mode="fast", bands=bands, dtype=jnp.float32)
-    tm = TransitModel(port_config(cfg), dtype=torch.float32, device="cpu",
+    tm = TransitModel(port_config(cfg), mode="fast",
+                      dtype=torch.float32, device="cpu",
                       bands=bands)
     fwd = jax.jit(jm.forward)
     for T, q in profiles(jm):
@@ -176,7 +178,8 @@ def test_modlevel_m1_matches_jax():
     cfg = transit_config(False, toomuch=3e7)
     cfg.modlevel = -1
     jm = JModel(cfg, mode="fast")
-    tm = TransitModel(port_config(cfg), dtype=torch.float64, device="cpu")
+    tm = TransitModel(port_config(cfg), mode="fast",
+                      dtype=torch.float64, device="cpu")
     T, q = profiles(jm)[0]
     want = np.asarray(jax.jit(jm.forward)(jnp.asarray(T), jnp.asarray(q)))
     got = tm.forward(T, q).numpy()

@@ -55,9 +55,11 @@ def weights_precision() -> dict:
     """{variant: {"moved": max|g(noise) - g| / max|g|, "vs_float64":
     max|g - g64| / max|g64|}} for the path weights built in float64 (the
     port) and in float32."""
-    m32 = TransitModel(_config(), dtype=torch.float32, device="cpu",
+    m32 = TransitModel(_config(), mode="fast",
+                       dtype=torch.float32, device="cpu",
                        bands=6)
-    m64 = TransitModel(_config(), dtype=torch.float64, device="cpu",
+    m64 = TransitModel(_config(), mode="fast",
+                       dtype=torch.float64, device="cpu",
                        bands=6)
     T0 = np.asarray(m32.atm.temp, dtype=np.float64)
     q0 = np.asarray(m32.atm.q, dtype=np.float64)

@@ -1,21 +1,24 @@
 """TransitModel: the end-to-end spectrum pipeline on tensors.
 
 The counterpart of transit_tpu.model (model.py:65-272, 360-754) on the
-path this package ports so far: fast mode on the unbanded or the
-layer-banded tile plan (``bands``, with far-wing shells), eclipse and
-transit geometry, the atmosphere file's radius grid or its resampling
-(``raddelt``), static or hydrostatic radii (gsurf/refpress/refradius).
-Init loads and precomputes everything static on the host (grids, line
-plans, path-weight matrices, spline operators); ``forward(temps, q)``,
-the retrieval step, recomputes densities, partition functions and, with
-hydrostatic radii, the radii and path weights, and runs the spectrum:
-line extinction through the CUDA kernels (opacities/kernel_lbl.py on the
-unbanded plan, opacities/banded.py on the banded one), then CIA,
-scattering, clouds, optical depth and the eclipse flux or the transit
-modulation in torch ops.  ``forward`` and ``forward_batch`` (B profiles
-as B*nl layers of one kernel pass) are differentiable in T and q: the
-line extinction's backward runs the backward kernels, the rest is
-autograd.
+path this package ports so far: exact mode (the default, as in JAX: the
+reference's profile-table scheme, opacities/lbl.py) and fast mode on the
+unbanded or the layer-banded tile plan (``bands``, with far-wing shells),
+eclipse and transit geometry, the atmosphere file's radius grid or its
+resampling (``raddelt``), static or hydrostatic radii
+(gsurf/refpress/refradius).  Init loads and precomputes everything
+static (grids, line plans, the profile table, path-weight matrices,
+spline operators); ``forward(temps, q)``, the retrieval step, recomputes
+densities, partition functions and, with hydrostatic radii, the radii and
+path weights, and runs the spectrum: line extinction through the CUDA
+kernels (opacities/kernel_profile.py in exact mode, opacities/kernel_lbl.py
+on the unbanded fast plan, opacities/banded.py on the banded one), then
+CIA, scattering, clouds, optical depth and the eclipse flux or the
+transit modulation in torch ops.  ``forward`` and, in fast mode,
+``forward_batch`` (B profiles as B*nl layers of one kernel pass) are
+differentiable in T and q: the line extinction's backward runs the
+backward kernels, the rest is autograd; ``torch.func`` transforms
+``forward`` (the kernels' Functions fold a vmapped batch into layers).
 
 The model runs on ``cuda`` unless the caller passes ``device="cpu"``;
 with no card and no ``device`` it raises.  On the CPU the kernels' plain
@@ -41,20 +44,26 @@ from transit_tpu_torch.numerics.spline import (splinterp_np,
                                                spline_operator_np,
                                                spline_second_derivs_np,
                                                spline_second_derivs_torch)
-from transit_tpu_torch.opacities import fast
+from transit_tpu_torch.opacities import fast, lbl
 from transit_tpu_torch.opacities.banded import (banded_index,
-                                                banded_kernel_extinction)
+                                                banded_kernel_extinction,
+                                                batched_view)
 from transit_tpu_torch.opacities.cia import cs_extinction, precompute_cs
 from transit_tpu_torch.opacities.clouds import CloudParams, cloud_extinction
 from transit_tpu_torch.opacities.kernel_lbl import kernel_extinction
 from transit_tpu_torch.opacities.lbl import IsoConst
 from transit_tpu_torch.opacities.scattering import scattering_extinction
+from transit_tpu_torch.opacities.voigt import build_profile_table
 from transit_tpu_torch.rt import geometry as rt_geom
 from transit_tpu_torch.rt import tau as rt_tau
 from transit_tpu_torch.rt.emission import eclipse_intensities, flux
 from transit_tpu_torch.rt.transmission import (
     modulation, modulation_m1, modulation_weight_table,
     modulation_weight_table_torch)
+
+# forward_batch splits a batch into sub-batches of fewer than INDEX_LIMIT
+# (layer, wavenumber) outputs: the kernels index them with int32.
+INDEX_LIMIT = 2 ** 31
 
 
 def _later(what: str, slice_: str):
@@ -90,25 +99,30 @@ class SpectrumResult:
 
 
 class TransitModel:
-    def __init__(self, cfg: TransitConfig, dtype=None, mode: str = "fast",
+    def __init__(self, cfg: TransitConfig, dtype=None, mode: str = "exact",
                  use_kernel: bool = True, device=None, tli=None,
                  bands: int = 0, split_far: bool = True,
-                 far_decimate: bool = True, wn_window=None):
-        """``use_kernel`` selects the CUDA kernels (True) or their plain
+                 far_decimate: bool = True, wn_window=None, table=None):
+        """``mode``: "exact", the reference's profile-table scheme with
+        the C code's profile table, co-add order and index arithmetic
+        (the default, as in transit_tpu), or "fast", on-the-fly Voigt on
+        line tiles.
+        ``use_kernel`` selects the CUDA kernels (True) or their plain
         PyTorch versions (False) for the line extinction; on the CPU
         both compute the plain versions.  ``tli``: a preloaded TliData
         overriding cfg.linedb's full read.  ``dtype`` defaults to
-        float32; the kernels take float32 only.  ``bands`` > 0: the
-        layer-banded plan with at most that many bands, far-wing shells
-        (``split_far``) and their decimation (``far_decimate``), as
-        transit_tpu's TransitModel(mode="fast", bands=...).  A
-        ``wn_window`` (one process's band of a multi-process run) is not
-        ported yet and raises."""
+        float32; the kernels take float32 only.  ``bands`` > 0 (fast
+        mode; exact mode ignores it, as JAX does): the layer-banded plan
+        with at most that many bands, far-wing shells (``split_far``) and
+        their decimation (``far_decimate``), as transit_tpu's
+        TransitModel(mode="fast", bands=...).  ``table``: exact mode's
+        voigt.ProfileTable, when already built for this configuration
+        (the same grids, nwidth and table axes); else it is built on the
+        model's device.  A ``wn_window`` (one process's band of a
+        multi-process run) is not ported yet and raises."""
         from transit_tpu_torch.config import validate
         self.cfg = cfg = validate(cfg)
-        if mode == "exact":
-            raise _later("mode='exact'", "exact-mode")
-        if mode != "fast":
+        if mode not in ("exact", "fast"):
             raise ValueError(f"unknown mode {mode!r}")
         if wn_window is not None:
             raise _later("wn_window", "multi-process bands")
@@ -179,7 +193,10 @@ class TransitModel:
             read_tli(cfg.linedb) if cfg.linedb else None)
         self._setup_isotopes()
 
-        # --- line tile plans ---
+        # --- line plans / profile table ---
+        self.table = None
+        self.plan = None
+        self.dev = None
         self.fplan = None
         self.fdev = None
         self.bplan = None
@@ -189,7 +206,22 @@ class TransitModel:
             wl, isoid, elow, gf = select_lines(self.tli, self.wns.i,
                                                self.wns.f)
             wavn = 1.0 / (np.asarray(wl) * TLI_WAV_UNITS)
-            if bands > 0:
+            if mode == "exact":
+                self.table = table if table is not None else \
+                    build_profile_table(
+                        dwn=self.wns.d / self.owns.o, nwave=self.owns.n,
+                        nwidth=cfg.nwidth, ndop=cfg.ndop, nlor=cfg.nlor,
+                        dmin=cfg.dmin, dmax=cfg.dmax, lmin=cfg.lmin,
+                        lmax=cfg.lmax, device=self.device)
+                self.plan = lbl.plan_lines(
+                    wl, isoid, elow, gf, TLI_WAV_UNITS, wn_i=self.wns.i,
+                    odwn=self.owns.d / self.owns.o,
+                    dwn=self.wns.d / self.wns.o, owns_v=self.owns.v,
+                    n_coarse=self.wns.n, ofactor=self.owns.o)
+                self.dev = lbl.device_arrays(self.plan, self.iso, self.table,
+                                             dtype=self.dtype,
+                                             device=self.device)
+            elif bands > 0:
                 aL, aDf = fast.layer_width_bounds(
                     self.atm, self.mol, self.iso.mass, self.iso.imol)
                 self.bplan = fast.make_banded_plans(
@@ -365,24 +397,37 @@ class TransitModel:
 
     # ------------------------------------------------------------------
     def device_tree(self):
-        """The (potentially large) tensors the spectrum step reads: the
-        line tile tensors and isotope tables, per band on the banded
-        plan."""
+        """The (potentially large) tensors the spectrum step reads: exact
+        mode's line, group and profile-table tensors
+        (lbl.device_arrays), or the line tile tensors and isotope tables,
+        per band on the banded plan."""
+        if self.mode == "exact":
+            return self.dev
         return self.bdev if self.bplan is not None else self.fdev
 
     def line_extinction(self, temps_cgs, densities, Z, dev=None,
                         batch: int = 1):
         """Per-layer line extinction (nlayer, nwn), differentiable in the
-        temperatures, densities and Z (kernel_lbl.LineExtinction: the
-        backward kernels on the card, the plain VJPs on the CPU or with
-        ``use_kernel=False``).  ``dev`` overrides the model's stored tile
-        tensors (device_tree).  ``batch``: the layers are ``batch``
-        profiles' layers one after another (forward_batch), and the
-        banded plan is its batched view (:meth:`_batched_bplan`)."""
+        temperatures, densities and Z: in exact mode lbl.layer_extinction
+        (kernel_profile.ProfileScatter), in fast mode
+        kernel_lbl.LineExtinction; the backward kernels on the card, the
+        plain VJPs on the CPU or with ``use_kernel=False``.  ``dev``
+        overrides the model's stored tensors (device_tree).  ``batch``:
+        the layers are ``batch`` profiles' layers one after another
+        (forward_batch), and the banded plan is its batched view
+        (:meth:`_batched_bplan`)."""
         nl = temps_cgs.shape[0]
+        args = (temps_cgs, densities, Z, self._molm_t, self._molrad_t)
+        if self.mode == "exact":
+            if self.plan is None or self.plan.n_lines == 0:
+                return torch.zeros((nl, self.wns.n), dtype=self.dtype,
+                                   device=self.device)
+            return lbl.layer_extinction(
+                self.plan, dev if dev is not None else self.dev, *args,
+                wn0=float(self.wns.v[0]), ethresh=self.cfg.ethreshold,
+                use_kernel=self.use_kernel)
         kw = dict(wn_i=self.wns.i, dwn=self.wns.d,
                   ethresh=self.cfg.ethreshold, nwidth=self.cfg.nwidth)
-        args = (temps_cgs, densities, Z, self._molm_t, self._molrad_t)
         if self.bplan is not None:
             bdev = dev if dev is not None else self.bdev
             bplan, index = (self.bplan, self.bindex) if batch == 1 else \
@@ -596,31 +641,10 @@ class TransitModel:
 
     def _batched_bplan(self, B: int):
         """The batched view of the banded plan for forward_batch, and its
-        kernel index (transit_tpu model.py:534-555): band i of the view
-        covers every batch member's copy of band i's layers (pseudo-layer
-        b*nl + layer); the tile plans, device tensors and the index's
-        tiles and ShellBands are the model's, only the rows change.
-        Cached per B."""
+        kernel index (banded.batched_view), cached per B."""
         cache = self.__dict__.setdefault("_bplan_batch_cache", {})
         if B not in cache:
-            bp, nl = self.bplan, self.atm.nlayers
-            parts, slices, off = [], [], 0
-            for a, b in bp.slices:
-                band = np.concatenate([bp.perm[a:b] + k * nl
-                                       for k in range(B)])
-                parts.append(band)
-                slices.append((off, off + band.shape[0]))
-                off += band.shape[0]
-            perm = np.concatenate(parts)
-            inv = np.empty_like(perm)
-            inv[perm] = np.arange(perm.shape[0])
-            view = dataclasses.replace(bp, perm=perm, inv_perm=inv,
-                                       slices=slices)
-            index = None if self.bindex is None else {
-                **self.bindex, "rows": [
-                    torch.as_tensor(r, dtype=torch.int32,
-                                    device=self.device) for r in parts]}
-            cache[B] = (view, index)
+            cache[B] = batched_view(self.bplan, self.bindex, B)
         return cache[B]
 
     def forward_batch(self, temps_raw, q, dev=None):
@@ -635,16 +659,38 @@ class TransitModel:
         eclipse or transit) is torch.func.vmap over ``_assemble``, as JAX
         vmaps it.  With hydrostatic radii every member's radii, W and
         Wmod are built in one batched :meth:`geometry` call outside the
-        vmap and enter it as inputs.  The raddelt resampling is not
-        supported (loop over ``forward`` there)."""
-        if self._atm0 is not None:
-            raise ValueError("forward_batch requires raddelt -1; call "
-                             "forward per profile")
+        vmap and enter it as inputs.  A batch of B*nl*nwn >= INDEX_LIMIT
+        outputs (the kernels' int32 indices) runs as consecutive
+        sub-batches below it (:meth:`batch_splits`).  Requires
+        mode="fast" and raddelt -1 (torch.func.vmap(model.forward) covers
+        the others)."""
+        if self.mode != "fast" or self._atm0 is not None:
+            raise ValueError("forward_batch requires mode='fast' and "
+                             "raddelt -1; use torch.func.vmap(model.forward)")
+        splits = self.batch_splits(temps_raw.shape[0])
+        if len(splits) == 1:
+            return self._forward_batch(temps_raw, q, dev)
+        return torch.cat([self._forward_batch(temps_raw[a:b], q[a:b], dev)
+                          for a, b in splits])
+
+    def batch_splits(self, B: int) -> list:
+        """[(start, stop)] of forward_batch's sub-batches: as few as keep
+        each one's (layer, wavenumber) outputs below INDEX_LIMIT, of
+        nearly equal size; raises when one member alone reaches it."""
+        per = self.atm.nlayers * self.wns.n
+        most = (INDEX_LIMIT - 1) // per
+        if most < 1:
+            raise ValueError(f"forward_batch: {self.atm.nlayers} layers x "
+                             f"{self.wns.n} wavenumbers pass the kernels' "
+                             f"int32 indices")
+        n = max(1, -(-B // most))
+        edges = [B * i // n for i in range(n + 1)]
+        return list(zip(edges[:-1], edges[1:]))
+
+    def _forward_batch(self, temps_raw, q, dev=None):
+        """One pass of :meth:`forward_batch` over a batch below the
+        kernels' index limit."""
         B, nl = temps_raw.shape
-        if B * nl * self.wns.n >= 2 ** 31:
-            raise ValueError(f"forward_batch: {B} x {nl} layers x "
-                             f"{self.wns.n} wavenumbers passes the "
-                             f"kernels' int32 indices")
         temps_raw, q, densities = self._profiles(temps_raw, q)
         nm = densities.shape[1]
         ex = self.line_extinction(

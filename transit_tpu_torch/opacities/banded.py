@@ -28,14 +28,17 @@ plain VJPs backward.
 
 from __future__ import annotations
 
+import dataclasses
+
+import numpy as np
 import torch
 
 from transit_tpu_torch.constants import SIGCTE
 from transit_tpu_torch.opacities.fast import BandedPlan, FastPlan
 from transit_tpu_torch.opacities.kernel_lbl import (LineBand,
-                                                    LineExtinction,
                                                     acc_grads, cast_grads,
                                                     layer_kmax,
+                                                    line_extinction,
                                                     line_tile_backward,
                                                     line_tile_extinction,
                                                     plain_classes,
@@ -266,6 +269,13 @@ class BandedOp:
         self.far_full_res, self.kernel = far_full_res, kernel
         self.stats = stats or {}
 
+    def batched(self, B: int):
+        """The op over B profiles' layers one after another: on the
+        plan's batched view and its index (:func:`batched_view`)."""
+        view, index = batched_view(self.bplan, self.index, B)
+        return BandedOp(view, self.devs, index, self.kw, self.far_full_res,
+                        self.kernel, self.stats)
+
     def kmax(self, temps, coef0):
         return band_kmax(self.devs[0], temps, coef0, self.kernel)
 
@@ -294,6 +304,31 @@ class BandedOp:
                                     clips)
 
 
+def batched_view(bplan: BandedPlan, index, B: int):
+    """The batched view of the banded plan and of its kernel index
+    ``index`` (None on the CPU), for B profiles' layers one after another
+    (transit_tpu model.py:534-555): band i of the view covers every
+    member's copy of band i's layers (pseudo-layer b*nl + layer); the tile
+    plans, device tensors and the index's tiles and ShellBands are
+    shared, only the rows change."""
+    nl = bplan.perm.shape[0]
+    parts, slices, off = [], [], 0
+    for a, b in bplan.slices:
+        band = np.concatenate([bplan.perm[a:b] + k * nl for k in range(B)])
+        parts.append(band)
+        slices.append((off, off + band.shape[0]))
+        off += band.shape[0]
+    perm = np.concatenate(parts)
+    inv = np.empty_like(perm)
+    inv[perm] = np.arange(perm.shape[0])
+    view = dataclasses.replace(bplan, perm=perm, inv_perm=inv, slices=slices)
+    if index is None:
+        return view, None
+    device = index["rows"][0].device
+    return view, {**index, "rows": [
+        torch.as_tensor(r, dtype=torch.int32, device=device) for r in parts]}
+
+
 def banded_kernel_extinction(bplan: BandedPlan, devs, temps, densities, Z,
                              mol_mass, mol_radius, wn_i: float, dwn: float,
                              ethresh: float, nwidth: float,
@@ -317,8 +352,8 @@ def banded_kernel_extinction(bplan: BandedPlan, devs, temps, densities, Z,
     op = BandedOp(bplan, devs, index, dict(wn_i=wn_i, dwn=dwn,
                                            ethresh=ethresh, nwidth=nwidth),
                   far_full_res, kernel, stats)
-    return LineExtinction.apply(op, temps, tab["coef0"], tab["densm"],
-                                tab["alphal"], tab["alphad_f"])
+    return line_extinction(op, temps, tab["coef0"], tab["densm"],
+                           tab["alphal"], tab["alphad_f"])
 
 
 def _launch_all(bplan, devs, tab, temps, kw, far_full_res, index, stats,

@@ -457,6 +457,14 @@ def work_counts(plan: FastPlan, d, tab, temps, wn_i: float, dwn: float,
     return out
 
 
+def fold_batch(x, dim, B: int):
+    """A vmapped argument with its batch at ``dim`` (None: not batched,
+    shared by every member) as B times its rows: (B * n, ...), member
+    after member (the layout of forward_batch's pseudo-layers)."""
+    x = x.movedim(dim, 0) if dim is not None else x.expand(B, *x.shape)
+    return x.reshape(B * x.shape[1], *x.shape[2:])
+
+
 class LineExtinction(torch.autograd.Function):
     """The line extinction as a differentiable function of the layer
     temperatures and the four (nl, niso) tables ``coef0``, ``densm``,
@@ -464,35 +472,96 @@ class LineExtinction(torch.autograd.Function):
     ``fast._block_val``, fast.py:577-680, around a whole plan).  ``op``
     (:class:`TilesOp`, or banded.BandedOp) gives the per-layer kmax
     (no gradient: it only sets which lines are kept, fast.py:677), the
-    forward and the backward; the tables' own dependence on T and the
-    densities stays torch ops, so autograd chains it, as JAX does around
-    ``_block_val``.  The forward saves its inputs, kmax (nl,) and what
-    ``op.forward`` returns for its backward (the decimated shells' clip
-    masks); no element-sized residuals: the backward recomputes x, y and
-    w.  Autograd through the plain forward (plain_extinction,
+    forward and the backward; ``grad`` says whether a backward will
+    follow (the forward then keeps what ``op.backward`` needs: the
+    decimated shells' clip masks).  The tables' own dependence on T and
+    the densities stays torch ops, so autograd chains it, as JAX does
+    around ``_block_val``.  The forward returns (extinction, kmax, the
+    op's state), the last two without gradient; it saves its inputs and
+    kmax (nl,), no element-sized residuals: the backward recomputes x, y
+    and w.  Autograd through the plain forward (plain_extinction,
     banded.plain_banded_extinction) would store the whole evaluation
-    volume and is kept only as the tests' oracle."""
+    volume and is kept only as the tests' oracle.
+
+    torch.func transforms it: the function is independent per layer, so
+    its vmap rule folds the batch into pseudo-layers, through
+    ``op.batched(B)`` (the unbanded plan as it is; the banded plan's
+    batched view, as forward_batch takes it), and the backward runs
+    through :class:`LineExtinctionVjp`, whose vmap rule does the same."""
 
     @staticmethod
-    def forward(ctx, op, temps, coef0, densm, alphal, alphad_f):
+    def forward(op, grad: bool, temps, coef0, densm, alphal, alphad_f):
         tab = {"alphal": alphal, "alphad_f": alphad_f, "densm": densm,
                "coef0": coef0}
         tab["kmax"] = op.kmax(temps, coef0)
-        out, ctx.state = op.forward(tab, temps,
-                                    grad=any(ctx.needs_input_grad))
-        ctx.op = op
-        ctx.save_for_backward(temps, coef0, densm, alphal, alphad_f,
-                              tab["kmax"])
-        return out
+        out, state = op.forward(tab, temps, grad=grad)
+        return out, tab["kmax"], state
 
     @staticmethod
-    def backward(ctx, g):
-        temps, coef0, densm, alphal, alphad_f, kmax = ctx.saved_tensors
+    def setup_context(ctx, inputs, output):
+        op, _, temps, coef0, densm, alphal, alphad_f = inputs
+        _, kmax, state = output
+        ctx.mark_non_differentiable(kmax)
+        ctx.set_materialize_grads(False)   # no zero cotangent for kmax
+        ctx.op, ctx.state = op, state
+        ctx.save_for_backward(temps, coef0, densm, alphal, alphad_f, kmax)
+
+    @staticmethod
+    def backward(ctx, g, _kmax, _state):
+        return (None, None, *LineExtinctionVjp.apply(
+            ctx.op, ctx.state, *ctx.saved_tensors, g))
+
+    @staticmethod
+    def vmap(info, in_dims, op, grad, *args):
+        B = info.batch_size
+        out, kmax, state = LineExtinction.apply(
+            op.batched(B), grad,
+            *(fold_batch(x, d, B) for x, d in zip(args, in_dims[2:])))
+        return ((out.reshape(B, -1, out.shape[1]), kmax.reshape(B, -1),
+                 state), (0, 0, None))
+
+
+class LineExtinctionVjp(torch.autograd.Function):
+    """The backward of :class:`LineExtinction`: (temps, the four tables,
+    kmax, the cotangent g of the extinction) -> the cotangents of temps
+    and of the tables (``op.backward``, the backward kernels or the
+    plain VJPs).  Its vmap rule folds the batch into pseudo-layers; it
+    has no derivative of its own."""
+
+    @staticmethod
+    def forward(op, state, temps, coef0, densm, alphal, alphad_f, kmax, g):
         tab = {"alphal": alphal, "alphad_f": alphad_f, "densm": densm,
                "coef0": coef0, "kmax": kmax}
-        gr = ctx.op.backward(tab, temps, g.contiguous(), ctx.state)
-        return (None, gr["temps"], gr["coef0"], gr["densm"], gr["alphal"],
+        gr = op.backward(tab, temps, g.contiguous(), state)
+        return (gr["temps"], gr["coef0"], gr["densm"], gr["alphal"],
                 gr["alphad_f"])
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *_):
+        raise NotImplementedError("the line extinction has no second "
+                                  "derivative")
+
+    @staticmethod
+    def vmap(info, in_dims, op, state, *args):
+        B = info.batch_size
+        out = LineExtinctionVjp.apply(
+            op.batched(B), state,
+            *(fold_batch(x, d, B) for x, d in zip(args, in_dims[2:])))
+        return (tuple(o.reshape(B, -1, *o.shape[1:]) for o in out),
+                (0,) * len(out))
+
+
+def line_extinction(op, temps, coef0, densm, alphal, alphad_f):
+    """:class:`LineExtinction` of ``op`` on these tensors: the extinction
+    (nl, n_coarse); the forward keeps the backward's state when a
+    gradient can follow (grad mode on and an input that requires it)."""
+    args = (temps, coef0, densm, alphal, alphad_f)
+    grad = torch.is_grad_enabled() and any(t.requires_grad for t in args)
+    return LineExtinction.apply(op, grad, *args)[0]
 
 
 class TilesOp:
@@ -504,6 +573,11 @@ class TilesOp:
 
     def __init__(self, plan: FastPlan, d, kw: dict, kernel: bool):
         self.plan, self.d, self.kw, self.kernel = plan, d, kw, kernel
+
+    def batched(self, B: int):
+        """The op over B profiles' layers one after another: the same
+        (the unbanded plan has no per-layer parts)."""
+        return self
 
     def kmax(self, temps, coef0):
         return (layer_kmax if self.kernel else plain_kmax)(self.d, temps,
@@ -553,13 +627,13 @@ def kernel_extinction(plan: FastPlan, d, temps, densities, Z, mol_mass,
     tab = width_tables(d, temps, densities, mol_mass, mol_radius)
     op = TilesOp(plan, d, dict(wn_i=wn_i, dwn=dwn, ethresh=ethresh,
                                nwidth=nwidth), kernel)
-    return LineExtinction.apply(op, temps, coef0, tab["densm"],
-                                tab["alphal"], tab["alphad_f"])
+    return line_extinction(op, temps, coef0, tab["densm"], tab["alphal"],
+                           tab["alphad_f"])
 
 
-def _check_cuda(fn: str, args: dict, ints=("iso",)):
+def _check_cuda(fn: str, args: dict, ints=("iso",), u8=("clip",)):
     """Raise unless every tensor of ``args`` is on one CUDA device and
-    float32 (int32 for ``ints``, bool for ``mask``, uint8 for ``clip``);
+    float32 (int32 for ``ints``, uint8 for ``u8``, bool for ``mask``);
     returns the device.  A kernel reads its inputs' values: the gradient
     comes from the backward kernels (:class:`LineExtinction`)."""
     device = next(iter(args.values())).device
@@ -567,7 +641,7 @@ def _check_cuda(fn: str, args: dict, ints=("iso",)):
         raise ValueError(f"{fn} runs on CUDA tensors, not {device}")
     for name, t in args.items():
         want = (torch.int32 if name in ints else
-                torch.uint8 if name == "clip" else
+                torch.uint8 if name in u8 else
                 torch.bool if name == "mask" else torch.float32)
         if t.dtype != want:
             raise TypeError(f"{fn}: {name} is {t.dtype}, the kernel takes "
