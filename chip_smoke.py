@@ -1498,19 +1498,27 @@ def table_ulps(a, b) -> tuple:
     return int(d.max()), int((d != 0).sum())
 
 
-def exact_bounds(m: TransitModel, grp, pairs: int) -> dict:
+def exact_bounds(grp, s, pairs: int) -> dict:
     """(bound_ms, bound_by) of the two profile-scatter functions on this
-    data: per (layer, group, j) pair 2 FP32 operations (a multiply, an
-    add) and 8 bytes (the table value and the output or cotangent
-    element); besides, the forward reads g_k and g_idop and writes the
-    output, the backward reads keep and g_idop and the cotangent and
-    writes the (nl, ng) cotangent of g_k."""
-    ng = grp["g_k"].numel()
-    per_group = nbytes_of(grp["g_idop"], grp["ilor"])
-    out = 4 * m.atm.nlayers * m.wns.n
-    fwd = roofline(2 * pairs, 8 * pairs + per_group + 4 * ng + out)
-    bwd = roofline(2 * pairs, 8 * pairs + per_group + ng + 4 * ng + out)
-    return {"profile_scatter": fwd[:2], "profile_scatter_backward": bwd[:2]}
+    data, each input read once and each output written once: per (layer,
+    group, j) pair 2 FP32 operations (a multiply, an add) and one 4-byte
+    table read (the output or cotangent element stays in L2, so its
+    array is charged once); besides, the forward reads g_k, the Doppler
+    index of the groups with g_k != 0 and writes the (nl, n_coarse)
+    output, the backward reads keep, the Doppler index of the kept groups
+    and the cotangent and writes the (nl, ng) cotangent of g_k; both
+    read ilor and the plan's and table's index rows."""
+    g_k, keep = grp["g_k"], grp["keep"]
+    rows = nbytes_of(grp["ilor"], s.g_iso, s.g_iown, s.g_idwn, s.profsize,
+                     s.profbase)
+    idop = grp["g_idop"].element_size()
+    line = 4 * g_k.shape[0] * s.n_coarse
+    fwd = (4 * pairs + nbytes_of(g_k) + idop * int((g_k != 0).sum()) +
+           rows + line)
+    bwd = (4 * pairs + nbytes_of(keep) + idop * int(keep.sum()) + rows +
+           line + nbytes_of(g_k))
+    return {"profile_scatter": roofline(2 * pairs, fwd)[:2],
+            "profile_scatter_backward": roofline(2 * pairs, bwd)[:2]}
 
 
 def exact_fd_step(m64: TransitModel, T0, layer: int):
@@ -1666,7 +1674,7 @@ def exact_phases(dev) -> dict:
     ms_fwd_e = cuda_ms(lambda: hje.forward(T0, q0))
     sargs = (grp_e["g_k"], grp_e["g_idop"], grp_e["ilor"], st_e)
     keep_e = grp_e["keep"]
-    bounds_e = exact_bounds(hje, grp_e, pairs_e)
+    bounds_e = exact_bounds(grp_e, st_e, pairs_e)
     times_e = {
         "profile_scatter": {
             "ms": cuda_ms(lambda: profile_scatter(*sargs)),

@@ -4,7 +4,8 @@ equals ``compute`` at the file's atmosphere (rtol 1e-12, as
 tests/test_fast_and_forward.py:149-155 holds JAX), ``run_transit``
 equals ``forward``, ``forward_batch`` raises with JAX's message,
 ``torch.func.vmap(m.forward)`` equals a loop of ``forward`` (values and
-gradients), float32 against float64, and the default mode is JAX's.
+gradients), float32 against float64, the default mode is JAX's, and
+a profile table of another configuration is refused.
 The gradient against jax.grad: tests/test_torch_exact_grad*.py."""
 
 import dataclasses
@@ -101,3 +102,12 @@ def test_float32_against_float64(m64):
     b = m64.compute().spectrum.numpy()
     assert a.dtype == b.dtype and a.shape == b.shape
     assert float(np.max(np.abs(a / b - 1.0))) < F32_TOL
+
+
+@pytest.mark.parametrize("field, value", [("nwidth", 10.0), ("ndop", 14),
+                                          ("dmin", 2e-3), ("wnosamp", 1)])
+def test_table_of_another_configuration_raises(m64, field, value):
+    cfg = port(make_config("eclipse", 1e30))
+    setattr(cfg, field, value)
+    with pytest.raises(ValueError, match="profile table"):
+        TransitModel(cfg, dtype=torch.float64, device="cpu", table=m64.table)

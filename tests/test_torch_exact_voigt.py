@@ -7,6 +7,7 @@ rtol 2e-5); the sizing functions equal; the profile table of the
 conformance configuration (ndop = nlor = 15) with equal axes, sizes and
 bases, and its flat profiles within 1 float32 ulp of JAX's."""
 
+import functools
 import os
 
 import jax.numpy as jnp
@@ -97,6 +98,12 @@ def table_kw():
 TABLE_PARTS = 3
 
 
+@functools.lru_cache(maxsize=1)
+def port_table():
+    """The port's conformance table, built once a process."""
+    return tv.build_profile_table(**table_kw())
+
+
 def check_table_part(part: int):
     """The port's conformance table's profiles of one part (a greedy
     split of the distinct profiles by JAX's padded sample count) against
@@ -104,7 +111,7 @@ def check_table_part(part: int):
     build_profile_table calls it: within 1 float32 ulp (a float64 libm
     ulp that survives the cast), the count that differ printed."""
     kw = table_kw()
-    got = tv.build_profile_table(**kw)
+    got = port_table()
     cells = {}
     for i in range(got.ndop):
         for j in range(got.nlor):
@@ -143,7 +150,7 @@ def test_profile_table_matches_jax(monkeypatch):
                         lambda nwn, *a: np.zeros(nwn, np.float32))
     ref = jv.build_profile_table(**kw)
     monkeypatch.undo()
-    got = tv.build_profile_table(**kw)
+    got = port_table()
     for k in ("aDop", "aLor", "profsize", "base"):
         np.testing.assert_array_equal(getattr(got, k), getattr(ref, k))
     assert got.flat.dtype == np.float32 and got.flat.shape == ref.flat.shape

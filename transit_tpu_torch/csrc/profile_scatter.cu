@@ -21,8 +21,9 @@
 // result does not depend on the run.
 //
 // What bounds them: bytes.  A (layer, group, j) pair is one table read, a
-// multiply and an add: 2 operations against >= 8 bytes (the table value
-// and the output or cotangent element).  The design is the simple one:
+// multiply and an add: 2 operations against 4 bytes of table (the
+// output or cotangent row it adds to or reads stays in L2, so it is
+// charged once per array, not per pair).  The design is the simple one:
 // one warp per (layer, group), its lanes striding the window (most
 // windows are a few bins wide, so most lanes idle), the table read at a
 // stride of ofactor floats (one sector a pair), and float atomics into

@@ -53,7 +53,8 @@ from transit_tpu_torch.opacities.clouds import CloudParams, cloud_extinction
 from transit_tpu_torch.opacities.kernel_lbl import kernel_extinction
 from transit_tpu_torch.opacities.lbl import IsoConst
 from transit_tpu_torch.opacities.scattering import scattering_extinction
-from transit_tpu_torch.opacities.voigt import build_profile_table
+from transit_tpu_torch.opacities.voigt import (build_profile_table,
+                                               check_profile_table)
 from transit_tpu_torch.rt import geometry as rt_geom
 from transit_tpu_torch.rt import tau as rt_tau
 from transit_tpu_torch.rt.emission import eclipse_intensities, flux
@@ -117,9 +118,10 @@ class TransitModel:
         their decimation (``far_decimate``), as transit_tpu's
         TransitModel(mode="fast", bands=...).  ``table``: exact mode's
         voigt.ProfileTable, when already built for this configuration
-        (the same grids, nwidth and table axes); else it is built on the
-        model's device.  A ``wn_window`` (one process's band of a
-        multi-process run) is not ported yet and raises."""
+        (its layout is checked against the configuration's grids, nwidth
+        and table axes, and a mismatch raises ValueError); else it is
+        built on the model's device.  A ``wn_window`` (one process's band
+        of a multi-process run) is not ported yet and raises."""
         from transit_tpu_torch.config import validate
         self.cfg = cfg = validate(cfg)
         if mode not in ("exact", "fast"):
@@ -207,12 +209,15 @@ class TransitModel:
                                                self.wns.f)
             wavn = 1.0 / (np.asarray(wl) * TLI_WAV_UNITS)
             if mode == "exact":
-                self.table = table if table is not None else \
-                    build_profile_table(
-                        dwn=self.wns.d / self.owns.o, nwave=self.owns.n,
-                        nwidth=cfg.nwidth, ndop=cfg.ndop, nlor=cfg.nlor,
-                        dmin=cfg.dmin, dmax=cfg.dmax, lmin=cfg.lmin,
-                        lmax=cfg.lmax, device=self.device)
+                spec = dict(dwn=self.wns.d / self.owns.o,
+                            nwave=self.owns.n, nwidth=cfg.nwidth,
+                            ndop=cfg.ndop, nlor=cfg.nlor, dmin=cfg.dmin,
+                            dmax=cfg.dmax, lmin=cfg.lmin, lmax=cfg.lmax)
+                if table is None:
+                    table = build_profile_table(**spec, device=self.device)
+                else:
+                    check_profile_table(table, **spec)
+                self.table = table
                 self.plan = lbl.plan_lines(
                     wl, isoid, elow, gf, TLI_WAV_UNITS, wn_i=self.wns.i,
                     odwn=self.owns.d / self.owns.o,

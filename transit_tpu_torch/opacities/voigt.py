@@ -493,17 +493,13 @@ def getprofile_size(dwn: float, dop: float, lor: float, nwidth: float,
     return nvgt
 
 
-def build_profile_table(dwn: float, nwave: int, nwidth: float,
-                        ndop: int = 60, nlor: int = 60,
-                        dmin: float = 1e-3, dmax: float = 0.25,
-                        lmin: float = 1e-4, lmax: float = 10.0,
-                        device="cpu") -> ProfileTable:
-    """The (nDop x nLor) bin-averaged profile table (calcprofiles;
-    voigt.py:522) on the fine (oversampled) spacing ``dwn`` over
-    ``nwave`` fine wavenumbers, wings of ``nwidth`` half-widths.  The
-    cells' sizes and reuse are decided on the host; the distinct
-    profiles are evaluated together on ``device``
-    (:func:`bin_averaged_profiles`)."""
+def _table_layout(dwn: float, nwave: int, nwidth: float, ndop: int,
+                  nlor: int, dmin: float, dmax: float, lmin: float,
+                  lmax: float):
+    """(aDop, aLor, profsize, base, specs) of the table: the width axes,
+    each cell's half size and offset into the flat buffer (a reused
+    profile shares its cell's), and the distinct profiles'
+    bin_averaged_profiles specs in buffer order."""
     aDop = logspace_ref(dmin, dmax, ndop)
     aLor = logspace_ref(lmin, lmax, nlor)
     profsize = np.zeros((ndop, nlor), dtype=np.int64)
@@ -522,8 +518,45 @@ def build_profile_table(dwn: float, nwave: int, nwidth: float,
             profsize[i, j] = nvgt // 2
             base[i, j] = offset
             offset += nvgt
+    return aDop, aLor, profsize, base, specs
+
+
+def build_profile_table(dwn: float, nwave: int, nwidth: float,
+                        ndop: int = 60, nlor: int = 60,
+                        dmin: float = 1e-3, dmax: float = 0.25,
+                        lmin: float = 1e-4, lmax: float = 10.0,
+                        device="cpu") -> ProfileTable:
+    """The (nDop x nLor) bin-averaged profile table (calcprofiles;
+    voigt.py:522) on the fine (oversampled) spacing ``dwn`` over
+    ``nwave`` fine wavenumbers, wings of ``nwidth`` half-widths.  The
+    cells' sizes and reuse are decided on the host; the distinct
+    profiles are evaluated together on ``device``
+    (:func:`bin_averaged_profiles`)."""
+    aDop, aLor, profsize, base, specs = _table_layout(
+        dwn, nwave, nwidth, ndop, nlor, dmin, dmax, lmin, lmax)
     chunks = bin_averaged_profiles(specs, device)
     flat = (np.concatenate(chunks) if chunks
             else np.zeros(0, dtype=np.float32))
     return ProfileTable(aDop=aDop, aLor=aLor, profsize=profsize, base=base,
                         flat=flat)
+
+
+def check_profile_table(table: ProfileTable, dwn: float, nwave: int,
+                        nwidth: float, ndop: int = 60, nlor: int = 60,
+                        dmin: float = 1e-3, dmax: float = 0.25,
+                        lmin: float = 1e-4, lmax: float = 10.0) -> None:
+    """Raise ValueError unless ``table`` has the layout that
+    build_profile_table gives these arguments: the same width axes, cell
+    sizes, offsets and buffer length (the profile values are not
+    recomputed)."""
+    aDop, aLor, profsize, base, specs = _table_layout(
+        dwn, nwave, nwidth, ndop, nlor, dmin, dmax, lmin, lmax)
+    for name, want in (("aDop", aDop), ("aLor", aLor),
+                       ("profsize", profsize), ("base", base)):
+        if not np.array_equal(getattr(table, name), want):
+            raise ValueError(f"profile table: {name} is not this "
+                             f"configuration's")
+    if table.flat.shape != (sum(sp[0] for sp in specs),):
+        raise ValueError(f"profile table: {table.flat.shape[0]} values, "
+                         f"this configuration's has "
+                         f"{sum(sp[0] for sp in specs)}")
