@@ -36,9 +36,10 @@ work counters against host counts of the work; it times one ``forward``
 and each kernel's launches of one forward (layer_kmax over many
 launches), their plain versions, and their bounds (FP32, SFU and memory
 terms).  With ``--profile`` it also traces forwards of the main path,
-of the 0.05 cm-1 path and of the transit path with torch.profiler
-(device time by kernel, busy share, the port's kernels' shares), a
-gradient step of each, and the transit step's geometry alone.
+of the 0.05 cm-1 path, of the transit path and of the exact path with
+torch.profiler (device time by kernel, busy share, device kernel count,
+the port's kernels' shares), a gradient step of each, and the transit
+step's geometry alone.
 
 The gradient (phases ``main_path_grad`` and ``fine_path_grad``): three
 steps of ``torch.autograd.grad(forward(T, q).sum(), (T, q))`` on each
@@ -64,7 +65,9 @@ it fails on a non-finite sample or an acceptance of 0.
 The exact phases (``exact_*``) build the profile table on the card
 (and on the CPU, within 1 float32 ulp of it), hold ``profile_scatter``
 and ``profile_scatter_backward`` against their plain versions at the
-file's T and +-50 K (pair counters against host counts), check the
+file's T and +-50 K and on a synthetic case whose wide tiles take the
+kernels' global-memory path (pair counters against host counts, the
+backward bit for bit), check the
 spectra against the plain path and the reference C spectrum (median
 |flux/C - 1| < EXACT_C_MEDIAN_TOL), time the forward and both kernels
 beside their bounds, and run three gradient steps (against the plain
@@ -99,10 +102,11 @@ from transit_tpu_torch.grids import make_wn_sampling
 from transit_tpu_torch.model import TransitModel
 from transit_tpu_torch.opacities import _build, banded, kernel_lbl
 from transit_tpu_torch.opacities.kernel_profile import (
-    profile_scatter, profile_scatter_backward)
+    SEGMENT_BINS, profile_scatter, profile_scatter_backward)
 from transit_tpu_torch.opacities.lbl import (
-    layer_groups, profile_scatter_plain, profile_scatter_plain_vjp,
-    scatter_pairs, scatter_tables)
+    ScatterTables, layer_groups, profile_scatter_plain,
+    profile_scatter_plain_vjp, scatter_pairs, scatter_tables, scatter_tiles,
+    tile_spans)
 from transit_tpu_torch.opacities.kernel_lbl import (
     acc_grads, kernel_extinction, layer_kmax, layer_tables, line_tile_backward,
     line_tile_extinction, plain_extinction, plain_kmax, plain_line_tiles,
@@ -257,6 +261,9 @@ EXACT_C_MEDIAN_TOL = 1e-4
 EXACT_FD_STEP = 0.05
 EXACT_FD_MIN = 1e-5
 EXACT_FD_LAYERS = 8
+# The synthetic profile-scatter case (synthetic_scatter): layers, groups
+# (three isotope runs; not a multiple of the 256-group tile), coarse bins.
+SYN_SHAPE = (8, 700, 5000)
 
 
 class CheckFailed(RuntimeError):
@@ -816,8 +823,8 @@ def profile_step(step, ms_forward: float, trace: str, label: str) -> dict:
     torch.profiler and print the device time per kernel name (per step)
     and the device-busy share: summed device time of one step over its
     CUDA-event time ``ms_forward``.  The Chrome trace goes to ``trace``.
-    Returns {"device_ms", "busy", kernel name: device ms per step} for
-    the port's kernels."""
+    Returns {"device_ms", "busy", "kernels" (device kernels per step),
+    kernel name: device ms per step} for the port's kernels."""
     from torch.autograd import DeviceType
 
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -848,10 +855,12 @@ def profile_step(step, ms_forward: float, trace: str, label: str) -> dict:
     for ms, n, key in rows[:15]:
         print(f"profile {label}: {ms:10.4f} ms {n:5d} x {key[:90]}",
               flush=True)
-    res = {"device_ms": dev_ms, "busy": dev_ms / ms_forward}
+    res = {"device_ms": dev_ms, "busy": dev_ms / ms_forward,
+           "kernels": sum(r[1] for r in rows)}
     for name in ("line_tile_kernel", "layer_kmax_kernel",
                  "shell_tile_kernel", "line_tile_bwd_kernel",
-                 "shell_tile_bwd_kernel"):
+                 "shell_tile_bwd_kernel", "profile_scatter_kernel",
+                 "profile_scatter_bwd_kernel"):
         res[name] = sum(r[0] for r in rows if name in r[2])
     print(f"profile {label}: port kernels' device ms per forward and "
           f"share of the device time: " + json.dumps(
@@ -1445,44 +1454,120 @@ def exact_groups(m: TransitModel, T=None):
     return grp, scatter_tables(m.plan, m.dev)
 
 
+def synthetic_scatter(device, nl: int = SYN_SHAPE[0], seed: int = 7,
+                      tiles=None):
+    """A synthetic profile-scatter case of SYN_SHAPE's groups and bins
+    that reaches every path of the kernels: three isotope runs of 300,
+    250 and 150 groups (700, not a multiple of the tile); run 0 spread
+    over the whole row, its first and last group at bins 0 and n_coarse -
+    1 (windows clipped at both ends; tiles wider than the shared
+    segment), run 1 packed into 600 bins (tiles in the segment), run 2
+    with profiles of half size 12000 fine bins (ofactor 4: windows of
+    6001 bins, wider than the segment); layer 1, when there is one,
+    keeps no group, and a quarter of the others' groups are dropped.
+    ``tiles``: a tile table to use instead of lbl.scatter_tiles'.
+    Returns (g_k, keep, g_idop, ilor, ScatterTables) on ``device``."""
+    _, ng, n_coarse = SYN_SHAPE
+    rng = np.random.default_rng(seed)
+    of, runs = 4, (300, 250, 150)
+    psize = np.array([[5, 9], [14, 21], [40, 12000]], dtype=np.int32)
+    sizes = 2 * psize.ravel() + 1
+    base = np.concatenate([[0], np.cumsum(sizes)[:-1]]).reshape(psize.shape)
+    flat = rng.random(int(sizes.sum())).astype(np.float32)
+    g_iso = np.repeat(np.arange(3), runs).astype(np.int32)
+    idwn = np.concatenate([
+        np.sort(rng.integers(0, n_coarse, runs[0])),
+        np.sort(rng.integers(1000, 1600, runs[1])),
+        np.sort(rng.integers(0, n_coarse, runs[2]))])
+    idwn[0], idwn[runs[0] - 1] = 0, n_coarse - 1
+    iown = idwn * of + rng.integers(0, of + 1, ng)
+    g_idop = rng.integers(0, psize.shape[0], (nl, ng)).astype(np.int32)
+    ilor = np.zeros((nl, 3), dtype=np.int32)
+    ilor[:, 2] = 1                     # run 2 on the wide column
+    g_k = ((0.1 + rng.random((nl, ng))) *
+           (rng.random((nl, ng)) > 0.25)).astype(np.float32)
+    if nl > 1:
+        g_k[1] = 0.0
+    tiles = scatter_tiles(g_iso) if tiles is None else tiles
+
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a), device=device)
+
+    s = ScatterTables(g_iso=t(g_iso), g_iown=t(iown.astype(np.int32)),
+                      g_idwn=t(idwn.astype(np.int32)), profsize=t(psize),
+                      profbase=t(base.astype(np.int32)), profflat=t(flat),
+                      ofactor=of, n_coarse=n_coarse,
+                      tiles=t(np.asarray(tiles, dtype=np.int32)))
+    return t(g_k), t(g_k != 0), t(g_idop), t(ilor), s
+
+
+def scatter_vs_plain(g_k, keep, g_idop, ilor, s, ct, label: str) -> dict:
+    """One profile_scatter and one profile_scatter_backward launch
+    against their plain versions: the forward max|a-b| / (|a| + 1e-6
+    max|a|) < KERNEL_REL_TOL, its pair counter equal to the host count
+    (lbl.scatter_pairs); the backward, on the cotangent ``ct``, bit for
+    bit.  Returns the errors, the pair count and the tiles' spans
+    against the kernels' shared segment."""
+    args = (g_k, g_idop, ilor, s)
+    stats = torch.zeros(1, dtype=torch.int64, device=g_k.device)
+    got = profile_scatter(*args, stats=stats)
+    want = profile_scatter_plain(*args)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(got).all()) and float(want.max()) > 0,
+          f"{label}: profile_scatter not finite, or plain zero")
+    err = rel_err(want, got)
+    check(err < KERNEL_REL_TOL, f"{label}: profile_scatter vs plain "
+          f"{err:.3e} >= {KERNEL_REL_TOL}")
+    host = scatter_pairs(*args)
+    check(int(stats[0]) == host, f"{label}: pair counter {int(stats[0])} "
+          f"!= host count {host}")
+    a = profile_scatter_backward(ct, keep, *args[1:])
+    b = profile_scatter_plain_vjp(ct, keep, *args[1:])
+    check(bool(torch.isfinite(a).all()) and torch.equal(a, b),
+          f"{label}: profile_scatter_backward vs plain VJP not bit for "
+          f"bit: max|a-b| / max|b| {max_rel(a, b):.3e}")
+    spans = tile_spans(g_k != 0, g_idop, ilor, s)
+    return {"fwd_max_rel": err, "fwd_max_abs": float((got - want).abs()
+                                                     .max()),
+            "bwd_max_rel": max_rel(a, b),
+            "bwd_max_abs": float((a - b).abs().max()), "pairs": host,
+            "tiles_in_segment": int(((spans > 0) &
+                                     (spans <= SEGMENT_BINS)).sum()),
+            "tiles_wider": int((spans > SEGMENT_BINS).sum()),
+            "widest_span": int(spans.max())}
+
+
 def exact_vs_plain(m: TransitModel, g, label: str) -> dict:
-    """profile_scatter and profile_scatter_backward against their plain
-    versions at the file's temperatures and 50 K above and below: the
-    forward max|a-b| / (|a| + 1e-6 max|a|) < KERNEL_REL_TOL, its pair
-    counter equal to the host count (lbl.scatter_pairs); the backward,
-    on the main path's cotangent ``g``, max|a-b| / max|b| <
-    GRAD_LAUNCH_TOL."""
+    """:func:`scatter_vs_plain` at the file's temperatures and 50 K
+    above and below, on the main path's cotangent ``g``, and on
+    :func:`synthetic_scatter` (a seeded cotangent), whose wide tiles
+    take the kernels' global-memory path (checked: some tile spans more
+    than the shared segment)."""
     T = np.asarray(m.atm.temp, dtype=np.float64)
     res = {"fwd_max_rel": 0.0, "fwd_max_abs": 0.0, "bwd_max_rel": 0.0,
-           "bwd_max_abs": 0.0, "pairs": {}}
-    for name, t in (("file", T), ("+50K", T + 50.0), ("-50K", T - 50.0)):
-        grp, s = exact_groups(m, t)
-        args = (grp["g_k"], grp["g_idop"], grp["ilor"], s)
-        stats = torch.zeros(1, dtype=torch.int64, device=m.device)
-        got = profile_scatter(*args, stats=stats)
-        want = profile_scatter_plain(*args)
-        torch.cuda.synchronize()
-        check(bool(torch.isfinite(got).all()) and float(want.max()) > 0,
-              f"{label} {name}: profile_scatter not finite, or plain zero")
-        err = rel_err(want, got)
-        check(err < KERNEL_REL_TOL, f"{label} {name}: profile_scatter vs "
-              f"plain {err:.3e} >= {KERNEL_REL_TOL}")
-        host = scatter_pairs(*args)
-        check(int(stats[0]) == host, f"{label} {name}: pair counter "
-              f"{int(stats[0])} != host count {host}")
-        a = profile_scatter_backward(g, grp["keep"], *args[1:])
-        b = profile_scatter_plain_vjp(g, grp["keep"], *args[1:])
-        berr = max_rel(a, b)
-        check(bool(torch.isfinite(a).all()) and berr < GRAD_LAUNCH_TOL,
-              f"{label} {name}: profile_scatter_backward vs plain VJP "
-              f"{berr:.3e} >= {GRAD_LAUNCH_TOL}")
-        res["fwd_max_rel"] = max(res["fwd_max_rel"], err)
-        res["fwd_max_abs"] = max(res["fwd_max_abs"],
-                                 float((got - want).abs().max()))
-        res["bwd_max_rel"] = max(res["bwd_max_rel"], berr)
-        res["bwd_max_abs"] = max(res["bwd_max_abs"],
-                                 float((a - b).abs().max()))
-        res["pairs"][name] = host
+           "bwd_max_abs": 0.0, "pairs": {}, "tiles": {}}
+    cases = [(name, t) for name, t in (("file", T), ("+50K", T + 50.0),
+                                       ("-50K", T - 50.0))]
+    for name, t in cases + [("synthetic", None)]:
+        if t is None:
+            g_k, keep, g_idop, ilor, s = synthetic_scatter(m.device)
+            ct = torch.as_tensor(np.random.default_rng(3).standard_normal(
+                (g_k.shape[0], s.n_coarse)), dtype=torch.float32,
+                device=m.device)
+            r = scatter_vs_plain(g_k, keep, g_idop, ilor, s, ct,
+                                 f"{label} {name}")
+            check(r["tiles_wider"] > 0 and r["tiles_in_segment"] > 0,
+                  f"{label} {name}: tiles {r}: not both paths")
+        else:
+            grp, s = exact_groups(m, t)
+            r = scatter_vs_plain(grp["g_k"], grp["keep"], grp["g_idop"],
+                                 grp["ilor"], s, g, f"{label} {name}")
+        for k in ("fwd_max_rel", "fwd_max_abs", "bwd_max_rel",
+                  "bwd_max_abs"):
+            res[k] = max(res[k], r[k])
+        res["pairs"][name] = r["pairs"]
+        res["tiles"][name] = {k: r[k] for k in (
+            "tiles_in_segment", "tiles_wider", "widest_span")}
     return res
 
 
@@ -1608,12 +1693,15 @@ def exact_grad_phase(m: TransitModel, requests, label: str) -> dict:
             "forward_backward_ms": cuda_ms(lambda: grad_step(m, T, q))}
 
 
-def exact_phases(dev) -> dict:
+def exact_phases(dev, profile: str | None = None) -> dict:
     """The exact path's phases (exact_model_setup, exact_kernels_vs_plain,
     exact_path, exact_path_checks, exact_path_times, exact_path_grad) on
     exact_config(): the model's profile table built on the card, three
     forward requests at the file's T and +-50 K, every check raising on
-    a miss.  Returns what the result line reads."""
+    a miss; with ``profile`` (a trace path) also profile_exact and
+    profile_grad_exact, torch.profiler passes of the forward and the
+    gradient step (traces ``<stem>_exact`` and ``<stem>_grad_exact``).
+    Returns what the result line reads."""
     t0 = time.perf_counter()
     cfg_e = exact_config()
     t_tab = time.perf_counter()
@@ -1642,8 +1730,10 @@ def exact_phases(dev) -> dict:
     g_e = line_cotangent(hje, T0, q0)
     err_e = exact_vs_plain(hje, g_e, "exact")
     phase("exact_kernels_vs_plain", t0, "profile_scatter and its backward "
-          "against their plain versions at the file's T and +-50 K, pair "
-          "counters equal to the host counts: " + json.dumps(err_e))
+          "against their plain versions at the file's T and +-50 K and on "
+          "the synthetic case (tiles wider than the shared segment), pair "
+          "counters equal to the host counts, the backward bit for bit: " +
+          json.dumps(err_e))
     t0 = time.perf_counter()
     specs_e, launches_e = run_requests(hje, requests,
                                        ALL_KERNELS + EXACT_KERNELS)
@@ -1696,8 +1786,23 @@ def exact_phases(dev) -> dict:
           f"{times_e['profile_scatter_backward']['ms']:.4f} ms (bound "
           f"{times_e['profile_scatter_backward']['bound_ms']:.4f} ms); " +
           json.dumps(grad_e))
+    prof = {}
+    if profile:
+        trace = Path(profile)
+        t0 = time.perf_counter()
+        prof["forward"] = profile_forward(hje, T0, q0, ms_fwd_e, str(
+            trace.with_name(f"{trace.stem}_exact{trace.suffix}")), "exact")
+        phase("profile_exact", t0)
+        t0 = time.perf_counter()
+        leaves = grad_leaves(hje, T0, q0)
+        prof["grad"] = profile_step(
+            lambda: grad_step(hje, *leaves), grad_e["forward_backward_ms"],
+            str(trace.with_name(f"{trace.stem}_grad_exact{trace.suffix}")),
+            "exact grad")
+        phase("profile_grad_exact", t0)
     return {"err": err_e, "launches": launches_e, "times": times_e,
-            "grad": grad_e, "forward_ms": ms_fwd_e, "pairs": pairs_e}
+            "grad": grad_e, "forward_ms": ms_fwd_e, "pairs": pairs_e,
+            "profile": prof}
 
 
 def main(device: str = "cuda", profile: str | None = None) -> int:
@@ -2049,7 +2154,7 @@ def main(device: str = "cuda", profile: str | None = None) -> int:
     #     scheme, on hj_ref.cfg as the C binary ran it (194,349 lines on
     #     0.5 cm-1 x 2160, the 60 x 60 profile table): the profile
     #     scatter kernels.
-    ex = exact_phases(dev)
+    ex = exact_phases(dev, profile)
 
     # 11. Nothing of JAX or of the JAX package was loaded.
     bad = sorted(k for k in sys.modules

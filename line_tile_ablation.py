@@ -2,6 +2,7 @@
 
     python3 line_tile_ablation.py             # line_tile_extinction
     python3 line_tile_ablation.py backward    # the two backward kernels
+    python3 line_tile_ablation.py profile     # exact mode's two kernels
 
 Builds the port's kernels (transit_tpu_torch/csrc) as they are and in
 variants that each leave out or simplify one phase (ABLATIONS, per suite:
@@ -15,7 +16,10 @@ last:
   one gradient step on the banded hot-Jupiter paths (the main path, 0.5
   cm-1; and 0.05 cm-1, the only one with a shell launch), device time of
   the launches captured ten times in a CUDA graph and replayed
-  (chip_smoke.graph_ms).
+  (chip_smoke.graph_ms);
+- profile: profile_scatter and profile_scatter_backward on exact mode's
+  hot-Jupiter groups at the file's temperatures (chip_smoke's exact
+  phases: hj_ref.cfg), timed as the backward suite's.
 A variant computes something else, so only its time means anything; the
 differences between times say what each phase costs, as far as phases
 do not overlap.  Prints the card's name and power limit, one line per
@@ -97,6 +101,38 @@ ABLATIONS = {
              "shell_tile.cu": [("__launch_bounds__(SNT, 3)",
                                 "__launch_bounds__(SNT)")]}),
     },
+    "profile": {
+        "no_bins": (
+            "every bin: the tile's windows, its span and the segment's "
+            "zeroing or staging and flush run, no bin is added",
+            {"profile_scatter.cu": [
+                ("for (int j = win.minj; j <= win.maxj; ++j) {",
+                 "for (int j = win.minj; j < win.minj; ++j) {")]}),
+        "first_bin": (
+            "every bin of a window after its first",
+            {"profile_scatter.cu": [
+                ("for (int j = win.minj; j <= win.maxj; ++j) {",
+                 "for (int j = win.minj; j <= win.minj; ++j) {")]}),
+        "eight_bins": (
+            "the bins of a window after its eighth (the tail of windows "
+            "of 9-30 bins)",
+            {"profile_scatter.cu": [
+                ("for (int j = win.minj; j <= win.maxj; ++j) {",
+                 "for (int j = win.minj; j <= min(win.maxj, win.minj + 7); "
+                 "++j) {")]}),
+        "no_table": (
+            "the table reads (k, or the cotangent, stands in for the "
+            "product)",
+            {"profile_scatter.cu": [
+                ("__fmul_rn(k, profflat[win.pbase + f])", "k"),
+                ("__fmul_rn(profflat[win.pbase + f], row[j - base])",
+                 "row[j - base]")]}),
+        "no_flush": (
+            "the forward's flush of the segment to the output",
+            {"profile_scatter.cu": [
+                ("if (v != 0.0f) atomicAdd(row + lo + i, v);",
+                 "if (v != 0.0f && lo < 0) atomicAdd(row + lo + i, v);")]}),
+    },
 }
 
 
@@ -175,7 +211,29 @@ def backward_targets() -> dict:
     return out
 
 
-TARGETS = {"forward": forward_targets, "backward": backward_targets}
+def profile_targets() -> dict:
+    """{target: (fn, timer)}: one launch of each profile-scatter kernel
+    on the exact model's groups at the file's temperatures (the backward
+    on the cotangent of the spectrum's sum)."""
+    cfg = cs.exact_config()
+    m = cs.TransitModel(cfg, dtype=torch.float32, device="cuda",
+                        table=cs.exact_table(cfg, "cuda"))
+    grp, s = cs.exact_groups(m)
+    args = (grp["g_k"], grp["g_idop"], grp["ilor"], s)
+    ct = cs.line_cotangent(m, m.atm.temp, m.atm.q)
+
+    def timer(fn):
+        return cs.graph_ms(fn, n=10)
+
+    return {"exact profile_scatter": (
+                lambda: cs.profile_scatter(*args), timer),
+            "exact profile_scatter_backward": (
+                lambda: cs.profile_scatter_backward(ct, grp["keep"],
+                                                    *args[1:]), timer)}
+
+
+TARGETS = {"forward": forward_targets, "backward": backward_targets,
+           "profile": profile_targets}
 
 
 def main(argv=None) -> int:

@@ -943,7 +943,7 @@ def test_profile_scatter_kernels_match_plain(card):
     exact model at three temperature profiles: the forward against the
     plain scatter (max|a-b| / (|a| + 1e-6 max|a|) < 1e-5), its pair
     counter equal to lbl.scatter_pairs, the backward against the plain
-    VJP (max|a-b| / max|b| < 1e-4)."""
+    VJP bit for bit."""
     from transit_tpu_torch.opacities import lbl
     from transit_tpu_torch.opacities.kernel_profile import (
         profile_scatter, profile_scatter_backward)
@@ -966,8 +966,85 @@ def test_profile_scatter_kernels_match_plain(card):
             tuple(got.shape)), dtype=torch.float32, device=card)
         a = profile_scatter_backward(ct, grp["keep"], *args[1:])
         b = lbl.profile_scatter_plain_vjp(ct, grp["keep"], *args[1:])
-        assert float((a - b).abs().max() / b.abs().max()) < 1e-4
+        assert torch.equal(a, b)
         assert bool((a[~grp["keep"]] == 0).all())
+
+
+def _scatter_vs_plain(g_k, keep, g_idop, ilor, s):
+    """One launch of each profile-scatter kernel against its plain
+    version: the forward within 1e-5 (max|a-b| / (|a| + 1e-6 max|a|)),
+    its pair counter equal to lbl.scatter_pairs, the backward bit for
+    bit and 0 where no group is kept."""
+    from transit_tpu_torch.opacities import lbl
+    from transit_tpu_torch.opacities.kernel_profile import (
+        profile_scatter, profile_scatter_backward)
+    args = (g_k, g_idop, ilor, s)
+    stats = torch.zeros(1, dtype=torch.int64, device=g_k.device)
+    got = profile_scatter(*args, stats=stats)
+    want = lbl.profile_scatter_plain(*args)
+    torch.cuda.synchronize()
+    assert float(want.max()) > 0 and _rel(want, got) < 1e-5
+    assert int(stats[0]) == lbl.scatter_pairs(*args) > 0
+    ct = torch.as_tensor(np.random.default_rng(4).standard_normal(
+        tuple(got.shape)), dtype=torch.float32, device=g_k.device)
+    a = profile_scatter_backward(ct, keep, *args[1:])
+    b = lbl.profile_scatter_plain_vjp(ct, keep, *args[1:])
+    assert torch.equal(a, b) and bool((a[~keep] == 0).all())
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["runs", "across_runs", "one_layer"])
+def test_profile_scatter_synthetic(card, case):
+    """The kernels on chip_smoke.synthetic_scatter: tiles wider than the
+    shared segment (the global-memory path) and inside it, windows
+    clipped at bins 0 and n_coarse - 1, a layer with no kept group, 700
+    groups (not a multiple of the tile); with a tile table that crosses
+    an isotope run ("across_runs"), and with one layer."""
+    from chip_smoke import SYN_SHAPE, synthetic_scatter
+    from transit_tpu_torch.opacities import lbl
+    from transit_tpu_torch.opacities.kernel_profile import SEGMENT_BINS
+    ng = SYN_SHAPE[1]
+    kw = {"one_layer": {"nl": 1}, "across_runs": {"tiles": np.append(
+        np.arange(0, ng, lbl.SCATTER_TILE), ng)}}.get(case, {})
+    g_k, keep, g_idop, ilor, s = synthetic_scatter(card, **kw)
+    spans = lbl.tile_spans(keep, g_idop, ilor, s)
+    assert bool((spans > SEGMENT_BINS).any())
+    # Across runs every tile is wider than the segment.
+    assert bool(((spans > 0) & (spans <= SEGMENT_BINS)).any()) == (
+        case != "across_runs")
+    out = _scatter_vs_plain(g_k, keep, g_idop, ilor, s)
+    if case != "one_layer":
+        assert not bool(out[1].any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("segment_bins", [1, 16, 8192])
+def test_profile_scatter_segment_sizes(card, segment_bins, monkeypatch):
+    """The fixture's exact groups with the shared segment cut to 1 and
+    16 bins (most tiles, then all, take the global-memory path) and at
+    its largest, 8192 bins."""
+    from transit_tpu_torch.opacities import kernel_profile, lbl
+    monkeypatch.setattr(kernel_profile, "SEGMENT_BINS", segment_bins)
+    m, _ = _exact_pair(card)
+    t = m._t(m.atm.temp)
+    grp = lbl.layer_groups(m.dev, t * m.atm.tfct, m._t(m.atm.d),
+                           m.partition(t), m._molm_t, m._molrad_t,
+                           float(m.wns.v[0]), m.cfg.ethreshold)
+    _scatter_vs_plain(grp["g_k"], grp["keep"], grp["g_idop"], grp["ilor"],
+                      lbl.scatter_tables(m.plan, m.dev))
+
+
+@pytest.mark.cuda
+def test_profile_scatter_refuses_a_bad_segment(card, monkeypatch):
+    """A segment over csrc's PS_SEG_MAX (8192 floats) is refused at the
+    launch."""
+    from chip_smoke import synthetic_scatter
+    from transit_tpu_torch.opacities import kernel_profile
+    monkeypatch.setattr(kernel_profile, "SEGMENT_BINS", 8193)
+    g_k, _, g_idop, ilor, s = synthetic_scatter(card)
+    with pytest.raises(RuntimeError, match="failed to launch"):
+        kernel_profile.profile_scatter(g_k, g_idop, ilor, s)
 
 
 @pytest.mark.cuda

@@ -39,6 +39,7 @@ _MODS = [
     "chip_smoke",
     "grad_fd_study",
     "line_tile_ablation",
+    "exact_profile",
 ]
 
 

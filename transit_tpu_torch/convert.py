@@ -14,7 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from transit_tpu_torch.opacities.lbl import LinePlan
+from transit_tpu_torch.opacities.lbl import LinePlan, scatter_tiles
 from transit_tpu_torch.opacities.voigt import ProfileTable
 
 _INT_KEYS = ("iso", "iso_imol", "all_iso")
@@ -60,8 +60,8 @@ def exact_state_from_numpy(plan: dict, table: dict, dev: dict,
     ``table``: ``dataclasses.asdict`` of transit_tpu's LinePlan and
     ProfileTable; ``dev``: its ``device_arrays`` dict as numpy.  The dict
     gets the port's int32 indices, floats in ``dtype``, the float32
-    table, and the port's two extra keys ``g_iso`` and ``g_wavn``
-    (lbl.device_arrays)."""
+    table, and the port's extra keys ``g_iso``, ``g_wavn`` and
+    ``g_tiles`` (lbl.device_arrays)."""
     out = {}
     for k, v in dev.items():
         v = np.asarray(v)
@@ -78,4 +78,6 @@ def exact_state_from_numpy(plan: dict, table: dict, dev: dict,
     prim = out["g_primary"].long()
     out["g_iso"] = out["line_iso"][prim]
     out["g_wavn"] = out["wavn"][prim]
+    out["g_tiles"] = torch.as_tensor(scatter_tiles(out["g_iso"].cpu()),
+                                     device=device)
     return LinePlan(**plan), ProfileTable(**table), out

@@ -17,30 +17,55 @@
 //
 // profile_scatter_bwd_kernel: the VJP in g_k, grad[l, g] = sum over the
 // same bins of profflat[pbase + fidx] * ct[l, j] for a kept group (0
-// for the others); one warp reduces it with shuffles, no atomics, so the
-// result does not depend on the run.
+// for the others).  Each sum runs bin after bin from the window's first
+// bin with __fmul_rn / __fadd_rn, the order and roundings of
+// lbl.profile_scatter_plain_vjp, so the two agree bit for bit.
 //
-// What bounds them: bytes.  A (layer, group, j) pair is one table read, a
-// multiply and an add: 2 operations against 4 bytes of table (the
-// output or cotangent row it adds to or reads stays in L2, so it is
-// charged once per array, not per pair).  The design is the simple one:
-// one warp per (layer, group), its lanes striding the window (most
-// windows are a few bins wide, so most lanes idle), the table read at a
-// stride of ofactor floats (one sector a pair), and float atomics into
-// the output row (their order, and so the sums' last bits, change from
-// run to run).  Compacting the live (layer, group) pairs, staging the
-// cotangent in shared memory and coalescing the table reads are left to a
-// later design.
+// The design: one thread per (layer, group), and a block per tile of up
+// to PS_TILE consecutive groups of one layer.  The host's tile table
+// (lbl.scatter_tiles, built once per plan) cuts the groups so that no
+// tile crosses an isotope's run: inside a run the groups go by
+// wavelength, so a tile's windows cover a short stretch of the row (on
+// hj_ref.cfg 102 bins on average, at most 1874 of 19001), which the
+// block stages in shared memory.  Each thread computes its window (the
+// chain of dependent loads g_idop -> table cell -> psize, pbase), the
+// block reduces the lowest and highest bin of its windows to a span
+// [lo, hi], and then
+//   - forward: the threads add k * table into a shared copy of
+//     out[l, lo:hi] with shared atomics, and the block adds each non-zero
+//     bin to the output with one global atomic (tiles that neighbour in
+//     the row still overlap);
+//   - backward: the block loads ct[l, lo:hi] into shared memory,
+//     coalesced, and each thread sums its window from there, then writes
+//     grad[l, g], coalesced over the tile.
+// A span longer than the shared segment (seg_bins floats, the launch's
+// dynamic shared memory) takes the same loops on global memory: global
+// atomics in the forward, global cotangent reads in the backward.
+//
+// What bounds them: bytes (2 operations against 4 bytes of table a
+// (layer, group, j) pair; ~0.08 ms on hj_ref.cfg).  The table stays in
+// L2 (a layer reads a few dozen profiles of ~17.5 KB), read at a stride
+// of ofactor floats, one sector a pair.  They run at ~5x that bound:
+// by ablation (line_tile_ablation.py profile) 54-63% of the time is the
+// tiles' fixed work (the rows, the chain of dependent loads to each
+// window, the span, the segment), the bins' loop the rest, of which the
+// windows wider than 8 bins take 5-9% and the table reads 7-17%.  The
+// forward's atomics make the last bits of its sums change from run to
+// run.
 
+#include <climits>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int PS_THREADS = 256;
-constexpr int PS_WARPS = PS_THREADS / 32;
+constexpr int PS_TILE = 256;   // groups a tile at most, one thread each
+// The row segment's most floats (32 KB): a launch takes at most 48 KB of
+// shared memory, static and dynamic, without cudaFuncSetAttribute.
+constexpr int PS_SEG_MAX = 8192;
 
 struct Window {
-  long long pbase, offset, two_psize, minj, maxj;
+  long long pbase, offset, two_psize;
+  int minj, maxj;              // empty: minj > maxj
 };
 
 // The window of (layer l, group g): lbl.py:246-256.
@@ -59,96 +84,179 @@ __device__ __forceinline__ Window group_window(
   win.offset = iown - psize;
   win.two_psize = 2 * psize;
   // C division truncates toward zero, as lbl._trunc_div does:
-  win.minj = idwn - (psize - subw) / ofactor;
-  win.maxj = idwn + (psize + subw) / ofactor;
-  if (win.minj < 0) win.minj = 0;
-  if (win.maxj > n_coarse - 1) win.maxj = n_coarse - 1;
+  long long minj = idwn - (psize - subw) / ofactor;
+  long long maxj = idwn + (psize + subw) / ofactor;
+  win.minj = (int)(minj < 0 ? 0 : minj);
+  win.maxj = (int)(maxj > n_coarse - 1 ? n_coarse - 1 : maxj);
   return win;
 }
 
-__global__ void __launch_bounds__(PS_THREADS) profile_scatter_kernel(
+__device__ __forceinline__ Window no_window() {
+  Window win;
+  win.pbase = win.offset = win.two_psize = 0;
+  win.minj = INT_MAX;
+  win.maxj = -1;
+  return win;
+}
+
+// The tile's span [lo, hi]: the lowest first and highest last bin of
+// its threads' windows (lo > hi when none has one).
+__device__ __forceinline__ int2 block_span(const Window& win, int* span) {
+  const bool live = win.minj <= win.maxj;
+  const int a = __reduce_min_sync(0xffffffffu, live ? win.minj : INT_MAX);
+  const int z = __reduce_max_sync(0xffffffffu, live ? win.maxj : -1);
+  if (threadIdx.x == 0) {
+    span[0] = INT_MAX;
+    span[1] = -1;
+  }
+  __syncthreads();
+  if ((threadIdx.x & 31) == 0) {
+    atomicMin(span, a);
+    atomicMax(span + 1, z);
+  }
+  __syncthreads();
+  return make_int2(span[0], span[1]);
+}
+
+// row[j - base] += k * profflat[pbase + fidx] over the window's bins j
+// whose fine index fidx = ofactor*j - offset lies in [0, 2 psize];
+// returns their count.
+__device__ __forceinline__ unsigned int window_add(
+    const Window& win, const float* __restrict__ profflat, int ofactor,
+    float k, float* row, int base) {
+  unsigned int n = 0;
+  for (int j = win.minj; j <= win.maxj; ++j) {
+    const long long f = (long long)ofactor * j - win.offset;
+    if (f >= 0 && f <= win.two_psize) {
+      atomicAdd(row + (j - base), __fmul_rn(k, profflat[win.pbase + f]));
+      ++n;
+    }
+  }
+  return n;
+}
+
+// The sum over the same bins of profflat[pbase + fidx] * row[j - base],
+// bin after bin from minj, each product and sum rounded on its own:
+// lbl.profile_scatter_plain_vjp's order (its masked bins add 0).
+__device__ __forceinline__ float window_dot(
+    const Window& win, const float* __restrict__ profflat, int ofactor,
+    const float* row, int base) {
+  float s = 0.0f;
+  for (int j = win.minj; j <= win.maxj; ++j) {
+    const long long f = (long long)ofactor * j - win.offset;
+    if (f >= 0 && f <= win.two_psize)
+      s = __fadd_rn(s, __fmul_rn(profflat[win.pbase + f], row[j - base]));
+  }
+  return s;
+}
+
+__global__ void __launch_bounds__(PS_TILE) profile_scatter_kernel(
     const float* __restrict__ g_k, const int* __restrict__ g_idop,
     const int* __restrict__ ilor, const int* __restrict__ g_iso,
     const int* __restrict__ g_iown, const int* __restrict__ g_idwn,
     const int* __restrict__ profsize, const int* __restrict__ profbase,
-    const float* __restrict__ profflat, float* __restrict__ out,
-    unsigned long long* __restrict__ pairs, int nl, int ng, int niso,
-    int nlor, int ofactor, int n_coarse) {
-  const long long w = (long long)blockIdx.x * PS_WARPS + threadIdx.x / 32;
-  const int lane = threadIdx.x & 31;
-  if (w >= (long long)nl * ng) return;        // the whole warp leaves
-  const float k = g_k[w];
-  if (k == 0.0f) return;                      // not kept, or no strength
-  const int l = (int)(w / ng), g = (int)(w % ng);
-  const Window win = group_window(l, g, w, g_idop, ilor, g_iso, g_iown,
-                                  g_idwn, profsize, profbase, niso, nlor,
-                                  ofactor, n_coarse);
+    const float* __restrict__ profflat, const int* __restrict__ tiles,
+    float* __restrict__ out, unsigned long long* __restrict__ pairs, int ng,
+    int ntiles, int niso, int nlor, int ofactor, int n_coarse,
+    int seg_bins) {
+  extern __shared__ float seg[];
+  __shared__ int span[2];
+  const int l = (int)(blockIdx.x / ntiles), t = (int)(blockIdx.x % ntiles);
+  const int g = tiles[t] + threadIdx.x;
+  const long long w = (long long)l * ng + g;
+  const float k = g < tiles[t + 1] ? g_k[w] : 0.0f;
+  const Window win = k != 0.0f
+      ? group_window(l, g, w, g_idop, ilor, g_iso, g_iown, g_idwn, profsize,
+                     profbase, niso, nlor, ofactor, n_coarse)
+      : no_window();
+  const int2 lh = block_span(win, span);
+  if (lh.x > lh.y) return;                    // the whole block: no window
+  const int lo = lh.x, n = lh.y - lh.x + 1;
   float* row = out + (long long)l * n_coarse;
-  unsigned int n = 0;
-  for (long long j = win.minj + lane; j <= win.maxj; j += 32) {
-    const long long f = ofactor * j - win.offset;
-    if (f >= 0 && f <= win.two_psize) {
-      atomicAdd(row + j, k * profflat[win.pbase + f]);
-      ++n;
+  unsigned int cnt;
+  if (n <= seg_bins) {
+    for (int i = threadIdx.x; i < n; i += PS_TILE) seg[i] = 0.0f;
+    __syncthreads();
+    cnt = window_add(win, profflat, ofactor, k, seg, lo);
+    __syncthreads();
+    for (int i = threadIdx.x; i < n; i += PS_TILE) {
+      const float v = seg[i];
+      if (v != 0.0f) atomicAdd(row + lo + i, v);
     }
+  } else {                                    // wider than the segment
+    cnt = window_add(win, profflat, ofactor, k, row, 0);
   }
   if (pairs != nullptr) {
-    n = __reduce_add_sync(0xffffffffu, n);
-    if (lane == 0 && n) atomicAdd(pairs, (unsigned long long)n);
+    cnt = __reduce_add_sync(0xffffffffu, cnt);
+    if ((threadIdx.x & 31) == 0 && cnt)
+      atomicAdd(pairs, (unsigned long long)cnt);
   }
 }
 
-__global__ void __launch_bounds__(PS_THREADS) profile_scatter_bwd_kernel(
+__global__ void __launch_bounds__(PS_TILE) profile_scatter_bwd_kernel(
     const unsigned char* __restrict__ keep, const int* __restrict__ g_idop,
     const int* __restrict__ ilor, const int* __restrict__ g_iso,
     const int* __restrict__ g_iown, const int* __restrict__ g_idwn,
     const int* __restrict__ profsize, const int* __restrict__ profbase,
-    const float* __restrict__ profflat, const float* __restrict__ ct,
-    float* __restrict__ grad, int nl, int ng, int niso, int nlor,
-    int ofactor, int n_coarse) {
-  const long long w = (long long)blockIdx.x * PS_WARPS + threadIdx.x / 32;
-  const int lane = threadIdx.x & 31;
-  if (w >= (long long)nl * ng) return;
-  if (!keep[w]) {
-    if (lane == 0) grad[w] = 0.0f;
-    return;
-  }
-  const int l = (int)(w / ng), g = (int)(w % ng);
-  const Window win = group_window(l, g, w, g_idop, ilor, g_iso, g_iown,
-                                  g_idwn, profsize, profbase, niso, nlor,
-                                  ofactor, n_coarse);
+    const float* __restrict__ profflat, const int* __restrict__ tiles,
+    const float* __restrict__ ct, float* __restrict__ grad, int ng,
+    int ntiles, int niso, int nlor, int ofactor, int n_coarse,
+    int seg_bins) {
+  extern __shared__ float seg[];
+  __shared__ int span[2];
+  const int l = (int)(blockIdx.x / ntiles), t = (int)(blockIdx.x % ntiles);
+  const int g = tiles[t] + threadIdx.x;
+  const bool mine = g < tiles[t + 1];
+  const long long w = (long long)l * ng + g;
+  const Window win = mine && keep[w]
+      ? group_window(l, g, w, g_idop, ilor, g_iso, g_iown, g_idwn, profsize,
+                     profbase, niso, nlor, ofactor, n_coarse)
+      : no_window();
+  const int2 lh = block_span(win, span);
+  const int lo = lh.x, n = lh.y - lh.x + 1;
   const float* row = ct + (long long)l * n_coarse;
-  float s = 0.0f;
-  for (long long j = win.minj + lane; j <= win.maxj; j += 32) {
-    const long long f = ofactor * j - win.offset;
-    if (f >= 0 && f <= win.two_psize) s += profflat[win.pbase + f] * row[j];
+  float s;
+  if (n > 0 && n <= seg_bins) {
+    for (int i = threadIdx.x; i < n; i += PS_TILE) seg[i] = row[lo + i];
+    __syncthreads();
+    s = window_dot(win, profflat, ofactor, seg, lo);
+  } else {                                    // wider than the segment
+    s = window_dot(win, profflat, ofactor, row, 0);
   }
-  for (int o = 16; o > 0; o >>= 1) s += __shfl_down_sync(0xffffffffu, s, o);
-  if (lane == 0) grad[w] = s;
+  if (mine) grad[w] = s;
 }
 
-unsigned int warp_blocks(int nl, int ng) {
-  return (unsigned int)(((long long)nl * ng + PS_WARPS - 1) / PS_WARPS);
+int check_args(int nl, int ng, int ntiles, int niso, int nlor, int ofactor,
+               int n_coarse, int seg_bins) {
+  if (nl <= 0 || ng <= 0 || ntiles <= 0 || niso <= 0 || nlor <= 0 ||
+      ofactor <= 0 || n_coarse <= 0 || seg_bins <= 0 ||
+      seg_bins > PS_SEG_MAX || (long long)nl * ntiles > INT_MAX)
+    return (int)cudaErrorInvalidValue;
+  return 0;
 }
 
 }  // namespace
 
+// tiles: ntiles + 1 int32 group starts, ascending from 0 to ng, no tile
+// longer than PS_TILE (lbl.scatter_tiles); seg_bins: the shared row
+// segment's length in floats (its bytes are the launch's dynamic shared
+// memory; at most PS_SEG_MAX).
 extern "C" int profile_scatter(
     const void* g_k, const void* g_idop, const void* ilor, const void* g_iso,
     const void* g_iown, const void* g_idwn, const void* profsize,
-    const void* profbase, const void* profflat, void* out, void* pairs,
-    int nl, int ng, int niso, int nlor, int ofactor, int n_coarse,
-    void* stream) {
-  if (nl <= 0 || ng <= 0 || niso <= 0 || nlor <= 0 || ofactor <= 0 ||
-      n_coarse <= 0)
-    return (int)cudaErrorInvalidValue;
-  profile_scatter_kernel<<<warp_blocks(nl, ng), PS_THREADS, 0,
+    const void* profbase, const void* profflat, const void* tiles, void* out,
+    void* pairs, int nl, int ng, int ntiles, int niso, int nlor, int ofactor,
+    int n_coarse, int seg_bins, void* stream) {
+  if (int err = check_args(nl, ng, ntiles, niso, nlor, ofactor, n_coarse,
+                           seg_bins))
+    return err;
+  profile_scatter_kernel<<<nl * ntiles, PS_TILE, seg_bins * sizeof(float),
                            (cudaStream_t)stream>>>(
       (const float*)g_k, (const int*)g_idop, (const int*)ilor,
       (const int*)g_iso, (const int*)g_iown, (const int*)g_idwn,
       (const int*)profsize, (const int*)profbase, (const float*)profflat,
-      (float*)out, (unsigned long long*)pairs, nl, ng, niso, nlor, ofactor,
-      n_coarse);
+      (const int*)tiles, (float*)out, (unsigned long long*)pairs, ng, ntiles,
+      niso, nlor, ofactor, n_coarse, seg_bins);
   return (int)cudaGetLastError();
 }
 
@@ -156,16 +264,19 @@ extern "C" int profile_scatter_backward(
     const void* keep, const void* g_idop, const void* ilor,
     const void* g_iso, const void* g_iown, const void* g_idwn,
     const void* profsize, const void* profbase, const void* profflat,
-    const void* ct, void* grad, int nl, int ng, int niso, int nlor,
-    int ofactor, int n_coarse, void* stream) {
-  if (nl <= 0 || ng <= 0 || niso <= 0 || nlor <= 0 || ofactor <= 0 ||
-      n_coarse <= 0)
-    return (int)cudaErrorInvalidValue;
-  profile_scatter_bwd_kernel<<<warp_blocks(nl, ng), PS_THREADS, 0,
+    const void* tiles, const void* ct, void* grad, int nl, int ng,
+    int ntiles, int niso, int nlor, int ofactor, int n_coarse, int seg_bins,
+    void* stream) {
+  if (int err = check_args(nl, ng, ntiles, niso, nlor, ofactor, n_coarse,
+                           seg_bins))
+    return err;
+  profile_scatter_bwd_kernel<<<nl * ntiles, PS_TILE,
+                               seg_bins * sizeof(float),
                                (cudaStream_t)stream>>>(
       (const unsigned char*)keep, (const int*)g_idop, (const int*)ilor,
       (const int*)g_iso, (const int*)g_iown, (const int*)g_idwn,
       (const int*)profsize, (const int*)profbase, (const float*)profflat,
-      (const float*)ct, (float*)grad, nl, ng, niso, nlor, ofactor, n_coarse);
+      (const int*)tiles, (const float*)ct, (float*)grad, ng, ntiles, niso,
+      nlor, ofactor, n_coarse, seg_bins);
   return (int)cudaGetLastError();
 }

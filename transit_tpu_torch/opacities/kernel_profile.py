@@ -3,7 +3,8 @@ csrc/profile_scatter.cu — the counterpart of the windowed gather and
 scatter-add of transit_tpu.opacities.lbl.layer_extinction (lbl.py:245-271).
 
 ``profile_scatter`` and ``profile_scatter_backward`` launch the forward
-and backward kernels (ctypes, one launch each for all layers);
+and backward kernels (ctypes, one launch each for all layers: a block
+per layer and tile of consecutive groups, lbl.scatter_tiles);
 :class:`ProfileScatter` is the differentiable function of the group
 strengths g_k around them, which takes their plain PyTorch versions
 (lbl.profile_scatter_plain and lbl.profile_scatter_plain_vjp) for CPU
@@ -23,6 +24,12 @@ from transit_tpu_torch.opacities.lbl import (ScatterTables,
                                              profile_scatter_plain,
                                              profile_scatter_plain_vjp)
 
+# The shared row segment of a tile, in floats (8 KB, the launch's dynamic
+# shared memory; csrc/profile_scatter.cu takes at most PS_SEG_MAX): on
+# hj_ref.cfg the widest tile spans 1874 bins; a tile that spans more
+# works on global memory.
+SEGMENT_BINS = 2048
+
 
 def _check_launch(fn: str, per_group: dict, ilor, s: ScatterTables):
     """Check a launch's tensors: the (nl, ng) per-group arguments, ilor
@@ -31,10 +38,10 @@ def _check_launch(fn: str, per_group: dict, ilor, s: ScatterTables):
     contiguous tensors by name)."""
     args = {**per_group, "ilor": ilor, "g_iso": s.g_iso, "g_iown": s.g_iown,
             "g_idwn": s.g_idwn, "profsize": s.profsize,
-            "profbase": s.profbase, "profflat": s.profflat}
+            "profbase": s.profbase, "profflat": s.profflat, "tiles": s.tiles}
     device = _check_cuda(fn, args, ints=("g_idop", "ilor", "g_iso",
                                          "g_iown", "g_idwn", "profsize",
-                                         "profbase"), u8=("keep",))
+                                         "profbase", "tiles"), u8=("keep",))
     nl, ng = per_group["g_idop"].shape
     for name, t in per_group.items():
         if tuple(t.shape) != (nl, ng):
@@ -52,13 +59,23 @@ def _check_launch(fn: str, per_group: dict, ilor, s: ScatterTables):
         raise ValueError(f"{fn}: profflat must be 1-d, < 2**31 values")
     if s.ofactor <= 0 or s.n_coarse <= 0:
         raise ValueError(f"{fn}: ofactor and n_coarse must be positive")
+    if s.tiles.dim() != 1 or s.tiles.shape[0] < 2:
+        raise ValueError(f"{fn}: tiles must be (ntiles + 1,) group starts")
     return (device, nl, ng, ilor.shape[1],
             {k: v.contiguous() for k, v in args.items()})
 
 
 def _tables(s: ScatterTables, args) -> tuple:
     return tuple(_ptr(args[k]) for k in ("ilor", "g_iso", "g_iown", "g_idwn",
-                                        "profsize", "profbase", "profflat"))
+                                        "profsize", "profbase", "profflat",
+                                        "tiles"))
+
+
+def _sizes(s: ScatterTables, nl, ng, niso) -> tuple:
+    """The entry points' int arguments: nl, ng, ntiles, niso, nlor,
+    ofactor, n_coarse, seg_bins."""
+    return (nl, ng, s.tiles.shape[0] - 1, niso, s.profsize.shape[1],
+            s.ofactor, s.n_coarse, SEGMENT_BINS)
 
 
 def profile_scatter(g_k, g_idop, ilor, s: ScatterTables, stats=None):
@@ -66,8 +83,10 @@ def profile_scatter(g_k, g_idop, ilor, s: ScatterTables, stats=None):
     strengths g_k (nl, ng) float32 (0 where a group is not kept), their
     Doppler indices g_idop (nl, ng) and the Lorentz indices ilor (nl,
     niso), int32 -> the extinction (nl, n_coarse) float32 on their CUDA
-    device (lbl.profile_scatter_plain on the card).  ``stats``, a (1,)
-    int64 tensor on the card, gets the (layer, group, j) pairs added
+    device (lbl.profile_scatter_plain on the card).  A block per (layer,
+    tile of s.tiles); a tile whose span (lbl.tile_spans) exceeds
+    SEGMENT_BINS adds to the output in global memory.  ``stats``, a
+    (1,) int64 tensor on the card, gets the (layer, group, j) pairs added
     (lbl.scatter_pairs counts the same on the host).  Raises on any other
     device, type or shape, and when the launch fails."""
     from transit_tpu_torch.opacities._build import load_library
@@ -87,8 +106,8 @@ def profile_scatter(g_k, g_idop, ilor, s: ScatterTables, stats=None):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.profile_scatter(
             _ptr(args["g_k"]), _ptr(args["g_idop"]), *_tables(s, args),
-            _ptr(out), _ptr(stats), nl, ng, niso, s.profsize.shape[1],
-            s.ofactor, s.n_coarse, ctypes.c_void_p(stream))
+            _ptr(out), _ptr(stats), *_sizes(s, nl, ng, niso),
+            ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"profile_scatter failed to launch: CUDA error "
                            f"{err}")
@@ -100,8 +119,10 @@ def profile_scatter_backward(ct, keep, g_idop, ilor, s: ScatterTables):
     """Launch ``profile_scatter_backward`` (csrc/profile_scatter.cu): the
     cotangent ct (nl, n_coarse) float32 of the scatter's output -> the
     cotangent of g_k (nl, ng) float32, 0 where ``keep`` (nl, ng, bool or
-    uint8) is false (lbl.profile_scatter_plain_vjp on the card).  Raises
-    on any other device, type or shape, and when the launch fails."""
+    uint8) is false (lbl.profile_scatter_plain_vjp on the card, bit for
+    bit).  A tile whose span exceeds SEGMENT_BINS reads ct from
+    global memory.  Raises on any other device, type or shape, and when
+    the launch fails."""
     from transit_tpu_torch.opacities._build import load_library
 
     keep = keep.to(torch.uint8)
@@ -120,8 +141,8 @@ def profile_scatter_backward(ct, keep, g_idop, ilor, s: ScatterTables):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.profile_scatter_backward(
             _ptr(args["keep"]), _ptr(args["g_idop"]), *_tables(s, args),
-            _ptr(ct), _ptr(grad), nl, ng, niso, s.profsize.shape[1],
-            s.ofactor, s.n_coarse, ctypes.c_void_p(stream))
+            _ptr(ct), _ptr(grad), *_sizes(s, nl, ng, niso),
+            ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"profile_scatter_backward failed to launch: CUDA "
                            f"error {err}")

@@ -42,6 +42,10 @@ from transit_tpu_torch.opacities.voigt import ProfileTable
 # device (its temporaries: ~40 bytes an entry).
 PLAIN_ENTRIES = {"cpu": 1 << 18, "cuda": 1 << 25}
 
+# Groups a tile of the profile-scatter kernels holds at most: one thread
+# each (csrc/profile_scatter.cu PS_TILE).
+SCATTER_TILE = 256
+
 
 @dataclasses.dataclass
 class IsoConst:
@@ -145,15 +149,34 @@ def plan_lines(wl: np.ndarray, isoid: np.ndarray, elow: np.ndarray,
         n_coarse=n_coarse, ofactor=ofactor)
 
 
+def _run_starts(g_iso) -> np.ndarray:
+    """Per group (``g_iso`` (ng,) their isotopes), whether it starts its
+    isotope's contiguous run."""
+    g_iso = np.asarray(g_iso)
+    new = np.ones(g_iso.shape[0], dtype=bool)
+    new[1:] = g_iso[1:] != g_iso[:-1]
+    return new
+
+
 def iso_run_start(plan: LinePlan) -> np.ndarray:
     """Per group, the first group of its isotope's contiguous run (the
     loop at lbl.py:280-282, vectorised)."""
-    g_iso = plan.isoid[plan.g_primary]
-    ng = g_iso.shape[0]
-    new = np.ones(ng, dtype=bool)
-    new[1:] = g_iso[1:] != g_iso[:-1]
-    return np.maximum.accumulate(np.where(new, np.arange(ng), 0)).astype(
-        np.int32)
+    new = _run_starts(plan.isoid[plan.g_primary])
+    return np.maximum.accumulate(np.where(new, np.arange(new.shape[0]),
+                                          0)).astype(np.int32)
+
+
+def scatter_tiles(g_iso, tile: int = SCATTER_TILE) -> np.ndarray:
+    """The profile-scatter kernels' tile table: int32 group starts
+    (ntiles + 1,), from 0 to ng, of tiles of at most ``tile`` consecutive
+    groups, cut at every isotope run's start (a run is the groups of one
+    isotope in a row, ``g_iso`` (ng,) their isotopes), so that no tile
+    crosses a run."""
+    starts = np.flatnonzero(_run_starts(g_iso))
+    ng = len(g_iso)
+    ends = np.append(starts[1:], ng)
+    return np.concatenate([np.arange(a, b, tile) for a, b in
+                           zip(starts, ends)] + [[ng]]).astype(np.int32)
 
 
 def _int32(a, name: str) -> np.ndarray:
@@ -171,7 +194,8 @@ def device_arrays(plan: LinePlan, iso: IsoConst, table: ProfileTable,
     (lbl.py:274): the keys of JAX's dict, floats in ``dtype``, indices
     int32 (the profile table's ``profflat`` float32 by contract), plus
     ``g_iso`` and ``g_wavn``, the isotope and wavenumber of each group's
-    primary line."""
+    primary line, and ``g_tiles``, the scatter kernels' tile table
+    (:func:`scatter_tiles`)."""
     def f(a):
         return torch.as_tensor(np.asarray(a, dtype=np.float64), dtype=dtype,
                                device=device)
@@ -198,6 +222,8 @@ def device_arrays(plan: LinePlan, iso: IsoConst, table: ProfileTable,
         "g_iso_start": i32(iso_run_start(plan), "g_iso_start"),
         "g_iso": i32(plan.isoid[plan.g_primary], "g_iso"),
         "g_wavn": f(plan.wavn[plan.g_primary]),
+        "g_tiles": i32(scatter_tiles(plan.isoid[plan.g_primary]),
+                       "g_tiles"),
         "iso_mass": f(iso.mass), "iso_ratio": f(iso.ratio),
         "iso_imol": i32(iso.imol, "imol"),
         "aDop": f(table.aDop), "aLor": f(table.aLor),
@@ -214,7 +240,8 @@ class ScatterTables:
     strengths and indices: per group its isotope, nearest fine bin and
     coarse bin (int32, (ng,)); the table's half sizes and bases (int32,
     (ndop, nlor)) and its flat float32 profiles; the oversampling factor
-    and the coarse grid's length."""
+    and the coarse grid's length; the kernels' tile table (int32
+    (ntiles + 1,), :func:`scatter_tiles`)."""
     g_iso: torch.Tensor
     g_iown: torch.Tensor
     g_idwn: torch.Tensor
@@ -223,6 +250,7 @@ class ScatterTables:
     profflat: torch.Tensor
     ofactor: int
     n_coarse: int
+    tiles: torch.Tensor
 
 
 def scatter_tables(plan: LinePlan, d: dict) -> ScatterTables:
@@ -230,7 +258,8 @@ def scatter_tables(plan: LinePlan, d: dict) -> ScatterTables:
     return ScatterTables(g_iso=d["g_iso"], g_iown=d["g_iown"],
                          g_idwn=d["g_idwn"], profsize=d["profsize"],
                          profbase=d["profbase"], profflat=d["profflat"],
-                         ofactor=plan.ofactor, n_coarse=plan.n_coarse)
+                         ofactor=plan.ofactor, n_coarse=plan.n_coarse,
+                         tiles=d["g_tiles"])
 
 
 def layer_groups(d: dict, temps, densities, Z, mol_mass, mol_radius,
@@ -325,6 +354,29 @@ def scatter_pairs(g_k, g_idop, ilor, s: ScatterTables) -> int:
     hi = torch.minimum(maxj, torch.div(offset + 2 * psize, of,
                                        rounding_mode="floor"))
     return int(torch.where(g_k != 0, (hi - lo + 1).clamp_min(0), 0).sum())
+
+
+def tile_spans(mask, g_idop, ilor, s: ScatterTables) -> torch.Tensor:
+    """The bins each (layer, tile) of the kernels spans, (nl, ntiles)
+    int64: from the lowest first to the highest last bin of the windows
+    of the tile's groups that ``mask`` (nl, ng) selects, 0 for a tile
+    with none (the kernels stage a span of at most their segment's
+    length in shared memory, and work on a longer one in global
+    memory)."""
+    _, _, _, minj, maxj = scatter_geometry(g_idop, ilor, s)
+    live = mask & (minj <= maxj)
+    big = torch.iinfo(torch.int64).max
+    tiles = s.tiles.long()
+    tile_of = torch.repeat_interleave(
+        torch.arange(tiles.shape[0] - 1, device=tiles.device),
+        tiles[1:] - tiles[:-1])
+    shape = (mask.shape[0], tiles.shape[0] - 1)
+    lo = torch.full(shape, big, dtype=torch.int64, device=mask.device)
+    hi = torch.full(shape, -1, dtype=torch.int64, device=mask.device)
+    idx = tile_of.expand(mask.shape)
+    lo = lo.scatter_reduce(1, idx, torch.where(live, minj, big), "amin")
+    hi = hi.scatter_reduce(1, idx, torch.where(live, maxj, -1), "amax")
+    return torch.where(hi >= 0, hi - lo + 1, 0)
 
 
 def _windows(mask, geom, s: ScatterTables, budget: int):
