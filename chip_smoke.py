@@ -102,11 +102,11 @@ from transit_tpu_torch.grids import make_wn_sampling
 from transit_tpu_torch.model import TransitModel
 from transit_tpu_torch.opacities import _build, banded, kernel_lbl
 from transit_tpu_torch.opacities.kernel_profile import (
-    SEGMENT_BINS, profile_scatter, profile_scatter_backward)
+    profile_scatter, profile_scatter_backward)
 from transit_tpu_torch.opacities.lbl import (
-    ScatterTables, layer_groups, profile_scatter_plain,
-    profile_scatter_plain_vjp, scatter_pairs, scatter_tables, scatter_tiles,
-    tile_spans)
+    SCATTER_SEGMENT, ScatterTables, layer_groups, profile_scatter_plain,
+    profile_scatter_plain_vjp, scatter_geometry, scatter_pairs,
+    scatter_tables, scatter_tiles, tile_spans)
 from transit_tpu_torch.opacities.kernel_lbl import (
     acc_grads, kernel_extinction, layer_kmax, layer_tables, line_tile_backward,
     line_tile_extinction, plain_extinction, plain_kmax, plain_line_tiles,
@@ -121,6 +121,8 @@ from transit_tpu_torch.retrieval import (batched_value_and_grad,
                                          knot_profile)
 from transit_tpu_torch.rt.geometry import radpress_torch
 from transit_tpu_torch.rt.transmission import modulation
+
+from exact_profile import profile_step
 
 ROOT = Path(__file__).resolve().parent
 FIX = ROOT / "tests" / "fixtures"
@@ -814,59 +816,8 @@ def plan_summary(m: TransitModel) -> str:
 
 def profile_forward(m: TransitModel, T, q, ms_forward: float, trace: str,
                     label: str) -> dict:
-    """:func:`profile_step` of ``forward``."""
+    """exact_profile.profile_step of ``forward``."""
     return profile_step(lambda: m.forward(T, q), ms_forward, trace, label)
-
-
-def profile_step(step, ms_forward: float, trace: str, label: str) -> dict:
-    """Trace RUNS calls of ``step`` (a forward, or a gradient step) with
-    torch.profiler and print the device time per kernel name (per step)
-    and the device-busy share: summed device time of one step over its
-    CUDA-event time ``ms_forward``.  The Chrome trace goes to ``trace``.
-    Returns {"device_ms", "busy", "kernels" (device kernels per step),
-    kernel name: device ms per step} for the port's kernels."""
-    from torch.autograd import DeviceType
-
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(RUNS):
-            step()
-        torch.cuda.synchronize()
-    Path(trace).parent.mkdir(parents=True, exist_ok=True)
-    prof.export_chrome_trace(trace)
-    # Device-side events only (kernels, copies): an aten op's row repeats
-    # the device time of the kernels it launched.
-    rows = []
-    for ev in prof.key_averages():
-        if ev.device_type != DeviceType.CUDA:
-            continue
-        dev_us = getattr(ev, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = ev.self_cuda_time_total
-        rows.append((dev_us / RUNS / 1e3, ev.count // RUNS, ev.key))
-    rows.sort(reverse=True)
-    dev_ms = sum(r[0] for r in rows)
-    check(dev_ms > 0, "the profiler recorded no device time")
-    print(f"profile {label}: device time {dev_ms:.3f} ms per forward, busy "
-          f"share {dev_ms / ms_forward:.3f} of {ms_forward:.3f} ms; "
-          f"{sum(r[1] for r in rows)} device kernels per forward, "
-          f"{len(rows)} names; trace {trace}", flush=True)
-    for ms, n, key in rows[:15]:
-        print(f"profile {label}: {ms:10.4f} ms {n:5d} x {key[:90]}",
-              flush=True)
-    res = {"device_ms": dev_ms, "busy": dev_ms / ms_forward,
-           "kernels": sum(r[1] for r in rows)}
-    for name in ("line_tile_kernel", "layer_kmax_kernel",
-                 "shell_tile_kernel", "line_tile_bwd_kernel",
-                 "shell_tile_bwd_kernel", "profile_scatter_kernel",
-                 "profile_scatter_bwd_kernel"):
-        res[name] = sum(r[0] for r in rows if name in r[2])
-    print(f"profile {label}: port kernels' device ms per forward and "
-          f"share of the device time: " + json.dumps(
-              {k: [v, v / dev_ms] for k, v in res.items()
-               if k.endswith("kernel")}), flush=True)
-    return res
 
 
 def device_ms(fn, runs: int = RUNS) -> dict:
@@ -1532,8 +1483,8 @@ def scatter_vs_plain(g_k, keep, g_idop, ilor, s, ct, label: str) -> dict:
             "bwd_max_rel": max_rel(a, b),
             "bwd_max_abs": float((a - b).abs().max()), "pairs": host,
             "tiles_in_segment": int(((spans > 0) &
-                                     (spans <= SEGMENT_BINS)).sum()),
-            "tiles_wider": int((spans > SEGMENT_BINS).sum()),
+                                     (spans <= SCATTER_SEGMENT)).sum()),
+            "tiles_wider": int((spans > SCATTER_SEGMENT).sum()),
             "widest_span": int(spans.max())}
 
 
@@ -1583,27 +1534,61 @@ def table_ulps(a, b) -> tuple:
     return int(d.max()), int((d != 0).sum())
 
 
-def exact_bounds(grp, s, pairs: int) -> dict:
-    """(bound_ms, bound_by) of the two profile-scatter functions on this
-    data, each input read once and each output written once: per (layer,
-    group, j) pair 2 FP32 operations (a multiply, an add) and one 4-byte
-    table read (the output or cotangent element stays in L2, so its
-    array is charged once); besides, the forward reads g_k, the Doppler
-    index of the groups with g_k != 0 and writes the (nl, n_coarse)
-    output, the backward reads keep, the Doppler index of the kept groups
-    and the cotangent and writes the (nl, ng) cotangent of g_k; both
-    read ilor and the plan's and table's index rows."""
-    g_k, keep = grp["g_k"], grp["keep"]
-    rows = nbytes_of(grp["ilor"], s.g_iso, s.g_iown, s.g_idwn, s.profsize,
+def table_elements(mask, g_idop, ilor, s) -> int:
+    """The distinct profile-table elements the scatter reads on this
+    data: the flat indices pbase + ofactor*j - offset of the pairs that
+    lbl.scatter_pairs counts over the (layer, group) entries of ``mask``
+    (a layer's groups share a few dozen profiles, and layers share them
+    too); 10 layers at a time, to bound the pair-expanded indices."""
+    seen = torch.zeros(s.profflat.shape[0], dtype=torch.bool,
+                       device=mask.device)
+    of, layers = s.ofactor, 10
+    for a in range(0, mask.shape[0], layers):
+        psize, pbase, offset, minj, maxj = scatter_geometry(
+            g_idop[a:a + layers], ilor[a:a + layers], s)
+        lo = torch.maximum(minj, -torch.div(-offset, of,
+                                            rounding_mode="floor"))
+        hi = torch.minimum(maxj, torch.div(offset + 2 * psize, of,
+                                           rounding_mode="floor"))
+        n = torch.where(mask[a:a + layers], (hi - lo + 1).clamp_min(0), 0)
+        live = n > 0
+        n = n[live]
+        first = (pbase - offset + of * lo)[live]
+        step = (torch.arange(int(n.sum()), device=mask.device) -
+                torch.repeat_interleave(torch.cumsum(n, 0) - n, n))
+        seen[torch.repeat_interleave(first, n) + of * step] = True
+    return int(seen.sum())
+
+
+def exact_bounds(grp, s) -> dict:
+    """{name: {"bound_ms", "bound_by", "pairs", "table_elements"}} of the
+    two profile-scatter functions on this data, each input read once and
+    each output written once: per (layer, group, j) pair 2 FP32
+    operations (a multiply, an add); the distinct table elements the
+    pairs read (:func:`table_elements`), 4 bytes each; the forward reads
+    g_k and the Doppler index of the groups with g_k != 0 and writes the
+    (nl, n_coarse) output, the backward reads keep, the Doppler index of
+    the kept groups and the (nl, n_coarse) cotangent and writes the (nl,
+    ng) cotangent of g_k; both read ilor and the plan's and table's index
+    rows."""
+    g_k, keep, g_idop, ilor = (grp[k] for k in ("g_k", "keep", "g_idop",
+                                                "ilor"))
+    rows = nbytes_of(ilor, s.g_iso, s.g_iown, s.g_idwn, s.profsize,
                      s.profbase)
-    idop = grp["g_idop"].element_size()
     line = 4 * g_k.shape[0] * s.n_coarse
-    fwd = (4 * pairs + nbytes_of(g_k) + idop * int((g_k != 0).sum()) +
-           rows + line)
-    bwd = (4 * pairs + nbytes_of(keep) + idop * int(keep.sum()) + rows +
-           line + nbytes_of(g_k))
-    return {"profile_scatter": roofline(2 * pairs, fwd)[:2],
-            "profile_scatter_backward": roofline(2 * pairs, bwd)[:2]}
+    out = {}
+    for name, mask, other in (
+            ("profile_scatter", g_k != 0, nbytes_of(g_k)),
+            ("profile_scatter_backward", keep,
+             nbytes_of(keep) + nbytes_of(g_k))):
+        pairs = scatter_pairs(mask, g_idop, ilor, s)
+        cells = table_elements(mask, g_idop, ilor, s)
+        nbytes = (4 * cells + other + g_idop.element_size() *
+                  int(mask.sum()) + rows + line)
+        b_ms, b_by, _ = roofline(2 * pairs, nbytes)
+        out[name] = {"bound_ms": b_ms, "bound_by": b_by, "pairs": pairs,
+                     "table_elements": cells}
+    return out
 
 
 def exact_fd_step(m64: TransitModel, T0, layer: int):
@@ -1764,7 +1749,7 @@ def exact_phases(dev, profile: str | None = None) -> dict:
     ms_fwd_e = cuda_ms(lambda: hje.forward(T0, q0))
     sargs = (grp_e["g_k"], grp_e["g_idop"], grp_e["ilor"], st_e)
     keep_e = grp_e["keep"]
-    bounds_e = exact_bounds(grp_e, st_e, pairs_e)
+    bounds_e = exact_bounds(grp_e, st_e)
     times_e = {
         "profile_scatter": {
             "ms": cuda_ms(lambda: profile_scatter(*sargs)),
@@ -1775,8 +1760,8 @@ def exact_phases(dev, profile: str | None = None) -> dict:
                 g_e, keep_e, *sargs[1:])),
             "plain_ms": cuda_ms(lambda: profile_scatter_plain_vjp(
                 g_e, keep_e, *sargs[1:]), runs=1)}}
-    for k, (b_ms, b_by) in bounds_e.items():
-        times_e[k].update(bound_ms=b_ms, bound_by=b_by, pairs=pairs_e)
+    for k, b in bounds_e.items():
+        times_e[k].update(b)
     phase("exact_path_times", t0, f"forward {ms_fwd_e:.3f} ms; " +
           json.dumps(times_e))
     t0 = time.perf_counter()
@@ -2281,7 +2266,8 @@ def main(device: str = "cuda", profile: str | None = None) -> int:
         "plain_ms": ex["times"][name]["plain_ms"],
         "bound_ms": ex["times"][name]["bound_ms"],
         "bound_by": ex["times"][name]["bound_by"],
-        "pairs": ex["pairs"],
+        "pairs": ex["times"][name]["pairs"],
+        "table_elements": ex["times"][name]["table_elements"],
         # No one PyTorch call computes this ragged gather and scatter-add
         # from these inputs: index_add_ needs the (pair) index and value
         # tensors, which are the plain version's work.

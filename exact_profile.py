@@ -5,20 +5,22 @@
 Builds the kernels of the checkout at DIR (default: this one), sets up
 its exact model on benchmarks/data/hj/hj_ref.cfg (as ``chip_smoke.py``'s
 exact phases do, through that checkout's own ``chip_smoke`` helpers) and
-measures, with this script's code whatever the checkout:
+measures, with this file's :func:`profile_step` whatever the checkout:
 
   - ``profile_scatter`` and ``profile_scatter_backward`` at the file's
-    temperatures (CUDA events, median of 5) beside their byte bounds;
+    temperatures (CUDA events, median of 5);
   - ``forward`` and the gradient step (CUDA events, median of 5);
   - a torch.profiler pass of 5 forwards and of 5 gradient steps: device
     ms per step, the busy share (device ms over the events' ms), device
-    kernels per step, the profile-scatter kernels' device ms and the top
-    device operations.
+    kernels per step, the port's kernels' device ms and the top device
+    operations.
 
 It prints the card's name and power limit, then one JSON line.  Two
 checkouts compare by running this for each in turns on the same card
 (parent, change, change, parent), e.g. with the parent unpacked into
-``build/parent`` (``git archive``).
+``build/parent`` (``git archive``).  ``chip_smoke.py --profile`` traces
+its paths with the same :func:`profile_step`; the kernels' bounds are in
+its ``kernels`` line.
 """
 
 from __future__ import annotations
@@ -30,12 +32,22 @@ import sys
 from pathlib import Path
 
 RUNS = 5
+# The port's kernels, by the name their device events carry.
+PORT_KERNELS = ("line_tile_kernel", "layer_kmax_kernel", "shell_tile_kernel",
+                "line_tile_bwd_kernel", "shell_tile_bwd_kernel",
+                "profile_scatter_kernel", "profile_scatter_bwd_kernel")
 
 
-def profile(step, ms_step: float, label: str, trace: str | None) -> dict:
-    """torch.profiler over RUNS calls of ``step``: device ms, busy share,
-    device kernels per call, the device ms of the profile-scatter
-    kernels and the ten largest device operations."""
+def profile_step(step, ms_step: float, trace: str | None,
+                 label: str) -> dict:
+    """Trace RUNS calls of ``step`` (a forward, or a gradient step) with
+    torch.profiler after one warm-up call, and print the device time per
+    kernel name (per call) and the device-busy share: summed device time
+    of one call over its CUDA-event time ``ms_step``.  The Chrome trace
+    goes to ``trace`` (none when None).  Returns {"device_ms", "busy",
+    "kernels" (device kernels per call), "top" (the ten largest device
+    operations: [ms, count, name] per call), and each of PORT_KERNELS:
+    its device ms per call}."""
     import torch
     from torch.autograd import DeviceType
 
@@ -50,24 +62,36 @@ def profile(step, ms_step: float, label: str, trace: str | None) -> dict:
     if trace:
         Path(trace).parent.mkdir(parents=True, exist_ok=True)
         prof.export_chrome_trace(trace)
+    # Device-side events only (kernels, copies): an aten op's row repeats
+    # the device time of the kernels it launched.
     rows = []
     for ev in prof.key_averages():
         if ev.device_type != DeviceType.CUDA:
             continue
         us = getattr(ev, "self_device_time_total", None)
         us = ev.self_cuda_time_total if us is None else us
-        rows.append((us / RUNS / 1e3, ev.count / RUNS, ev.key[:80]))
+        rows.append((us / RUNS / 1e3, ev.count / RUNS, ev.key))
     rows.sort(reverse=True)
     dev_ms = sum(r[0] for r in rows)
     if dev_ms <= 0:
         raise RuntimeError(f"{label}: the profiler recorded no device time")
-    return {"device_ms": dev_ms, "busy": dev_ms / ms_step,
-            "kernels": sum(r[1] for r in rows),
-            "scatter_kernels_ms": {
-                name: sum(r[0] for r in rows if f"{name}(" in r[2])
-                for name in ("profile_scatter_kernel",
-                             "profile_scatter_bwd_kernel")},
-            "top": [[round(ms, 4), n, k] for ms, n, k in rows[:10]]}
+    res = {"device_ms": dev_ms, "busy": dev_ms / ms_step,
+           "kernels": sum(r[1] for r in rows),
+           "top": [[ms, n, key[:80]] for ms, n, key in rows[:10]]}
+    print(f"profile {label}: device time {dev_ms:.3f} ms per call, busy "
+          f"share {res['busy']:.3f} of {ms_step:.3f} ms; "
+          f"{res['kernels']:g} device kernels per call, {len(rows)} names; "
+          f"trace {trace}", flush=True)
+    for ms, n, key in rows[:15]:
+        print(f"profile {label}: {ms:10.4f} ms {n:7g} x {key[:90]}",
+              flush=True)
+    for name in PORT_KERNELS:
+        res[name] = sum(r[0] for r in rows if name in r[2])
+    print(f"profile {label}: port kernels' device ms per call and share "
+          f"of the device time: " + json.dumps(
+              {k: [res[k], res[k] / dev_ms] for k in PORT_KERNELS}),
+          flush=True)
+    return res
 
 
 def main(root: Path, trace: str | None) -> int:
@@ -95,8 +119,6 @@ def main(root: Path, trace: str | None) -> int:
                         table=cs.exact_table(cfg, dev))
     grp, s = cs.exact_groups(m)
     sargs = (grp["g_k"], grp["g_idop"], grp["ilor"], s)
-    pairs = cs.scatter_pairs(*sargs)
-    bounds = cs.exact_bounds(grp, s, pairs)
     T0, q0 = m.atm.temp, m.atm.q
     ct = cs.line_cotangent(m, T0, q0)
     kernels = {
@@ -108,17 +130,17 @@ def main(root: Path, trace: str | None) -> int:
     ms_grad = cs.cuda_ms(lambda: cs.grad_step(m, *leaves))
     stem = Path(trace) if trace else None
     res = {
-        "root": str(root), "card": card, "pairs": pairs,
-        "kernels": {k: {"ms": v, "bound_ms": bounds[k][0],
-                        "x_bound": v / bounds[k][0]}
-                    for k, v in kernels.items()},
+        "root": str(root), "card": card,
+        "pairs": cs.scatter_pairs(*sargs), "kernels_ms": kernels,
         "forward_ms": ms_fwd, "grad_step_ms": ms_grad,
-        "profile_forward": profile(
-            lambda: m.forward(T0, q0), ms_fwd, "forward",
-            stem and str(stem.with_name(f"{stem.stem}_fwd{stem.suffix}"))),
-        "profile_grad": profile(
-            lambda: cs.grad_step(m, *leaves), ms_grad, "gradient step",
-            stem and str(stem.with_name(f"{stem.stem}_grad{stem.suffix}")))}
+        "profile_forward": profile_step(
+            lambda: m.forward(T0, q0), ms_fwd,
+            stem and str(stem.with_name(f"{stem.stem}_fwd{stem.suffix}")),
+            "exact"),
+        "profile_grad": profile_step(
+            lambda: cs.grad_step(m, *leaves), ms_grad,
+            stem and str(stem.with_name(f"{stem.stem}_grad{stem.suffix}")),
+            "exact grad")}
     print(json.dumps(res), flush=True)
     return 0
 

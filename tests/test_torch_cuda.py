@@ -6,6 +6,7 @@ one.  Imports no JAX, so it runs on a machine that has only PyTorch:
 (``--noconftest``: the suite's conftest.py imports JAX.)
 """
 
+import dataclasses
 import os
 
 import numpy as np
@@ -1003,15 +1004,14 @@ def test_profile_scatter_synthetic(card, case):
     an isotope run ("across_runs"), and with one layer."""
     from chip_smoke import SYN_SHAPE, synthetic_scatter
     from transit_tpu_torch.opacities import lbl
-    from transit_tpu_torch.opacities.kernel_profile import SEGMENT_BINS
     ng = SYN_SHAPE[1]
     kw = {"one_layer": {"nl": 1}, "across_runs": {"tiles": np.append(
         np.arange(0, ng, lbl.SCATTER_TILE), ng)}}.get(case, {})
     g_k, keep, g_idop, ilor, s = synthetic_scatter(card, **kw)
     spans = lbl.tile_spans(keep, g_idop, ilor, s)
-    assert bool((spans > SEGMENT_BINS).any())
+    assert bool((spans > lbl.SCATTER_SEGMENT).any())
     # Across runs every tile is wider than the segment.
-    assert bool(((spans > 0) & (spans <= SEGMENT_BINS)).any()) == (
+    assert bool(((spans > 0) & (spans <= lbl.SCATTER_SEGMENT)).any()) == (
         case != "across_runs")
     out = _scatter_vs_plain(g_k, keep, g_idop, ilor, s)
     if case != "one_layer":
@@ -1019,32 +1019,46 @@ def test_profile_scatter_synthetic(card, case):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("segment_bins", [1, 16, 8192])
-def test_profile_scatter_segment_sizes(card, segment_bins, monkeypatch):
-    """The fixture's exact groups with the shared segment cut to 1 and
-    16 bins (most tiles, then all, take the global-memory path) and at
-    its largest, 8192 bins."""
-    from transit_tpu_torch.opacities import kernel_profile, lbl
-    monkeypatch.setattr(kernel_profile, "SEGMENT_BINS", segment_bins)
+@pytest.mark.parametrize("tiling", ["runs", "across_runs", "one_group", "37"])
+def test_profile_scatter_tile_tables(card, tiling):
+    """The fixture's exact groups under other tile tables: lbl's (cut at
+    the isotope runs), one cut every SCATTER_TILE groups across the runs,
+    one group a tile and 37 groups a tile (tiles of partly idle
+    threads)."""
+    from transit_tpu_torch.opacities import lbl
     m, _ = _exact_pair(card)
     t = m._t(m.atm.temp)
     grp = lbl.layer_groups(m.dev, t * m.atm.tfct, m._t(m.atm.d),
                            m.partition(t), m._molm_t, m._molrad_t,
                            float(m.wns.v[0]), m.cfg.ethreshold)
+    s = lbl.scatter_tables(m.plan, m.dev)
+    ng = m.plan.n_groups
+    step = {"across_runs": lbl.SCATTER_TILE, "one_group": 1, "37": 37}
+    if tiling in step:
+        s = dataclasses.replace(s, tiles=torch.as_tensor(np.append(
+            np.arange(0, ng, step[tiling]), ng).astype(np.int32),
+            device=card))
     _scatter_vs_plain(grp["g_k"], grp["keep"], grp["g_idop"], grp["ilor"],
-                      lbl.scatter_tables(m.plan, m.dev))
+                      s)
 
 
 @pytest.mark.cuda
-def test_profile_scatter_refuses_a_bad_segment(card, monkeypatch):
-    """A segment over csrc's PS_SEG_MAX (8192 floats) is refused at the
-    launch."""
+def test_profile_scatter_refuses_a_malformed_tile_table(card):
+    """A tile longer than SCATTER_TILE (the kernels would drop its last
+    groups) is refused before either kernel launches."""
     from chip_smoke import synthetic_scatter
     from transit_tpu_torch.opacities import kernel_profile
-    monkeypatch.setattr(kernel_profile, "SEGMENT_BINS", 8193)
-    g_k, _, g_idop, ilor, s = synthetic_scatter(card)
-    with pytest.raises(RuntimeError, match="failed to launch"):
+    g_k, keep, g_idop, ilor, s = synthetic_scatter(card, tiles=[0, 300,
+                                                                700])
+    n0 = (kernel_profile.profile_scatter.launches,
+          kernel_profile.profile_scatter_backward.launches)
+    with pytest.raises(ValueError, match="1 to 256"):
         kernel_profile.profile_scatter(g_k, g_idop, ilor, s)
+    ct = torch.zeros((g_k.shape[0], s.n_coarse), device=card)
+    with pytest.raises(ValueError, match="1 to 256"):
+        kernel_profile.profile_scatter_backward(ct, keep, g_idop, ilor, s)
+    assert n0 == (kernel_profile.profile_scatter.launches,
+                  kernel_profile.profile_scatter_backward.launches)
 
 
 @pytest.mark.cuda

@@ -14,15 +14,15 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import SYN_SHAPE, synthetic_scatter
+from chip_smoke import (SYN_SHAPE, exact_bounds, synthetic_scatter,
+                        table_elements)
 from tests.test_conformance import make_config
 from transit_tpu_torch import grids
 from transit_tpu_torch.config import TransitConfig
 from transit_tpu_torch.constants import TLI_WAV_UNITS
 from transit_tpu_torch.io.tli import read_tli, select_lines
 from transit_tpu_torch.model import TransitModel
-from transit_tpu_torch.opacities import lbl
-from transit_tpu_torch.opacities.kernel_profile import SEGMENT_BINS
+from transit_tpu_torch.opacities import _build, lbl
 
 torch.set_num_threads(1)
 
@@ -88,6 +88,42 @@ def test_scatter_tiles_small_cases(tile):
         np.testing.assert_array_equal(tiles, [0, 5, 7, 8, 10])
 
 
+def test_check_tiles_takes_the_built_tables(fixture_model):
+    plan = fixture_model.plan
+    lbl.check_tiles(lbl.scatter_tiles(plan.isoid[plan.g_primary]),
+                    plan.n_groups)
+    lbl.check_tiles(np.arange(701, dtype=np.int32), 700)
+    lbl.check_tiles([0, 256, 512, 700], 700)
+
+
+@pytest.mark.parametrize("tiles, match", [
+    ([[0, 5], [5, 10]], "group starts"),
+    ([0], "group starts"),
+    ([1, 256, 700], "from 0 to ng"),
+    ([0, 256, 699], "from 0 to ng"),
+    ([0, 256, 701], "from 0 to ng"),
+    ([0, 257, 700], "1 to 256"),
+    ([0, 300, 200, 700], "1 to 256"),
+    ([0, 256, 256, 512, 700], "1 to 256"),
+])
+def test_check_tiles_refuses_a_malformed_table(tiles, match):
+    """A tile table the kernels would misread (a tile longer than
+    SCATTER_TILE, descending or empty, not from 0 to ng) is refused."""
+    with pytest.raises(ValueError, match=match):
+        lbl.check_tiles(np.asarray(tiles, dtype=np.int32), 700)
+
+
+def test_csrc_constants_match_lbl():
+    """lbl's SCATTER_TILE and SCATTER_SEGMENT are the kernels' PS_TILE and
+    PS_SEG (compile-time constants of csrc/profile_scatter.cu)."""
+    import re
+    src = next(p for p in _build.sources()
+               if p.name == "profile_scatter.cu").read_text()
+    consts = dict(re.findall(r"constexpr int (PS_\w+) = (\d+);", src))
+    assert consts == {"PS_TILE": str(lbl.SCATTER_TILE),
+                      "PS_SEG": str(lbl.SCATTER_SEGMENT)}
+
+
 def test_device_arrays_carry_the_tile_table(fixture_model):
     m = fixture_model
     s = lbl.scatter_tables(m.plan, m.dev)
@@ -146,8 +182,8 @@ def test_synthetic_case_reaches_every_path(nl):
     assert SYN_SHAPE[1] % lbl.SCATTER_TILE != 0
     _check_tiles(s.tiles.numpy(), s.g_iso.numpy())
     spans = lbl.tile_spans(keep, g_idop, ilor, s)
-    assert bool((spans > SEGMENT_BINS).any())
-    assert bool(((spans > 0) & (spans <= SEGMENT_BINS)).any())
+    assert bool((spans > lbl.SCATTER_SEGMENT).any())
+    assert bool(((spans > 0) & (spans <= lbl.SCATTER_SEGMENT)).any())
     _, _, _, minj, maxj = lbl.scatter_geometry(g_idop, ilor, s)
     raw_lo = s.g_idwn.long() - torch.div(
         s.profsize.long()[g_idop.long(), ilor.long()[:, s.g_iso.long()]] -
@@ -177,3 +213,65 @@ def test_synthetic_case_with_tiles_across_runs():
     assert spans.shape == (SYN_SHAPE[0], naive.shape[0] - 1)
     np.testing.assert_array_equal(
         spans.numpy(), _spans_loop(keep, g_idop, ilor, s))
+
+
+def _elements_loop(mask, g_idop, ilor, s):
+    """The distinct table indices pbase + ofactor*j - offset of the
+    scatter's pairs over ``mask``, by a loop over (layer, group)."""
+    psize, pbase, offset, minj, maxj = (
+        a.numpy() for a in lbl.scatter_geometry(g_idop, ilor, s))
+    seen = set()
+    for l, g in zip(*np.nonzero(mask.numpy())):
+        j = np.arange(minj[l, g], maxj[l, g] + 1)
+        f = s.ofactor * j - offset[l, g]
+        seen.update((pbase[l, g] + f[(f >= 0) & (f <= 2 * psize[l, g])])
+                    .tolist())
+    return len(seen)
+
+
+def test_table_elements_match_a_loop(fixture_model):
+    """chip_smoke.table_elements (the table bytes of the kernels' bound)
+    against a loop, on the fixture's groups (20 layers: two chunks) and
+    on the synthetic case; exact_bounds charges them and the pairs."""
+    m = fixture_model
+    t = m._t(m.atm.temp)
+    grp = lbl.layer_groups(m.dev, t * m.atm.tfct, m._t(m.atm.d),
+                           m.partition(t), m._molm_t, m._molrad_t,
+                           float(m.wns.v[0]), m.cfg.ethreshold)
+    s = lbl.scatter_tables(m.plan, m.dev)
+    args = (grp["g_idop"], grp["ilor"], s)
+    want = _elements_loop(grp["keep"], *args)
+    assert m.atm.nlayers == 20
+    assert 0 < want == table_elements(grp["keep"], *args)
+    bounds = exact_bounds(grp, s)
+    for name in ("profile_scatter", "profile_scatter_backward"):
+        b = bounds[name]
+        assert b["table_elements"] == want and b["bound_ms"] > 0
+        assert b["pairs"] == lbl.scatter_pairs(grp["g_k"], *args)
+        assert b["bound_by"] == "bytes"
+    g_k, keep, g_idop, ilor, s = synthetic_scatter("cpu")
+    assert table_elements(keep, g_idop, ilor, s) == _elements_loop(
+        keep, g_idop, ilor, s)
+
+
+def test_launch_checks_a_tile_table_once_per_tensor(monkeypatch):
+    """The kernel wrappers' check of the tile table (kernel_profile.
+    _check_tiles): lbl.check_tiles once per tensor, not at every launch,
+    and a malformed table is refused with the wrapper's name."""
+    from transit_tpu_torch.opacities import kernel_profile
+    calls = []
+
+    def counted(tiles, ng):
+        calls.append(ng)
+        lbl.check_tiles(tiles, ng)
+
+    monkeypatch.setattr(kernel_profile, "check_tiles", counted)
+    good = torch.tensor([0, 256, 512, 700], dtype=torch.int32)
+    for _ in range(3):
+        kernel_profile._check_tiles("profile_scatter", good, 700)
+    assert calls == [700]
+    bad = torch.tensor([0, 300, 700], dtype=torch.int32)
+    for _ in range(2):
+        with pytest.raises(ValueError, match="^profile_scatter: .*1 to 256"):
+            kernel_profile._check_tiles("profile_scatter", bad, 700)
+    assert calls == [700, 700, 700]

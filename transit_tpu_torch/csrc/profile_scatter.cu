@@ -38,15 +38,19 @@
 //   - backward: the block loads ct[l, lo:hi] into shared memory,
 //     coalesced, and each thread sums its window from there, then writes
 //     grad[l, g], coalesced over the tile.
-// A span longer than the shared segment (seg_bins floats, the launch's
-// dynamic shared memory) takes the same loops on global memory: global
-// atomics in the forward, global cotangent reads in the backward.
+// A span longer than the shared segment (PS_SEG floats, static shared
+// memory) takes the same loops on global memory: global atomics in the
+// forward, global cotangent reads in the backward.
 //
-// What bounds them: bytes (2 operations against 4 bytes of table a
-// (layer, group, j) pair; ~0.08 ms on hj_ref.cfg).  The table stays in
-// L2 (a layer reads a few dozen profiles of ~17.5 KB), read at a stride
-// of ofactor floats, one sector a pair.  They run at ~5x that bound:
-// by ablation (line_tile_ablation.py profile) 54-63% of the time is the
+// What bounds them: bytes.  A (layer, group, j) pair is 2 operations
+// against one 4-byte table read, but the pairs of a layer share a few
+// dozen profiles of ~17.5 KB (2 psize + 1 floats), read at a stride of
+// ofactor floats, and the table's distinct elements the launch reaches
+// are what it must move; besides, g_k (or keep), the kept groups'
+// Doppler indices, the plan's rows and the (nl, n_coarse) output or
+// cotangent (chip_smoke.exact_bounds counts them on the run's data;
+// PERF.md keeps the times against that bound).  The table stays in L2.
+// By ablation (line_tile_ablation.py profile) 54-63% of the time is the
 // tiles' fixed work (the rows, the chain of dependent loads to each
 // window, the span, the segment), the bins' loop the rest, of which the
 // windows wider than 8 bins take 5-9% and the table reads 7-17%.  The
@@ -59,9 +63,9 @@
 namespace {
 
 constexpr int PS_TILE = 256;   // groups a tile at most, one thread each
-// The row segment's most floats (32 KB): a launch takes at most 48 KB of
-// shared memory, static and dynamic, without cudaFuncSetAttribute.
-constexpr int PS_SEG_MAX = 8192;
+// The row segment's floats (8 KB): on hj_ref.cfg the widest tile spans
+// 1874 bins.
+constexpr int PS_SEG = 2048;
 
 struct Window {
   long long pbase, offset, two_psize;
@@ -157,9 +161,8 @@ __global__ void __launch_bounds__(PS_TILE) profile_scatter_kernel(
     const int* __restrict__ profsize, const int* __restrict__ profbase,
     const float* __restrict__ profflat, const int* __restrict__ tiles,
     float* __restrict__ out, unsigned long long* __restrict__ pairs, int ng,
-    int ntiles, int niso, int nlor, int ofactor, int n_coarse,
-    int seg_bins) {
-  extern __shared__ float seg[];
+    int ntiles, int niso, int nlor, int ofactor, int n_coarse) {
+  __shared__ float seg[PS_SEG];
   __shared__ int span[2];
   const int l = (int)(blockIdx.x / ntiles), t = (int)(blockIdx.x % ntiles);
   const int g = tiles[t] + threadIdx.x;
@@ -174,7 +177,7 @@ __global__ void __launch_bounds__(PS_TILE) profile_scatter_kernel(
   const int lo = lh.x, n = lh.y - lh.x + 1;
   float* row = out + (long long)l * n_coarse;
   unsigned int cnt;
-  if (n <= seg_bins) {
+  if (n <= PS_SEG) {
     for (int i = threadIdx.x; i < n; i += PS_TILE) seg[i] = 0.0f;
     __syncthreads();
     cnt = window_add(win, profflat, ofactor, k, seg, lo);
@@ -200,9 +203,8 @@ __global__ void __launch_bounds__(PS_TILE) profile_scatter_bwd_kernel(
     const int* __restrict__ profsize, const int* __restrict__ profbase,
     const float* __restrict__ profflat, const int* __restrict__ tiles,
     const float* __restrict__ ct, float* __restrict__ grad, int ng,
-    int ntiles, int niso, int nlor, int ofactor, int n_coarse,
-    int seg_bins) {
-  extern __shared__ float seg[];
+    int ntiles, int niso, int nlor, int ofactor, int n_coarse) {
+  __shared__ float seg[PS_SEG];
   __shared__ int span[2];
   const int l = (int)(blockIdx.x / ntiles), t = (int)(blockIdx.x % ntiles);
   const int g = tiles[t] + threadIdx.x;
@@ -216,7 +218,7 @@ __global__ void __launch_bounds__(PS_TILE) profile_scatter_bwd_kernel(
   const int lo = lh.x, n = lh.y - lh.x + 1;
   const float* row = ct + (long long)l * n_coarse;
   float s;
-  if (n > 0 && n <= seg_bins) {
+  if (n > 0 && n <= PS_SEG) {
     for (int i = threadIdx.x; i < n; i += PS_TILE) seg[i] = row[lo + i];
     __syncthreads();
     s = window_dot(win, profflat, ofactor, seg, lo);
@@ -227,10 +229,9 @@ __global__ void __launch_bounds__(PS_TILE) profile_scatter_bwd_kernel(
 }
 
 int check_args(int nl, int ng, int ntiles, int niso, int nlor, int ofactor,
-               int n_coarse, int seg_bins) {
+               int n_coarse) {
   if (nl <= 0 || ng <= 0 || ntiles <= 0 || niso <= 0 || nlor <= 0 ||
-      ofactor <= 0 || n_coarse <= 0 || seg_bins <= 0 ||
-      seg_bins > PS_SEG_MAX || (long long)nl * ntiles > INT_MAX)
+      ofactor <= 0 || n_coarse <= 0 || (long long)nl * ntiles > INT_MAX)
     return (int)cudaErrorInvalidValue;
   return 0;
 }
@@ -238,25 +239,22 @@ int check_args(int nl, int ng, int ntiles, int niso, int nlor, int ofactor,
 }  // namespace
 
 // tiles: ntiles + 1 int32 group starts, ascending from 0 to ng, no tile
-// longer than PS_TILE (lbl.scatter_tiles); seg_bins: the shared row
-// segment's length in floats (its bytes are the launch's dynamic shared
-// memory; at most PS_SEG_MAX).
+// longer than PS_TILE (lbl.scatter_tiles; the host checks them,
+// lbl.check_tiles).
 extern "C" int profile_scatter(
     const void* g_k, const void* g_idop, const void* ilor, const void* g_iso,
     const void* g_iown, const void* g_idwn, const void* profsize,
     const void* profbase, const void* profflat, const void* tiles, void* out,
     void* pairs, int nl, int ng, int ntiles, int niso, int nlor, int ofactor,
-    int n_coarse, int seg_bins, void* stream) {
-  if (int err = check_args(nl, ng, ntiles, niso, nlor, ofactor, n_coarse,
-                           seg_bins))
+    int n_coarse, void* stream) {
+  if (int err = check_args(nl, ng, ntiles, niso, nlor, ofactor, n_coarse))
     return err;
-  profile_scatter_kernel<<<nl * ntiles, PS_TILE, seg_bins * sizeof(float),
-                           (cudaStream_t)stream>>>(
+  profile_scatter_kernel<<<nl * ntiles, PS_TILE, 0, (cudaStream_t)stream>>>(
       (const float*)g_k, (const int*)g_idop, (const int*)ilor,
       (const int*)g_iso, (const int*)g_iown, (const int*)g_idwn,
       (const int*)profsize, (const int*)profbase, (const float*)profflat,
       (const int*)tiles, (float*)out, (unsigned long long*)pairs, ng, ntiles,
-      niso, nlor, ofactor, n_coarse, seg_bins);
+      niso, nlor, ofactor, n_coarse);
   return (int)cudaGetLastError();
 }
 
@@ -265,18 +263,16 @@ extern "C" int profile_scatter_backward(
     const void* g_iso, const void* g_iown, const void* g_idwn,
     const void* profsize, const void* profbase, const void* profflat,
     const void* tiles, const void* ct, void* grad, int nl, int ng,
-    int ntiles, int niso, int nlor, int ofactor, int n_coarse, int seg_bins,
+    int ntiles, int niso, int nlor, int ofactor, int n_coarse,
     void* stream) {
-  if (int err = check_args(nl, ng, ntiles, niso, nlor, ofactor, n_coarse,
-                           seg_bins))
+  if (int err = check_args(nl, ng, ntiles, niso, nlor, ofactor, n_coarse))
     return err;
-  profile_scatter_bwd_kernel<<<nl * ntiles, PS_TILE,
-                               seg_bins * sizeof(float),
+  profile_scatter_bwd_kernel<<<nl * ntiles, PS_TILE, 0,
                                (cudaStream_t)stream>>>(
       (const unsigned char*)keep, (const int*)g_idop, (const int*)ilor,
       (const int*)g_iso, (const int*)g_iown, (const int*)g_idwn,
       (const int*)profsize, (const int*)profbase, (const float*)profflat,
       (const int*)tiles, (const float*)ct, (float*)grad, ng, ntiles, niso,
-      nlor, ofactor, n_coarse, seg_bins);
+      nlor, ofactor, n_coarse);
   return (int)cudaGetLastError();
 }

@@ -43,8 +43,8 @@ SIGNATURES = {
     "shell_tile_backward": ([_P] * 15 + [_I] * 3 + [_P] + [_I] * 3 +
                             [_F] * 8 + [_P]),
     "layer_kmax": [_P] * 7 + [_I] * 3 + [_F] + [_P],
-    "profile_scatter": [_P] * 12 + [_I] * 8 + [_P],
-    "profile_scatter_backward": [_P] * 12 + [_I] * 8 + [_P],
+    "profile_scatter": [_P] * 12 + [_I] * 7 + [_P],
+    "profile_scatter_backward": [_P] * 12 + [_I] * 7 + [_P],
 }
 
 

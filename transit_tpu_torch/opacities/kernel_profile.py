@@ -20,15 +20,9 @@ import torch
 
 from transit_tpu_torch.opacities.kernel_lbl import (_check_cuda, _ptr,
                                                     fold_batch)
-from transit_tpu_torch.opacities.lbl import (ScatterTables,
+from transit_tpu_torch.opacities.lbl import (ScatterTables, check_tiles,
                                              profile_scatter_plain,
                                              profile_scatter_plain_vjp)
-
-# The shared row segment of a tile, in floats (8 KB, the launch's dynamic
-# shared memory; csrc/profile_scatter.cu takes at most PS_SEG_MAX): on
-# hj_ref.cfg the widest tile spans 1874 bins; a tile that spans more
-# works on global memory.
-SEGMENT_BINS = 2048
 
 
 def _check_launch(fn: str, per_group: dict, ilor, s: ScatterTables):
@@ -59,10 +53,22 @@ def _check_launch(fn: str, per_group: dict, ilor, s: ScatterTables):
         raise ValueError(f"{fn}: profflat must be 1-d, < 2**31 values")
     if s.ofactor <= 0 or s.n_coarse <= 0:
         raise ValueError(f"{fn}: ofactor and n_coarse must be positive")
-    if s.tiles.dim() != 1 or s.tiles.shape[0] < 2:
-        raise ValueError(f"{fn}: tiles must be (ntiles + 1,) group starts")
+    _check_tiles(fn, s.tiles, ng)
     return (device, nl, ng, ilor.shape[1],
             {k: v.contiguous() for k, v in args.items()})
+
+
+def _check_tiles(fn: str, tiles, ng: int):
+    """lbl.check_tiles of a launch's tile table, read to the host once
+    per tensor (the model passes the same one at every forward; the
+    kernels would drop the groups of a malformed one)."""
+    if getattr(tiles, "_checked_for_ng", None) == ng:
+        return
+    try:
+        check_tiles(tiles.cpu().numpy(), ng)
+    except ValueError as e:
+        raise ValueError(f"{fn}: {e}") from None
+    tiles._checked_for_ng = ng
 
 
 def _tables(s: ScatterTables, args) -> tuple:
@@ -73,9 +79,9 @@ def _tables(s: ScatterTables, args) -> tuple:
 
 def _sizes(s: ScatterTables, nl, ng, niso) -> tuple:
     """The entry points' int arguments: nl, ng, ntiles, niso, nlor,
-    ofactor, n_coarse, seg_bins."""
+    ofactor, n_coarse."""
     return (nl, ng, s.tiles.shape[0] - 1, niso, s.profsize.shape[1],
-            s.ofactor, s.n_coarse, SEGMENT_BINS)
+            s.ofactor, s.n_coarse)
 
 
 def profile_scatter(g_k, g_idop, ilor, s: ScatterTables, stats=None):
@@ -85,7 +91,7 @@ def profile_scatter(g_k, g_idop, ilor, s: ScatterTables, stats=None):
     niso), int32 -> the extinction (nl, n_coarse) float32 on their CUDA
     device (lbl.profile_scatter_plain on the card).  A block per (layer,
     tile of s.tiles); a tile whose span (lbl.tile_spans) exceeds
-    SEGMENT_BINS adds to the output in global memory.  ``stats``, a
+    lbl.SCATTER_SEGMENT adds to the output in global memory.  ``stats``, a
     (1,) int64 tensor on the card, gets the (layer, group, j) pairs added
     (lbl.scatter_pairs counts the same on the host).  Raises on any other
     device, type or shape, and when the launch fails."""
@@ -120,7 +126,7 @@ def profile_scatter_backward(ct, keep, g_idop, ilor, s: ScatterTables):
     cotangent ct (nl, n_coarse) float32 of the scatter's output -> the
     cotangent of g_k (nl, ng) float32, 0 where ``keep`` (nl, ng, bool or
     uint8) is false (lbl.profile_scatter_plain_vjp on the card, bit for
-    bit).  A tile whose span exceeds SEGMENT_BINS reads ct from
+    bit).  A tile whose span exceeds lbl.SCATTER_SEGMENT reads ct from
     global memory.  Raises on any other device, type or shape, and when
     the launch fails."""
     from transit_tpu_torch.opacities._build import load_library

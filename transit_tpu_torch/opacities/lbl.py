@@ -45,6 +45,9 @@ PLAIN_ENTRIES = {"cpu": 1 << 18, "cuda": 1 << 25}
 # Groups a tile of the profile-scatter kernels holds at most: one thread
 # each (csrc/profile_scatter.cu PS_TILE).
 SCATTER_TILE = 256
+# Bins of a tile's span the kernels stage in shared memory; a wider span
+# works on global memory (csrc/profile_scatter.cu PS_SEG).
+SCATTER_SEGMENT = 2048
 
 
 @dataclasses.dataclass
@@ -177,6 +180,23 @@ def scatter_tiles(g_iso, tile: int = SCATTER_TILE) -> np.ndarray:
     ends = np.append(starts[1:], ng)
     return np.concatenate([np.arange(a, b, tile) for a, b in
                            zip(starts, ends)] + [[ng]]).astype(np.int32)
+
+
+def check_tiles(tiles, ng: int) -> None:
+    """Raise ValueError unless ``tiles`` is a tile table of ``ng`` groups
+    the kernels can take: 1-d group starts from 0 to ng, ascending, no
+    tile empty or longer than SCATTER_TILE (a longer one would drop
+    groups)."""
+    tiles = np.asarray(tiles)
+    if tiles.ndim != 1 or tiles.shape[0] < 2:
+        raise ValueError("tiles must be (ntiles + 1,) group starts")
+    if tiles[0] != 0 or tiles[-1] != ng:
+        raise ValueError(f"tiles must run from 0 to ng = {ng}, not from "
+                         f"{tiles[0]} to {tiles[-1]}")
+    sizes = np.diff(tiles.astype(np.int64))
+    if sizes.min() < 1 or sizes.max() > SCATTER_TILE:
+        raise ValueError(f"tiles must hold 1 to {SCATTER_TILE} groups "
+                         f"each, not {sizes.min()} to {sizes.max()}")
 
 
 def _int32(a, name: str) -> np.ndarray:
@@ -360,9 +380,8 @@ def tile_spans(mask, g_idop, ilor, s: ScatterTables) -> torch.Tensor:
     """The bins each (layer, tile) of the kernels spans, (nl, ntiles)
     int64: from the lowest first to the highest last bin of the windows
     of the tile's groups that ``mask`` (nl, ng) selects, 0 for a tile
-    with none (the kernels stage a span of at most their segment's
-    length in shared memory, and work on a longer one in global
-    memory)."""
+    with none (the kernels stage a span of at most SCATTER_SEGMENT bins
+    in shared memory, and work on a longer one in global memory)."""
     _, _, _, minj, maxj = scatter_geometry(g_idop, ilor, s)
     live = mask & (minj <= maxj)
     big = torch.iinfo(torch.int64).max
