@@ -38,8 +38,9 @@ launches), their plain versions, and their bounds (FP32, SFU and memory
 terms).  With ``--profile`` it also traces forwards of the main path,
 of the 0.05 cm-1 path, of the transit path and of the exact path with
 torch.profiler (device time by kernel, busy share, device kernel count,
-the port's kernels' shares), a gradient step of each, and the transit
-step's geometry alone.
+the port's kernels' shares), a gradient step of each, the transit
+step's geometry alone, and the grid-interpolation path's forward and
+gradient step.
 
 The gradient (phases ``main_path_grad`` and ``fine_path_grad``): three
 steps of ``torch.autograd.grad(forward(T, q).sum(), (T, q))`` on each
@@ -73,6 +74,19 @@ spectra against the plain path and the reference C spectrum (median
 beside their bounds, and run three gradient steps (against the plain
 path's, central differences at a step that moves no profile index and
 no keep flag).
+The grid phases (``grid_*``, ``cli_mode_b``) build the opacity grid of
+hj_ref.cfg at bench.py's 25 temperatures (100 x 25 x 4 x 19001) through
+the exact builder (``profile_scatter`` with per-molecule rows; every
+chunk's launch against its plain version, its pair counter against the
+host count) and the fast builder (``layer_kmax`` bit for bit and a few
+cells of each band's ``line_tile_extinction`` launches against their
+plain versions, at unit density), each with its launches counted from
+0; hold the exact grid's rows times the densities against the exact
+model's line extinction (ethresh 1e-30); write the grid and run the
+grid-interpolation path from the file (three forwards that launch no
+line kernel, ``compute``, ``grid_extinction`` against float64 on the
+CPU, the gradient against the float64 model's); and run the CLI's
+opacity modes (b) and (c) on the fixture on the card.
 Every phase prints one line with its seconds; any failed check raises,
 so the script exits non-zero and prints no result.
 
@@ -85,8 +99,10 @@ with code 1 at once.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -96,13 +112,14 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from transit_tpu_torch import cli
 from transit_tpu_torch.config import TransitConfig, load_config
 from transit_tpu_torch.constants import SUNRADIUS
 from transit_tpu_torch.grids import make_wn_sampling
 from transit_tpu_torch.model import TransitModel
-from transit_tpu_torch.opacities import _build, banded, kernel_lbl
+from transit_tpu_torch.opacities import _build, banded, grid, kernel_lbl
 from transit_tpu_torch.opacities.kernel_profile import (
-    profile_scatter, profile_scatter_backward)
+    profile_scatter, profile_scatter_backward, profile_scatter_permol)
 from transit_tpu_torch.opacities.lbl import (
     SCATTER_SEGMENT, ScatterTables, layer_groups, profile_scatter_plain,
     profile_scatter_plain_vjp, scatter_geometry, scatter_pairs,
@@ -266,6 +283,23 @@ EXACT_FD_LAYERS = 8
 # The synthetic profile-scatter case (synthetic_scatter): layers, groups
 # (three isotope runs; not a multiple of the 256-group tile), coarse bins.
 SYN_SHAPE = (8, 700, 5000)
+# The opacity grid of hj_ref.cfg: bench.py:316's temperatures (tlow,
+# thigh, tempdelt) and the grid's (layers, temperatures, molecules,
+# wavenumbers).  Two exact builds differ by the float32 atomics' order
+# of sums (GRID_BUILDS_TOL of the max); the grid's rows of a cell times
+# its densities against the exact model's line extinction of that cell
+# as a layer, at ethresh 1e-30 (tests/test_opacity_grid.py:78: the grid
+# cuts at each molecule's kmax, the spectrum at the kmax of all), within
+# GRID_CONSISTENCY_TOL of the max, on the GRID_LAYERS at every grid
+# temperature.
+GRID_T = (500.0, 2900.0, 100.0)
+GRID_SHAPE = (100, 25, 4, 19001)
+GRID_BUILDS_TOL = 1e-6
+GRID_CONSISTENCY_TOL = 1e-5
+GRID_LAYERS = (0, 50, 99)
+# Lines of each band of the fast build compared with their plain
+# version: the band's first, middle and last cell.
+GRID_FAST_CELLS = 3
 
 
 class CheckFailed(RuntimeError):
@@ -1567,15 +1601,15 @@ def exact_bounds(grp, s) -> dict:
     operations (a multiply, an add); the distinct table elements the
     pairs read (:func:`table_elements`), 4 bytes each; the forward reads
     g_k and the Doppler index of the groups with g_k != 0 and writes the
-    (nl, n_coarse) output, the backward reads keep, the Doppler index of
-    the kept groups and the (nl, n_coarse) cotangent and writes the (nl,
-    ng) cotangent of g_k; both read ilor and the plan's and table's index
-    rows."""
+    (nl, s.nm, n_coarse) output, the backward reads keep, the Doppler
+    index of the kept groups and the (nl, n_coarse) cotangent and writes
+    the (nl, ng) cotangent of g_k; both read ilor and the plan's and
+    table's index rows."""
     g_k, keep, g_idop, ilor = (grp[k] for k in ("g_k", "keep", "g_idop",
                                                 "ilor"))
     rows = nbytes_of(ilor, s.g_iso, s.g_iown, s.g_idwn, s.profsize,
                      s.profbase)
-    line = 4 * g_k.shape[0] * s.n_coarse
+    line = 4 * g_k.shape[0] * s.nm * s.n_coarse
     out = {}
     for name, mask, other in (
             ("profile_scatter", g_k != 0, nbytes_of(g_k)),
@@ -1787,7 +1821,421 @@ def exact_phases(dev, profile: str | None = None) -> dict:
         phase("profile_grad_exact", t0)
     return {"err": err_e, "launches": launches_e, "times": times_e,
             "grad": grad_e, "forward_ms": ms_fwd_e, "pairs": pairs_e,
-            "profile": prof}
+            "profile": prof, "model": hje}
+
+
+def grid_model(m: TransitModel):
+    """The exact model ``m`` with the opacity grid's temperatures
+    (GRID_T) in its configuration: the grid builders read them there."""
+    m.cfg.tlow, m.cfg.thigh, m.cfg.tempdelt = GRID_T
+    return m
+
+
+def reset_counts(kernels):
+    for k in kernels:
+        k.launches = 0
+
+
+def read_counts(kernels) -> dict:
+    torch.cuda.synchronize()
+    return {k.__name__: k.launches for k in kernels}
+
+
+def grid_exact_vs_plain(m: TransitModel, cells) -> dict:
+    """Every chunk of the exact build (grid.exact_chunks): the
+    per-molecule profile_scatter launch against its plain version on the
+    same inputs (max|a-b| / (|a| + 1e-6 max|a|) < KERNEL_REL_TOL) and its
+    pair counter against the host count (lbl.scatter_pairs)."""
+    res = {"max_rel": 0.0, "max_abs": 0.0, "pairs": 0, "chunks": 0,
+           "cells": 0}
+    for sl, grp, s in grid.exact_chunks(m, cells):
+        args = (grp["g_k"], grp["g_idop"], grp["ilor"], s)
+        stats = torch.zeros(1, dtype=torch.int64, device=m.device)
+        got = profile_scatter(*args, stats=stats)
+        want = profile_scatter_plain(*args)
+        torch.cuda.synchronize()
+        check(got.shape == (sl.stop - sl.start, s.nm, s.n_coarse) and
+              bool(torch.isfinite(got).all()) and float(want.max()) > 0,
+              f"grid exact cells {sl}: per-molecule profile_scatter output "
+              f"{tuple(got.shape)} not finite, or plain zero")
+        err = rel_err(want, got)
+        check(err < KERNEL_REL_TOL, f"grid exact cells {sl}: per-molecule "
+              f"profile_scatter vs plain {err:.3e} >= {KERNEL_REL_TOL}")
+        host = scatter_pairs(*args)
+        check(int(stats[0]) == host, f"grid exact cells {sl}: pair counter "
+              f"{int(stats[0])} != host count {host}")
+        res["max_rel"] = max(res["max_rel"], err)
+        res["max_abs"] = max(res["max_abs"],
+                             float((got - want).abs().max()))
+        res["pairs"] += host
+        res["chunks"] += 1
+        res["cells"] += sl.stop - sl.start
+    return res
+
+
+def grid_exact_times(m: TransitModel, cells) -> dict:
+    """The per-molecule profile_scatter launch of the exact build's first
+    chunk: its time, its plain version's, its bound (exact_bounds, the
+    (cells, nm, n_coarse) output) and the chunk's cells."""
+    sl, grp, s = next(grid.exact_chunks(m, cells))
+    args = (grp["g_k"], grp["g_idop"], grp["ilor"], s)
+    b = exact_bounds(grp, s)["profile_scatter"]
+    return {"cells": sl.stop - sl.start,
+            "ms": cuda_ms(lambda: profile_scatter(*args)),
+            "plain_ms": cuda_ms(lambda: profile_scatter_plain(*args),
+                                runs=1), **b}
+
+
+def grid_fast_vs_plain(m: TransitModel, cells, plans) -> dict:
+    """Per molecule of the fast build: layer_kmax on every cell against
+    its plain version bit for bit, and each launch of the banded function
+    (banded.launch_units) on GRID_FAST_CELLS cells of its band against its
+    plain version (KERNEL_REL_TOL), at unit density."""
+    res = {"kmax_max_abs": 0.0}
+    for mp in plans:
+        tab, temps, kw = grid.fast_tables(m, cells, mp)
+        a = banded.band_kmax(mp.devs[0], temps, tab["coef0"], True)
+        b = banded.band_kmax(mp.devs[0], temps, tab["coef0"], False)
+        check(torch.equal(a, b), f"grid fast molecule {mp.m}: layer_kmax "
+              f"vs plain max_abs {float((a - b).abs().max())!r}")
+        for i, part, unit in banded.launch_units(mp.bplan, mp.devs,
+                                                 mp.index):
+            rows = mp.index["rows"][i]
+            n = rows.shape[0]
+            r = rows[torch.linspace(0, n - 1, GRID_FAST_CELLS,
+                                    device=rows.device).long().unique()]
+            sel = r.long()
+            got = torch.zeros((temps.shape[0], m.wns.n), device=m.device)
+            want = torch.zeros_like(got)
+            launch_kernel(tab, temps, kw, part, unit, r, got)
+            launch_plain(tab, temps, kw, part, unit, sel, want)
+            got, want = got[sel], want[sel]
+            check(bool(torch.isfinite(got).all()),
+                  f"grid fast molecule {mp.m} {part}: kernel not finite")
+            err = rel_err(want, got)
+            check(err < KERNEL_REL_TOL, f"grid fast molecule {mp.m} band "
+                  f"{i} {part}: kernel vs plain {err:.3e} >= "
+                  f"{KERNEL_REL_TOL}")
+            e = res.setdefault(kernel_name(part), {"max_rel": 0.0,
+                                                   "max_abs": 0.0,
+                                                   "launches": 0})
+            e["max_rel"] = max(e["max_rel"], err)
+            e["max_abs"] = max(e["max_abs"], float((got - want).abs().max()))
+            e["launches"] += 1
+    return res
+
+
+def fast_build_launches(plans) -> dict:
+    """The launches the fast build's plans ask: per molecule one
+    layer_kmax, one line-tile launch per near or stride-1 class and one
+    shell launch per band with decimated shells."""
+    want = {"layer_kmax": len(plans), "line_tile_extinction": 0,
+            "shell_tile_extinction": 0}
+    for mp in plans:
+        for _, part, _ in banded.launch_units(mp.bplan, mp.devs, mp.index):
+            want[kernel_name(part)] += 1
+    return want
+
+
+def grid_consistency(m: TransitModel, cells) -> float:
+    """At ethresh 1e-30: the exact grid's rows of the GRID_LAYERS' cells
+    (every grid temperature) times each cell's densities against the
+    exact model's line extinction of those cells as layers (both through
+    the kernels); returns max|a-b| / max|b|."""
+    nt = cells.temps.shape[0]
+    idx = np.concatenate([np.arange(r * nt, (r + 1) * nt)
+                          for r in GRID_LAYERS])
+    sub = dataclasses.replace(cells, tt=cells.tt[idx], dd=cells.dd[:, idx],
+                              zz=cells.zz[:, idx])
+    eth = m.cfg.ethreshold
+    m.cfg.ethreshold = 1e-30
+    try:
+        with torch.no_grad():
+            (_, grp, s), = grid.exact_chunks(m, sub)
+            rows = profile_scatter_permol(grp, s)
+            ids = list(m.mol.ids)
+            dens = m._t(sub.dd)
+            mol = [ids.index(int(i)) for i in cells.molID]
+            coll = (rows * dens[mol].T[:, :, None]).sum(dim=1)
+            direct = m.line_extinction(m._t(sub.tt), dens, m._t(sub.zz))
+    finally:
+        m.cfg.ethreshold = eth
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(coll).all()) and float(direct.max()) > 0,
+          "grid consistency: not finite, or the line extinction zero")
+    return max_rel(coll.double(), direct.double())
+
+
+def cli_mode_b(workdir: Path) -> dict:
+    """transit_tpu_torch.cli.main on the card (float32) in the fixture's
+    opacity modes (tests/test_opacity_grid.py:141-200): the two-step path
+    (--justOpacity, then a grid-mode run) and mode (b) (an absent
+    opacityfile built, written, and serving the spectrum in the same
+    run), then a grid-mode run on mode (b)'s file, whose spectrum must
+    equal mode (b)'s byte for byte; the two grids within
+    GRID_BUILDS_TOL of the max (float32 atomics: their bytes may
+    differ)."""
+    common = [
+        "--atm", f"{FIX}/test.atm", "--linedb", f"{FIX}/test.tli",
+        "--csfile", f"{FIX}/test_cia.dat", "--molfile",
+        f"{FIX}/molecules.dat", "--wnlow", "2000", "--wnhigh", "2100",
+        "--wndelt", "1.0", "--wnosamp", "216", "--wnfct", "1.0", "--ndop",
+        "15", "--nlor", "15", "--dmin", "1e-3", "--dmax", "0.25", "--lmin",
+        "1e-4", "--lmax", "10.0", "--nwidth", "20", "--ethresh", "1e-8",
+        "--solution", "eclipse", "--toomuch", "1e30", "--raygrid",
+        "0 20 40 60 80", "--tlow", "1000", "--thigh", "2000", "--tempdelt",
+        "100", "--verb", "0"]
+    f = {k: str(workdir / k) for k in ("two.bin", "two.dat", "b.bin",
+                                       "b.dat", "c.dat")}
+    kernels = ALL_KERNELS + EXACT_KERNELS
+    reset_counts(kernels)
+    check(cli.main(common + ["--opacityfile", f["two.bin"],
+                             "--justOpacity"]) == 0, "cli: --justOpacity")
+    check(cli.main(common + ["--opacityfile", f["two.bin"], "--outspec",
+                             f["two.dat"]]) == 0, "cli: grid-mode run")
+    check(cli.main(common + ["--opacityfile", f["b.bin"], "--outspec",
+                             f["b.dat"]]) == 0, "cli: mode (b)")
+    launches = read_counts(kernels)
+    check(cli.main(common + ["--opacityfile", f["b.bin"], "--outspec",
+                             f["c.dat"]]) == 0, "cli: mode (c) on (b)'s file")
+    read = {k: Path(v).read_bytes() for k, v in f.items()}
+    check(read["b.dat"] == read["c.dat"], "cli: mode (b)'s spectrum differs "
+          "from a grid-mode run on the file it wrote")
+    a = grid.read_opacity_grid(f["two.bin"]).grid
+    b = grid.read_opacity_grid(f["b.bin"]).grid
+    err = float(np.abs(a - b).max() / np.abs(a).max())
+    check(a.shape == (20, 11, 1, 101) and np.abs(a).max() > 0 and
+          err < GRID_BUILDS_TOL, f"cli: the two builds' grids {a.shape}: "
+          f"{err:.3e} >= {GRID_BUILDS_TOL}")
+    want = {k.__name__: 2 if k.__name__ == "profile_scatter" else 0
+            for k in kernels}
+    check(launches == want, f"cli: launches of two builds and two grid-mode "
+          f"runs {launches}, the path asks {want}")
+    spec = np.loadtxt(f["b.dat"])
+    check(spec.shape == (101, 2) and np.all(np.isfinite(spec[:, 1])) and
+          np.all(spec[:, 1] > 0), "cli: mode (b) spectrum")
+    return {"grid_max_rel": err, "grid_bytes_equal":
+            read["two.bin"] == read["b.bin"],
+            "spectrum_bytes_equal": read["two.dat"] == read["b.dat"],
+            "launches": launches}
+
+
+def grid_phases(m: TransitModel, card: str,
+                profile: str | None = None) -> dict:
+    """The opacity grid's phases on hj_ref.cfg's exact model ``m`` with
+    bench.py's temperature grid (GRID_T: 100 layers x 25 temperatures x 4
+    molecules x 19001 wavenumbers):
+      - grid_build_exact: every chunk's per-molecule profile_scatter
+        against its plain version and its pair counter; the build timed,
+        its launches counted;
+      - grid_build_fast: the plans (host), layer_kmax bit for bit and a
+        few cells of each band's launches against their plain versions;
+        the build timed, its launches against the plans';
+      - grid_consistency: the exact grid against the exact model's line
+        extinction (ethresh 1e-30), and the L1 gap between the grids;
+      - grid_path: the exact grid written and read back by a grid-mode
+        model (mode c): forward, the gradient step and compute on the
+        card, grid_extinction against the float64 CPU version, the
+        gradient against the float64 model's, the spectrum against the
+        line-by-line one, times (and with ``profile`` a torch.profiler
+        pass of the forward and the gradient step, and of each build:
+        traces ``<stem>_grid``, ``_grad_grid``, ``_grid_exact``,
+        ``_grid_fast``);
+      - cli_mode_b: the CLI's opacity modes on the fixture.
+    Every check raises on a miss.  Returns what the result line reads."""
+    grid_model(m)
+    kernels = ALL_KERNELS + EXACT_KERNELS
+    cells = grid.grid_cells(m)
+    L, T, M, W = GRID_SHAPE
+    out = {}
+
+    t0 = time.perf_counter()
+    vs = grid_exact_vs_plain(m, cells)
+    times = grid_exact_times(m, cells)
+    reset_counts(kernels)
+    t1 = time.perf_counter()
+    og = grid.build_opacity_grid(m)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t1
+    launches = read_counts(kernels)
+    want = {k.__name__: vs["chunks"] if k.__name__ == "profile_scatter"
+            else 0 for k in kernels}
+    check(launches == want, f"grid exact build: launches {launches}, the "
+          f"build asks {want}")
+    check(og.grid.shape == GRID_SHAPE and bool(np.isfinite(og.grid).all())
+          and og.grid.max() > 0, f"grid exact build {og.grid.shape}")
+    check(og.molID.tolist() == [int(m.mol.ids[i]) for i in
+                                dict.fromkeys(m.iso.imol.tolist())],
+          f"grid molID {og.molID.tolist()}")
+    out["exact"] = {"seconds": secs, "cells_per_s": L * T * W / secs,
+                    "launches": launches["profile_scatter"], "vs_plain": vs,
+                    "times": times}
+    phase("grid_build_exact", t0,
+          f"{L} x {T} x {M} x {W} in {secs:.3f} s: {L * T * W / secs:.6e} "
+          f"layer*temp*wn cells/s ({card}); profile_scatter (per molecule) "
+          f"{launches['profile_scatter']} launches, against plain on every "
+          f"cell: " + json.dumps(vs) + "; first chunk's launch: " +
+          json.dumps(times))
+    if profile:
+        t0 = time.perf_counter()
+        trace = Path(profile)
+        out["exact"]["profile"] = profile_step(
+            lambda: grid.build_opacity_grid(m), secs * 1e3,
+            str(trace.with_name(f"{trace.stem}_grid_exact{trace.suffix}")),
+            "grid exact build")
+        phase("profile_grid_exact", t0)
+
+    t0 = time.perf_counter()
+    plans = grid.fast_plans(m, cells)
+    torch.cuda.synchronize()
+    plan_s = time.perf_counter() - t0
+    vs_f = grid_fast_vs_plain(m, cells, plans)
+    reset_counts(kernels)
+    t1 = time.perf_counter()
+    ogf = grid.build_opacity_grid_fast(m, plans=plans)
+    torch.cuda.synchronize()
+    secs_f = time.perf_counter() - t1
+    launches_f = read_counts(kernels)
+    want_f = {k.__name__: 0 for k in kernels}
+    want_f.update(fast_build_launches(plans))
+    check(launches_f == want_f, f"grid fast build: launches {launches_f}, "
+          f"the plans ask {want_f}")
+    check(ogf.grid.shape == GRID_SHAPE and bool(np.isfinite(ogf.grid).all())
+          and ogf.grid.max() > 0, f"grid fast build {ogf.grid.shape}")
+    decimated = sorted({s for mp in plans for far in mp.bplan.far_plans or ()
+                        if far for *_, s in far if s > 1})
+    out["fast"] = {"seconds": secs_f, "plan_seconds": plan_s,
+                   "cells_per_s": L * T * W / secs_f,
+                   "cells_per_s_with_plans": L * T * W / (secs_f + plan_s),
+                   "launches": launches_f, "vs_plain": vs_f,
+                   "bands": [len(mp.bplan.slices) for mp in plans],
+                   "decimated_strides": decimated}
+    phase("grid_build_fast", t0,
+          f"plans {plan_s:.3f} s (host), build {secs_f:.3f} s: "
+          f"{L * T * W / secs_f:.6e} layer*temp*wn cells/s "
+          f"({L * T * W / (secs_f + plan_s):.6e} with the plans; {card}); "
+          f"launches {launches_f}; bands per molecule "
+          f"{out['fast']['bands']}, decimated shells {decimated}; against "
+          "plain: " + json.dumps(vs_f))
+    if profile:
+        t0 = time.perf_counter()
+        trace = Path(profile)
+        out["fast"]["profile"] = profile_step(
+            lambda: grid.build_opacity_grid_fast(m, plans=plans),
+            secs_f * 1e3,
+            str(trace.with_name(f"{trace.stem}_grid_fast{trace.suffix}")),
+            "grid fast build")
+        phase("profile_grid_fast", t0)
+
+    t0 = time.perf_counter()
+    cons = grid_consistency(m, cells)
+    check(cons < GRID_CONSISTENCY_TOL, f"grid consistency {cons:.3e} >= "
+          f"{GRID_CONSISTENCY_TOL}")
+    l1 = float(np.abs(ogf.grid - og.grid).sum() / np.abs(og.grid).sum())
+    del ogf
+    out["consistency"], out["l1_fast_vs_exact"] = cons, l1
+    phase("grid_consistency", t0,
+          f"exact grid x densities vs the exact model's line extinction at "
+          f"ethresh 1e-30 on layers {list(GRID_LAYERS)} x {T} temperatures: "
+          f"max_rel {cons:.3e} (bound {GRID_CONSISTENCY_TOL}); L1 gap fast "
+          f"vs exact grid {l1:.6e} (for the record)")
+
+    t0 = time.perf_counter()
+    workdir = ROOT / "build" / "grid"
+    shutil.rmtree(workdir, ignore_errors=True)
+    workdir.mkdir(parents=True)
+    try:
+        path = workdir / "hj_grid.bin"
+        grid.write_opacity_grid(str(path), og)
+        cfg_g = exact_config()
+        cfg_g.tlow, cfg_g.thigh, cfg_g.tempdelt = GRID_T
+        cfg_g.opacityfile = str(path)
+        mg = TransitModel(cfg_g, dtype=torch.float32, device=m.device)
+        check(mg.ogrid is not None and mg.tli is None and mg.plan is None,
+              "grid path: the model read a line list")
+        T0 = np.asarray(mg.atm.temp, dtype=np.float64)
+        q0 = np.asarray(mg.atm.q, dtype=np.float64)
+        requests = [(T0, q0), (T0 + 50.0, q0), (T0 - 50.0, q0)]
+        specs, launches_g = run_requests(mg, requests, kernels)
+        check(launches_g == {k.__name__: 0 for k in kernels},
+              f"grid path: line kernels launched {launches_g}")
+        for sp in specs:
+            check(sp.shape == (W,) and bool(torch.isfinite(sp).all()) and
+                  float(sp.min()) > 0, "grid path: spectrum")
+        res = mg.compute()
+        check(torch.equal(res.spectrum, specs[0]) or
+              max_rel(res.spectrum, specs[0]) < 1e-6,
+              "grid path: compute differs from forward")
+        Tc = mg._t(T0) * mg.atm.tfct
+        a = grid.grid_extinction(mg._ogrid_temp_t, mg._ogrid_t,
+                                 mg._grid_mol_t, Tc, mg._t(mg.atm.d))
+        b = grid.grid_extinction(
+            torch.as_tensor(og.temp), torch.from_numpy(og.grid),
+            mg._grid_mol_t.cpu(), torch.as_tensor(T0 * mg.atm.tfct),
+            torch.as_tensor(np.asarray(mg.atm.d, dtype=np.float64)))
+        ext_err = rel_err(b, a.double().cpu())
+        check(ext_err < KERNEL_REL_TOL, f"grid path: grid_extinction vs "
+              f"float64 CPU {ext_err:.3e} >= {KERNEL_REL_TOL}")
+        leaves = grad_leaves(mg, T0, q0)
+        g32 = grad_step(mg, *leaves)
+        mg64 = TransitModel(cfg_g, dtype=torch.float64, device=m.device)
+        g64 = grad_step(mg64, *(torch.tensor(x, dtype=torch.float64,
+                                             device=m.device,
+                                             requires_grad=True)
+                                for x in (T0, q0)))
+        del mg64
+        gerr = {"T": max_rel(g32[0].double(), g64[0]),
+                "q": max_rel(g32[1].double(), g64[1])}
+        check(all(bool(torch.isfinite(g).all()) for g in g32) and
+              float(g32[0].abs().max()) > 0 and max(gerr.values()) < GRAD_TOL,
+              f"grid path: gradient vs float64 {gerr} >= {GRAD_TOL}")
+        lbl_spec = m.forward(T0, q0)
+        ratio = (specs[0].double() / lbl_spec.double() - 1.0).abs()
+        ms_fwd = cuda_ms(lambda: mg.forward(T0, q0))
+        ms_grad = cuda_ms(lambda: grad_step(mg, *leaves))
+        out["path"] = {"forward_ms": ms_fwd, "gradient_ms": ms_grad,
+                       "grid_extinction_vs_float64_cpu": ext_err,
+                       "gradient_vs_float64": gerr,
+                       "median_vs_lbl": float(ratio.median()),
+                       "max_vs_lbl": float(ratio.max())}
+        if profile:
+            trace = Path(profile)
+            out["path"]["profile_forward"] = profile_forward(
+                mg, T0, q0, ms_fwd, str(trace.with_name(
+                    f"{trace.stem}_grid{trace.suffix}")), "grid")
+            out["path"]["profile_grad"] = profile_step(
+                lambda: grad_step(mg, *leaves), ms_grad,
+                str(trace.with_name(f"{trace.stem}_grad_grid"
+                                    f"{trace.suffix}")), "grid grad")
+        del mg
+        phase("grid_path", t0,
+              f"forward {ms_fwd:.3f} ms, gradient step {ms_grad:.3f} ms "
+              f"({card}); no line kernel launched; grid_extinction vs "
+              f"float64 CPU {ext_err:.3e}; gradient vs float64 {gerr}; "
+              f"median |grid / line-by-line spectrum - 1| "
+              f"{out['path']['median_vs_lbl']:.4e} (max "
+              f"{out['path']['max_vs_lbl']:.4e}; for the record)")
+
+        t0 = time.perf_counter()
+        out["cli"] = cli_mode_b(workdir)
+        phase("cli_mode_b", t0, json.dumps(out["cli"]))
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    return out
+
+
+def grid_keys(gr: dict) -> dict:
+    """The profile_scatter entry's keys of the exact grid build: the
+    per-molecule launches of one build, their error against the plain
+    version, and the first chunk's launch timed beside its bound."""
+    t = gr["exact"]["times"]
+    return {"launches_grid_build": gr["exact"]["launches"],
+            "max_abs_err_grid_build": gr["exact"]["vs_plain"]["max_abs"],
+            "max_rel_vs_plain_grid_build": gr["exact"]["vs_plain"][
+                "max_rel"],
+            "grid_build_launch": {k: t[k] for k in (
+                "cells", "ms", "plain_ms", "bound_ms", "bound_by", "pairs",
+                "table_elements")}}
 
 
 def main(device: str = "cuda", profile: str | None = None) -> int:
@@ -2141,18 +2589,26 @@ def main(device: str = "cuda", profile: str | None = None) -> int:
     #     scatter kernels.
     ex = exact_phases(dev, profile)
 
-    # 11. Nothing of JAX or of the JAX package was loaded.
+    # 11. The opacity grid on hj_ref.cfg (bench.py's 25 temperatures):
+    #     the exact build through the per-molecule profile_scatter, the
+    #     fast build through the banded kernels at unit density, the
+    #     grid-interpolation path and the CLI's opacity modes.
+    gr = grid_phases(ex.pop("model"), card, profile)
+
+    # 12. Nothing of JAX or of the JAX package was loaded.
     bad = sorted(k for k in sys.modules
                  if k.split(".")[0] in ("jax", "jaxlib", "transit_tpu"))
     check(not bad, f"JAX modules loaded: {bad[:5]}")
     phase("total", t_start)
     check(not deferred, "; ".join(deferred))
 
-    # 12. Result lines, after the card's line.  Launches: the banded
+    # 13. Result lines, after the card's line.  Launches: the banded
     #    paths' (main path, 0.05 cm-1 and transit), the exact path's for
     #    the profile-scatter kernels; times and bounds per forward of the
     #    main path, the shell kernel's of the 0.05 cm-1 path, the
-    #    profile-scatter kernels' of the exact path.
+    #    profile-scatter kernels' of the exact path; the grid builds'
+    #    launches and the per-molecule profile_scatter launch's time and
+    #    bound beside them.
     def launched(name):
         return launches_b[name] + launches_f[name] + launches_t[name]
     by_path = {k.__name__: {"unbanded": launches_unb[k.__name__],
@@ -2198,6 +2654,10 @@ def main(device: str = "cuda", profile: str | None = None) -> int:
         "ms_unbanded": ms_kernel,
         "bound_ms_unbanded": bound_ms,
         "plain_ms_unbanded": ms_plain,
+        "launches_grid_build_fast": gr["fast"]["launches"][
+            "line_tile_extinction"],
+        "max_abs_err_grid_build_fast": gr["fast"]["vs_plain"][
+            "line_tile_extinction"]["max_abs"],
         "card": card,
     }, {
         "name": "layer_kmax",
@@ -2208,6 +2668,7 @@ def main(device: str = "cuda", profile: str | None = None) -> int:
         "launches_by_path": by_path["layer_kmax"],
         "max_abs_err": max(kmax_err_b, kmax_err_f),
         "max_abs_err_unbanded": kmax_err,
+        "launches_grid_build_fast": gr["fast"]["launches"]["layer_kmax"],
         "ms": km["ms"],
         "ms_one_launch_events": km["ms_events"],
         "plain_ms": km["plain_ms"],
@@ -2268,6 +2729,7 @@ def main(device: str = "cuda", profile: str | None = None) -> int:
         "bound_by": ex["times"][name]["bound_by"],
         "pairs": ex["times"][name]["pairs"],
         "table_elements": ex["times"][name]["table_elements"],
+        **(grid_keys(gr) if name == "profile_scatter" else {}),
         # No one PyTorch call computes this ragged gather and scatter-add
         # from these inputs: index_add_ needs the (pair) index and value
         # tensors, which are the plain version's work.
@@ -2289,7 +2751,20 @@ def main(device: str = "cuda", profile: str | None = None) -> int:
                      "transit_batch": batch_t["ms_batch"],
                      "transit_member": batch_t["ms_member"]},
         "hmc": {k: hmc[k] for k in ("acceptance", "ms_per_gradient_eval",
-                                    "ms_per_sample")}}), flush=True)
+                                    "ms_per_sample")},
+        "grid": {"shape": GRID_SHAPE,
+                 "exact_build_s": gr["exact"]["seconds"],
+                 "exact_cells_per_s": gr["exact"]["cells_per_s"],
+                 "fast_plan_s": gr["fast"]["plan_seconds"],
+                 "fast_build_s": gr["fast"]["seconds"],
+                 "fast_cells_per_s": gr["fast"]["cells_per_s"],
+                 "consistency_max_rel": gr["consistency"],
+                 "l1_fast_vs_exact": gr["l1_fast_vs_exact"],
+                 **{k: v for k, v in gr["path"].items()
+                    if not k.startswith("profile")},
+                 "cli_grid_bytes_equal": gr["cli"]["grid_bytes_equal"],
+                 "cli_grid_max_rel": gr["cli"]["grid_max_rel"]}}),
+        flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

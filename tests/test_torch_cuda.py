@@ -1120,3 +1120,89 @@ def test_forward_batch_split_on_card(card, monkeypatch):
     assert len(m.batch_splits(3)) == 3
     for (a, b), tol in zip(zip(run(), one), (1e-5, 1e-4, 1e-4)):
         assert float((a - b).abs().max()) <= tol * float(b.abs().max())
+
+
+def _permol(s, mol_of_iso, nm):
+    """``s`` with per-molecule rows: each group's molecule that of its
+    isotope (mol_of_iso), through lbl.permol_tables."""
+    from transit_tpu_torch.opacities import lbl
+    g_iso = s.g_iso.long()
+    iout = torch.as_tensor(np.asarray(mol_of_iso), device=g_iso.device)
+    return lbl.permol_tables(s, iout[g_iso],
+                             torch.arange(g_iso.shape[0],
+                                          device=g_iso.device), nm)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nl", [1, 8])
+def test_profile_scatter_per_molecule_matches_plain(card, nl):
+    """The per-molecule launch (the opacity-grid build) on
+    chip_smoke.synthetic_scatter with its three isotope runs on three
+    molecules (run i on molecule 2 - i): each tile adds to its molecule's
+    row, (nl, 3, n_coarse), against the plain per-molecule scatter
+    within 1e-5 (max|a-b| / (|a| + 1e-6 max|a|)); the pair counter
+    equal to lbl.scatter_pairs; the molecules' rows sum to the
+    collapsed launch's output (float32 atomics: within 1e-5)."""
+    from chip_smoke import synthetic_scatter
+    from transit_tpu_torch.opacities import lbl
+    from transit_tpu_torch.opacities.kernel_profile import profile_scatter
+    g_k, keep, g_idop, ilor, s = synthetic_scatter(card, nl=nl)
+    s3 = _permol(s, [2, 1, 0], 3)
+    args = (g_k, g_idop, ilor)
+    stats = torch.zeros(1, dtype=torch.int64, device=card)
+    n0 = profile_scatter.launches
+    got = profile_scatter(*args, s3, stats=stats)
+    want = lbl.profile_scatter_plain(*args, s3)
+    one = profile_scatter(*args, s)
+    torch.cuda.synchronize()
+    assert profile_scatter.launches == n0 + 2
+    assert got.shape == want.shape == (nl, 3, s.n_coarse)
+    for m in range(3):
+        assert float(want[:, m].max()) > 0
+        assert _rel(want[:, m], got[:, m]) < 1e-5
+    assert int(stats[0]) == lbl.scatter_pairs(*args, s) > 0
+    assert _rel(one, got.sum(dim=1)) < 1e-5
+
+
+@pytest.mark.cuda
+def test_profile_scatter_one_molecule_is_the_collapsed_launch(card):
+    """With nm = 1 the per-molecule launch computes what the collapsed
+    one computes, bit for bit, on a case whose windows never overlap
+    (every bin gets at most one product, so the float32 atomics add in
+    one order): 4 layers, 600 groups in 3 isotope runs, windows of at
+    most 3 bins, 12 bins apart."""
+    from transit_tpu_torch.opacities import lbl
+    from transit_tpu_torch.opacities.kernel_profile import profile_scatter
+    rng = np.random.default_rng(11)
+    nl, ng, of = 4, 600, 4
+    n_coarse = 12 * ng + 8
+    psize = np.array([[2, 3], [4, 5]], dtype=np.int32)
+    sizes = 2 * psize.ravel() + 1
+    base = np.concatenate([[0], np.cumsum(sizes)[:-1]]).reshape(psize.shape)
+    g_iso = np.repeat(np.arange(3), [200, 250, 150]).astype(np.int32)
+    idwn = 4 + 12 * np.arange(ng)
+    iown = idwn * of + rng.integers(0, of + 1, ng)
+
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a), device=card)
+
+    s = lbl.ScatterTables(
+        g_iso=t(g_iso), g_iown=t(iown.astype(np.int32)),
+        g_idwn=t(idwn.astype(np.int32)), profsize=t(psize),
+        profbase=t(base.astype(np.int32)),
+        profflat=t(rng.random(int(sizes.sum())).astype(np.float32)),
+        ofactor=of, n_coarse=n_coarse,
+        tiles=t(lbl.scatter_tiles(g_iso)))
+    g_k = t(((0.1 + rng.random((nl, ng))) *
+             (rng.random((nl, ng)) > 0.2)).astype(np.float32))
+    g_idop = t(rng.integers(0, 2, (nl, ng)).astype(np.int32))
+    ilor = t(rng.integers(0, 2, (nl, 3)).astype(np.int32))
+    spans = lbl.scatter_geometry(g_idop, ilor, s)
+    assert int((spans[4] - spans[3] + 1).max()) <= 3
+    one = profile_scatter(g_k, g_idop, ilor, s)
+    s1 = _permol(s, [0, 0, 0], 1)
+    got = profile_scatter(g_k, g_idop, ilor, s1)
+    torch.cuda.synchronize()
+    assert got.shape == (nl, 1, n_coarse) and float(one.max()) > 0
+    assert torch.equal(got[:, 0], one)
+    assert torch.equal(one, lbl.profile_scatter_plain(g_k, g_idop, ilor, s))

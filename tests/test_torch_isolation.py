@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: it imports no JAX and nothing of
 transit_tpu, and its entry points never fall back to the CPU quietly."""
 
+import dataclasses
 import os
 import re
 import subprocess
@@ -36,6 +37,8 @@ _MODS = [
     "transit_tpu_torch.opacities.kernel_profile",
     "transit_tpu_torch.rt.geometry, transit_tpu_torch.rt.transmission, "
     "transit_tpu_torch.rt.orbit, transit_tpu_torch.retrieval",
+    "transit_tpu_torch.opacities.grid, transit_tpu_torch.utils.savefiles, "
+    "transit_tpu_torch.numerics.resample, transit_tpu_torch.cli",
     "chip_smoke",
     "grad_fd_study",
     "line_tile_ablation",
@@ -91,7 +94,6 @@ def test_sources_import_no_jax_and_no_transit_tpu():
 
 
 def _torch_cfg():
-    import dataclasses
     from transit_tpu_torch.config import TransitConfig
     return TransitConfig(**dataclasses.asdict(make_config("eclipse", 1e30)))
 
@@ -103,23 +105,47 @@ def test_model_without_device_or_card_raises(monkeypatch):
         TransitModel(_torch_cfg(), mode="fast")
 
 
-@pytest.mark.parametrize("change", [
-    dict(wn_window=(0, 50)), dict(opacityfile="grid.bin"),
-    dict(saveext="ext.save")])
+@pytest.mark.parametrize("change", [dict(wn_window=(0, 50))])
 def test_unported_options_raise(change):
     """Options of slices not ported yet raise with the slice's name, in
-    either mode (exact mode is ported: tests/test_torch_exact_*.py)."""
+    either mode (exact mode is ported: tests/test_torch_exact_*.py; the
+    opacity grid and the savefile: tests/test_torch_grid_*.py)."""
     from transit_tpu_torch.model import TransitModel
-    cfg = _torch_cfg()
-    kw = {}
-    for k, v in change.items():
-        if k == "wn_window":
-            kw[k] = v
-        else:
-            setattr(cfg, k, v)
     for mode in ("exact", "fast"):
         with pytest.raises(NotImplementedError, match="slice"):
-            TransitModel(cfg, mode=mode, device="cpu", **kw)
+            TransitModel(_torch_cfg(), mode=mode, device="cpu", **change)
+
+
+@pytest.mark.parametrize("option", ["opacityfile", "saveext"])
+def test_grid_options_run(tmp_path, option):
+    """cfg.opacityfile and cfg.saveext, which raised until the
+    opacity-grid slice, now run: an opacityfile that does not exist
+    leaves the model on its line list (the CLI builds the grid first,
+    mode b), one that exists is read (grid mode); a saveext is written
+    by compute and then read back."""
+    from transit_tpu_torch.model import TransitModel
+    from tests.test_opacity_grid import grid_config
+    from tests.test_conformance import GOLD
+    cfg = _torch_cfg()
+    path = str(tmp_path / option)
+    setattr(cfg, option, path)
+    m = TransitModel(cfg, mode="fast", dtype=torch.float64, device="cpu")
+    assert m.ogrid is None and m.tli is not None
+    spec = m.compute().spectrum
+    assert bool(torch.isfinite(spec).all())
+    if option == "saveext":
+        assert os.path.exists(path)
+        again = TransitModel(cfg, mode="fast", dtype=torch.float64,
+                             device="cpu").compute().spectrum
+        assert torch.allclose(again, spec, rtol=1e-12, atol=0.0)
+    else:
+        g = dataclasses.asdict(grid_config())
+        g["opacityfile"] = os.path.join(GOLD, "ref_opacity_grid.bin")
+        from transit_tpu_torch.config import TransitConfig
+        mg = TransitModel(TransitConfig(**g), dtype=torch.float64,
+                          device="cpu")
+        assert mg.ogrid is not None and mg.tli is None
+        assert bool(torch.isfinite(mg.compute().spectrum).all())
 
 
 def test_unported_banded_options_raise():

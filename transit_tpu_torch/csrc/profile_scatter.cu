@@ -15,6 +15,12 @@
 // truncating division (lbl.py:247-256), computed here per (layer, group)
 // from the plan's int32 rows rather than read from five (nl, ng) tensors.
 //
+// Per molecule (the opacity-grid build, lbl.py:225-271 with permol):
+// the output has nm rows a layer, and each tile's groups add to row
+// l * nm + tile_mol[t], the output molecule of the tile's isotope run
+// (a tile never crosses a run); with no tile_mol, nm is 1 and every
+// tile adds to row l, the collapsed extinction.
+//
 // profile_scatter_bwd_kernel: the VJP in g_k, grad[l, g] = sum over the
 // same bins of profflat[pbase + fidx] * ct[l, j] for a kept group (0
 // for the others).  Each sum runs bin after bin from the window's first
@@ -160,8 +166,9 @@ __global__ void __launch_bounds__(PS_TILE) profile_scatter_kernel(
     const int* __restrict__ g_iown, const int* __restrict__ g_idwn,
     const int* __restrict__ profsize, const int* __restrict__ profbase,
     const float* __restrict__ profflat, const int* __restrict__ tiles,
-    float* __restrict__ out, unsigned long long* __restrict__ pairs, int ng,
-    int ntiles, int niso, int nlor, int ofactor, int n_coarse) {
+    const int* __restrict__ tile_mol, float* __restrict__ out,
+    unsigned long long* __restrict__ pairs, int ng, int ntiles, int niso,
+    int nlor, int ofactor, int n_coarse, int nm) {
   __shared__ float seg[PS_SEG];
   __shared__ int span[2];
   const int l = (int)(blockIdx.x / ntiles), t = (int)(blockIdx.x % ntiles);
@@ -175,7 +182,8 @@ __global__ void __launch_bounds__(PS_TILE) profile_scatter_kernel(
   const int2 lh = block_span(win, span);
   if (lh.x > lh.y) return;                    // the whole block: no window
   const int lo = lh.x, n = lh.y - lh.x + 1;
-  float* row = out + (long long)l * n_coarse;
+  const int m = tile_mol != nullptr ? tile_mol[t] : 0;
+  float* row = out + ((long long)l * nm + m) * n_coarse;
   unsigned int cnt;
   if (n <= PS_SEG) {
     for (int i = threadIdx.x; i < n; i += PS_TILE) seg[i] = 0.0f;
@@ -229,9 +237,10 @@ __global__ void __launch_bounds__(PS_TILE) profile_scatter_bwd_kernel(
 }
 
 int check_args(int nl, int ng, int ntiles, int niso, int nlor, int ofactor,
-               int n_coarse) {
+               int n_coarse, int nm = 1) {
   if (nl <= 0 || ng <= 0 || ntiles <= 0 || niso <= 0 || nlor <= 0 ||
-      ofactor <= 0 || n_coarse <= 0 || (long long)nl * ntiles > INT_MAX)
+      ofactor <= 0 || n_coarse <= 0 || nm <= 0 ||
+      (long long)nl * ntiles > INT_MAX)
     return (int)cudaErrorInvalidValue;
   return 0;
 }
@@ -240,21 +249,26 @@ int check_args(int nl, int ng, int ntiles, int niso, int nlor, int ofactor,
 
 // tiles: ntiles + 1 int32 group starts, ascending from 0 to ng, no tile
 // longer than PS_TILE (lbl.scatter_tiles; the host checks them,
-// lbl.check_tiles).
+// lbl.check_tiles).  tile_mol: null (nm 1, the collapsed extinction) or
+// ntiles int32 output molecules in [0, nm) (lbl.permol_tables checks
+// them); out: (nl, nm, n_coarse) float32, zeroed.
 extern "C" int profile_scatter(
     const void* g_k, const void* g_idop, const void* ilor, const void* g_iso,
     const void* g_iown, const void* g_idwn, const void* profsize,
-    const void* profbase, const void* profflat, const void* tiles, void* out,
-    void* pairs, int nl, int ng, int ntiles, int niso, int nlor, int ofactor,
-    int n_coarse, void* stream) {
-  if (int err = check_args(nl, ng, ntiles, niso, nlor, ofactor, n_coarse))
+    const void* profbase, const void* profflat, const void* tiles,
+    const void* tile_mol, void* out, void* pairs, int nl, int ng, int ntiles,
+    int niso, int nlor, int ofactor, int n_coarse, int nm, void* stream) {
+  if (int err = check_args(nl, ng, ntiles, niso, nlor, ofactor, n_coarse,
+                           nm))
     return err;
+  if (tile_mol == nullptr && nm != 1) return (int)cudaErrorInvalidValue;
   profile_scatter_kernel<<<nl * ntiles, PS_TILE, 0, (cudaStream_t)stream>>>(
       (const float*)g_k, (const int*)g_idop, (const int*)ilor,
       (const int*)g_iso, (const int*)g_iown, (const int*)g_idwn,
       (const int*)profsize, (const int*)profbase, (const float*)profflat,
-      (const int*)tiles, (float*)out, (unsigned long long*)pairs, ng, ntiles,
-      niso, nlor, ofactor, n_coarse);
+      (const int*)tiles, (const int*)tile_mol, (float*)out,
+      (unsigned long long*)pairs, ng, ntiles, niso, nlor, ofactor, n_coarse,
+      nm);
   return (int)cudaGetLastError();
 }
 

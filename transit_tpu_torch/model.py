@@ -6,7 +6,11 @@ reference's profile-table scheme, opacities/lbl.py) and fast mode on the
 unbanded or the layer-banded tile plan (``bands``, with far-wing shells),
 eclipse and transit geometry, the atmosphere file's radius grid or its
 resampling (``raddelt``), static or hydrostatic radii
-(gsurf/refpress/refradius).  Init loads and precomputes everything
+(gsurf/refpress/refradius), the opacity grid's interpolation mode (a
+``cfg.opacityfile`` that exists: the line extinction interpolated from
+the grid, opacities/grid.py, no line list read) and the extinction
+savefile (``cfg.saveext``, read and written by ``compute`` only).  Init
+loads and precomputes everything
 static (grids, line plans, the profile table, path-weight matrices,
 spline operators); ``forward(temps, q)``, the retrieval step, recomputes
 densities, partition functions and, with hydrostatic radii, the radii and
@@ -28,6 +32,7 @@ PyTorch versions take their place.
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import numpy as np
 import torch
@@ -45,6 +50,8 @@ from transit_tpu_torch.numerics.spline import (splinterp_np,
                                                spline_second_derivs_np,
                                                spline_second_derivs_torch)
 from transit_tpu_torch.opacities import fast, lbl
+from transit_tpu_torch.opacities.grid import (grid_extinction,
+                                              read_opacity_grid)
 from transit_tpu_torch.opacities.banded import (banded_index,
                                                 banded_kernel_extinction,
                                                 batched_view)
@@ -61,6 +68,8 @@ from transit_tpu_torch.rt.emission import eclipse_intensities, flux
 from transit_tpu_torch.rt.transmission import (
     modulation, modulation_m1, modulation_weight_table,
     modulation_weight_table_torch)
+from transit_tpu_torch.utils.savefiles import (load_extinction,
+                                               save_extinction)
 
 # forward_batch splits a batch into sub-batches of fewer than INDEX_LIMIT
 # (layer, wavenumber) outputs: the kernels index them with int32.
@@ -121,7 +130,13 @@ class TransitModel:
         (its layout is checked against the configuration's grids, nwidth
         and table axes, and a mismatch raises ValueError); else it is
         built on the model's device.  A ``wn_window`` (one process's band
-        of a multi-process run) is not ported yet and raises."""
+        of a multi-process run) is not ported yet and raises.
+
+        With a ``cfg.opacityfile`` that exists (and ``justOpacity``
+        unset) the model reads the grid (mode c of the reference,
+        transit_tpu model.py:158-170): no line list, plan or profile
+        table; the line extinction is :func:`grid.grid_extinction` of the
+        grid on the device in the model's dtype."""
         from transit_tpu_torch.config import validate
         self.cfg = cfg = validate(cfg)
         if mode not in ("exact", "fast"):
@@ -130,10 +145,6 @@ class TransitModel:
             raise _later("wn_window", "multi-process bands")
         if cfg.solution not in ("eclipse", "transit"):
             raise ValueError(f"unknown solution {cfg.solution!r}")
-        if cfg.opacityfile:
-            raise _later("the opacity grid (opacityfile)", "opacity-grid")
-        if cfg.saveext:
-            raise _later("the extinction savefile (saveext)", "opacity-grid")
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             # The tau product must run in full float32, not TF32 (this
@@ -190,9 +201,29 @@ class TransitModel:
             self.rads_v = rs.v
         self.ips_v = self.rads_v[::-1].copy()
 
-        # --- line list (transit.c:52 readlineinfo) ---
+        # --- opacity grid (transit.c:58 opacity; mode c: the file
+        #     exists) ---
+        self.ogrid = None
+        self.grid_mol_idx = None
+        if cfg.opacityfile and os.path.exists(cfg.opacityfile) and \
+                not cfg.justOpacity:
+            self.ogrid = read_opacity_grid(cfg.opacityfile)
+            shape = self.ogrid.grid.shape
+            if (shape[0], shape[3]) != (self.atm.nlayers, self.wns.n):
+                raise ValueError(
+                    f"opacity grid {cfg.opacityfile} has {shape[0]} layers "
+                    f"x {shape[3]} wavenumbers, the model {self.atm.nlayers}"
+                    f" x {self.wns.n}")
+            ids = list(self.mol.ids)
+            self.grid_mol_idx = np.array(
+                [ids.index(int(m)) for m in self.ogrid.molID],
+                dtype=np.int32)
+
+        # --- line list (transit.c:52 readlineinfo; skipped when an
+        #     opacity grid is present, readlineinfo.c:586-603) ---
         self.tli = tli if tli is not None else (
-            read_tli(cfg.linedb) if cfg.linedb else None)
+            read_tli(cfg.linedb) if cfg.linedb and self.ogrid is None
+            else None)
         self._setup_isotopes()
 
         # --- line plans / profile table ---
@@ -298,6 +329,13 @@ class TransitModel:
         self._wns_cgs_t = t(self.wns.v * self.wns.fct)
         self._pf_t = [(t(tt), t(z), t(z2))
                       for (tt, z), z2 in zip(self._pf, self._pf_z2)]
+        if self.ogrid is not None:
+            # A copy: the file's memmap is read-only.
+            self._ogrid_t = torch.tensor(self.ogrid.grid, dtype=self.dtype,
+                                         device=self.device)
+            self._ogrid_temp_t = t(self.ogrid.temp)
+            self._grid_mol_t = torch.as_tensor(
+                self.grid_mol_idx.astype(np.int64), device=self.device)
         if self._atm0 is not None:
             r0 = self._atm0["radius"]
             self._r0_t = t(r0)
@@ -402,10 +440,12 @@ class TransitModel:
 
     # ------------------------------------------------------------------
     def device_tree(self):
-        """The (potentially large) tensors the spectrum step reads: exact
-        mode's line, group and profile-table tensors
-        (lbl.device_arrays), or the line tile tensors and isotope tables,
-        per band on the banded plan."""
+        """The (potentially large) tensors the spectrum step reads: the
+        opacity grid in grid mode; exact mode's line, group and
+        profile-table tensors (lbl.device_arrays), or the line tile
+        tensors and isotope tables, per band on the banded plan."""
+        if self.ogrid is not None:
+            return self._ogrid_t
         if self.mode == "exact":
             return self.dev
         return self.bdev if self.bplan is not None else self.fdev
@@ -420,8 +460,14 @@ class TransitModel:
         overrides the model's stored tensors (device_tree).  ``batch``:
         the layers are ``batch`` profiles' layers one after another
         (forward_batch), and the banded plan is its batched view
-        (:meth:`_batched_bplan`)."""
+        (:meth:`_batched_bplan`).  In grid mode: grid.grid_extinction
+        (differentiable in the temperatures and densities; ``dev``
+        overrides the grid)."""
         nl = temps_cgs.shape[0]
+        if self.ogrid is not None:
+            return grid_extinction(self._ogrid_temp_t,
+                                   dev if dev is not None else self._ogrid_t,
+                                   self._grid_mol_t, temps_cgs, densities)
         args = (temps_cgs, densities, Z, self._molm_t, self._molrad_t)
         if self.mode == "exact":
             if self.plan is None or self.plan.n_lines == 0:
@@ -581,10 +627,25 @@ class TransitModel:
 
     # ------------------------------------------------------------------
     def compute(self):
-        """Spectrum for the file atmosphere (static radii)."""
+        """Spectrum for the file atmosphere (static radii).  With
+        ``cfg.saveext`` the line extinction is restored from that file
+        when it holds one of this model's shape, and written there when it
+        does not (tau.c:155-156, extinction.c:62-137; transit_tpu
+        model.py:674-691).  Only ``compute`` reads it: ``forward`` takes
+        new profiles, and a restored extinction would cut its gradient
+        through the line term (transit_tpu model.py:387-402)."""
         atm = self.atm
-        return self._spectrum(self._t(atm.temp), self._t(atm.q),
-                              self._t(atm.d), full_result=True)
+        T, q, dens = self._t(atm.temp), self._t(atm.q), self._t(atm.d)
+        saved = (load_extinction(self.cfg.saveext, atm.nlayers, self.wns.n)
+                 if self.cfg.saveext else None)
+        if saved is not None:
+            return self._assemble(T, q, dens, self._t(saved[0]),
+                                  full_result=True)
+        res = self._spectrum(T, q, dens, full_result=True)
+        if self.cfg.saveext:
+            save_extinction(self.cfg.saveext,
+                            res.extinction.detach().double().cpu().numpy())
+        return res
 
     def _profiles(self, temps_raw, q):
         """T and q as tensors of the model (a tensor that requires grad
@@ -664,7 +725,10 @@ class TransitModel:
         eclipse or transit) is torch.func.vmap over ``_assemble``, as JAX
         vmaps it.  With hydrostatic radii every member's radii, W and
         Wmod are built in one batched :meth:`geometry` call outside the
-        vmap and enter it as inputs.  A batch of B*nl*nwn >= INDEX_LIMIT
+        vmap and enter it as inputs.  In grid mode the line extinction
+        interpolates the grid for the B*nl pseudo-layers (each its
+        layer's rows; JAX's forward_batch has no grid branch and leaves
+        the line term out there).  A batch of B*nl*nwn >= INDEX_LIMIT
         outputs (the kernels' int32 indices) runs as consecutive
         sub-batches below it (:meth:`batch_splits`).  Requires
         mode="fast" and raddelt -1 (torch.func.vmap(model.forward) covers

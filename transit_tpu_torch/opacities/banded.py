@@ -57,13 +57,17 @@ from transit_tpu_torch.opacities.kernel_shell import (plain_shell_classes,
                                                       shell_tile_extinction)
 
 
-def band_tables(d, temps, densities, Z, mol_mass, mol_radius):
+def band_tables(d, temps, densities, Z, mol_mass, mol_radius,
+                unit_density: bool = False):
     """The (nl, niso) tables of all layers (fast._prep_layers), torch
-    ops: the widths and density (:func:`width_tables`) and the strength
-    coefficient SIGCTE*ratio/mass/Z in fast.py:364's order."""
+    ops: the widths and density (:func:`width_tables`; ``unit_density``:
+    a density of 1, the opacity-grid build's) and the strength
+    coefficient SIGCTE*ratio/mass/Z in fast.py:364's order.  The kmax
+    scan reads no density, so it is the same either way."""
     coef0 = ((SIGCTE * d["iso_ratio"] / d["iso_mass"])[None, :] /
              Z.T).contiguous()
-    return {**width_tables(d, temps, densities, mol_mass, mol_radius),
+    return {**width_tables(d, temps, densities, mol_mass, mol_radius,
+                           unit_density=unit_density),
             "coef0": coef0}
 
 
@@ -76,10 +80,11 @@ def band_kmax(d, temps, coef0, use_kernel: bool):
 
 
 def prep_layers(d, temps, densities, Z, mol_mass, mol_radius,
-                use_kernel: bool):
+                use_kernel: bool, unit_density: bool = False):
     """Per-layer tables of all layers, once per step (fast._prep_layers):
     :func:`band_tables` and the kmax scan (:func:`band_kmax`)."""
-    tab = band_tables(d, temps, densities, Z, mol_mass, mol_radius)
+    tab = band_tables(d, temps, densities, Z, mol_mass, mol_radius,
+                      unit_density=unit_density)
     return {**tab, "kmax": band_kmax(d, temps, tab["coef0"], use_kernel)}
 
 

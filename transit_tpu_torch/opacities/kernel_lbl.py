@@ -70,15 +70,20 @@ def strength_coef(d, Z):
             (d["iso_mass"][None, :] * Z.T)).contiguous()
 
 
-def width_tables(d, temps, densities, mol_mass, mol_radius):
+def width_tables(d, temps, densities, mol_mass, mol_radius,
+                 unit_density: bool = False):
     """Per-(layer, isotope) Lorentz width ``alphal``, Doppler factor
     ``alphad_f`` (x wavenumber = alphaD) and absorber density ``densm``,
-    each (nl, niso) (pallas_lbl.py:117-125)."""
+    each (nl, niso) (pallas_lbl.py:117-125).  ``unit_density`` (the
+    opacity-grid build, fast._prep_layers(unit_density=True),
+    fast.py:338-372): ``densm`` is 1, the widths still see the
+    densities."""
     imol = d["iso_imol"].long()
     alphal, alphad_f = _layer_widths(temps, densities, d["iso_mass"], imol,
                                      mol_mass, mol_radius)
+    densm = densities.T[:, imol]
     return {"alphal": alphal.contiguous(), "alphad_f": alphad_f.contiguous(),
-            "densm": densities.T[:, imol]}
+            "densm": torch.ones_like(densm) if unit_density else densm}
 
 
 def plain_kmax(d, temps, coef0, floor: float = -torch.inf):

@@ -10,6 +10,9 @@ strengths g_k around them, which takes their plain PyTorch versions
 (lbl.profile_scatter_plain and lbl.profile_scatter_plain_vjp) for CPU
 tensors or with ``use_kernel=False``.  On a CUDA tensor it launches the
 kernel or raises: nothing on the card gives way to the plain version.
+:func:`profile_scatter_permol` is the opacity-grid build's per-molecule
+scatter (no gradient): the same forward kernel, each tile adding to its
+output molecule's row.
 """
 
 from __future__ import annotations
@@ -84,17 +87,36 @@ def _sizes(s: ScatterTables, nl, ng, niso) -> tuple:
             s.ofactor, s.n_coarse)
 
 
+def _tile_mol(s: ScatterTables, device, ntiles: int):
+    """The forward launch's per-tile output molecules: None for the
+    collapsed extinction, else s.tile_mol checked ((ntiles,) int32 on
+    ``device``; lbl.permol_tables checked its values)."""
+    if s.tile_mol is None:
+        if s.nm != 1:
+            raise ValueError("profile_scatter: nm > 1 needs tile_mol "
+                             "(lbl.permol_tables)")
+        return None
+    t = s.tile_mol
+    if (t.dtype != torch.int32 or t.device != device or
+            tuple(t.shape) != (ntiles,)):
+        raise ValueError(f"profile_scatter: tile_mol must be a ({ntiles},) "
+                         f"int32 tensor on {device}")
+    return t.contiguous()
+
+
 def profile_scatter(g_k, g_idop, ilor, s: ScatterTables, stats=None):
     """Launch ``profile_scatter`` (csrc/profile_scatter.cu): the group
     strengths g_k (nl, ng) float32 (0 where a group is not kept), their
     Doppler indices g_idop (nl, ng) and the Lorentz indices ilor (nl,
     niso), int32 -> the extinction (nl, n_coarse) float32 on their CUDA
-    device (lbl.profile_scatter_plain on the card).  A block per (layer,
-    tile of s.tiles); a tile whose span (lbl.tile_spans) exceeds
-    lbl.SCATTER_SEGMENT adds to the output in global memory.  ``stats``, a
-    (1,) int64 tensor on the card, gets the (layer, group, j) pairs added
-    (lbl.scatter_pairs counts the same on the host).  Raises on any other
-    device, type or shape, and when the launch fails."""
+    device (lbl.profile_scatter_plain on the card); with per-molecule
+    rows (s.tile_mol, lbl.permol_tables) (nl, s.nm, n_coarse), each tile
+    adding to its molecule's row.  A block per (layer, tile of s.tiles);
+    a tile whose span (lbl.tile_spans) exceeds lbl.SCATTER_SEGMENT adds
+    to the output in global memory.  ``stats``, a (1,) int64 tensor on
+    the card, gets the (layer, group, j) pairs added (lbl.scatter_pairs
+    counts the same on the host).  Raises on any other device, type or
+    shape, and when the launch fails."""
     from transit_tpu_torch.opacities._build import load_library
 
     device, nl, ng, niso, args = _check_launch(
@@ -104,7 +126,9 @@ def profile_scatter(g_k, g_idop, ilor, s: ScatterTables, stats=None):
                               stats.device != device):
         raise ValueError(f"profile_scatter: stats must be a (1,) int64 "
                          f"tensor on {device}")
-    out = torch.zeros((nl, s.n_coarse), dtype=torch.float32, device=device)
+    tile_mol = _tile_mol(s, device, s.tiles.shape[0] - 1)
+    shape = (nl, s.n_coarse) if tile_mol is None else (nl, s.nm, s.n_coarse)
+    out = torch.zeros(shape, dtype=torch.float32, device=device)
     if nl == 0 or ng == 0:
         return out
     with torch.cuda.device(device):
@@ -112,8 +136,8 @@ def profile_scatter(g_k, g_idop, ilor, s: ScatterTables, stats=None):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.profile_scatter(
             _ptr(args["g_k"]), _ptr(args["g_idop"]), *_tables(s, args),
-            _ptr(out), _ptr(stats), *_sizes(s, nl, ng, niso),
-            ctypes.c_void_p(stream))
+            _ptr(tile_mol), _ptr(out), _ptr(stats),
+            *_sizes(s, nl, ng, niso), s.nm, ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"profile_scatter failed to launch: CUDA error "
                            f"{err}")
@@ -222,6 +246,19 @@ class ProfileScatterVjp(torch.autograd.Function):
                 zip((ct, keep, g_idop, ilor), in_dims[:4])]
         return ProfileScatterVjp.apply(*args, s, kernel).reshape(
             B, -1, args[2].shape[1]), 0
+
+
+def profile_scatter_permol(grp: dict, s: ScatterTables,
+                           use_kernel: bool = True):
+    """The per-molecule extinction (nl, s.nm, n_coarse) of
+    lbl.layer_groups' tables ``grp`` (made with ``nm``) on the
+    per-molecule tables ``s`` (lbl.permol_tables), without gradient:
+    ``profile_scatter`` when g_k lies on a CUDA device and
+    ``use_kernel``, else its plain version."""
+    args = (grp["g_k"].detach(), grp["g_idop"], grp["ilor"], s)
+    if use_kernel and args[0].device.type == "cuda":
+        return profile_scatter(*args)
+    return profile_scatter_plain(*args)
 
 
 def profile_scatter_fn(grp: dict, s: ScatterTables, use_kernel: bool = True):

@@ -23,7 +23,9 @@ The numerics are the reference's: the same profile table, the same co-add
 order, the same integer index arithmetic with C truncating division.  The
 gradient flows, as in JAX, only through the group strengths g_k: the
 profile indices are integers.  Per-molecule output (``permol``, the
-opacity-grid build) comes with the opacity-grid slice.
+opacity-grid build, lbl.py:208-225 and :269-271): kmax per output
+molecule, no density factor, one output row per molecule
+(:func:`layer_groups` with ``nm``, :func:`permol_tables`).
 """
 
 from __future__ import annotations
@@ -271,6 +273,12 @@ class ScatterTables:
     ofactor: int
     n_coarse: int
     tiles: torch.Tensor
+    # Per-molecule output (:func:`permol_tables`): nm output rows a layer,
+    # per group its row g_mol (ng,) and per tile tile_mol (ntiles,),
+    # int32; None and 1 for the collapsed extinction.
+    g_mol: torch.Tensor | None = None
+    tile_mol: torch.Tensor | None = None
+    nm: int = 1
 
 
 def scatter_tables(plan: LinePlan, d: dict) -> ScatterTables:
@@ -282,15 +290,40 @@ def scatter_tables(plan: LinePlan, d: dict) -> ScatterTables:
                          tiles=d["g_tiles"])
 
 
+def permol_tables(s: ScatterTables, line_iout, g_primary,
+                  nm: int) -> ScatterTables:
+    """``s`` with per-molecule output rows: each group's output molecule
+    (that of its primary line, ``line_iout`` (nlines,) and ``g_primary``
+    (ng,) int tensors) and each tile's, ``nm`` of them.  Raises
+    ValueError when a tile's groups go to two molecules (lbl.scatter_tiles
+    never cuts an isotope run, and an isotope has one molecule) or a
+    molecule lies outside [0, nm)."""
+    g_mol = line_iout.long()[g_primary.long()]
+    tiles = s.tiles.long()
+    gm = g_mol.cpu().numpy()
+    first = gm[tiles[:-1].cpu().numpy()]
+    sizes = (tiles[1:] - tiles[:-1]).cpu().numpy()
+    if gm.size and (gm.min() < 0 or gm.max() >= nm):
+        raise ValueError(f"output molecules must lie in [0, {nm})")
+    if not (gm == first.repeat(sizes)).all():
+        raise ValueError("a scatter tile mixes output molecules")
+    dev = s.tiles.device
+    return dataclasses.replace(
+        s, g_mol=g_mol.to(torch.int32), nm=nm,
+        tile_mol=torch.as_tensor(first.astype(np.int32), device=dev))
+
+
 def layer_groups(d: dict, temps, densities, Z, mol_mass, mol_radius,
-                 wn0: float, ethresh: float) -> dict:
+                 wn0: float, ethresh: float, nm: int | None = None) -> dict:
     """Everything of lbl.layer_extinction before the scatter (lbl.py:183-243),
     for all layers at once: temps (nl,) cgs, densities (nmol, nl), Z
     (niso, nl) -> {"g_k": (nl, ng) group strength x density, 0 where the
     group is not kept; "keep": (nl, ng) bool; "g_idop": (nl, ng) int32
     Doppler index of the group's profile; "ilor": (nl, niso) int32
     Lorentz index}.  Differentiable in temps, densities and Z through
-    g_k."""
+    g_k.  ``nm`` (permol, the grid build): the ethresh cut against the
+    max over each of the ``nm`` output molecules' lines (d["line_iout"])
+    and no density factor on g_k (the densities still set the widths)."""
     dt = d["wavn"].dtype
     ng = d["g_iso"].shape[0]
     nl = temps.shape[0]
@@ -307,17 +340,27 @@ def layer_groups(d: dict, temps, densities, Z, mol_mass, mol_radius,
 
     # Pass 1, the max line strength for the ethresh cut
     # (extinction.c:400-427): JAX's segment_max over the one collapsed
-    # species is the max over the in-range lines, floored at 0; it only
-    # sets ``keep``, so it carries no gradient.
+    # species is the max over the in-range lines, floored at 0 (permol:
+    # over each output molecule's lines); it only sets ``keep``, so it
+    # carries no gradient.
     strength = (d["gf"] * torch.exp(-EXPCTE * d["elow"] / T) *
                 (1.0 - torch.exp(-EXPCTE * d["wavn"] / T)))    # (nl, nlines)
     coef = d["iso_ratio"][line_iso] * SIGCTE
     with torch.no_grad():
         k_full = coef * strength / (d["iso_mass"][line_iso] *
                                     Z.T[:, line_iso])
-        kmax = torch.clamp_min(torch.where(
-            d["line_inrange"], k_full, -torch.inf).amax(dim=1, keepdim=True),
-            0.0)
+        k_in = torch.where(d["line_inrange"], k_full, -torch.inf)
+        if nm is None:
+            kmax = torch.clamp_min(k_in.amax(dim=1, keepdim=True), 0.0)
+        else:
+            # One masked max per molecule (nm is a few), not a
+            # scatter_reduce: its atomics would all land on nm cells a
+            # layer.
+            line_m = d["line_iout"].long()
+            kmax = torch.clamp_min(torch.stack(
+                [torch.where(line_m == m, k_in, -torch.inf).amax(dim=1)
+                 for m in range(nm)], dim=1), 0.0)
+            kmax = kmax[:, line_m[d["g_primary"].long()]]      # (nl, ng)
 
     # Pass 2, the co-add groups' strengths (extinction.c:449-464):
     gsum = torch.zeros((nl, ng), dtype=dt, device=temps.device).index_add(
@@ -325,7 +368,8 @@ def layer_groups(d: dict, temps, densities, Z, mol_mass, mol_radius,
     g_k = gsum * SIGCTE * d["iso_ratio"][g_iso] / (d["iso_mass"][g_iso] *
                                                    Z.T[:, g_iso])
     keep = d["g_inrange"] & (g_k >= ethresh * kmax)
-    g_k = g_k * densities.T[:, d["iso_imol"].long()[g_iso]]
+    if nm is None:
+        g_k = g_k * densities.T[:, d["iso_imol"].long()[g_iso]]
 
     # The Doppler index's forward fill (extinction.c:479-483): kept
     # groups with alphad*wavn/alphal >= 0.1 recompute it; later groups of
@@ -432,21 +476,27 @@ def profile_scatter_plain(g_k, g_idop, ilor, s: ScatterTables,
     """The windowed gather and scatter-add of exact mode (lbl.py:245-271)
     for all layers: out[l, j] = sum over the groups with g_k != 0 and the
     bins j of their window of g_k[l, g] * profflat[pbase + ofactor*j -
-    offset], (nl, n_coarse) in g_k's dtype.  JAX's dense window, walked
-    by :func:`_windows` in chunks of ``budget`` elements (default
-    PLAIN_ENTRIES of the device) whose window is their widest entry's;
-    the chunks add in one order whatever the budget.  The plain PyTorch
-    version of kernel_profile.profile_scatter."""
+    offset], (nl, n_coarse) in g_k's dtype; with per-molecule rows
+    (s.g_mol, :func:`permol_tables`) out[l, g_mol[g], j], (nl, nm,
+    n_coarse).  JAX's dense window, walked by :func:`_windows` in chunks
+    of ``budget`` elements (default PLAIN_ENTRIES of the device) whose
+    window is their widest entry's; the chunks add in one order whatever
+    the budget.  The plain PyTorch version of
+    kernel_profile.profile_scatter."""
     nl = g_k.shape[0]
     budget = budget or PLAIN_ENTRIES[g_k.device.type]
-    out = torch.zeros(nl * s.n_coarse, dtype=g_k.dtype, device=g_k.device)
+    out = torch.zeros(nl * s.nm * s.n_coarse, dtype=g_k.dtype,
+                      device=g_k.device)
     geom = scatter_geometry(g_idop, ilor, s)
     for l, g, j, ok, gval in _windows(g_k != 0, geom, s, budget):
         contrib = torch.where(ok, g_k[l, g][:, None] * gval.to(g_k.dtype),
                               0.0)
-        out.index_add_(0, (l[:, None] * s.n_coarse + j).flatten(),
+        row = l if s.g_mol is None else l * s.nm + s.g_mol[g].long()
+        out.index_add_(0, (row[:, None] * s.n_coarse + j).flatten(),
                        contrib.flatten())
-    return out.reshape(nl, s.n_coarse)
+    if s.g_mol is None:
+        return out.reshape(nl, s.n_coarse)
+    return out.reshape(nl, s.nm, s.n_coarse)
 
 
 def profile_scatter_plain_vjp(ct, keep, g_idop, ilor, s: ScatterTables,
@@ -473,18 +523,25 @@ def profile_scatter_plain_vjp(ct, keep, g_idop, ilor, s: ScatterTables,
 
 def layer_extinction(plan: LinePlan, d: dict, temps, densities, Z,
                      mol_mass, mol_radius, wn0: float, ethresh: float,
-                     use_kernel: bool = True):
+                     use_kernel: bool = True, nm: int | None = None):
     """Line extinction (nlayer, n_coarse) of exact mode for all layers
     (lbl.layer_extinction, lbl.py:161, collapsed over species): the group
     tables (:func:`layer_groups`), then the profile scatter, differentiable
     in temps, densities and Z (kernel_profile.ProfileScatter: the
     ``profile_scatter`` kernels on the card, the plain versions on the
     CPU or with ``use_kernel=False``).  ``wn0``: the first coarse
-    wavenumber (the initial Doppler index, extinction.c:393)."""
+    wavenumber (the initial Doppler index, extinction.c:393).  ``nm``:
+    per-molecule output (permol, the grid build), (nlayer, nm, n_coarse)
+    per unit density of each of the nm output molecules, without
+    gradient (kernel_profile.profile_scatter_permol)."""
     # Imported here: kernel_profile imports this module's plain versions.
-    from transit_tpu_torch.opacities.kernel_profile import profile_scatter_fn
+    from transit_tpu_torch.opacities.kernel_profile import (
+        profile_scatter_fn, profile_scatter_permol)
 
     grp = layer_groups(d, temps, densities, Z, mol_mass, mol_radius, wn0,
-                       ethresh)
-    return profile_scatter_fn(grp, scatter_tables(plan, d),
-                              use_kernel=use_kernel)
+                       ethresh, nm=nm)
+    s = scatter_tables(plan, d)
+    if nm is None:
+        return profile_scatter_fn(grp, s, use_kernel=use_kernel)
+    return profile_scatter_permol(grp, permol_tables(
+        s, d["line_iout"], d["g_primary"], nm), use_kernel=use_kernel)
