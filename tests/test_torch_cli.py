@@ -6,13 +6,13 @@ outtoomuch, outsample) and ref_detail.npz (tests/test_conformance.py:
 opacity modes of tests/test_opacity_grid.py:141-200 (mode (b): one run
 builds the grid, writes it and carries on; its grid and spectrum bytes
 equal the two-step path's, the plain versions being deterministic);
-flags over the file; ``python -m transit_tpu_torch.cli`` in a fresh
-interpreter; no device and no card raises.  One profile table for the
+flags over the file; ``python -m transit_tpu_torch.cli`` (run as
+__main__); no device and no card raises.  One profile table for the
 module: every model here has the same table axes."""
 
 import functools
 import os
-import subprocess
+import runpy
 import sys
 
 import numpy as np
@@ -27,7 +27,6 @@ from transit_tpu_torch import model as model_mod
 
 torch.set_num_threads(1)
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DETAIL = {"detailtau": ("dtau.dat", "2040.5,2070"),
           "detailext": ("dext.dat", "2025,2050"),
           "detailcia": ("dcia.dat", "2060")}
@@ -200,22 +199,19 @@ def test_mode_b_build_and_continue(tmp_path, mode):
                                    atol=ref.grid.max() * 1e-10)
 
 
-def test_cli_module_entry_point(tmp_path):
-    """``python -m transit_tpu_torch.cli`` with --device cpu (float32, the
-    model's default) writes the spectrum an in-process run writes."""
+def test_cli_module_entry_point(tmp_path, monkeypatch):
+    """``python -m transit_tpu_torch.cli`` (the module run as __main__,
+    here in this interpreter) with --device cpu (float32, the model's
+    default) exits 0 and writes the spectrum that main() writes."""
     args = COMMON + ["--mode", "fast", "--device", "cpu"]
-    env = dict(os.environ, PYTHONPATH=ROOT)
-    r = subprocess.run([sys.executable, "-m", "transit_tpu_torch.cli",
-                        *args, "--outspec", str(tmp_path / "a.dat")],
-                       cwd=tmp_path, capture_output=True, text=True, env=env,
-                       timeout=300)
-    assert r.returncode == 0, r.stderr[-2000:]
-    old = os.getcwd()
-    os.chdir(tmp_path)
-    try:
-        assert cli.main(args + ["--outspec", str(tmp_path / "b.dat")]) == 0
-    finally:
-        os.chdir(old)
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.delitem(sys.modules, "transit_tpu_torch.cli")
+    monkeypatch.setattr(sys, "argv", ["transit_tpu_torch.cli", *args,
+                                      "--outspec", str(tmp_path / "a.dat")])
+    with pytest.raises(SystemExit) as done:
+        runpy.run_module("transit_tpu_torch.cli", run_name="__main__")
+    assert done.value.code == 0
+    assert cli.main(args + ["--outspec", str(tmp_path / "b.dat")]) == 0
     a = (tmp_path / "a.dat").read_bytes()
     assert a == (tmp_path / "b.dat").read_bytes() and len(a) > 1000
 
