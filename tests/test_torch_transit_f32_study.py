@@ -11,10 +11,12 @@ gradient of sum(forward(T, q)) in T and in q at the file's atmosphere:
     tests/test_torch_transit_hydro*.py, _transit_banded.py);
   - the port's float32 gradient against JAX's.
 
-Each as max|a - b| / max|b|, per input.  A one-off study (about a
-minute on one CPU core, most of it JAX's compiles):
+Each as max|a - b| / max|b|, per input.  A one-off study, not a test
+(pytest collects nothing here; about a minute on one CPU core, most of
+it JAX's compiles, run in a process of its own so that JAX stays in
+float32):
 
-    python -m tests.transit_f32_grad_study
+    python -m tests.test_torch_transit_f32_study
 """
 
 import dataclasses
