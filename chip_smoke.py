@@ -87,6 +87,26 @@ grid-interpolation path from the file (three forwards that launch no
 line kernel, ``compute``, ``grid_extinction`` against float64 on the
 CPU, the gradient against the float64 model's); and run the CLI's
 opacity modes (b) and (c) on the fixture on the card.
+The sharded and multi-process phases: ``sharded_main`` and
+``sharded_fine`` run the main path's and the 0.05 cm-1 path's models in
+SHARDS line-balanced wavenumber shards (parallel.sharded, one process:
+each shard through ``step.local``, then ``step.assemble``), every
+shard's launches (``layer_kmax`` bit for bit, the line-tile and shell
+launches and both backward kernels) against their plain versions, the
+assembled spectrum against the unsharded ``forward``
+(BANDED_VS_UNBANDED_TOL) and its gradient against the unsharded one
+(GRAD_TOL), the launch counts of one sharded step against the shards'
+plans, load max/min and a shard's step time beside the unsharded
+forward's; ``sharded_collective`` runs the collective step over a
+world-size-1 NCCL group (bit for bit the local assembly, forward and
+gradient; scaling over cards is not measured: one card);
+``multihost_card`` spawns MH_PROCS processes on the one card joined by a
+gloo group (parallel.multihost.MultihostForward: balanced bounds, a
+band-local read of hj.tli, the global kmax through ``layer_kmax``) and
+holds the gathered spectrum and ``value_and_grad`` against the single
+process; ``multihost_grid`` runs grid-mode band models from the grid
+file of ``grid_path`` against the full grid model.  A failed worker, a
+missing NCCL backend or a refused group fails the run.
 Every phase prints one line with its seconds; any failed check raises,
 so the script exits non-zero and prints no result.
 
@@ -100,17 +120,21 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import datetime
 import json
 import re
 import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
 
 from transit_tpu_torch import cli
 from transit_tpu_torch.config import TransitConfig, load_config
@@ -133,6 +157,8 @@ from transit_tpu_torch.opacities.kernel_shell import (
     plain_shell_band, plain_shell_vjp, shell_counts, shell_tile_backward,
     shell_tile_extinction)
 from transit_tpu_torch.opacities.voigt import build_profile_table
+from transit_tpu_torch.parallel import multihost
+from transit_tpu_torch.parallel.sharded import make_sharded_forward
 from transit_tpu_torch.retrieval import (batched_value_and_grad,
                                          gaussian_logprob, hmc_sample,
                                          knot_profile)
@@ -300,6 +326,13 @@ GRID_LAYERS = (0, 50, 99)
 # Lines of each band of the fast build compared with their plain
 # version: the band's first, middle and last cell.
 GRID_FAST_CELLS = 3
+# The sharded phases: a banded path in SHARDS line-balanced wavenumber
+# shards on the one card, each through step.local, assembled.  The
+# multi-process phases: MH_PROCS processes (bands) on the one card,
+# joined by a gloo group; a process waits MH_TIMEOUT s for the others.
+SHARDS = 4
+MH_PROCS = 2
+MH_TIMEOUT = 300
 
 
 class CheckFailed(RuntimeError):
@@ -428,10 +461,11 @@ def kmax_profiles(m: TransitModel) -> dict:
             "3000K": torch.full_like(T, 3000.0)}
 
 
-def kmax_vs_plain(m: TransitModel, label: str) -> float:
+def kmax_vs_plain(m: TransitModel, label: str, view=None) -> float:
     """layer_kmax against plain_kmax on the same inputs, on the card, as
     the model's forward calls it: on the unbanded arrays with jnp.max's
-    floor -inf, or, on a banded model, on the banded arrays with the
+    floor -inf, or, on a banded model, on the banded arrays (of the shard
+    ``view`` (banded plan, tensors, index) when given) with the
     coefficient of prep_layers and floor 0; at each profile of
     kmax_profiles.  They must agree bit for bit (a max does not depend on
     order, and both round each operation the same way).  Returns max
@@ -443,7 +477,7 @@ def kmax_vs_plain(m: TransitModel, label: str) -> float:
             d, floor = m.fdev, -torch.inf
             coef0 = strength_coef(d, args[2])
         else:
-            d, floor = m.bdev[0], 0.0
+            d, floor = (m.bdev if view is None else view[1])[0], 0.0
             coef0 = banded.prep_layers(d, *args, use_kernel=False)["coef0"]
         a = plain_kmax(d, args[0], coef0, floor=floor)
         b = layer_kmax(d, args[0], coef0, floor=floor)
@@ -584,14 +618,22 @@ def rel_err(a, b) -> float:
     return float(((a - b).abs() / (a.abs() + 1e-6 * a.abs().max())).max())
 
 
-def banded_launches(m: TransitModel):
-    """The kernel launches of one banded forward, in order: yields
+def model_view(m: TransitModel, view=None):
+    """(banded plan, tensors, kernel index): the model's own, or a
+    shard's ``view`` (parallel.sharded's ShardedStep._view)."""
+    return (m.bplan, m.bdev, m.bindex) if view is None else view
+
+
+def banded_launches(m: TransitModel, view=None):
+    """The kernel launches of one banded forward (of the shard ``view``
+    when given), in order: yields
     (part, unit, the band's rows as an int32 and a long tensor) with part
     "near" or "s1" (line-tile kernel, unit (plan, line tensors, global
     tiles (numpy or None), their int32 tensor)) or "shell" (one shell
     launch for the band's decimated shells, unit its ShellBand)."""
-    for i, part, unit in banded.launch_units(m.bplan, m.bdev, m.bindex):
-        r = m.bindex["rows"][i]
+    bplan, devs, index = model_view(m, view)
+    for i, part, unit in banded.launch_units(bplan, devs, index):
+        r = index["rows"][i]
         yield part, unit, r, r.long()
 
 
@@ -630,15 +672,17 @@ def kernel_name(part: str) -> str:
             "line_tile_extinction")
 
 
-def banded_vs_plain(m: TransitModel, label: str) -> dict:
-    """Every launch of the banded path on its own, into a zero output,
-    against its plain version on the same inputs (the band's rows):
-    {kernel: {"max_rel", "max_abs", "launches"}}."""
+def banded_vs_plain(m: TransitModel, label: str, view=None) -> dict:
+    """Every launch of the banded path (of the shard ``view`` when given)
+    on its own, into a zero output, against its plain version on the same
+    inputs (the band's rows): {kernel: {"max_rel", "max_abs",
+    "launches"}}."""
     args, kw = file_state(m)
     T = args[0]
-    tab = banded.prep_layers(m.bdev[0], *args, use_kernel=True)
+    tab = banded.prep_layers(model_view(m, view)[1][0], *args,
+                             use_kernel=True)
     res = {}
-    for part, unit, r, sel in banded_launches(m):
+    for part, unit, r, sel in banded_launches(m, view):
         got = torch.zeros((m.atm.nlayers, m.wns.n), device=T.device)
         want = torch.zeros_like(got)
         launch_kernel(tab, T, kw, part, unit, r, got)
@@ -923,14 +967,16 @@ def shell_clip(tab, T, kw, unit, r, n_coarse: int):
     return clip
 
 
-def backward_launches(m: TransitModel):
-    """The backward kernel launches of one gradient step, in order:
+def backward_launches(m: TransitModel, view=None):
+    """The backward kernel launches of one gradient step (of the shard
+    ``view`` when given), in order:
     yields (part, unit, the band's rows as an int32 and a long tensor)
     with part "lines" (one line_tile_backward launch over the band's
     near and stride-1 classes, unit its LineBand) or "shell" (one
     shell_tile_backward launch, unit the band's ShellBand)."""
-    for i, part, unit in banded.backward_units(m.bplan, m.bdev, m.bindex):
-        r = m.bindex["rows"][i]
+    bplan, devs, index = model_view(m, view)
+    for i, part, unit in banded.backward_units(bplan, devs, index):
+        r = index["rows"][i]
         yield part, unit, r, r.long()
 
 
@@ -964,8 +1010,9 @@ def backward_plain(tab, T, kw, part, unit, sel, g) -> dict:
     return grads
 
 
-def backward_vs_plain(m: TransitModel, g, label: str) -> dict:
-    """Every backward launch of the banded path on its own (one
+def backward_vs_plain(m: TransitModel, g, label: str, view=None) -> dict:
+    """Every backward launch of the banded path (of the shard ``view``
+    when given) on its own (one
     line_tile_backward per band over its classes; the shell launch with
     the clip mask of its forward launch) against its plain VJP on the
     same inputs and cotangent ``g``: per output max|a-b| / max|b| <
@@ -973,9 +1020,10 @@ def backward_vs_plain(m: TransitModel, g, label: str) -> dict:
     "max_abs_temps", "launches"}}."""
     args, kw = file_state(m)
     T = args[0]
-    tab = banded.prep_layers(m.bdev[0], *args, use_kernel=True)
+    tab = banded.prep_layers(model_view(m, view)[1][0], *args,
+                             use_kernel=True)
     res = {}
-    for part, unit, r, sel in backward_launches(m):
+    for part, unit, r, sel in backward_launches(m, view):
         clip = shell_clip(tab, T, kw, unit, r, m.wns.n) \
             if part == "shell" else None
         acc = backward_kernel(tab, T, kw, part, unit, r, g, clip)
@@ -2208,6 +2256,7 @@ def grid_phases(m: TransitModel, card: str,
                 str(trace.with_name(f"{trace.stem}_grad_grid"
                                     f"{trace.suffix}")), "grid grad")
         del mg
+        grid_spec = specs[0]
         phase("grid_path", t0,
               f"forward {ms_fwd:.3f} ms, gradient step {ms_grad:.3f} ms "
               f"({card}); no line kernel launched; grid_extinction vs "
@@ -2217,11 +2266,46 @@ def grid_phases(m: TransitModel, card: str,
               f"{out['path']['max_vs_lbl']:.4e}; for the record)")
 
         t0 = time.perf_counter()
+        out["multihost"] = multihost_grid(cfg_g, grid_spec, T0, q0,
+                                          m.device, kernels)
+        phase("multihost_grid", t0, f"{MH_PROCS} grid-mode band models, "
+              "each reading its wavenumber columns of the file: "
+              + json.dumps(out["multihost"]))
+
+        t0 = time.perf_counter()
         out["cli"] = cli_mode_b(workdir)
         phase("cli_mode_b", t0, json.dumps(out["cli"]))
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     return out
+
+
+def multihost_grid(cfg_g, full_spec, T0, q0, device, kernels) -> dict:
+    """Grid-mode band models (multihost.build_band_model, an even split
+    of the grid's wavenumbers into MH_PROCS bands): each reads only its
+    columns of the grid file and launches no line kernel; the
+    concatenated band spectra against the full grid model's
+    (BANDED_VS_UNBANDED_TOL)."""
+    parts, blocks = [], []
+    reset_counts(kernels)
+    for pid in range(MH_PROCS):
+        bm, blk, _ = multihost.build_band_model(cfg_g, MH_PROCS, pid,
+                                                dtype=torch.float32,
+                                                device=device)
+        check(bm.ogrid is not None and bm.tli is None and
+              bm.ogrid.grid.shape[-1] == blk[1] - blk[0],
+              f"multihost grid: band {blk} read {bm.ogrid.grid.shape}")
+        parts.append(bm.forward(T0, q0))
+        blocks.append(list(blk))
+        del bm
+    launches = read_counts(kernels)
+    check(not any(launches.values()),
+          f"multihost grid: line kernels launched {launches}")
+    got = torch.cat(parts)
+    vs = float(((got - full_spec).abs() / full_spec.abs()).max())
+    check(got.shape == full_spec.shape and vs <= BANDED_VS_UNBANDED_TOL,
+          f"multihost grid: bands vs full grid model {vs:.3e}")
+    return {"blocks": blocks, "vs_full": vs}
 
 
 def grid_keys(gr: dict) -> dict:
@@ -2236,6 +2320,263 @@ def grid_keys(gr: dict) -> dict:
             "grid_build_launch": {k: t[k] for k in (
                 "cells", "ms", "plain_ms", "bound_ms", "bound_by", "pairs",
                 "table_elements")}}
+
+
+def merge_errors(acc: dict, res: dict) -> dict:
+    """Fold one shard's launch-against-plain record ({kernel: {"max_rel",
+    "max_abs", ...: x, "launches": n}}, nested dicts alike) into acc:
+    the max of each error, the sum of the launches."""
+    for k, v in res.items():
+        if isinstance(v, dict):
+            merge_errors(acc.setdefault(k, {}), v)
+        elif k == "launches":
+            acc[k] = acc.get(k, 0) + v
+        else:
+            acc[k] = max(acc.get(k, 0.0), v)
+    return acc
+
+
+def sharded_phase(m: TransitModel, T0, q0, label: str,
+                  profile: str | None = None) -> dict:
+    """The banded model ``m`` in SHARDS line-balanced wavenumber shards on
+    the card (parallel.sharded, one process): every shard's launches
+    against their plain versions (layer_kmax bit for bit on the model's
+    whole line list, each line-tile and shell launch, each backward launch
+    on the main path's cotangent); one sharded forward (each shard through
+    step.local, then assembled) with the launch counts set to 0 just
+    before and read just after, against the launches the shards' plans
+    ask and against the unsharded forward (BANDED_VS_UNBANDED_TOL); the
+    gradient of its sum against the unsharded gradient (GRAD_TOL); the
+    shards' step times beside the unsharded forward's.  With ``profile``
+    (a trace path), a torch.profiler pass of shard 0's step and of the
+    whole sharded step (traces ``_shard`` and ``_sharded`` beside it)."""
+    step = make_sharded_forward(m, nshard=SHARDS)
+    views = [step._view(s) for s in range(SHARDS)]
+    g = line_cotangent(m, T0, q0)
+    kmax_err, fwd, bwd = 0.0, {}, {}
+    want = {k.__name__: 0 for k in ALL_KERNELS}
+    for s, v in enumerate(views):
+        name = f"{label} shard {s}"
+        check(v[1][0]["all_wavn"] is m.bdev[0]["all_wavn"],
+              f"{name}: the kmax scan reads another line list")
+        kmax_err = max(kmax_err, kmax_vs_plain(m, name, v))
+        merge_errors(fwd, banded_vs_plain(m, name, v))
+        merge_errors(bwd, backward_vs_plain(m, g, name, v))
+        want["layer_kmax"] += 1
+        for _, part, _ in banded.launch_units(*v):
+            want[kernel_name(part)] += 1
+        for part, *_ in backward_launches(m, v):
+            want[bwd_name(part)] += 1
+    reset_counts(ALL_KERNELS)
+    parts = [step.local(s, T0, q0) for s in range(SHARDS)]
+    spec = step.assemble(parts)
+    launches = read_counts(ALL_KERNELS)
+    check(launches == {k: want[k] if "backward" not in k else 0
+                       for k in want},
+          f"{label}: launches {launches}, the shards' plans ask {want}")
+    ref = m.forward(T0, q0)
+    check(all(p.shape == (step.span,) for p in parts) and
+          spec.shape == ref.shape and bool(torch.isfinite(spec).all()),
+          f"{label}: sharded spectrum {tuple(spec.shape)}")
+    vs = float(((spec - ref).abs() / ref.abs()).max())
+    check(vs <= BANDED_VS_UNBANDED_TOL, f"{label}: sharded vs unsharded "
+          f"{vs:.3e} > {BANDED_VS_UNBANDED_TOL}")
+    T, q = grad_leaves(m, T0, q0)
+    reset_counts(ALL_KERNELS)
+    gs = torch.autograd.grad(step.assemble(
+        [step.local(s, T, q) for s in range(SHARDS)]).sum(), (T, q))
+    launches_grad = read_counts(ALL_KERNELS)
+    for k in ("line_tile_backward", "shell_tile_backward", "layer_kmax"):
+        check(launches_grad[k] == want[k], f"{label}: gradient launched "
+              f"{k} {launches_grad[k]} times, the shards ask {want[k]}")
+    g1 = grad_step(m, *grad_leaves(m, T0, q0))
+    gerr = {x: max_rel(a, b) for x, a, b in zip("Tq", gs, g1)}
+    check(all(bool(torch.isfinite(a).all()) for a in gs) and
+          max(gerr.values()) < GRAD_TOL,
+          f"{label}: sharded gradient vs unsharded {gerr} >= {GRAD_TOL}")
+    loads = step.eval_stats["actual_evals"]
+    res = {"shards": SHARDS, "span": step.span,
+            "loads_max_over_min": float(loads.max() / loads.min()),
+            "launches": launches, "launches_grad": launches_grad,
+            "kmax_max_abs": kmax_err, "launch_vs_plain": fwd,
+            "backward_vs_plain": bwd, "vs_unsharded": vs,
+            "grad_vs_unsharded": gerr,
+            "forward_ms": cuda_ms(lambda: m.forward(T0, q0)),
+            "shard_ms": [cuda_ms(lambda s=s: step.local(s, T0, q0))
+                         for s in range(SHARDS)]}
+    if profile:
+        trace = Path(profile)
+
+        def whole():
+            return step.assemble([step.local(s, T0, q0)
+                                  for s in range(SHARDS)])
+        res["profile"] = {
+            name: profile_step(fn, cuda_ms(fn), str(trace.with_name(
+                f"{trace.stem}_{name}{trace.suffix}")), f"{label} {name}")
+            for name, fn in (("shard", lambda: step.local(0, T0, q0)),
+                             ("sharded", whole))}
+    return res
+
+
+def shard_phase_text(r: dict, card: str) -> str:
+    return (f"{r['shards']} shards of {r['span']} bins, load max/min "
+            f"{r['loads_max_over_min']:.4f}; vs unsharded max_rel "
+            f"{r['vs_unsharded']:.3e} (bound {BANDED_VS_UNBANDED_TOL}), "
+            f"gradient {r['grad_vs_unsharded']} (bound {GRAD_TOL}); a "
+            f"shard's step {statistics.median(r['shard_ms']):.3f} ms "
+            f"(median of {r['shard_ms']}), the unsharded forward "
+            f"{r['forward_ms']:.3f} ms ({card}); launches {r['launches']}, "
+            f"gradient {r['launches_grad']}; against plain: " + json.dumps(
+                {"layer_kmax_max_abs": r["kmax_max_abs"],
+                 **r["launch_vs_plain"], **r["backward_vs_plain"]})) + (
+                "" if "profile" not in r else "; profile: " + json.dumps(
+                    {k: {x: v[x] for x in ("device_ms", "busy", "kernels")}
+                     for k, v in r["profile"].items()}))
+
+
+def sharded_collective(m: TransitModel, T0, q0) -> dict:
+    """make_sharded_forward over a world-size-1 NCCL group on the card:
+    the collective step (all-gather of the parts; the inputs' gradient
+    all-reduced) bit for bit against the local assembly, forward and
+    gradient; both timed.  Multi-card scaling is not measured here (one
+    card)."""
+    check(dist.is_nccl_available(), "torch.distributed has no NCCL backend")
+    store = Path(tempfile.mkdtemp(dir=ROOT / "build"))
+    dist.init_process_group("nccl", init_method=f"file://{store / 'nccl'}",
+                            world_size=1, rank=0,
+                            timeout=datetime.timedelta(seconds=MH_TIMEOUT))
+    try:
+        step = make_sharded_forward(m, group=dist.group.WORLD)
+        check(step.nshard == 1, f"collective step has {step.nshard} shards")
+
+        def local(T, q):
+            return step.assemble([step.local(0, T, q)])
+        a, b = step(T0, q0), local(T0, q0)
+        check(torch.equal(a, b), "collective step differs from the local "
+              f"assembly by {max_rel(a, b):.3e}")
+        T, q = grad_leaves(m, T0, q0)
+        ga = torch.autograd.grad(step(T, q).sum(), (T, q))
+        T, q = grad_leaves(m, T0, q0)
+        gb = torch.autograd.grad(local(T, q).sum(), (T, q))
+        check(all(torch.equal(x, y) for x, y in zip(ga, gb)),
+              "collective step's gradient differs from the local "
+              "assembly's")
+        out = {"backend": dist.get_backend(),
+               "ms": cuda_ms(lambda: step(T0, q0)),
+               "local_ms": cuda_ms(lambda: local(T0, q0))}
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    return out
+
+
+def multihost_worker(rank: int, store: str, io: str):
+    """One process of multihost_card: joins the gloo group, builds its
+    band of the main path (MultihostForward: balanced bounds, band-local
+    TLI read, the global kmax through layer_kmax and an all-reduce MAX),
+    runs forward and value_and_grad, times them, and writes its results
+    to ``io``.p<rank>.npz."""
+    multihost.initialize(f"file://{store}", MH_PROCS, rank,
+                         timeout=datetime.timedelta(seconds=MH_TIMEOUT))
+    try:
+        d = np.load(f"{io}.in.npz")
+        T0, q0 = d["T0"], d["q0"]
+        t0 = time.perf_counter()
+        run = multihost.MultihostForward(hotjupiter_config(), bands=6,
+                                         dtype=torch.float32)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        obs = torch.as_tensor(d["obs"], device=run.model.device)
+
+        def loss_fn(band_spec, blk):
+            o = obs[blk[0]:blk[1]]
+            return torch.sum(((band_spec - o) / o) ** 2)
+        reset_counts(ALL_KERNELS)
+        spec = run.forward(T0, q0)
+        loss, (gT, gq) = run.value_and_grad(loss_fn, T0, q0)
+        launches = read_counts(ALL_KERNELS)
+        np.savez(f"{io}.p{rank}.npz", spec=spec.cpu().numpy(),
+                 loss=loss.cpu().numpy(), gT=gT.cpu().numpy(),
+                 gq=gq.cpu().numpy(), bounds=run.bounds,
+                 block=np.asarray(run.block),
+                 n_local_lines=run.n_local_lines,
+                 device=str(run.model.device),
+                 launches=json.dumps(launches), setup_s=setup_s,
+                 forward_ms=cuda_ms(lambda: run.forward(T0, q0)),
+                 band_ms=cuda_ms(lambda: run.local_spectrum(T0, q0)),
+                 grad_ms=cuda_ms(lambda: run.value_and_grad(loss_fn, T0,
+                                                            q0)))
+    finally:
+        dist.destroy_process_group()
+
+
+def multihost_card(m: TransitModel, T0, q0) -> dict:
+    """MH_PROCS processes (torch.multiprocessing.spawn) on the one card
+    with a gloo group, each a band of the main path
+    (multihost_worker): the gathered spectrum, the same on every process,
+    against the single-process main path ``m`` (BANDED_VS_UNBANDED_TOL);
+    value_and_grad of chi^2 against an observation (JAX's multi-process
+    test's, 0.5 max(F) (1 + 0.1 sin), with a 1-sigma error of the
+    observation itself: JAX's sum of squares overflows the float32
+    gradient in q of CO2, in one process as in two), its loss to
+    BANDED_VS_UNBANDED_TOL and gradient to GRAD_TOL against the single
+    process's; each process launched layer_kmax and the line-tile
+    kernels.  The kernels were built before the spawn."""
+    work = Path(tempfile.mkdtemp(dir=ROOT / "build"))
+    try:
+        ref = m.forward(T0, q0)
+        obs = 0.5 * ref.max() * (1.0 + 0.1 * torch.sin(torch.linspace(
+            0.0, 6.0, ref.shape[0], device=ref.device)))
+        np.savez(work / "io.in.npz", T0=T0, q0=q0, obs=obs.cpu().numpy())
+        T, q = grad_leaves(m, T0, q0)
+        loss1 = torch.sum(((m.forward(T, q) - obs) / obs) ** 2)
+        g1 = torch.autograd.grad(loss1, (T, q))
+        t0 = time.perf_counter()
+        ctx = mp.spawn(multihost_worker, args=(str(work / "store"),
+                                               str(work / "io")),
+                       nprocs=MH_PROCS, join=False)
+        # A failed worker raises from join; a hung one is killed.
+        while not ctx.join(timeout=1.0):
+            if time.perf_counter() - t0 > 2 * MH_TIMEOUT:
+                for p in ctx.processes:
+                    p.kill()
+                raise CheckFailed(f"multihost: the processes did not "
+                                  f"finish in {2 * MH_TIMEOUT} s")
+        secs = time.perf_counter() - t0
+        res = [dict(np.load(work / f"io.p{r}.npz"))
+               for r in range(MH_PROCS)]
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    for r in res:
+        for k in ("spec", "loss", "gT", "gq"):
+            check(np.array_equal(r[k], res[0][k]),
+                  f"multihost: processes differ in {k}")
+        launched = json.loads(str(r["launches"]))
+        check(launched["layer_kmax"] > 0 and
+              launched["line_tile_extinction"] > 0,
+              f"multihost: a process launched {launched}")
+    spec = torch.as_tensor(res[0]["spec"], device=ref.device)
+    vs = float(((spec - ref).abs() / ref.abs()).max())
+    check(spec.shape == ref.shape and vs <= BANDED_VS_UNBANDED_TOL,
+          f"multihost: gathered spectrum vs single process {vs:.3e}")
+    loss_err = abs(float(res[0]["loss"]) / float(loss1.detach()) - 1.0)
+    gerr = {x: max_rel(torch.as_tensor(res[0][k], device=ref.device), b)
+            for x, k, b in zip("Tq", ("gT", "gq"), g1)}
+    check(loss_err <= BANDED_VS_UNBANDED_TOL and
+          max(gerr.values()) < GRAD_TOL,
+          f"multihost: loss {loss_err:.3e}, gradient {gerr} vs single "
+          f"process")
+    return {"processes": MH_PROCS, "seconds": secs,
+            "bounds": res[0]["bounds"].tolist(),
+            "lines": [int(r["n_local_lines"]) for r in res],
+            "devices": [str(r["device"]) for r in res],
+            "launches": [json.loads(str(r["launches"])) for r in res],
+            "vs_single": vs, "loss_vs_single": loss_err,
+            "grad_vs_single": gerr,
+            "setup_s": [float(r["setup_s"]) for r in res],
+            "forward_ms": [float(r["forward_ms"]) for r in res],
+            "band_ms": [float(r["band_ms"]) for r in res],
+            "grad_ms": [float(r["grad_ms"]) for r in res]}
 
 
 def main(device: str = "cuda", profile: str | None = None) -> int:
@@ -2413,6 +2754,25 @@ def main(device: str = "cuda", profile: str | None = None) -> int:
           f"a batch, {batch['ms_member']:.3f} ms a member; with the "
           f"gradient {batch['ms_batch_grad']:.3f} / "
           f"{batch['ms_member_grad']:.3f} ms; " + json.dumps(batch))
+    t0 = time.perf_counter()
+    shard_b = sharded_phase(hjb, T0, q0, "sharded main", profile)
+    phase("sharded_main", t0, shard_phase_text(shard_b, card))
+    t0 = time.perf_counter()
+    coll = sharded_collective(hjb, T0, q0)
+    phase("sharded_collective", t0, f"world-size-1 {coll['backend']} group:"
+          f" the collective step equals the local assembly bit for bit, "
+          f"forward and gradient; step {coll['ms']:.3f} ms, local "
+          f"{coll['local_ms']:.3f} ms ({card}); scaling over cards is not "
+          f"measured (one card)")
+    t0 = time.perf_counter()
+    mh = multihost_card(hjb, T0, q0)
+    phase("multihost_card", t0, f"{MH_PROCS} processes on one card (gloo):"
+          f" bounds {mh['bounds']}, lines per band {mh['lines']}; gathered "
+          f"spectrum vs single process max_rel {mh['vs_single']:.3e}, loss "
+          f"{mh['loss_vs_single']:.3e}, gradient {mh['grad_vs_single']}; "
+          f"spawn to exit {mh['seconds']:.2f} s ({card}); " + json.dumps(
+              {k: mh[k] for k in ("devices", "launches", "setup_s",
+                                  "forward_ms", "band_ms", "grad_ms")}))
     if profile:
         # After the timed phases: a profiler pass slows the host's
         # dispatch for the rest of the process.
@@ -2488,6 +2848,12 @@ def main(device: str = "cuda", profile: str | None = None) -> int:
           f"{grad_f['ratio']:.3f}); " + json.dumps(
               {k: v for k, v in grad_f.items() if k not in (
                   "forward_ms", "forward_backward_ms", "ratio")}))
+    t0 = time.perf_counter()
+    shard_f = sharded_phase(hjf, T0f, q0f, "sharded 0.05")
+    check("shell_tile_extinction" in shard_f["launch_vs_plain"] and
+          "shell_tile_backward" in shard_f["backward_vs_plain"],
+          "sharded 0.05: no shell launch compared")
+    phase("sharded_fine", t0, shard_phase_text(shard_f, card))
     if profile:
         t0 = time.perf_counter()
         trace = Path(profile)
@@ -2609,24 +2975,38 @@ def main(device: str = "cuda", profile: str | None = None) -> int:
     #    profile-scatter kernels' of the exact path; the grid builds'
     #    launches and the per-molecule profile_scatter launch's time and
     #    bound beside them.
+    def mh_launched(name):
+        return sum(r[name] for r in mh["launches"])
+
     def launched(name):
-        return launches_b[name] + launches_f[name] + launches_t[name]
+        return (launches_b[name] + launches_f[name] + launches_t[name] +
+                shard_b["launches"][name] + shard_f["launches"][name] +
+                mh_launched(name))
     by_path = {k.__name__: {"unbanded": launches_unb[k.__name__],
                             "banded": launches_b[k.__name__],
                             "banded_0.05": launches_f[k.__name__],
-                            "transit": launches_t[k.__name__]}
+                            "transit": launches_t[k.__name__],
+                            "sharded_main": shard_b["launches"][k.__name__],
+                            "sharded_0.05": shard_f["launches"][k.__name__],
+                            "multihost_card": mh_launched(k.__name__)}
                for k in kernels}
+    shard_fwd = merge_errors(merge_errors({}, shard_b["launch_vs_plain"]),
+                             shard_f["launch_vs_plain"])
+    shard_bwd = merge_errors(merge_errors({}, shard_b["backward_vs_plain"]),
+                             shard_f["backward_vs_plain"])
     lt, km, sh = (times_b["line_tile_extinction"], times_b["layer_kmax"],
                   times_f["shell_tile_extinction"])
     ltb, shb = (grad_b["times"]["line_tile_backward"],
                 grad_f["times"]["shell_tile_backward"])
 
     def grad_launched(name):
-        return sum(g["launches"][name] for g in (grad_b, grad_f, grad_t))
+        return (sum(g["launches"][name] for g in (grad_b, grad_f, grad_t)) +
+                shard_b["launches_grad"][name] +
+                shard_f["launches_grad"][name] + mh_launched(name))
 
     def bwd_err(name):
         errs = [g["launch_vs_plain"][name] for g in (grad_b, grad_f, grad_t)
-                if name in g["launch_vs_plain"]]
+                if name in g["launch_vs_plain"]] + [shard_bwd[name]]
         return (max(e["max_abs_temps"] for e in errs),
                 {k: max(e["max_rel"][k] for e in errs) for k in GRAD_OUTPUTS})
     print(card, flush=True)
@@ -2639,10 +3019,12 @@ def main(device: str = "cuda", profile: str | None = None) -> int:
         "launches_by_path": by_path["line_tile_extinction"],
         "max_abs_err": max(err_hj["max_abs"],
                            err_b["line_tile_extinction"]["max_abs"],
-                           err_f["line_tile_extinction"]["max_abs"]),
+                           err_f["line_tile_extinction"]["max_abs"],
+                           shard_fwd["line_tile_extinction"]["max_abs"]),
         "max_rel_vs_plain": max(err_hj["max_rel"], err_fix["max_rel"],
                                 err_b["line_tile_extinction"]["max_rel"],
-                                err_f["line_tile_extinction"]["max_rel"]),
+                                err_f["line_tile_extinction"]["max_rel"],
+                                shard_fwd["line_tile_extinction"]["max_rel"]),
         "ms": lt["ms"],
         "plain_ms": lt["plain_ms"],
         "bound_ms": lt["bound_ms"],
@@ -2666,7 +3048,8 @@ def main(device: str = "cuda", profile: str | None = None) -> int:
         "replaces": "transit_tpu/opacities/pallas_lbl.py:127",
         "launches": launched("layer_kmax"),
         "launches_by_path": by_path["layer_kmax"],
-        "max_abs_err": max(kmax_err_b, kmax_err_f),
+        "max_abs_err": max(kmax_err_b, kmax_err_f, shard_b["kmax_max_abs"],
+                           shard_f["kmax_max_abs"]),
         "max_abs_err_unbanded": kmax_err,
         "launches_grid_build_fast": gr["fast"]["launches"]["layer_kmax"],
         "ms": km["ms"],
@@ -2684,8 +3067,10 @@ def main(device: str = "cuda", profile: str | None = None) -> int:
         "replaces": "transit_tpu/opacities/fast.py:690",
         "launches": launched("shell_tile_extinction"),
         "launches_by_path": by_path["shell_tile_extinction"],
-        "max_abs_err": err_f["shell_tile_extinction"]["max_abs"],
-        "max_rel_vs_plain": err_f["shell_tile_extinction"]["max_rel"],
+        "max_abs_err": max(err_f["shell_tile_extinction"]["max_abs"],
+                           shard_fwd["shell_tile_extinction"]["max_abs"]),
+        "max_rel_vs_plain": max(err_f["shell_tile_extinction"]["max_rel"],
+                                shard_fwd["shell_tile_extinction"]["max_rel"]),
         "ms": sh["ms"],
         "plain_ms": sh["plain_ms"],
         "bound_ms": sh["bound_ms"],
@@ -2701,7 +3086,10 @@ def main(device: str = "cuda", profile: str | None = None) -> int:
         "launches": grad_launched(name),
         "launches_per_step": {"banded": grad_b["per_step"][name],
                               "banded_0.05": grad_f["per_step"][name],
-                              "transit": grad_t["per_step"][name]},
+                              "transit": grad_t["per_step"][name],
+                              "sharded_main": shard_b["launches_grad"][name],
+                              "sharded_0.05": shard_f["launches_grad"][name],
+                              "multihost_card": mh_launched(name)},
         "max_abs_err": bwd_err(name)[0],
         "max_rel_vs_plain_by_output": bwd_err(name)[1],
         "ms": t["ms"],
@@ -2752,6 +3140,14 @@ def main(device: str = "cuda", profile: str | None = None) -> int:
                      "transit_member": batch_t["ms_member"]},
         "hmc": {k: hmc[k] for k in ("acceptance", "ms_per_gradient_eval",
                                     "ms_per_sample")},
+        "sharded": {path: {k: r[k] for k in (
+            "shards", "loads_max_over_min", "vs_unsharded",
+            "grad_vs_unsharded", "forward_ms", "shard_ms")}
+            for path, r in (("main", shard_b), ("0.05", shard_f))},
+        "sharded_collective_ms": {k: coll[k] for k in ("ms", "local_ms")},
+        "multihost_card": {k: mh[k] for k in (
+            "bounds", "lines", "vs_single", "loss_vs_single",
+            "grad_vs_single", "forward_ms", "band_ms", "grad_ms")},
         "grid": {"shape": GRID_SHAPE,
                  "exact_build_s": gr["exact"]["seconds"],
                  "exact_cells_per_s": gr["exact"]["cells_per_s"],
@@ -2762,6 +3158,7 @@ def main(device: str = "cuda", profile: str | None = None) -> int:
                  "l1_fast_vs_exact": gr["l1_fast_vs_exact"],
                  **{k: v for k, v in gr["path"].items()
                     if not k.startswith("profile")},
+                 "multihost_grid_vs_full": gr["multihost"]["vs_full"],
                  "cli_grid_bytes_equal": gr["cli"]["grid_bytes_equal"],
                  "cli_grid_max_rel": gr["cli"]["grid_max_rel"]}}),
         flush=True)

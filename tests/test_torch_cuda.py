@@ -1206,3 +1206,41 @@ def test_profile_scatter_one_molecule_is_the_collapsed_launch(card):
     assert got.shape == (nl, 1, n_coarse) and float(one.max()) > 0
     assert torch.equal(got[:, 0], one)
     assert torch.equal(one, lbl.profile_scatter_plain(g_k, g_idop, ilor, s))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bands", [0, 6])
+def test_sharded_step_on_card(card, bands):
+    """The fixture in 4 shards on the card: each shard's launches are the
+    model's on its tiles (the line-tile kernel once per class of each
+    shard, layer_kmax once a shard, also on the unbanded plan's one-class
+    shards), and the assembled spectrum and gradient equal the unsharded
+    ones (<= 1e-5, < 1e-3 of the max, chip_smoke.py's gates)."""
+    from transit_tpu_torch.opacities import banded
+    from transit_tpu_torch.parallel.sharded import make_sharded_forward
+    m = _model(card, bands=bands)
+    step = make_sharded_forward(m, nshard=4)
+    T0, q0 = np.asarray(m.atm.temp), np.asarray(m.atm.q)
+    want = {"line_tile_extinction": 0, "layer_kmax": 4}
+    for s in range(4):
+        plan, d, index = step._view(s)
+        want["line_tile_extinction"] += (
+            sum(1 for _, part, _ in banded.launch_units(plan, d, index)
+                if part != "shell") if bands else len(plan.class_tiles))
+    line_tile_extinction.launches = layer_kmax.launches = 0
+    spec = step.assemble([step.local(s, T0, q0) for s in range(4)])
+    torch.cuda.synchronize()
+    assert {"line_tile_extinction": line_tile_extinction.launches,
+            "layer_kmax": layer_kmax.launches} == want
+    ref = m.forward(T0, q0)
+    assert float(((spec - ref).abs() / ref.abs()).max()) <= 1e-5
+
+    def grad(f):
+        T = torch.tensor(T0, dtype=torch.float32, device=card,
+                         requires_grad=True)
+        q = torch.tensor(q0, dtype=torch.float32, device=card,
+                         requires_grad=True)
+        return torch.autograd.grad(f(T, q).sum(), (T, q))
+    for a, b in zip(grad(lambda T, q: step.assemble(
+            [step.local(s, T, q) for s in range(4)])), grad(m.forward)):
+        assert float((a - b).abs().max() / b.abs().max()) < 1e-3

@@ -39,6 +39,15 @@ _MODS = [
     "transit_tpu_torch.rt.orbit, transit_tpu_torch.retrieval",
     "transit_tpu_torch.opacities.grid, transit_tpu_torch.utils.savefiles, "
     "transit_tpu_torch.numerics.resample, transit_tpu_torch.cli",
+    "transit_tpu_torch.parallel.sharded, "
+    "transit_tpu_torch.parallel.multihost",
+    "transit_tpu_torch.lineread.base, transit_tpu_torch.lineread.tips, "
+    "transit_tpu_torch.lineread.hitran, transit_tpu_torch.lineread.kurucz, "
+    "transit_tpu_torch.lineread.misc, transit_tpu_torch.tools.ciaformat",
+    # The compiler names its readers as strings and imports them when it
+    # loads one:
+    "transit_tpu_torch.lineread.compile as c; "
+    "[c._load_reader(t, 'db', None, None) for t in ('ps', 'ts', 'vo')]",
     "chip_smoke",
     "grad_fd_study",
     "line_tile_ablation",
@@ -107,13 +116,24 @@ def test_model_without_device_or_card_raises(monkeypatch):
 
 @pytest.mark.parametrize("change", [dict(wn_window=(0, 50))])
 def test_unported_options_raise(change):
-    """Options of slices not ported yet raise with the slice's name, in
-    either mode (exact mode is ported: tests/test_torch_exact_*.py; the
-    opacity grid and the savefile: tests/test_torch_grid_*.py)."""
+    """Options of slices not ported yet raised with the slice's name; the
+    last one, wn_window (the multi-process bands), now windows the model
+    in either mode: the grids are the global grid's bins [0, 50) (and
+    their oversampled points), and the fast model's spectrum is finite
+    (tests/test_torch_multihost*.py hold band models to JAX's)."""
     from transit_tpu_torch.model import TransitModel
     for mode in ("exact", "fast"):
-        with pytest.raises(NotImplementedError, match="slice"):
-            TransitModel(_torch_cfg(), mode=mode, device="cpu", **change)
+        m = TransitModel(_torch_cfg(), mode=mode, device="cpu",
+                         dtype=torch.float64, **change)
+        assert (m.wns.n, m.wns_global.n) == (50, 101)
+        assert m.owns.n == 49 * m.owns.o + 1
+        assert bool((torch.as_tensor(m.wns.v) ==
+                     torch.as_tensor(m.wns_global.v[:50])).all())
+    spec = m.compute().spectrum
+    assert spec.shape == (50,) and bool(torch.isfinite(spec).all())
+    with pytest.raises(ValueError, match="wn_window"):
+        TransitModel(_torch_cfg(), mode="fast", device="cpu",
+                     wn_window=(0, 102))
 
 
 @pytest.mark.parametrize("option", ["opacityfile", "saveext"])
@@ -149,23 +169,35 @@ def test_grid_options_run(tmp_path, option):
 
 
 def test_unported_banded_options_raise():
-    """wn_window and kmax_override (the multi-process bands slice) raise
-    with their slice's name."""
+    """wn_window and kmax_override (the multi-process bands slice), which
+    raised until that slice, now run on the banded model: the windowed
+    model plans its window's tiles; the scan's own kmax given as the
+    override gives the scan's extinction bit for bit, a kmax 1e30 times
+    larger cuts every line, and the override takes no gradient."""
     from transit_tpu_torch.model import TransitModel
-    from transit_tpu_torch.opacities.banded import banded_kernel_extinction
-    with pytest.raises(NotImplementedError, match="wn_window.*slice"):
-        TransitModel(_torch_cfg(), mode="fast",
-                     device="cpu", bands=6, wn_window=(0, 50))
+    from transit_tpu_torch.opacities.banded import (banded_kernel_extinction,
+                                                    line_kmax)
+    w = TransitModel(_torch_cfg(), mode="fast", device="cpu", bands=6,
+                     wn_window=(0, 50))
+    assert w.bplan.plans[0].n_coarse == 50
     m = TransitModel(_torch_cfg(), mode="fast",
                      dtype=torch.float64, device="cpu",
                      bands=6)
-    t = m._t(m.atm.temp)
-    with pytest.raises(NotImplementedError, match="kmax_override.*slice"):
-        banded_kernel_extinction(
-            m.bplan, m.bdev, t * m.atm.tfct, m._t(m.atm.d), m.partition(t),
-            m._molm_t, m._molrad_t, wn_i=m.wns.i, dwn=m.wns.d,
-            ethresh=m.cfg.ethreshold, nwidth=m.cfg.nwidth,
-            kmax_override=torch.ones_like(t))
+    t = m._t(m.atm.temp).requires_grad_()
+    args = (m.bplan, m.bdev, t * m.atm.tfct, m._t(m.atm.d), m.partition(t),
+            m._molm_t, m._molrad_t)
+    kw = dict(wn_i=m.wns.i, dwn=m.wns.d, ethresh=m.cfg.ethreshold,
+              nwidth=m.cfg.nwidth)
+    kmax = line_kmax(m.bdev[0], args[2], args[4]).detach().requires_grad_()
+    base = banded_kernel_extinction(*args, **kw)
+    assert torch.equal(banded_kernel_extinction(*args, kmax_override=kmax,
+                                                **kw), base)
+    assert torch.equal(m.line_extinction(*args[2:5], kmax_override=kmax),
+                       base)
+    cut = banded_kernel_extinction(*args, kmax_override=kmax * 1e30, **kw)
+    assert float(base.detach().abs().max()) > 0 and not bool(cut.any())
+    cut.sum().backward()
+    assert kmax.grad is None
 
 
 @pytest.mark.parametrize("bands", [0, 6])

@@ -76,12 +76,6 @@ from transit_tpu_torch.utils.savefiles import (load_extinction,
 INDEX_LIMIT = 2 ** 31
 
 
-def _later(what: str, slice_: str):
-    return NotImplementedError(
-        f"{what} is not ported to transit_tpu_torch yet; it comes with the "
-        f"{slice_} slice (see ROADMAP.md)")
-
-
 def resolve_device(device=None) -> torch.device:
     """``device`` as given, else ``cuda``; raises when no card is there
     and the caller did not ask for another device."""
@@ -112,7 +106,8 @@ class TransitModel:
     def __init__(self, cfg: TransitConfig, dtype=None, mode: str = "exact",
                  use_kernel: bool = True, device=None, tli=None,
                  bands: int = 0, split_far: bool = True,
-                 far_decimate: bool = True, wn_window=None, table=None):
+                 far_decimate: bool = True, wn_window=None,
+                 wn_margin: float = 0.0, table=None):
         """``mode``: "exact", the reference's profile-table scheme with
         the C code's profile table, co-add order and index arithmetic
         (the default, as in transit_tpu), or "fast", on-the-fly Voigt on
@@ -129,8 +124,16 @@ class TransitModel:
         voigt.ProfileTable, when already built for this configuration
         (its layout is checked against the configuration's grids, nwidth
         and table axes, and a mismatch raises ValueError); else it is
-        built on the model's device.  A ``wn_window`` (one process's band
-        of a multi-process run) is not ported yet and raises.
+        built on the model's device.  ``wn_window=(b0, b1)``: the model
+        covers coarse bins [b0, b1) of the global grid (``wns_global``),
+        one process's band of a multi-process run
+        (parallel/multihost.py); the grids are sliced from the global
+        fill, so band spectra concatenate to the global one, and the
+        line selection is widened by ``wn_margin`` (cm-1; clipped to the
+        global range) so that the wings of lines outside the window
+        reach its edge tiles as in one process (transit_tpu
+        model.py:68-112, 191-196).  A grid file is read in the window's
+        columns only.
 
         With a ``cfg.opacityfile`` that exists (and ``justOpacity``
         unset) the model reads the grid (mode c of the reference,
@@ -141,8 +144,6 @@ class TransitModel:
         self.cfg = cfg = validate(cfg)
         if mode not in ("exact", "fast"):
             raise ValueError(f"unknown mode {mode!r}")
-        if wn_window is not None:
-            raise _later("wn_window", "multi-process bands")
         if cfg.solution not in ("eclipse", "transit"):
             raise ValueError(f"unknown solution {cfg.solution!r}")
         self.device = resolve_device(device)
@@ -159,6 +160,21 @@ class TransitModel:
             wnlow=cfg.wnlow, wnhigh=cfg.wnhigh, wllow=cfg.wllow,
             wlhigh=cfg.wlhigh, wndelt=cfg.wndelt, wnosamp=cfg.wnosamp,
             wnfct=(cfg.wnfct if cfg.wnfct > 0 else 1.0), wlfct=cfg.wlfct)
+        self.wns_global = self.wns
+        self.wn_window = wn_window
+        if wn_window is not None:
+            b0, b1 = wn_window
+            if not 0 <= b0 < b1 <= self.wns.n:
+                raise ValueError(f"wn_window {wn_window} outside the "
+                                 f"global grid of {self.wns.n} bins")
+            v, o, ov = self.wns.v, self.owns.o, self.owns.v
+            self.wns = grids.Sampling(
+                i=float(v[b0]), f=float(v[b1 - 1]), d=self.wns.d, o=1,
+                v=v[b0:b1].copy(), fct=self.wns.fct)
+            self.owns = grids.Sampling(
+                i=float(ov[b0 * o]), f=float(ov[(b1 - 1) * o]),
+                d=self.owns.d, o=o, v=ov[b0 * o:(b1 - 1) * o + 1].copy(),
+                fct=self.owns.fct)
 
         # --- atmosphere (transit.c:49 getatm) ---
         qmol = cfg.qmol.split(",") if cfg.qmol else None
@@ -207,7 +223,8 @@ class TransitModel:
         self.grid_mol_idx = None
         if cfg.opacityfile and os.path.exists(cfg.opacityfile) and \
                 not cfg.justOpacity:
-            self.ogrid = read_opacity_grid(cfg.opacityfile)
+            self.ogrid = read_opacity_grid(cfg.opacityfile,
+                                           wn_window=wn_window)
             shape = self.ogrid.grid.shape
             if (shape[0], shape[3]) != (self.atm.nlayers, self.wns.n):
                 raise ValueError(
@@ -236,8 +253,11 @@ class TransitModel:
         self.bdev = None
         self.bindex = None
         if self.tli is not None:
-            wl, isoid, elow, gf = select_lines(self.tli, self.wns.i,
-                                               self.wns.f)
+            # A band model widens the selection by wn_margin (clipped to
+            # the global range):
+            wl, isoid, elow, gf = select_lines(
+                self.tli, max(self.wns_global.i, self.wns.i - wn_margin),
+                min(self.wns_global.f, self.wns.f + wn_margin))
             wavn = 1.0 / (np.asarray(wl) * TLI_WAV_UNITS)
             if mode == "exact":
                 spec = dict(dwn=self.wns.d / self.owns.o,
@@ -451,7 +471,7 @@ class TransitModel:
         return self.bdev if self.bplan is not None else self.fdev
 
     def line_extinction(self, temps_cgs, densities, Z, dev=None,
-                        batch: int = 1):
+                        batch: int = 1, kmax_override=None):
         """Per-layer line extinction (nlayer, nwn), differentiable in the
         temperatures, densities and Z: in exact mode lbl.layer_extinction
         (kernel_profile.ProfileScatter), in fast mode
@@ -460,9 +480,11 @@ class TransitModel:
         overrides the model's stored tensors (device_tree).  ``batch``:
         the layers are ``batch`` profiles' layers one after another
         (forward_batch), and the banded plan is its batched view
-        (:meth:`_batched_bplan`).  In grid mode: grid.grid_extinction
-        (differentiable in the temperatures and densities; ``dev``
-        overrides the grid)."""
+        (:meth:`_batched_bplan`).  ``kmax_override``: an external
+        per-layer kmax (nl,), a constant, in place of the scan over the
+        model's lines (the multi-process bands' global kmax; fast mode).
+        In grid mode: grid.grid_extinction (differentiable in the
+        temperatures and densities; ``dev`` overrides the grid)."""
         nl = temps_cgs.shape[0]
         if self.ogrid is not None:
             return grid_extinction(self._ogrid_temp_t,
@@ -486,13 +508,15 @@ class TransitModel:
             # The index packs the stored tensors' shell lines.
             return banded_kernel_extinction(
                 bplan, bdev, *args, index=index if bdev is self.bdev else
-                None, use_kernel=self.use_kernel, **kw)
+                None, use_kernel=self.use_kernel,
+                kmax_override=kmax_override, **kw)
         if self.fplan is None:
             return torch.zeros((nl, self.wns.n), dtype=self.dtype,
                                device=self.device)
         return kernel_extinction(self.fplan,
                                  dev if dev is not None else self.fdev,
-                                 *args, use_kernel=self.use_kernel, **kw)
+                                 *args, use_kernel=self.use_kernel,
+                                 kmax_override=kmax_override, **kw)
 
     # ------------------------------------------------------------------
     def _spectrum(self, temps_raw, q, densities, full_result: bool,
@@ -506,18 +530,21 @@ class TransitModel:
                               *geom)
 
     def _assemble(self, temps_raw, q, densities, ex, full_result: bool,
-                  radii=None, W=None, Wmod=None):
+                  radii=None, W=None, Wmod=None, wn=None):
         """Everything downstream of the line extinction: scattering,
         clouds, CIA, optical depth, and the eclipse flux or the transit
         modulation (transit_tpu model.py:456-531).  radii, W and Wmod
         (transit only) are the step's geometry (:meth:`geometry`); None
-        takes the static one."""
+        takes the static one.  ``wn``: the (raw, cgs) wavenumber tensors
+        of the columns of ``ex`` (a shard's, parallel/sharded.py); None
+        takes the model's grid."""
         if W is None:
             radii, W, Wmod = self._radii_t, self._W_t, self._Wmod_t
+        wns_raw, wns_cgs = (self._wns_t, self._wns_cgs_t) if wn is None \
+            else wn
         atm = self.atm
         nl = atm.nlayers
         temps_cgs = temps_raw * atm.tfct
-        wns_cgs = self._wns_cgs_t
         # The reference feeds computeextscat the *raw* (file-unit) pressure
         # and temperature arrays (tau.c:113-114,226), not cgs:
         e_s = scattering_extinction(
@@ -537,10 +564,10 @@ class TransitModel:
         e_c = cloud_extinction(self._cloud, self._press_t, mean_dens, nH,
                                wns_cgs)
 
-        e_cs = (cs_extinction(self.cs_tables, self.cs_pre, self._wns_t,
+        e_cs = (cs_extinction(self.cs_tables, self.cs_pre, wns_raw,
                               temps_cgs, densities, molm, self.cs_species)
                 if self.cs_tables else
-                torch.zeros((self.wns.n, nl), dtype=self.dtype,
+                torch.zeros((wns_raw.shape[0], nl), dtype=self.dtype,
                             device=self.device))
 
         er = ex.T + e_s + e_c + e_cs            # (nwn, nl)

@@ -34,9 +34,10 @@ import numpy as np
 import torch
 
 from transit_tpu_torch.constants import SIGCTE
-from transit_tpu_torch.opacities.fast import BandedPlan, FastPlan
+from transit_tpu_torch.opacities.fast import BandedPlan
 from transit_tpu_torch.opacities.kernel_lbl import (LineBand,
                                                     acc_grads, cast_grads,
+                                                    constant_kmax,
                                                     layer_kmax,
                                                     line_extinction,
                                                     line_tile_backward,
@@ -45,6 +46,7 @@ from transit_tpu_torch.opacities.kernel_lbl import (LineBand,
                                                     plain_kmax,
                                                     plain_line_tiles,
                                                     plain_line_tiles_vjp,
+                                                    plan_classes,
                                                     run_counts,
                                                     tile_cotangent,
                                                     width_tables,
@@ -57,18 +59,23 @@ from transit_tpu_torch.opacities.kernel_shell import (plain_shell_classes,
                                                       shell_tile_extinction)
 
 
+def band_coef0(d, Z):
+    """The strength coefficient SIGCTE*ratio/mass/Z (nl, niso) in
+    fast.py:364's order."""
+    return ((SIGCTE * d["iso_ratio"] / d["iso_mass"])[None, :] /
+            Z.T).contiguous()
+
+
 def band_tables(d, temps, densities, Z, mol_mass, mol_radius,
                 unit_density: bool = False):
     """The (nl, niso) tables of all layers (fast._prep_layers), torch
     ops: the widths and density (:func:`width_tables`; ``unit_density``:
     a density of 1, the opacity-grid build's) and the strength
-    coefficient SIGCTE*ratio/mass/Z in fast.py:364's order.  The kmax
-    scan reads no density, so it is the same either way."""
-    coef0 = ((SIGCTE * d["iso_ratio"] / d["iso_mass"])[None, :] /
-             Z.T).contiguous()
+    coefficient (:func:`band_coef0`).  The kmax scan reads no density,
+    so it is the same either way."""
     return {**width_tables(d, temps, densities, mol_mass, mol_radius,
                            unit_density=unit_density),
-            "coef0": coef0}
+            "coef0": band_coef0(d, Z)}
 
 
 def band_kmax(d, temps, coef0, use_kernel: bool):
@@ -79,22 +86,30 @@ def band_kmax(d, temps, coef0, use_kernel: bool):
                                                       floor=0.0)
 
 
+def line_kmax(d, temps, Z, use_kernel: bool = True):
+    """The per-layer kmax (nl,) over the whole line list of ``d`` (its
+    ``all_*`` tensors: a band model's band-local list) at the layer
+    temperatures ``temps`` (cgs) and partition functions Z (niso, nl),
+    as fast.line_kmax (fast.py:422-434): the multi-process bands take
+    its maximum over processes and feed it back as ``kmax_override``.
+    On the card it launches ``layer_kmax`` (floor 0, the scan's carry);
+    on the CPU, or with ``use_kernel=False``, its plain version."""
+    kernel = use_kernel and d["all_wavn"].device.type == "cuda"
+    return band_kmax(d, temps, band_coef0(d, Z), kernel)
+
+
 def prep_layers(d, temps, densities, Z, mol_mass, mol_radius,
-                use_kernel: bool, unit_density: bool = False):
+                use_kernel: bool, unit_density: bool = False,
+                kmax_override=None):
     """Per-layer tables of all layers, once per step (fast._prep_layers):
-    :func:`band_tables` and the kmax scan (:func:`band_kmax`)."""
+    :func:`band_tables` and the kmax scan (:func:`band_kmax`), or
+    ``kmax_override`` (kernel_lbl.constant_kmax)."""
     tab = band_tables(d, temps, densities, Z, mol_mass, mol_radius,
                       unit_density=unit_density)
-    return {**tab, "kmax": band_kmax(d, temps, tab["coef0"], use_kernel)}
-
-
-def plan_classes(plan: FastPlan, d):
-    """[(line tensors, global tile indices (numpy int32) or None)] per
-    tile class of ``plan`` (one entry when it has no classes)."""
-    if plan.class_tiles is None:
-        return [({k: d[k] for k in ("wavn", "elow", "gf", "iso", "mask")},
-                 None)]
-    return list(zip(d["classes"], plan.class_tiles))
+    kmax = (band_kmax(d, temps, tab["coef0"], use_kernel)
+            if kmax_override is None else
+            constant_kmax(kmax_override, temps))
+    return {**tab, "kmax": kmax}
 
 
 def band_parts(bplan: BandedPlan, devs, far_full_res: bool = False):
@@ -135,22 +150,15 @@ def plain_banded_extinction(bplan: BandedPlan, devs, temps, densities, Z,
     on the tensors' device (fast.banded_extinction): per band the near
     plan plus its shells, in JAX's order, rows in the file's layer
     order.  ``far_full_res`` evaluates the decimated shells at every bin
-    (same weighting, no upsampling).  ``kmax_override`` (the multi-process
-    path's global kmax) is not ported yet and raises.  Autograd runs
-    through it (the tests' oracle for the plain VJPs)."""
-    _refuse_kmax_override(kmax_override)
+    (same weighting, no upsampling).  ``kmax_override``: an external
+    per-layer kmax (nl,) in place of the scan (the multi-process bands'
+    global kmax, fast.py:373-374), a constant.  Autograd runs through it
+    (the tests' oracle for the plain VJPs)."""
     tab = prep_layers(devs[0], temps, densities, Z, mol_mass, mol_radius,
-                      use_kernel=False)
+                      use_kernel=False, kmax_override=kmax_override)
     return plain_bands(bplan, devs, tab, temps,
                        dict(wn_i=wn_i, dwn=dwn, ethresh=ethresh,
                             nwidth=nwidth), far_full_res)
-
-
-def _refuse_kmax_override(kmax_override):
-    if kmax_override is not None:
-        raise NotImplementedError(
-            "kmax_override is not ported to transit_tpu_torch yet; it "
-            "comes with the multi-process bands slice (see ROADMAP.md)")
 
 
 def plain_bands(bplan: BandedPlan, devs, tab, temps, kw: dict,
@@ -266,22 +274,30 @@ class BandedOp:
     :func:`launch_units` forward (:func:`_launch_all`) and those of
     :func:`backward_units` backward (:func:`_launch_all_backward`); else
     their plain versions
-    (:func:`plain_bands`, :func:`plain_bands_vjp`)."""
+    (:func:`plain_bands`, :func:`plain_bands_vjp`).  ``kmax_override``
+    replaces the scan by a constant per-layer kmax."""
 
     def __init__(self, bplan: BandedPlan, devs, index, kw: dict,
-                 far_full_res: bool, kernel: bool, stats=None):
+                 far_full_res: bool, kernel: bool, stats=None,
+                 kmax_override=None):
         self.bplan, self.devs, self.index, self.kw = bplan, devs, index, kw
         self.far_full_res, self.kernel = far_full_res, kernel
         self.stats = stats or {}
+        self.kmax_override = kmax_override
 
     def batched(self, B: int):
         """The op over B profiles' layers one after another: on the
-        plan's batched view and its index (:func:`batched_view`)."""
+        plan's batched view and its index (:func:`batched_view`); an
+        external kmax is one profile's and refuses a batch."""
+        if self.kmax_override is not None:
+            raise ValueError("kmax_override holds one profile's layers")
         view, index = batched_view(self.bplan, self.index, B)
         return BandedOp(view, self.devs, index, self.kw, self.far_full_res,
                         self.kernel, self.stats)
 
     def kmax(self, temps, coef0):
+        if self.kmax_override is not None:
+            return constant_kmax(self.kmax_override, temps)
         return band_kmax(self.devs[0], temps, coef0, self.kernel)
 
     def forward(self, tab, temps, grad: bool):
@@ -347,8 +363,9 @@ def banded_kernel_extinction(bplan: BandedPlan, devs, temps, densities, Z,
     :func:`plain_banded_extinction`).  ``index``: :func:`banded_index`
     (made here when None).  ``stats``: optional {"line_tile": t,
     "shell": t}, (3,) int64 tensors on the card that get the forward
-    kernels' counters added."""
-    _refuse_kmax_override(kmax_override)
+    kernels' counters added.  ``kmax_override``: an external per-layer
+    kmax (nl,) in place of the scan (the multi-process bands' global
+    kmax, fast.py:373-374), a constant."""
     d0 = devs[0]
     kernel = use_kernel and d0["all_wavn"].device.type == "cuda"
     if kernel and index is None:
@@ -356,7 +373,7 @@ def banded_kernel_extinction(bplan: BandedPlan, devs, temps, densities, Z,
     tab = band_tables(d0, temps, densities, Z, mol_mass, mol_radius)
     op = BandedOp(bplan, devs, index, dict(wn_i=wn_i, dwn=dwn,
                                            ethresh=ethresh, nwidth=nwidth),
-                  far_full_res, kernel, stats)
+                  far_full_res, kernel, stats, kmax_override)
     return line_extinction(op, temps, tab["coef0"], tab["densm"],
                            tab["alphal"], tab["alphad_f"])
 

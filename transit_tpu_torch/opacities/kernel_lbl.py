@@ -106,14 +106,25 @@ def plain_kmax(d, temps, coef0, floor: float = -torch.inf):
     return kmax
 
 
-def layer_tables(d, temps, densities, Z, mol_mass, mol_radius):
+def constant_kmax(kmax_override, temps):
+    """An external per-layer kmax (nl,) as a constant in the dtype and on
+    the device of ``temps``: no gradient flows into it (fast.py:373-374;
+    kmax only sets which lines are kept)."""
+    return torch.as_tensor(kmax_override).detach().to(dtype=temps.dtype,
+                                                      device=temps.device)
+
+
+def layer_tables(d, temps, densities, Z, mol_mass, mol_radius,
+                 kmax_override=None):
     """The per-layer tables of the line-tile computation
     (pallas_lbl.py:111-133): :func:`width_tables`, ``coef0``
     (:func:`strength_coef`) and the per-layer ``kmax``
-    (:func:`plain_kmax`)."""
+    (:func:`plain_kmax`, or ``kmax_override``: :func:`constant_kmax`)."""
     coef0 = strength_coef(d, Z)
+    kmax = (plain_kmax(d, temps, coef0) if kmax_override is None else
+            constant_kmax(kmax_override, temps))
     return {**width_tables(d, temps, densities, mol_mass, mol_radius),
-            "coef0": coef0, "kmax": plain_kmax(d, temps, coef0)}
+            "coef0": coef0, "kmax": kmax}
 
 
 def block_lines(d, t0: int, t1: int, n: int, tab, temps, ethresh: float):
@@ -416,6 +427,15 @@ def plain_line_tiles_vjp(plan: FastPlan, d, tab, temps, g, wn_i: float,
     return grads
 
 
+def plan_classes(plan: FastPlan, d):
+    """[(line tensors, global tile indices (numpy int32) or None)] per
+    tile class of ``plan`` (one entry when it has no classes)."""
+    if plan.class_tiles is None:
+        return [({k: d[k] for k in ("wavn", "elow", "gf", "iso", "mask")},
+                 None)]
+    return list(zip(d["classes"], plan.class_tiles))
+
+
 def plain_classes(plan: FastPlan, classes, temps, fn):
     """A plan's function over all its tiles from its classes [(line
     tensors, global tiles (numpy) or None)]: ``fn(dc, gidx)`` gives a
@@ -434,13 +454,17 @@ def plain_classes(plan: FastPlan, classes, temps, fn):
 
 def plain_extinction(plan: FastPlan, d, temps, densities, Z, mol_mass,
                      mol_radius, wn_i: float, dwn: float, ethresh: float,
-                     nwidth: float):
+                     nwidth: float, kmax_override=None):
     """Extinction (nlayer, n_coarse) on the unbanded plan: the plain
     PyTorch version of :func:`kernel_extinction`, on the tensors'
-    device (:func:`layer_tables`, :func:`plain_line_tiles`)."""
-    tab = layer_tables(d, temps, densities, Z, mol_mass, mol_radius)
-    out = plain_line_tiles(plan, d, tab, temps, wn_i, dwn, ethresh, nwidth)
-    return out.reshape(temps.shape[0], -1)[:, :plan.n_coarse]
+    device (:func:`layer_tables`, :func:`plain_line_tiles`, class by
+    class on a plan with tile classes)."""
+    tab = layer_tables(d, temps, densities, Z, mol_mass, mol_radius,
+                       kmax_override)
+    out = plain_classes(plan, plan_classes(plan, d), temps, lambda dc, gidx:
+                        plain_line_tiles(plan, dc, tab, temps, wn_i, dwn,
+                                         ethresh, nwidth, gidx=gidx))
+    return out[:, :plan.n_coarse]
 
 
 def work_counts(plan: FastPlan, d, tab, temps, wn_i: float, dwn: float,
@@ -571,38 +595,65 @@ def line_extinction(op, temps, coef0, densm, alphal, alphad_f):
 
 class TilesOp:
     """The unbanded plan's line extinction for :class:`LineExtinction`:
-    ``layer_kmax`` (floor -inf), one ``line_tile_extinction`` launch and
-    one ``line_tile_backward`` launch with ``kernel``, else their plain
-    versions (:func:`plain_kmax`, :func:`plain_line_tiles`,
+    ``layer_kmax`` (floor -inf), or ``kmax_override`` (a constant), then
+    with ``kernel`` one ``line_tile_extinction`` launch per tile class
+    (one for a plan without classes; a shard of the plan,
+    parallel/sharded.py, has its tiles as classes) and one
+    ``line_tile_backward`` launch; else their plain versions
+    (:func:`plain_kmax`, :func:`plain_line_tiles`,
     :func:`plain_line_tiles_vjp`)."""
 
-    def __init__(self, plan: FastPlan, d, kw: dict, kernel: bool):
+    def __init__(self, plan: FastPlan, d, kw: dict, kernel: bool,
+                 kmax_override=None):
         self.plan, self.d, self.kw, self.kernel = plan, d, kw, kernel
+        self.kmax_override = kmax_override
+        self.classes = plan_classes(plan, d)
+        self.band = None
+        if kernel:
+            device = d["all_wavn"].device
+            self.band = LineBand([
+                (plan, dc, g, None if g is None else
+                 torch.as_tensor(g, dtype=torch.int32, device=device))
+                for dc, g in self.classes])
 
     def batched(self, B: int):
         """The op over B profiles' layers one after another: the same
-        (the unbanded plan has no per-layer parts)."""
+        (the unbanded plan has no per-layer parts); an external kmax is
+        one profile's and refuses a batch."""
+        if self.kmax_override is not None:
+            raise ValueError("kmax_override holds one profile's layers")
         return self
 
     def kmax(self, temps, coef0):
+        if self.kmax_override is not None:
+            return constant_kmax(self.kmax_override, temps)
         return (layer_kmax if self.kernel else plain_kmax)(self.d, temps,
                                                            coef0)
 
     def forward(self, tab, temps, grad: bool):
         if self.kernel:
-            return line_tile_extinction(self.plan, self.d, tab, temps,
-                                        **self.kw), None
-        out = plain_line_tiles(self.plan, self.d, tab, temps, **self.kw)
-        return out.reshape(temps.shape[0], -1)[:, :self.plan.n_coarse], None
+            out = None
+            for plan, dc, _, t in self.band.units:
+                out = line_tile_extinction(plan, dc, tab, temps, tiles=t,
+                                           out=out, **self.kw)
+            return out, None
+        out = plain_classes(self.plan, self.classes, temps, lambda dc, gidx:
+                            plain_line_tiles(self.plan, dc, tab, temps,
+                                             gidx=gidx, **self.kw))
+        return out[:, :self.plan.n_coarse], None
 
     def backward(self, tab, temps, g, state):
         if self.kernel:
-            band = LineBand([(self.plan, self.d, None, None)])
-            return acc_grads(line_tile_backward(band, tab, temps, g,
+            return acc_grads(line_tile_backward(self.band, tab, temps, g,
                                                 **self.kw), temps.dtype)
-        return cast_grads(plain_line_tiles_vjp(
-            self.plan, self.d, tab, temps, tile_cotangent(g, self.plan),
-            **self.kw), temps.dtype)
+        grads = zero_grads(tab, temps)
+        gt = tile_cotangent(g, self.plan)
+        for dc, gidx in self.classes:
+            gc = gt if gidx is None else gt[:, torch.as_tensor(
+                gidx, device=gt.device).long()]
+            plain_line_tiles_vjp(self.plan, dc, tab, temps, gc, gidx=gidx,
+                                 grads=grads, **self.kw)
+        return cast_grads(grads, temps.dtype)
 
 
 def tile_cotangent(g, plan: FastPlan):
@@ -615,7 +666,8 @@ def tile_cotangent(g, plan: FastPlan):
 
 def kernel_extinction(plan: FastPlan, d, temps, densities, Z, mol_mass,
                       mol_radius, wn_i: float, dwn: float, ethresh: float,
-                      nwidth: float, use_kernel: bool = True):
+                      nwidth: float, use_kernel: bool = True,
+                      kmax_override=None):
     """Extinction (nlayer, n_coarse) through the CUDA kernels,
     differentiable in temps, densities and Z (:class:`LineExtinction`).
 
@@ -626,12 +678,14 @@ def kernel_extinction(plan: FastPlan, d, temps, densities, Z, mol_mass,
     line-tile kernel, which take float32 only (and ``line_tile_backward``
     for a gradient); a CPU tensor, or ``use_kernel=False``, takes their
     plain versions (the forward equals :func:`plain_extinction`).
+    ``kmax_override``: an external per-layer kmax (nl,) in place of the
+    scan (the multi-process bands' global kmax), a constant.
     """
-    kernel = use_kernel and d["wavn"].device.type == "cuda"
+    kernel = use_kernel and d["all_wavn"].device.type == "cuda"
     coef0 = strength_coef(d, Z)
     tab = width_tables(d, temps, densities, mol_mass, mol_radius)
     op = TilesOp(plan, d, dict(wn_i=wn_i, dwn=dwn, ethresh=ethresh,
-                               nwidth=nwidth), kernel)
+                               nwidth=nwidth), kernel, kmax_override)
     return line_extinction(op, temps, coef0, tab["densm"], tab["alphal"],
                            tab["alphad_f"])
 
