@@ -107,6 +107,21 @@ holds the gathered spectrum and ``value_and_grad`` against the single
 process; ``multihost_grid`` runs grid-mode band models from the grid
 file of ``grid_path`` against the full grid model.  A failed worker, a
 missing NCCL backend or a refused group fails the run.
+The graphed phases (``graph_main``, ``graph_main_batch``, ``graph_fine``,
+``graph_transit``, ``graph_exact``, ``graph_grid``) run each path's model
+through ``TransitModel.make_forward()``, the step as CUDA graph replays
+(the forward captured with its backward): three requests against the
+eager ``forward`` (``forward_batch`` with BATCH members in
+``graph_main_batch``), spectra bit for bit (the exact path, whose
+float32 atomics differ from call to call, and the grid path: within
+GRAPH_TOL),
+gradients within GRAPH_TOL, request 1's results unchanged by the later
+requests; the graphed and eager forward and gradient step timed side by
+side, the device time and kernels of one replay from torch.profiler
+(a replay moves no launch counter); ``graph_main`` also checks that
+a ``make_forward()`` made after ``set_cloudtop`` equals the eager
+forward with the new deck.  ``hmc`` times a leapfrog evaluation through
+the graphed batched step beside the eager one.
 Every phase prints one line with its seconds; any failed check raises,
 so the script exits non-zero and prints no result.
 
@@ -121,6 +136,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import datetime
+import gc
 import json
 import re
 import shutil
@@ -165,7 +181,7 @@ from transit_tpu_torch.retrieval import (batched_value_and_grad,
 from transit_tpu_torch.rt.geometry import radpress_torch
 from transit_tpu_torch.rt.transmission import modulation
 
-from exact_profile import profile_step
+from exact_profile import PORT_KERNELS, profile_step
 
 ROOT = Path(__file__).resolve().parent
 FIX = ROOT / "tests" / "fixtures"
@@ -288,6 +304,16 @@ RADII_TOL = 1e-5
 # path): chains through forward_batch, an 8-knot log-temperature
 # profile, 1% noise on the model's own spectrum, leapfrog steps of
 # HMC_STEP in log T.
+# The graphed step (phases graph_*, TransitModel.make_forward): its
+# spectra against the eager forward's bit for bit, except on the exact
+# path, whose co-add sums add in float32 atomics (index_add) in an order
+# that changes from call to call, and on the grid path, held to the same
+# bound (its spectra came out bit for bit so far): max |a - b| / max |b|
+# <= GRAPH_TOL; the gradients within GRAPH_TOL (the backward kernels add
+# in float64 atomics, cast once).  The cloud deck of the main path's settings check:
+# log10 bar of its top before and after set_cloudtop.
+GRAPH_TOL = 1e-6
+GRAPH_CLOUDTOP = (-2.0, -4.0)
 HMC_CHAINS = 16
 HMC_KNOTS = 8
 HMC_LEAPFROG = 8
@@ -899,9 +925,10 @@ def profile_forward(m: TransitModel, T, q, ms_forward: float, trace: str,
 
 
 def device_ms(fn, runs: int = RUNS) -> dict:
-    """{"device_ms", "kernels"} per call of fn(): torch.profiler's
+    """{"device_ms", "kernels", "port"} per call of fn(): torch.profiler's
     device-side time and count of device kernels over ``runs`` calls
-    after a warm-up."""
+    after a warm-up, and the count of each of the port's kernels
+    (exact_profile.PORT_KERNELS, by their device names) among them."""
     from torch.autograd import DeviceType
     fn()
     torch.cuda.synchronize()
@@ -910,13 +937,16 @@ def device_ms(fn, runs: int = RUNS) -> dict:
         for _ in range(runs):
             fn()
         torch.cuda.synchronize()
-    ms, n = 0.0, 0
+    ms, n, port = 0.0, 0, {}
     for ev in prof.key_averages():
         if ev.device_type == DeviceType.CUDA:
             us = getattr(ev, "self_device_time_total", None)
             ms += (ev.self_cuda_time_total if us is None else us) / 1e3
             n += ev.count
-    return {"device_ms": ms / runs, "kernels": n / runs}
+            for k in PORT_KERNELS:
+                if k in ev.key:
+                    port[k] = port.get(k, 0) + ev.count / runs
+    return {"device_ms": ms / runs, "kernels": n / runs, "port": port}
 
 
 GRAD_OUTPUTS = ("temps", "coef0", "densm", "alphal", "alphad_f")
@@ -1405,13 +1435,181 @@ def transit_times(m: TransitModel, T0, q0) -> dict:
     return res, steps
 
 
+def nograd(f):
+    def run(*args):
+        with torch.no_grad():
+            return f(*args)
+    return run
+
+
+def graph_requests(m: TransitModel, requests, batch: int = 0):
+    """The requests [(T, q) numpy] as tensors of the model; with
+    ``batch``, each a batch of that many profiles: the request's and
+    members perturbed from it (numpy, from a seed)."""
+    rng = np.random.default_rng(23)
+    out = []
+    for T0, q0 in requests:
+        T0, q0 = np.asarray(T0, np.float64), np.asarray(q0, np.float64)
+        if batch:
+            T0 = T0[None] + np.concatenate([np.zeros((1,) + T0.shape),
+                                           rng.normal(0.0, 30.0, (
+                                               batch - 1,) + T0.shape)])
+            q0 = q0[None] * (1.0 + 0.1 * rng.uniform(-1, 1, (batch,) +
+                                                     q0.shape))
+        out.append((m._t(T0), m._t(q0)))
+    return out
+
+
+def graph_phase(m: TransitModel, requests, label: str, atomics: bool = False,
+                batch: int = 0, profile: str | None = None) -> dict:
+    """The path's step through ``m.make_forward()`` (CUDA graph replays)
+    against the eager step (``forward``; ``forward_batch`` with
+    ``batch`` members a request) on the same three requests: spectra bit
+    for bit (``atomics``: within GRAPH_TOL of the max), gradients of the
+    spectrum's sum in T and q within GRAPH_TOL of the max (bit for bit
+    noted), request 1's spectrum and gradients unchanged by requests 2
+    and 3; the capture times, the graphed and eager forward and gradient
+    step (CUDA events, median of RUNS), and the device time and device
+    kernels of one replay (torch.profiler: the launch counters do not
+    move on a replay).  With ``profile`` (a trace path) also profile_step
+    passes of the graphed forward and gradient step (traces
+    ``<stem>_graph_<label>``, ``<stem>_graph_grad_<label>``).  Every
+    check raises on a miss."""
+    eager = m.forward_batch if batch else m.forward
+    reqs = graph_requests(m, requests, batch)
+    fwd = m.make_forward()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        fwd(*reqs[0])
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    with torch.no_grad():
+        got = [fwd(T, q) for T, q in reqs[:1]]
+        first = got[0].clone()
+        got += [fwd(T, q) for T, q in reqs[1:]]
+        want = [eager(T, q) for T, q in reqs]
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        check(a.shape == b.shape and bool(torch.isfinite(a).all()),
+              f"{label}: graphed spectrum {tuple(a.shape)}, eager "
+              f"{tuple(b.shape)}, or not finite")
+    bitwise = all(torch.equal(a, b) for a, b in zip(got, want))
+    err = max(max_rel(a, b) for a, b in zip(got, want))
+    check(bitwise or (atomics and err <= GRAPH_TOL), f"{label}: graphed vs "
+          f"eager spectrum max_rel {err:.3e} (bit for bit asked"
+          f"{'' if not atomics else f' or <= {GRAPH_TOL}'})")
+    check(torch.equal(got[0], first) and not torch.equal(got[0], got[1]),
+          f"{label}: request 1's spectrum changed with request 2")
+
+    leaves = [tuple(x.clone().requires_grad_(True) for x in r) for r in reqs]
+    t0 = time.perf_counter()
+    gg = []
+    for T, q in leaves:
+        gg.append(torch.autograd.grad(fwd(T, q).sum(), (T, q)))
+        if len(gg) == 1:
+            torch.cuda.synchronize()
+            grad_capture_s = time.perf_counter() - t0
+            held = [g.clone() for g in gg[0]]
+    ge = [torch.autograd.grad(eager(T, q).sum(), (T, q)) for T, q in leaves]
+    torch.cuda.synchronize()
+    gerr = {x: max(max_rel(a[i], b[i]) for a, b in zip(gg, ge))
+            for i, x in enumerate("Tq")}
+    gbit = all(torch.equal(x, y) for a, b in zip(gg, ge)
+               for x, y in zip(a, b))
+    check(all(bool(torch.isfinite(g).all()) for a in gg for g in a) and
+          max(gerr.values()) <= GRAPH_TOL, f"{label}: graphed vs eager "
+          f"gradient {gerr} > {GRAPH_TOL}")
+    check(all(torch.equal(a, b) for a, b in zip(gg[0], held)),
+          f"{label}: request 1's gradient changed with request 2")
+
+    T, q = reqs[0]
+    lT, lq = leaves[0]
+    ms = {"forward_ms": cuda_ms(nograd(lambda: fwd(T, q))),
+          "eager_forward_ms": cuda_ms(nograd(lambda: eager(T, q))),
+          "gradient_ms": cuda_ms(lambda: torch.autograd.grad(
+              fwd(lT, lq).sum(), (lT, lq))),
+          "eager_gradient_ms": cuda_ms(lambda: torch.autograd.grad(
+              eager(lT, lq).sum(), (lT, lq)))}
+    replay = device_ms(nograd(lambda: fwd(T, q)))
+    out = {"capture_s": capture_s, "grad_capture_s": grad_capture_s,
+           "bitwise": bitwise, "max_rel": err, "grad_bitwise": gbit,
+           "grad_max_rel": gerr, **ms,
+           "replay_device_ms": replay["device_ms"],
+           "replay_kernels": replay["kernels"],
+           "replay_port_kernels": replay["port"]}
+    if profile:
+        trace = Path(profile)
+        tag = label.replace(" ", "_")
+        out["profile_forward"] = profile_step(
+            nograd(lambda: fwd(T, q)), ms["forward_ms"], str(
+                trace.with_name(f"{trace.stem}_graph_{tag}{trace.suffix}")),
+            f"graph {label}")
+        out["profile_grad"] = profile_step(
+            lambda: torch.autograd.grad(fwd(lT, lq).sum(), (lT, lq)),
+            ms["gradient_ms"], str(trace.with_name(
+                f"{trace.stem}_graph_grad_{tag}{trace.suffix}")),
+            f"graph {label} grad")
+    del fwd
+    gc.collect()         # the graphs' autograd Functions are cyclic garbage
+    torch.cuda.empty_cache()
+    return out
+
+
+def graph_settings(m: TransitModel, T0, q0) -> dict:
+    """Settings are fixed at make_forward(): on the model with a cloud
+    deck (top GRAPH_CLOUDTOP[0]), a callable made before set_cloudtop(
+    GRAPH_CLOUDTOP[1]) equals the eager forward with the old deck, one
+    made after it the eager forward with the new deck, bit for bit; the
+    model's own settings are put back."""
+    T, q = m._t(T0), m._t(q0)
+    own = (m.cfg.cloudtop, m._cloud)
+    m.cfg.cloudtop = GRAPH_CLOUDTOP[0]
+    m._cloud = m._parse_cloud()
+    try:
+        with torch.no_grad():
+            old, before = m.make_forward(), m.forward(T, q)
+            old(T, q)
+            m.set_cloudtop(GRAPH_CLOUDTOP[1])
+            new, after = m.make_forward(), m.forward(T, q)
+            moved = max_rel(after, before)
+            check(moved > 1e-3, f"set_cloudtop moved the spectrum by "
+                  f"{moved:.3e} only")
+            check(torch.equal(old(T, q), before) and
+                  torch.equal(new(T, q), after), "make_forward did not fix "
+                  "the cloud deck at the call")
+    finally:
+        m.cfg.cloudtop, m._cloud = own
+    del old, new
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"moved_max_rel": moved}
+
+
+def graph_text(g: dict, card: str) -> str:
+    spec = ("bit for bit" if g["bitwise"] else
+            f"max_rel {g['max_rel']:.3e}")
+    grad = ("bit for bit" if g["grad_bitwise"] else
+            f"max_rel {json.dumps(g['grad_max_rel'])}")
+    return (f"graphed vs eager: spectra {spec}, gradients {grad}; forward "
+            f"{g['forward_ms']:.3f} ms graphed, {g['eager_forward_ms']:.3f}"
+            f" ms eager; gradient step {g['gradient_ms']:.3f} ms graphed, "
+            f"{g['eager_gradient_ms']:.3f} ms eager ({card}); one replay "
+            f"{g['replay_device_ms']:.3f} device ms in "
+            f"{g['replay_kernels']:g} kernels, the port's "
+            f"{json.dumps(g['replay_port_kernels'])}; capture "
+            f"{g['capture_s']:.2f} s, with the gradient "
+            f"{g['grad_capture_s']:.2f} s")
+
+
 def hmc_phase(m: TransitModel) -> dict:
     """HMC (transit_tpu_torch.retrieval) over HMC_CHAINS chains through
     forward_batch: an HMC_KNOTS-knot log-temperature profile
     (knot_profile), 1% noise on the spectrum the model makes at the
     truth, HMC_LEAPFROG leapfrog steps, HMC_SAMPLES samples, a seeded
     generator on the card.  Fails on a non-finite sample or log
-    posterior, or on no accepted proposal."""
+    posterior, or on no accepted proposal.  Also times the leapfrog
+    gradient evaluation through ``make_forward()``'s graphed batched
+    step, which must equal the eager one within GRAPH_TOL."""
     nl = m.atm.nlayers
     q = m._t(m.atm.q)
 
@@ -1431,6 +1629,22 @@ def hmc_phase(m: TransitModel) -> dict:
         (HMC_CHAINS, HMC_KNOTS), generator=gen, dtype=m.dtype,
         device=m.device)
     ms_eval = cuda_ms(lambda: vg(x0))
+    # The same evaluation through the graphed batched step:
+    gfwd = m.make_forward()
+
+    def fwd_graph(z):
+        T = knot_profile(torch.exp(z), nl)
+        return gfwd(T, q.expand((z.shape[0],) + q.shape))
+
+    vg_graph = batched_value_and_grad(gaussian_logprob(
+        fwd_graph, obs, sigma, prior_mean=float(z_true[0]), prior_sigma=0.5))
+    (lp_e, g_e), (lp_g, g_g) = vg(x0), vg_graph(x0)
+    graph_err = {"logp": max_rel(lp_g, lp_e), "grad": max_rel(g_g, g_e)}
+    check(max(graph_err.values()) <= GRAPH_TOL, f"hmc: the graphed "
+          f"evaluation vs the eager one {graph_err} > {GRAPH_TOL}")
+    ms_eval_graph = cuda_ms(lambda: vg_graph(x0))
+    del gfwd, vg_graph
+    gc.collect()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     samples, accept, (xf, lpf) = hmc_sample(
@@ -1447,6 +1661,8 @@ def hmc_phase(m: TransitModel) -> dict:
     return {"chains": HMC_CHAINS, "knots": HMC_KNOTS,
             "leapfrog": HMC_LEAPFROG, "samples": HMC_SAMPLES,
             "acceptance": acc, "ms_per_gradient_eval": ms_eval,
+            "ms_per_gradient_eval_graph": ms_eval_graph,
+            "graph_vs_eager": graph_err,
             "ms_per_sample": 1e3 * dt / HMC_SAMPLES,
             "max_abs_dz": float((samples - z_true).abs().max())}
 
@@ -1760,7 +1976,7 @@ def exact_grad_phase(m: TransitModel, requests, label: str) -> dict:
             "forward_backward_ms": cuda_ms(lambda: grad_step(m, T, q))}
 
 
-def exact_phases(dev, profile: str | None = None) -> dict:
+def exact_phases(dev, profile: str | None = None, card: str = "") -> dict:
     """The exact path's phases (exact_model_setup, exact_kernels_vs_plain,
     exact_path, exact_path_checks, exact_path_times, exact_path_grad) on
     exact_config(): the model's profile table built on the card, three
@@ -1853,6 +2069,11 @@ def exact_phases(dev, profile: str | None = None) -> dict:
           f"{times_e['profile_scatter_backward']['ms']:.4f} ms (bound "
           f"{times_e['profile_scatter_backward']['bound_ms']:.4f} ms); " +
           json.dumps(grad_e))
+    t0 = time.perf_counter()
+    graph_e = graph_phase(hje, requests, "exact", atomics=True,
+                          profile=profile)
+    phase("graph_exact", t0, graph_text(graph_e, card) + " (float32 "
+          "atomics in the co-add sums: within GRAPH_TOL)")
     prof = {}
     if profile:
         trace = Path(profile)
@@ -1869,7 +2090,7 @@ def exact_phases(dev, profile: str | None = None) -> dict:
         phase("profile_grad_exact", t0)
     return {"err": err_e, "launches": launches_e, "times": times_e,
             "grad": grad_e, "forward_ms": ms_fwd_e, "pairs": pairs_e,
-            "profile": prof, "model": hje}
+            "profile": prof, "graph": graph_e, "model": hje}
 
 
 def grid_model(m: TransitModel):
@@ -2246,6 +2467,10 @@ def grid_phases(m: TransitModel, card: str,
                        "gradient_vs_float64": gerr,
                        "median_vs_lbl": float(ratio.median()),
                        "max_vs_lbl": float(ratio.max())}
+        t1 = time.perf_counter()
+        out["graph"] = graph_phase(mg, requests, "grid", atomics=True,
+                                   profile=profile)
+        phase("graph_grid", t1, graph_text(out["graph"], card))
         if profile:
             trace = Path(profile)
             out["path"]["profile_forward"] = profile_forward(
@@ -2773,6 +2998,18 @@ def main(device: str = "cuda", profile: str | None = None) -> int:
           f"spawn to exit {mh['seconds']:.2f} s ({card}); " + json.dumps(
               {k: mh[k] for k in ("devices", "launches", "setup_s",
                                   "forward_ms", "band_ms", "grad_ms")}))
+    t0 = time.perf_counter()
+    graph_b = graph_phase(hjb, requests, "main", profile=profile)
+    settings_b = graph_settings(hjb, T0, q0)
+    phase("graph_main", t0, graph_text(graph_b, card) + "; make_forward "
+          "after set_cloudtop equals the eager forward with the new deck "
+          "bit for bit, one made before it the old deck (the deck moved "
+          f"the spectrum by max_rel {settings_b['moved_max_rel']:.3e})")
+    t0 = time.perf_counter()
+    graph_bb = graph_phase(hjb, requests, "main batch", batch=BATCH,
+                           profile=profile)
+    phase("graph_main_batch", t0, f"B = {BATCH}: " +
+          graph_text(graph_bb, card))
     if profile:
         # After the timed phases: a profiler pass slows the host's
         # dispatch for the rest of the process.
@@ -2854,6 +3091,9 @@ def main(device: str = "cuda", profile: str | None = None) -> int:
           "shell_tile_backward" in shard_f["backward_vs_plain"],
           "sharded 0.05: no shell launch compared")
     phase("sharded_fine", t0, shard_phase_text(shard_f, card))
+    t0 = time.perf_counter()
+    graph_f = graph_phase(hjf, req_f, "0.05", profile=profile)
+    phase("graph_fine", t0, graph_text(graph_f, card))
     if profile:
         t0 = time.perf_counter()
         trace = Path(profile)
@@ -2927,9 +3167,13 @@ def main(device: str = "cuda", profile: str | None = None) -> int:
     t0 = time.perf_counter()
     hmc = hmc_phase(hjt)
     phase("hmc", t0, f"{hmc['ms_per_gradient_eval']:.3f} ms per leapfrog "
-          f"gradient evaluation ({HMC_CHAINS} chains), "
+          f"gradient evaluation ({HMC_CHAINS} chains; through the graphed "
+          f"batched step {hmc['ms_per_gradient_eval_graph']:.3f} ms), "
           f"{hmc['ms_per_sample']:.3f} ms per sample, acceptance "
           f"{hmc['acceptance']:.3f}; " + json.dumps(hmc))
+    t0 = time.perf_counter()
+    graph_t = graph_phase(hjt, requests, "transit", profile=profile)
+    phase("graph_transit", t0, graph_text(graph_t, card))
     if profile:
         t0 = time.perf_counter()
         trace = Path(profile)
@@ -2953,7 +3197,7 @@ def main(device: str = "cuda", profile: str | None = None) -> int:
     #     scheme, on hj_ref.cfg as the C binary ran it (194,349 lines on
     #     0.5 cm-1 x 2160, the 60 x 60 profile table): the profile
     #     scatter kernels.
-    ex = exact_phases(dev, profile)
+    ex = exact_phases(dev, profile, card)
 
     # 11. The opacity grid on hj_ref.cfg (bench.py's 25 temperatures):
     #     the exact build through the per-molecule profile_scatter, the
@@ -3139,7 +3383,15 @@ def main(device: str = "cuda", profile: str | None = None) -> int:
                      "transit_batch": batch_t["ms_batch"],
                      "transit_member": batch_t["ms_member"]},
         "hmc": {k: hmc[k] for k in ("acceptance", "ms_per_gradient_eval",
+                                    "ms_per_gradient_eval_graph",
                                     "ms_per_sample")},
+        "graph": {path: {k: g[k] for k in (
+            "forward_ms", "eager_forward_ms", "gradient_ms",
+            "eager_gradient_ms", "bitwise", "max_rel", "grad_bitwise",
+            "grad_max_rel", "replay_device_ms", "replay_kernels")}
+            for path, g in (("main", graph_b), ("main_batch", graph_bb),
+                            ("0.05", graph_f), ("transit", graph_t),
+                            ("exact", ex["graph"]), ("grid", gr["graph"]))},
         "sharded": {path: {k: r[k] for k in (
             "shards", "loads_max_over_min", "vs_unsharded",
             "grad_vs_unsharded", "forward_ms", "shard_ms")}

@@ -1244,3 +1244,139 @@ def test_sharded_step_on_card(card, bands):
     for a, b in zip(grad(lambda T, q: step.assemble(
             [step.local(s, T, q) for s in range(4)])), grad(m.forward)):
         assert float((a - b).abs().max() / b.abs().max()) < 1e-3
+
+
+def _graph_case(card, case):
+    """The models of the graphed-step tests: the fixture's main path
+    (bands=6) and its batch (B = 2), the unbanded plan and exact mode,
+    and _transit_hj's transit path with hydrostatic radii."""
+    if case == "transit":
+        return _transit_hj(card)
+    if case == "exact":
+        return _exact_pair(card)[0]
+    return _model(card, bands=0 if case == "unbanded" else 6)
+
+
+def _requests(m, card, batch: int = 0):
+    """Three (T, q) of the model on the card, T moved by 0, +40 and -30 K
+    (each a batch of ``batch`` profiles when > 0)."""
+    T0 = torch.tensor(np.asarray(m.atm.temp, dtype=np.float64),
+                      dtype=torch.float32, device=card)
+    q0 = torch.tensor(np.asarray(m.atm.q, dtype=np.float64),
+                      dtype=torch.float32, device=card)
+    out = []
+    for dT in (0.0, 40.0, -30.0):
+        T, q = T0 + dT, q0
+        if batch:
+            T = torch.stack([T + 7.0 * i for i in range(batch)])
+            q = q.expand((batch,) + q.shape).contiguous()
+        out.append((T, q))
+    return out
+
+
+def _grad(f, T, q):
+    T = T.clone().requires_grad_(True)
+    q = q.clone().requires_grad_(True)
+    s = f(T, q)
+    return (s.detach(),) + torch.autograd.grad(s.sum(), (T, q))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["main", "batch", "unbanded", "transit",
+                                  "exact"])
+def test_make_forward_graph_matches_eager(card, case):
+    """make_forward on the card replays CUDA graphs (no kernel launch is
+    counted by a replay) whose spectra equal the eager forward's bit for
+    bit (exact mode: within 1e-6 of the max, its co-add sums use float
+    atomics), and whose gradients equal the eager ones within 1e-6 of
+    the max (the backward kernels add in float64 atomics); the result
+    of a call is unchanged by the next call."""
+    m = _graph_case(card, case)
+    fwd = m.make_forward()
+    eager = m.forward_batch if case == "batch" else m.forward
+    reqs = _requests(m, card, batch=2 if case == "batch" else 0)
+    with torch.no_grad():
+        fwd(*reqs[0])                                   # capture
+        line_tile_extinction.launches = 0
+        got = [fwd(T, q) for T, q in reqs]
+        assert line_tile_extinction.launches == 0
+        first = got[0].clone()
+        want = [eager(T, q) for T, q in reqs]
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and bool(torch.isfinite(a).all())
+        if case == "exact":
+            assert float((a - b).abs().max() / b.abs().max()) <= 1e-6
+        else:
+            assert torch.equal(a, b)
+    assert torch.equal(got[0], first) and not torch.equal(got[0], got[1])
+    held = None
+    for T, q in reqs:
+        a, b = _grad(fwd, T, q), _grad(eager, T, q)
+        held = held or tuple(x.clone() for x in a) + a
+        for x, y in zip(a, b):
+            assert float((x - y).abs().max() / y.abs().max()) <= 1e-6
+    # The first request's spectrum and gradients, held, are its own:
+    for x, y in zip(held[3:], held[:3]):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+def test_make_forward_fixes_settings_on_card(card):
+    """A callable made before set_cloudtop keeps the old deck; one made
+    after it equals the eager forward with the new one."""
+    m = _model(card, bands=6)
+    m.cfg.cloudtop = -1.0
+    m._cloud = m._parse_cloud()
+    T, q = _requests(m, card)[1]
+    with torch.no_grad():
+        old, before = m.make_forward(), m.forward(T, q)
+        old(T, q)
+        m.set_cloudtop(-3.0)
+        after = m.forward(T, q)
+        assert not torch.equal(before, after)
+        assert torch.equal(old(T, q), before)
+        assert torch.equal(m.make_forward()(T, q), after)
+
+
+@pytest.mark.cuda
+def test_make_forward_refuses_a_late_gradient(card):
+    """A call's gradient taken after the next call of its signature
+    replayed the forward raises: the graph holds one set of activations."""
+    m = _model(card, bands=6)
+    fwd = m.make_forward()
+    (T1, q), (T2, _) = _requests(m, card)[:2]
+    T1, T2 = T1.requires_grad_(True), T2.requires_grad_(True)
+    s1 = fwd(T1, q)
+    torch.autograd.grad(s1.sum(), T1)        # captured, then replayed
+    s1 = fwd(T1, q)
+    fwd(T2, q)
+    with pytest.raises(RuntimeError, match="later call"):
+        torch.autograd.grad(s1.sum(), T1)
+
+
+@pytest.mark.cuda
+def test_make_forward_capture_failure_raises(card, monkeypatch):
+    """A host read in the step (here tau.last read back with .item())
+    makes the capture fail: the call raises, naming the line, and never
+    falls back to the eager step; the model still runs eagerly."""
+    from transit_tpu_torch.rt import tau as rt_tau
+    m = _model(card, bands=6)
+    T, q = _requests(m, card)[0]
+    last_index = rt_tau.last_index
+
+    def host_read(tau, toomuch):
+        if float(tau.max()) < 0:
+            raise AssertionError
+        return last_index(tau, toomuch)
+    monkeypatch.setattr(rt_tau, "last_index", host_read)
+    fwd = m.make_forward()
+    for grad in (False, True):
+        with torch.set_grad_enabled(grad), pytest.raises(
+                RuntimeError, match="make_forward: capturing the step"):
+            fwd(T, q.clone().requires_grad_(grad))
+        torch.cuda.synchronize()
+    assert not fwd.entries
+    monkeypatch.setattr(rt_tau, "last_index", last_index)
+    with torch.no_grad():
+        assert bool(torch.isfinite(m.forward(T, q)).all())
+        assert torch.equal(m.make_forward()(T, q), m.forward(T, q))

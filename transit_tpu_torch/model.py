@@ -31,6 +31,8 @@ PyTorch versions take their place.
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import dataclasses
 import os
 
@@ -57,7 +59,8 @@ from transit_tpu_torch.opacities.banded import (banded_index,
                                                 batched_view)
 from transit_tpu_torch.opacities.cia import cs_extinction, precompute_cs
 from transit_tpu_torch.opacities.clouds import CloudParams, cloud_extinction
-from transit_tpu_torch.opacities.kernel_lbl import kernel_extinction
+from transit_tpu_torch.opacities.kernel_lbl import (kernel_extinction,
+                                                    tiles_index)
 from transit_tpu_torch.opacities.lbl import IsoConst
 from transit_tpu_torch.opacities.scattering import scattering_extinction
 from transit_tpu_torch.opacities.voigt import (build_profile_table,
@@ -252,6 +255,7 @@ class TransitModel:
         self.bplan = None
         self.bdev = None
         self.bindex = None
+        self.findex = None
         if self.tli is not None:
             # A band model widens the selection by wn_margin (clipped to
             # the global range):
@@ -301,6 +305,8 @@ class TransitModel:
                 self.fdev = fast.fast_device_arrays(self.fplan, self.iso,
                                                     dtype=self.dtype,
                                                     device=self.device)
+                if self.device.type == "cuda":
+                    self.findex = tiles_index(self.fplan, self.fdev)
 
         # --- cross sections (transit.c:63 readcs) ---
         self.cs_tables = []
@@ -312,7 +318,8 @@ class TransitModel:
                 self.cs_species.append(
                     np.array([self.atm.species.index(s)
                               for s in tb.species]))
-        self.cs_pre = precompute_cs(self.cs_tables)
+        self.cs_pre = precompute_cs(self.cs_tables, dtype=self.dtype,
+                                    device=self.device)
 
         # --- geometry / path weights (static radii) ---
         self.solution = cfg.solution
@@ -470,6 +477,74 @@ class TransitModel:
             return self.dev
         return self.bdev if self.bplan is not None else self.fdev
 
+    def make_forward(self):
+        """The compiled step, ``(T, q) -> spectrum``, with the tensors of
+        :meth:`device_tree` bound (transit_tpu model.py:374-379, a
+        jax.jit of ``forward``).  On a card the step runs as CUDA graph
+        replays (step_graph.GraphedForward): each signature (shapes and
+        dtypes of T and q, and which of them requires grad under grad
+        mode) is captured once after warm-up calls; with a gradient the
+        captured backward replays too, so that ``torch.autograd.grad(
+        fwd(T, q).sum(), (T, q))`` works as jax.grad over JAX's
+        ``make_forward``; T (B, nl) with q (B, nmol, nl) runs the batched
+        step (:meth:`forward_batch`, graphed per B), the counterpart of
+        jax.vmap over the jitted step.  A capture that fails raises; the
+        callable never falls back to eager calls.  Every call returns a
+        tensor of its own and copies of the gradients; a call's gradient
+        is taken before the next call of its signature.  On a CPU model
+        it is the eager ``forward`` (``forward_batch`` for a 2-D T)
+        bound to :meth:`device_tree`.
+
+        Retrieval loops (Adam, HMC through
+        retrieval.batched_value_and_grad) call it in place of
+        ``forward``.  The settings the step reads as Python values
+        (:meth:`set_radius`, :meth:`set_cloudtop`, :meth:`set_scattering`
+        and the cfg's fields) are fixed when ``make_forward()`` is
+        called, as JAX's trace fixes them; a new ``make_forward()`` sees
+        new values.  The model's tensors must not be replaced while a
+        callable lives: its graphs hold their addresses."""
+        if self.device.type == "cuda":
+            from transit_tpu_torch.step_graph import GraphedForward
+            return GraphedForward(self)
+        settings, dev = self._settings(), self.device_tree()
+        return lambda temps_raw, q: self._step(temps_raw, q, settings, dev)
+
+    def _step(self, temps_raw, q, settings: tuple, dev):
+        """The step of :meth:`make_forward` with ``settings``
+        (:meth:`_settings`) and the tensors ``dev``: :meth:`forward` for
+        T (nl,); for T (B, nl) :meth:`forward_batch` (fast mode, raddelt
+        -1), else torch.func.vmap of :meth:`forward`."""
+        temps_raw = torch.as_tensor(temps_raw, dtype=self.dtype,
+                                    device=self.device)
+        q = torch.as_tensor(q, dtype=self.dtype, device=self.device)
+        with self._with_settings(settings):
+            if temps_raw.dim() == 1:
+                return self.forward(temps_raw, q, dev=dev)
+            if self.mode == "fast" and self._atm0 is None:
+                return self.forward_batch(temps_raw, q, dev=dev)
+            return torch.func.vmap(lambda t, qq: self.forward(
+                t, qq, dev=dev))(temps_raw, q)
+
+    def _settings(self) -> tuple:
+        """Copies of the settings the step reads as Python values: the
+        configuration, the cloud deck and the scattering parameters."""
+        return (copy.copy(self.cfg), copy.copy(self._cloud),
+                self._scatter_flag, self._scatter_logext)
+
+    @contextlib.contextmanager
+    def _with_settings(self, settings: tuple):
+        """The model with ``settings`` (:meth:`_settings`) in place of its
+        own, which are restored on exit."""
+        own = (self.cfg, self._cloud, self._scatter_flag,
+               self._scatter_logext)
+        (self.cfg, self._cloud, self._scatter_flag,
+         self._scatter_logext) = settings
+        try:
+            yield
+        finally:
+            (self.cfg, self._cloud, self._scatter_flag,
+             self._scatter_logext) = own
+
     def line_extinction(self, temps_cgs, densities, Z, dev=None,
                         batch: int = 1, kmax_override=None):
         """Per-layer line extinction (nlayer, nwn), differentiable in the
@@ -513,10 +588,12 @@ class TransitModel:
         if self.fplan is None:
             return torch.zeros((nl, self.wns.n), dtype=self.dtype,
                                device=self.device)
-        return kernel_extinction(self.fplan,
-                                 dev if dev is not None else self.fdev,
-                                 *args, use_kernel=self.use_kernel,
-                                 kmax_override=kmax_override, **kw)
+        fdev = dev if dev is not None else self.fdev
+        return kernel_extinction(self.fplan, fdev, *args,
+                                 use_kernel=self.use_kernel,
+                                 kmax_override=kmax_override,
+                                 index=self.findex if fdev is self.fdev
+                                 else None, **kw)
 
     # ------------------------------------------------------------------
     def _spectrum(self, temps_raw, q, densities, full_result: bool,

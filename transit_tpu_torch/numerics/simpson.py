@@ -85,7 +85,11 @@ def simpson_weights_torch(x: torch.Tensor, n_valid=None) -> torch.Tensor:
     lead = x.shape[:-1]
     if n_valid is None:
         n_valid = n
-    n_valid = torch.as_tensor(n_valid, device=x.device).long().expand(lead)
+    if isinstance(n_valid, torch.Tensor):
+        n_valid = n_valid.to(device=x.device, dtype=torch.long).expand(lead)
+    else:       # a fill on x's device: no tensor from host data
+        n_valid = torch.full(lead, int(n_valid), dtype=torch.long,
+                             device=x.device)
     h = x[..., 1:] - x[..., :-1]                      # (..., n-1)
     even = (n_valid % 2 == 0).long()
     npairs_valid = torch.div(n_valid - 1, 2, rounding_mode="floor")

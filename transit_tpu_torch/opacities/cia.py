@@ -7,9 +7,10 @@ zeroing everything outside the tabulated rectangle and clamping negative
 interpolants (crosssec.c:328-334).  Densities convert cm-1 amagat^-n to cm-1.
 
 The source tables are static, so everything that depends only on them is
-precomputed on the host (:func:`precompute_cs`): the temperature-direction
-second derivatives and the wavenumber-direction spline operator.  Only the
-layer temperatures change per step.
+precomputed once per model (:func:`precompute_cs`): the temperature-direction
+second derivatives and the wavenumber-direction spline operator, and every
+table as tensors on the model's device in its dtype.  Only the layer
+temperatures change per step, and the step copies nothing from the host.
 """
 
 from __future__ import annotations
@@ -27,38 +28,42 @@ from transit_tpu_torch.numerics.spline import (
 
 @dataclasses.dataclass
 class CsPre:
-    """Static per-table spline data (host arrays)."""
-    zT: np.ndarray      # (nwn_src, nt) temperature-direction 2nd derivs
-    A_wn: np.ndarray    # (nwn_src-2, nwn_src-2) wavenumber spline operator
+    """Static per-table spline data, as tensors on the model's device in
+    its dtype, made once (:func:`precompute_cs`)."""
+    temps: torch.Tensor  # (nt,) the table's temperatures
+    cs: torch.Tensor     # (nwn_src, nt) the table
+    zT: torch.Tensor     # (nwn_src, nt) temperature-direction 2nd derivs
+    wn: torch.Tensor     # (nwn_src,) the table's wavenumbers
+    A_wn: torch.Tensor   # (nwn_src-2, nwn_src-2) wavenumber spline operator
 
 
-def precompute_cs(tables):
-    """Static spline coefficients per table."""
+def precompute_cs(tables, dtype=torch.float64, device="cpu"):
+    """Static spline coefficients per table (on the host, in float64),
+    and each table's tensors, in ``dtype`` on ``device``."""
     out = []
     for tb in tables:
         zT = np.stack([spline_second_derivs_np(tb.temps, tb.cs[i])
                        for i in range(tb.wn.shape[0])])
-        out.append(CsPre(zT=zT, A_wn=spline_operator_np(tb.wn)))
+        t = [torch.as_tensor(a, dtype=dtype, device=device) for a in
+             (tb.temps, tb.cs, zT, tb.wn, spline_operator_np(tb.wn))]
+        out.append(CsPre(*t))
     return out
 
 
 def interp_cs_one(tb, pre: CsPre, wns: torch.Tensor, temps: torch.Tensor):
-    """Bicubic interpolation of one table onto (wns x temps).
+    """Bicubic interpolation of one table onto (wns x temps), from the
+    tensors of ``pre`` (:func:`precompute_cs` in the dtype and on the
+    device of ``temps``).
 
     Returns (nwn, nlayer).  Outside the table rectangle the result is zero
     (no extrapolation; crosssec.c:376-392)."""
-    kw = dict(dtype=temps.dtype, device=temps.device)
-    tt = torch.as_tensor(tb.temps, **kw)
-    cs = torch.as_tensor(tb.cs, **kw)
-    zT = torch.as_tensor(pre.zT, **kw)
     # Stage 1 (crosssec.c:407-411): spline along temperature for each source
     # wavenumber row, evaluated at the layer temperatures:
-    f2 = spline_eval_torch(tt, cs.T, zT.T, temps).T     # (nwn_src, nl)
+    f2 = spline_eval_torch(pre.temps, pre.cs.T, pre.zT.T, temps).T
     # Stage 2 (crosssec.c:414-419): spline along source wavenumber for each
     # layer, evaluated at the transit wavenumbers:
-    twn = torch.as_tensor(tb.wn, **kw)
-    z2 = spline_second_derivs_torch(twn, f2, torch.as_tensor(pre.A_wn, **kw))
-    res = spline_eval_torch(twn, f2, z2, wns)           # (nwn, nl)
+    z2 = spline_second_derivs_torch(pre.wn, f2, pre.A_wn)
+    res = spline_eval_torch(pre.wn, f2, z2, wns)        # (nwn, nl)
     # Zero outside the table rectangle (fi/li, fj/lj logic):
     wn_in = (wns >= tb.wn[0]) & (wns <= tb.wn[-1])
     t_in = (temps >= tb.temps[0]) & (temps <= tb.temps[-1])

@@ -604,17 +604,13 @@ class TilesOp:
     :func:`plain_line_tiles_vjp`)."""
 
     def __init__(self, plan: FastPlan, d, kw: dict, kernel: bool,
-                 kmax_override=None):
+                 kmax_override=None, band=None):
         self.plan, self.d, self.kw, self.kernel = plan, d, kw, kernel
         self.kmax_override = kmax_override
         self.classes = plan_classes(plan, d)
         self.band = None
         if kernel:
-            device = d["all_wavn"].device
-            self.band = LineBand([
-                (plan, dc, g, None if g is None else
-                 torch.as_tensor(g, dtype=torch.int32, device=device))
-                for dc, g in self.classes])
+            self.band = band if band is not None else tiles_index(plan, d)
 
     def batched(self, B: int):
         """The op over B profiles' layers one after another: the same
@@ -656,6 +652,17 @@ class TilesOp:
         return cast_grads(grads, temps.dtype)
 
 
+def tiles_index(plan: FastPlan, d) -> LineBand:
+    """The unbanded plan's kernel launches as one :class:`LineBand`: each
+    tile class's line tensors and its int32 global tiles on the tensors'
+    device (made once per model, so that a step copies nothing from the
+    host)."""
+    device = d["all_wavn"].device
+    return LineBand([(plan, dc, g, None if g is None else
+                      torch.as_tensor(g, dtype=torch.int32, device=device))
+                     for dc, g in plan_classes(plan, d)])
+
+
 def tile_cotangent(g, plan: FastPlan):
     """A cotangent (nl, n_coarse) of a plan's output as (nl, ntiles, tw):
     zero on the last tile's bins past n_coarse."""
@@ -667,7 +674,7 @@ def tile_cotangent(g, plan: FastPlan):
 def kernel_extinction(plan: FastPlan, d, temps, densities, Z, mol_mass,
                       mol_radius, wn_i: float, dwn: float, ethresh: float,
                       nwidth: float, use_kernel: bool = True,
-                      kmax_override=None):
+                      kmax_override=None, index=None):
     """Extinction (nlayer, n_coarse) through the CUDA kernels,
     differentiable in temps, densities and Z (:class:`LineExtinction`).
 
@@ -679,13 +686,14 @@ def kernel_extinction(plan: FastPlan, d, temps, densities, Z, mol_mass,
     for a gradient); a CPU tensor, or ``use_kernel=False``, takes their
     plain versions (the forward equals :func:`plain_extinction`).
     ``kmax_override``: an external per-layer kmax (nl,) in place of the
-    scan (the multi-process bands' global kmax), a constant.
+    scan (the multi-process bands' global kmax), a constant.  ``index``:
+    :func:`tiles_index` of the plan and ``d`` (made here when None).
     """
     kernel = use_kernel and d["all_wavn"].device.type == "cuda"
     coef0 = strength_coef(d, Z)
     tab = width_tables(d, temps, densities, mol_mass, mol_radius)
     op = TilesOp(plan, d, dict(wn_i=wn_i, dwn=dwn, ethresh=ethresh,
-                               nwidth=nwidth), kernel, kmax_override)
+                               nwidth=nwidth), kernel, kmax_override, index)
     return line_extinction(op, temps, coef0, tab["densm"], tab["alphal"],
                            tab["alphad_f"])
 

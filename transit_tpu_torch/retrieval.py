@@ -146,7 +146,9 @@ def gaussian_logprob(forward, obs, sigma, prior_mean, prior_sigma):
 
     forward: x (..., ndim) -> spectrum (..., nwn), the differentiable
     model step (typically closing over TransitModel.forward, or
-    forward_batch for a batch of chains, and a parameter unpacking).
+    forward_batch for a batch of chains, or the callable of
+    TransitModel.make_forward(), which graphs either, and a parameter
+    unpacking).
     The sums run over the last dimension, so the log posterior is
     (...,): a scalar for one chain (:func:`hmc_sample`'s ``logprob``),
     (nchain,) for a batch (:func:`batched_value_and_grad`)."""

@@ -2,10 +2,14 @@
 
 Reference: transit/src/eclipse.c:117-287 (eclipse_intens, flux).
 Vectorized over angles and wavenumbers; the reference's per-wavenumber
-tau.last early-stop becomes a mask.
+tau.last early-stop becomes a mask.  The angles' tensors (mu = cos of
+each angle, the flux's area weights) are made once per (angles, dtype,
+device), so that a step copies nothing from the host.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -20,6 +24,24 @@ def planck(wn_cgs, temp):
             (torch.exp(H * wn_cgs * LS / (KB * temp)) - 1.0))
 
 
+@functools.lru_cache(maxsize=None)
+def _angle_tables(angles: tuple, dtype, device):
+    """(mus, area): cos of each raygrid angle, and the flux's area weights
+    sin^2 a_{i+1} - sin^2 a_i over the grid of angle midpoints
+    (eclipse.c:242-287), each (nangle,) in ``dtype`` on ``device``."""
+    mus = torch.cos(torch.as_tensor(
+        np.asarray(angles, dtype=np.float64) * DEGREES, dtype=dtype,
+        device=device))
+    an = len(angles)
+    grid = np.zeros(an + 1)
+    grid[0] = 0.0
+    grid[an] = 90.0 * DEGREES
+    for i in range(1, an):
+        grid[i] = (angles[i - 1] + angles[i]) * DEGREES / 2.0
+    area = np.sin(grid[1:]) ** 2 - np.sin(grid[:-1]) ** 2
+    return mus, torch.as_tensor(area, dtype=dtype, device=device)
+
+
 def eclipse_intensities(tau, last, wns_cgs, temp_rev, angles_deg):
     """Emergent intensity (nangle, nwn) at every raygrid angle.
 
@@ -30,9 +52,7 @@ def eclipse_intensities(tau, last, wns_cgs, temp_rev, angles_deg):
         (temp[rnn-1-i] in eclipse.c:155).
     """
     nwn, nrad = tau.shape
-    mus = torch.cos(torch.as_tensor(
-        np.asarray(angles_deg, dtype=np.float64) * DEGREES,
-        dtype=tau.dtype, device=tau.device))
+    mus = _angle_tables(tuple(angles_deg), tau.dtype, tau.device)[0]
     dtau = torch.exp(-tau[None] / mus[:, None, None])    # (na, nwn, nrad)
     B = planck(wns_cgs[:, None], temp_rev[None, :])      # (nwn, nrad)
     idx = torch.arange(nrad, device=tau.device)
@@ -51,13 +71,6 @@ def eclipse_intensities(tau, last, wns_cgs, temp_rev, angles_deg):
 def flux(intensities, angles_deg):
     """F = pi * sum_i I_i (sin^2 a_{i+1} - sin^2 a_i) over the area grid
     built from angle midpoints (eclipse.c:242-287)."""
-    an = len(angles_deg)
-    grid = np.zeros(an + 1)
-    grid[0] = 0.0
-    grid[an] = 90.0 * DEGREES
-    for i in range(1, an):
-        grid[i] = (angles_deg[i - 1] + angles_deg[i]) * DEGREES / 2.0
-    area = np.sin(grid[1:]) ** 2 - np.sin(grid[:-1]) ** 2
-    area = torch.as_tensor(area, dtype=intensities.dtype,
-                           device=intensities.device)
+    area = _angle_tables(tuple(angles_deg), intensities.dtype,
+                         intensities.device)[1]
     return PI * torch.tensordot(area, intensities, dims=([0], [0]))

@@ -6,8 +6,11 @@ profiles; reference: transit/src/readatm.c:722-865 reloadatm/radpress),
 so the path-weight matrices of rt/tau.py are rebuilt per step from
 tensors.  Which layers each ray reaches is static (the impact parameters
 are the reversed radius grid), so every row is built at once: the
-per-row index pattern is a host table, the rows are gathers, masks and
-one masked Simpson weight function over all rows.
+per-row index pattern is a table made once per (n, device), the rows are
+gathers, masks and one masked Simpson weight function over all rows.
+Every constant tensor a step reads (the index tables, the parabola's
+basis rows, the pressures) is made once per size, dtype and device and
+kept, so that a step copies nothing from the host.
 
 Every function takes radii of shape (..., n) and batches over the
 leading dimensions (forward_batch builds every member's geometry in one
@@ -33,9 +36,7 @@ def _parab_coeffs_torch(x3, xr):
     # Basis y = e_k: my_k = [1, -2, 1]
     # b_k = ([0,-1,1][k] - (x0+1.5)*my_k)/dx
     # c_k = [1,0,0][k] + x0*([3,-4,1][k] + x0*my_k)/2
-    my, b1, c1, e0 = (torch.tensor(v, dtype=x3.dtype, device=x3.device)
-                      for v in ([1.0, -2.0, 1.0], [0.0, -1.0, 1.0],
-                                [3.0, -4.0, 1.0], [1.0, 0.0, 0.0]))
+    my, b1, c1, e0 = _basis(x3.dtype, x3.device)[:4]
     a = my / (2.0 * dx * dx)[..., None]
     b = (b1 - (x0 + 1.5)[..., None] * my) / dx[..., None]
     c = e0 + x0[..., None] * (c1 + x0[..., None] * my) / 2.0
@@ -43,18 +44,33 @@ def _parab_coeffs_torch(x3, xr):
 
 
 @functools.lru_cache(maxsize=None)
-def _row_tables(n: int):
-    """Host tables of the general rows ri = 2..n-1 (segment start
-    rs = n-1-ri, nseg = ri+1 samples): rs (R,), nseg (R,), idx (R, n) =
-    clip(rs + k, 0, n-1), the layer of path sample k, and src (R, n) =
-    j - rs clipped at 0 with its mask j >= rs, which places sample
-    j - rs at layer j."""
+def _basis(dtype, device):
+    """The constant rows of the parabola's coefficients and of the
+    weights' assembly, (3,) each in ``dtype`` on ``device``: my, b1, c1,
+    e0 of :func:`_parab_coeffs_torch`, then half and last of row 1
+    (:func:`_weights_rows`)."""
+    return tuple(torch.tensor(v, dtype=dtype, device=device)
+                 for v in ([1.0, -2.0, 1.0], [0.0, -1.0, 1.0],
+                           [3.0, -4.0, 1.0], [1.0, 0.0, 0.0],
+                           [0.0, 0.0, 0.5], [0.0, 0.0, 1.0]))
+
+
+@functools.lru_cache(maxsize=None)
+def _row_tables(n: int, device):
+    """Tables of the general rows ri = 2..n-1 (segment start rs =
+    n-1-ri, nseg = ri+1 samples), as tensors on ``device``: rs (R,),
+    nseg (R,), idx (R, n) = clip(rs + k, 0, n-1), the layer of path
+    sample k, src (R, n) = j - rs clipped at 0 with its mask live = j >=
+    rs, which places sample j - rs at layer j, and rs3 (R, 3) = rs + (0,
+    1, 2), the parabola's three layers."""
     ri = np.arange(2, n)
     rs = n - 1 - ri
     k = np.arange(n)
     idx = np.clip(rs[:, None] + k[None, :], 0, n - 1)
     src = k[None, :] - rs[:, None]
-    return rs, ri + 1, idx, np.maximum(src, 0), src >= 0
+    return tuple(torch.as_tensor(a, device=device) for a in (
+        rs, ri + 1, idx, np.maximum(src, 0), src >= 0,
+        rs[:, None] + np.arange(3)))
 
 
 def _weights_rows(rad, s_rows, s3):
@@ -66,15 +82,13 @@ def _weights_rows(rad, s_rows, s3):
     W (..., n, n) on layers; row 0 is zero."""
     n = rad.shape[-1]
     dev, dt = rad.device, rad.dtype
-    rs, nseg, _, src, live = (torch.as_tensor(a, device=dev)
-                              for a in _row_tables(n))
+    rs, nseg, _, src, live, rs3 = _row_tables(n, dev)
+    _, _, _, e0, half, last = _basis(dt, dev)
     lead = rad.shape[:-1]
     R = n - 2
     w = simpson_weights_torch(s_rows, nseg.expand(lead + (R,)))
     # p over (rs, rs+1, rs+2) at rad[rs] replaces the first sample:
-    rs3 = rs[:, None] + torch.arange(3, device=dev)
     p = _parab_coeffs_torch(rad[..., rs3], rad[..., rs])       # (..., R, 3)
-    e0 = torch.tensor([1.0, 0.0, 0.0], dtype=dt, device=dev)
     corr3 = w[..., :1] * (p - e0)
     # Sample k of the row lands at layer rs + k; the correction at rs..rs+2:
     zero = torch.zeros((), dtype=dt, device=dev)
@@ -88,8 +102,6 @@ def _weights_rows(rad, s_rows, s3):
     # slantpath.c:62-74 / eclipse.c:68-80): its three columns n-3..n-1.
     p1 = _parab_coeffs_torch(rad[..., n - 3:], rad[..., n - 2])  # (..., 3)
     w3 = simpson_weights_torch(s3)
-    half = torch.tensor([0.0, 0.0, 0.5], dtype=dt, device=dev)
-    last = torch.tensor([0.0, 0.0, 1.0], dtype=dt, device=dev)
     C = torch.stack([p1, p1 / 2.0 + half, last.expand(p1.shape)], dim=-2)
     W1 = torch.cat([torch.zeros(lead + (n - 3,), dtype=dt, device=dev),
                     (w3[..., None, :] @ C)[..., 0, :]], dim=-1)
@@ -100,8 +112,7 @@ def _weights_rows(rad, s_rows, s3):
 def eclipse_weights_torch(rad):
     """Differentiable eclipse_weights (rt/tau.py) for radii (..., n)."""
     n = rad.shape[-1]
-    rs, _, idx, _, _ = (torch.as_tensor(a, device=rad.device)
-                        for a in _row_tables(n))
+    rs, _, idx = _row_tables(n, rad.device)[:3]
     cs = torch.cat([torch.zeros_like(rad[..., :1]),
                     torch.cumsum(rad[..., 1:] - rad[..., :-1], dim=-1)],
                    dim=-1)
@@ -125,8 +136,7 @@ def transit_weights_torch(rad):
     """Differentiable transit_weights for impact parameters b = reversed
     radii, radii (..., n)."""
     n = rad.shape[-1]
-    rs, _, idx, _, _ = (torch.as_tensor(a, device=rad.device)
-                        for a in _row_tables(n))
+    rs, _, idx = _row_tables(n, rad.device)[:3]
     r0 = rad[..., rs][..., None]
     s_rows = _safe_sqrt(rad[..., idx] ** 2 - r0 * r0)
     r_s, r_n = rad[..., n - 2], rad[..., n - 1]
@@ -134,6 +144,14 @@ def transit_weights_torch(rad):
     s3 = _safe_sqrt(torch.stack([r_s, mid, r_n], dim=-1) ** 2 -
                     (r_s * r_s)[..., None])
     return 2.0 * _weights_rows(rad, s_rows, s3)
+
+
+@functools.lru_cache(maxsize=None)
+def _log_ratios(pressure: tuple, dtype, device):
+    """c_k = kb/amu log(p_k / p_{k+1}), k = 0..nl-2, of the static
+    pressures in ``dtype`` on ``device`` (:func:`radpress_torch`)."""
+    p_t = torch.as_tensor(pressure, dtype=dtype, device=device)
+    return KB / AMU * torch.log(p_t[:-1] / p_t[1:])
 
 
 def radpress_torch(g0, p0, r0, temp, mu, pressure, rfct):
@@ -170,15 +188,13 @@ def radpress_torch(g0, p0, r0, temp, mu, pressure, rfct):
         mu0 = mu_i + (mu[..., i0 - 1] - mu_i) / lr * L
         rad_i0 = r0 - 0.5 * (t_i / mu_i + temp0 / mu0) * (
             kb_amu * float(np.log(pressure[i0] / p0)) / g0) / rfct
-    r0_t = torch.as_tensor(r0, dtype=dt, device=dev)
-    g_start = g0 * (r0_t / rad_i0) ** 2
+    g_start = g0 * (torch.full_like(rad_i0, r0) / rad_i0) ** 2
 
     # A_k = 0.5 ((T/mu)_k + (T/mu)_{k+1}) and c_k = kb/amu log(p_k/p_{k+1})
     # for the layer pairs (k, k+1), k = 0..nl-2, in the model's dtype:
     tm = temp / mu
     A = 0.5 * (tm[..., :-1] + tm[..., 1:])
-    p_t = torch.as_tensor(pressure, dtype=dt, device=dev)
-    c = kb_amu * torch.log(p_t[:-1] / p_t[1:])
+    c = _log_ratios(tuple(pressure.tolist()), dt, dev)
 
     # Downward from i0-1 to 0 (readatm.c:837-842), then upward from i0+1
     # to nl-1 (readatm.c:847-851):

@@ -32,13 +32,15 @@ def modulation_weight_table(ipv_asc: np.ndarray) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=None)
-def _roll_tables(ipn: int):
-    """(fwd, back) (ipn+1, ipn) host index tables of the rolls by each
-    count: row c of fwd puts the tail of length c first (jnp.roll(x, c)),
-    back rolls its weights back into place (jnp.roll(w, -c))."""
+def _roll_tables(ipn: int, device):
+    """(fwd, back, counts) index tables of the rolls by each count, as
+    tensors on ``device`` made once: fwd and back (ipn+1, ipn), row c of
+    fwd puts the tail of length c first (jnp.roll(x, c)), back rolls its
+    weights back into place (jnp.roll(w, -c)); counts 0..ipn."""
     c = np.arange(ipn + 1)[:, None]
     k = np.arange(ipn)[None, :]
-    return (k - c) % ipn, (k + c) % ipn
+    return tuple(torch.as_tensor(a, device=device) for a in (
+        (k - c) % ipn, (k + c) % ipn, c[:, 0]))
 
 
 def modulation_weight_table_torch(ipv_asc):
@@ -47,10 +49,8 @@ def modulation_weight_table_torch(ipv_asc):
     pass: the tail rolled to the front, the prefix-masked Simpson
     weights, rolled back (transit_tpu rt/transmission.py:30-45)."""
     ipn = ipv_asc.shape[-1]
-    fwd, back = (torch.as_tensor(a, device=ipv_asc.device)
-                 for a in _roll_tables(ipn))
+    fwd, back, counts = _roll_tables(ipn, ipv_asc.device)
     rolled = ipv_asc[..., fwd]                            # (..., ipn+1, ipn)
-    counts = torch.arange(ipn + 1, device=ipv_asc.device)
     w = simpson_weights_torch(rolled, counts.expand(rolled.shape[:-1]))
     return torch.gather(w, -1, back.expand(w.shape))
 
@@ -99,8 +99,7 @@ def modulation(tau, last, ip_v, ip_fct, starrad_cm, toomuch,
         # slantpath.c:424-425: subtract the opaque-disc term at the
         # innermost integrated impact parameter:
         maxtau = torch.gather(tau, 1, last[:, None])[:, 0]
-        maxtau = torch.maximum(maxtau, torch.as_tensor(
-            toomuch, dtype=tau.dtype, device=tau.device))
+        maxtau = maxtau.clamp_min(toomuch)
         inner = ipv_asc[ipn - count]
         res = res - torch.exp(-maxtau) * inner * inner
     return res / (starrad_cm * starrad_cm)
