@@ -85,7 +85,11 @@ plain versions, at unit density), each with its launches counted from
 model's line extinction (ethresh 1e-30); write the grid and run the
 grid-interpolation path from the file (three forwards that launch no
 line kernel, ``compute``, ``grid_extinction`` against float64 on the
-CPU, the gradient against the float64 model's); and run the CLI's
+CPU, the gradient against the float64 model's; grid mode against the
+exact model's line-by-line where the interpolation in T is exact and
+half-way between two grid temperatures: the extinction of an
+isothermal profile on a node within GRID_CONSISTENCY_TOL of its max);
+and run the CLI's
 opacity modes (b) and (c) on the fixture on the card.
 The sharded and multi-process phases: ``sharded_main`` and
 ``sharded_fine`` run the main path's and the 0.05 cm-1 path's models in
@@ -97,18 +101,23 @@ assembled spectrum against the unsharded ``forward``
 (BANDED_VS_UNBANDED_TOL) and its gradient against the unsharded one
 (GRAD_TOL), the launch counts of one sharded step against the shards'
 plans, load max/min and a shard's step time beside the unsharded
-forward's; ``sharded_collective`` runs the collective step over a
-world-size-1 NCCL group (bit for bit the local assembly, forward and
-gradient; scaling over cards is not measured: one card);
-``multihost_card`` spawns MH_PROCS processes on the one card joined by a
-gloo group (parallel.multihost.MultihostForward: balanced bounds, a
-band-local read of hj.tli, the global kmax through ``layer_kmax``) and
-holds the gathered spectrum and ``value_and_grad`` against the single
-process; ``multihost_grid`` runs grid-mode band models from the grid
+forward's, then the compiled step (``make_sharded_forward`` on the
+card: one CUDA graph of the 4 shards and the assembly) against the
+eager one as the graphed phases below do; ``sharded_collective`` runs
+the compiled collective step over a world-size-1 NCCL group (bit for bit
+the eager local assembly, forward and gradient, both timed; scaling over
+cards is not measured: one card); ``multihost_card`` spawns MH_PROCS
+processes on the one card joined by a gloo group
+(parallel.multihost.MultihostForward: balanced bounds, a band-local read
+of hj.tli, the global kmax through ``layer_kmax``, the band step and the
+band kmax as CUDA graph replays) and holds the gathered spectrum and
+``value_and_grad`` against the single process and against the eager
+band step (``eager_band``), both timed; ``multihost_grid`` runs grid-mode band models from the grid
 file of ``grid_path`` against the full grid model.  A failed worker, a
 missing NCCL backend or a refused group fails the run.
-The graphed phases (``graph_main``, ``graph_main_batch``, ``graph_fine``,
-``graph_transit``, ``graph_exact``, ``graph_grid``) run each path's model
+The graphed phases (``graph_unbanded``, ``graph_main``,
+``graph_main_batch``, ``graph_fine``, ``graph_transit``, ``graph_exact``,
+``graph_grid``) run each path's model
 through ``TransitModel.make_forward()``, the step as CUDA graph replays
 (the forward captured with its backward): three requests against the
 eager ``forward`` (``forward_batch`` with BATCH members in
@@ -117,8 +126,9 @@ float32 atomics differ from call to call, and the grid path: within
 GRAPH_TOL),
 gradients within GRAPH_TOL, request 1's results unchanged by the later
 requests; the graphed and eager forward and gradient step timed side by
-side, the device time and kernels of one replay from torch.profiler
-(a replay moves no launch counter); ``graph_main`` also checks that
+side, the device time and kernels of one replay and of one eager step
+from torch.profiler (a replay moves no launch counter) and the memory
+the captures reserve; ``graph_main`` also checks that
 a ``make_forward()`` made after ``set_cloudtop`` equals the eager
 forward with the new deck.  ``hmc`` times a leapfrog evaluation through
 the graphed batched step beside the eager one.
@@ -134,6 +144,7 @@ with code 1 at once.
 from __future__ import annotations
 
 import argparse
+import copy
 import dataclasses
 import datetime
 import gc
@@ -174,7 +185,9 @@ from transit_tpu_torch.opacities.kernel_shell import (
     shell_tile_extinction)
 from transit_tpu_torch.opacities.voigt import build_profile_table
 from transit_tpu_torch.parallel import multihost
-from transit_tpu_torch.parallel.sharded import make_sharded_forward
+from transit_tpu_torch.parallel.sharded import (GraphedShardedStep,
+                                                 ShardedStep,
+                                                 make_sharded_forward)
 from transit_tpu_torch.retrieval import (batched_value_and_grad,
                                          gaussian_logprob, hmc_sample,
                                          knot_profile)
@@ -349,6 +362,10 @@ GRID_SHAPE = (100, 25, 4, 19001)
 GRID_BUILDS_TOL = 1e-6
 GRID_CONSISTENCY_TOL = 1e-5
 GRID_LAYERS = (0, 50, 99)
+# The grid temperature (index into GRID_T's nodes, 1300 K) of the
+# isothermal grid-vs-lbl comparison, inside the file atmosphere's
+# 1150-1534 K.
+GRID_ISO_NODE = 8
 # Lines of each band of the fast build compared with their plain
 # version: the band's first, middle and last cell.
 GRID_FAST_CELLS = 3
@@ -1442,6 +1459,14 @@ def nograd(f):
     return run
 
 
+def reserved_mib() -> float:
+    """MiB the caching allocator holds once its free blocks are returned:
+    live tensors and the private pools of the live CUDA graphs."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_reserved() / 2 ** 20
+
+
 def graph_requests(m: TransitModel, requests, batch: int = 0):
     """The requests [(T, q) numpy] as tensors of the model; with
     ``batch``, each a batch of that many profiles: the request's and
@@ -1461,28 +1486,36 @@ def graph_requests(m: TransitModel, requests, batch: int = 0):
 
 
 def graph_phase(m: TransitModel, requests, label: str, atomics: bool = False,
-                batch: int = 0, profile: str | None = None) -> dict:
-    """The path's step through ``m.make_forward()`` (CUDA graph replays)
-    against the eager step (``forward``; ``forward_batch`` with
-    ``batch`` members a request) on the same three requests: spectra bit
-    for bit (``atomics``: within GRAPH_TOL of the max), gradients of the
-    spectrum's sum in T and q within GRAPH_TOL of the max (bit for bit
-    noted), request 1's spectrum and gradients unchanged by requests 2
-    and 3; the capture times, the graphed and eager forward and gradient
-    step (CUDA events, median of RUNS), and the device time and device
-    kernels of one replay (torch.profiler: the launch counters do not
-    move on a replay).  With ``profile`` (a trace path) also profile_step
-    passes of the graphed forward and gradient step (traces
-    ``<stem>_graph_<label>``, ``<stem>_graph_grad_<label>``).  Every
-    check raises on a miss."""
-    eager = m.forward_batch if batch else m.forward
+                batch: int = 0, profile: str | None = None, fwd=None,
+                eager=None) -> dict:
+    """The path's step through ``m.make_forward()`` (CUDA graph replays;
+    ``fwd``: another compiled step of ``m``, such as the sharded one)
+    against the eager step (``forward``; ``forward_batch`` with ``batch``
+    members a request; ``eager``: another) on the same three requests:
+    spectra bit for bit (``atomics``: within GRAPH_TOL of the max),
+    gradients of the spectrum's sum in T and q within GRAPH_TOL of the
+    max (bit for bit noted), request 1's spectrum and gradients unchanged
+    by requests 2 and 3; the capture times, the graphed and eager forward
+    and gradient step (CUDA events, median of RUNS), and the device time
+    and device kernels of one replay and of one eager step
+    (torch.profiler: the launch counters do not move on a replay), and
+    the memory (reserved_mib) the forward and the gradient captures
+    added, and what the timings' replays added after them (a replay
+    reuses its graph's pool).  With
+    ``profile`` (a trace path) also profile_step passes of the graphed
+    forward and gradient step (traces ``<stem>_graph_<label>``,
+    ``<stem>_graph_grad_<label>``).  Every check raises on a miss."""
+    if eager is None:
+        eager = m.forward_batch if batch else m.forward
     reqs = graph_requests(m, requests, batch)
-    fwd = m.make_forward()
+    fwd = m.make_forward() if fwd is None else fwd
+    mib = [reserved_mib()]
     t0 = time.perf_counter()
     with torch.no_grad():
         fwd(*reqs[0])
     torch.cuda.synchronize()
     capture_s = time.perf_counter() - t0
+    mib.append(reserved_mib())
     with torch.no_grad():
         got = [fwd(T, q) for T, q in reqs[:1]]
         first = got[0].clone()
@@ -1510,6 +1543,7 @@ def graph_phase(m: TransitModel, requests, label: str, atomics: bool = False,
             torch.cuda.synchronize()
             grad_capture_s = time.perf_counter() - t0
             held = [g.clone() for g in gg[0]]
+            mib.append(reserved_mib())
     ge = [torch.autograd.grad(eager(T, q).sum(), (T, q)) for T, q in leaves]
     torch.cuda.synchronize()
     gerr = {x: max(max_rel(a[i], b[i]) for a, b in zip(gg, ge))
@@ -1531,12 +1565,19 @@ def graph_phase(m: TransitModel, requests, label: str, atomics: bool = False,
           "eager_gradient_ms": cuda_ms(lambda: torch.autograd.grad(
               eager(lT, lq).sum(), (lT, lq)))}
     replay = device_ms(nograd(lambda: fwd(T, q)))
+    mib.append(reserved_mib())
+    once = device_ms(nograd(lambda: eager(T, q)))
     out = {"capture_s": capture_s, "grad_capture_s": grad_capture_s,
            "bitwise": bitwise, "max_rel": err, "grad_bitwise": gbit,
            "grad_max_rel": gerr, **ms,
            "replay_device_ms": replay["device_ms"],
            "replay_kernels": replay["kernels"],
-           "replay_port_kernels": replay["port"]}
+           "replay_port_kernels": replay["port"],
+           "eager_device_ms": once["device_ms"],
+           "eager_kernels": once["kernels"],
+           "capture_mib": {"forward": mib[1] - mib[0],
+                           "gradient": mib[2] - mib[1],
+                           "after_timings": mib[3] - mib[2]}}
     if profile:
         trace = Path(profile)
         tag = label.replace(" ", "_")
@@ -1596,7 +1637,10 @@ def graph_text(g: dict, card: str) -> str:
             f"{g['eager_gradient_ms']:.3f} ms eager ({card}); one replay "
             f"{g['replay_device_ms']:.3f} device ms in "
             f"{g['replay_kernels']:g} kernels, the port's "
-            f"{json.dumps(g['replay_port_kernels'])}; capture "
+            f"{json.dumps(g['replay_port_kernels'])} (an eager step "
+            f"{g['eager_device_ms']:.3f} device ms in "
+            f"{g['eager_kernels']:g} kernels); memory the captures hold "
+            f"{json.dumps(g['capture_mib'])} MiB; capture "
             f"{g['capture_s']:.2f} s, with the gradient "
             f"{g['grad_capture_s']:.2f} s")
 
@@ -2306,7 +2350,8 @@ def grid_phases(m: TransitModel, card: str,
         model (mode c): forward, the gradient step and compute on the
         card, grid_extinction against the float64 CPU version, the
         gradient against the float64 model's, the spectrum against the
-        line-by-line one, times (and with ``profile`` a torch.profiler
+        line-by-line one (and on and between the grid's temperatures:
+        grid_vs_lbl_nodes), times (and with ``profile`` a torch.profiler
         pass of the forward and the gradient step, and of each build:
         traces ``<stem>_grid``, ``_grad_grid``, ``_grid_exact``,
         ``_grid_fast``);
@@ -2460,13 +2505,15 @@ def grid_phases(m: TransitModel, card: str,
               f"grid path: gradient vs float64 {gerr} >= {GRAD_TOL}")
         lbl_spec = m.forward(T0, q0)
         ratio = (specs[0].double() / lbl_spec.double() - 1.0).abs()
+        iso = grid_vs_lbl_nodes(mg, m, og.temp, T0, q0)
         ms_fwd = cuda_ms(lambda: mg.forward(T0, q0))
         ms_grad = cuda_ms(lambda: grad_step(mg, *leaves))
         out["path"] = {"forward_ms": ms_fwd, "gradient_ms": ms_grad,
                        "grid_extinction_vs_float64_cpu": ext_err,
                        "gradient_vs_float64": gerr,
                        "median_vs_lbl": float(ratio.median()),
-                       "max_vs_lbl": float(ratio.max())}
+                       "max_vs_lbl": float(ratio.max()),
+                       "nodes_vs_lbl": iso}
         t1 = time.perf_counter()
         out["graph"] = graph_phase(mg, requests, "grid", atomics=True,
                                    profile=profile)
@@ -2488,7 +2535,8 @@ def grid_phases(m: TransitModel, card: str,
               f"float64 CPU {ext_err:.3e}; gradient vs float64 {gerr}; "
               f"median |grid / line-by-line spectrum - 1| "
               f"{out['path']['median_vs_lbl']:.4e} (max "
-              f"{out['path']['max_vs_lbl']:.4e}; for the record)")
+              f"{out['path']['max_vs_lbl']:.4e}; for the record); "
+              f"on and between the grid's temperatures: {json.dumps(iso)}")
 
         t0 = time.perf_counter()
         out["multihost"] = multihost_grid(cfg_g, grid_spec, T0, q0,
@@ -2533,6 +2581,50 @@ def multihost_grid(cfg_g, full_spec, T0, q0, device, kernels) -> dict:
     return {"blocks": blocks, "vs_full": vs}
 
 
+def grid_vs_lbl_nodes(mg: TransitModel, m: TransitModel, temps, T0,
+                      q0) -> dict:
+    """Grid mode (the model ``mg``) against line-by-line (the exact model
+    ``m``) where the interpolation in T is exact, beside where it is
+    furthest from the line strengths' exponential change: the line
+    extinction of an isothermal profile on a grid temperature
+    (GRID_ISO_NODE) and half-way to the next, max |grid - lbl| / max
+    lbl (an isothermal atmosphere's eclipse flux is its Planck function
+    whatever the opacity, so its extinction is compared); and the
+    spectrum of the file profile with every layer moved to its nearest
+    grid temperature, and half-way to the next one, median and max
+    |grid / lbl - 1|.  On a node only the line cut differs: each grid
+    molecule's cells are cut at their own kmax."""
+    out = {}
+    k, step = GRID_ISO_NODE, float(temps[1] - temps[0])
+    with torch.no_grad():
+        for name, t in (("on_node", float(temps[k])),
+                        ("mid_node", float(temps[k]) + 0.5 * step)):
+            ext = []
+            for mm in (mg, m):
+                T = mm._t(np.full(mm.atm.nlayers, t / mm.atm.tfct))
+                _, _, dens = mm._profiles(T, q0)
+                ext.append(mm.line_extinction(T * mm.atm.tfct, dens,
+                                              mm.partition(T)).double())
+            out[f"isothermal_{name}"] = {"T": t, "ext_max_over_max": float(
+                (ext[0] - ext[1]).abs().max() / ext[1].abs().max())}
+        node = (temps[0] + step * np.round((T0 * mg.atm.tfct - temps[0]) /
+                                           step)) / mg.atm.tfct
+        for name, T in (("snapped_on_node", node),
+                        ("snapped_mid_node",
+                         node + 0.5 * step / mg.atm.tfct)):
+            r = (mg.forward(T, q0).double() / m.forward(T, q0).double() -
+                 1.0).abs()
+            out[name] = {"median": float(r.median()), "max": float(r.max())}
+    for v in out.values():
+        check(all(np.isfinite(x) for x in v.values()),
+              f"grid vs lbl on the nodes: not finite {out}")
+    on = out["isothermal_on_node"]["ext_max_over_max"]
+    check(on < GRID_CONSISTENCY_TOL, f"grid vs lbl: the line extinction of "
+          f"an isothermal profile on a grid temperature differs by {on:.3e}"
+          f" of its max (bound {GRID_CONSISTENCY_TOL})")
+    return out
+
+
 def grid_keys(gr: dict) -> dict:
     """The profile_scatter entry's keys of the exact grid build: the
     per-molecule launches of one build, their error against the plain
@@ -2572,10 +2664,16 @@ def sharded_phase(m: TransitModel, T0, q0, label: str,
     before and read just after, against the launches the shards' plans
     ask and against the unsharded forward (BANDED_VS_UNBANDED_TOL); the
     gradient of its sum against the unsharded gradient (GRAD_TOL); the
-    shards' step times beside the unsharded forward's.  With ``profile``
-    (a trace path), a torch.profiler pass of shard 0's step and of the
-    whole sharded step (traces ``_shard`` and ``_sharded`` beside it)."""
+    shards' step times beside the unsharded forward's; the compiled step
+    (``step(T, q)``: one CUDA graph of every shard's local and the
+    assembly, forward and backward) against the eager local assembly on
+    three requests (graph_phase).  With ``profile`` (a trace path), a
+    torch.profiler pass of shard 0's step and of the whole sharded step
+    (traces ``_shard`` and ``_sharded`` beside it)."""
     step = make_sharded_forward(m, nshard=SHARDS)
+    check(isinstance(step, GraphedShardedStep),
+          f"{label}: make_sharded_forward on the card made a "
+          f"{type(step).__name__}")
     views = [step._view(s) for s in range(SHARDS)]
     g = line_cotangent(m, T0, q0)
     kmax_err, fwd, bwd = 0.0, {}, {}
@@ -2640,6 +2738,10 @@ def sharded_phase(m: TransitModel, T0, q0, label: str,
                 f"{trace.stem}_{name}{trace.suffix}")), f"{label} {name}")
             for name, fn in (("shard", lambda: step.local(0, T0, q0)),
                              ("sharded", whole))}
+    res["graph"] = graph_phase(
+        m, [(T0, q0), (T0 + 50.0, q0), (T0 - 50.0, q0)], f"{label} graph",
+        fwd=step, eager=lambda T, q: step.assemble(
+            [step.local(s, T, q) for s in range(SHARDS)]))
     return res
 
 
@@ -2656,15 +2758,19 @@ def shard_phase_text(r: dict, card: str) -> str:
                  **r["launch_vs_plain"], **r["backward_vs_plain"]})) + (
                 "" if "profile" not in r else "; profile: " + json.dumps(
                     {k: {x: v[x] for x in ("device_ms", "busy", "kernels")}
-                     for k, v in r["profile"].items()}))
+                     for k, v in r["profile"].items()})) + (
+                "; the compiled step (make_sharded_forward) " +
+                graph_text(r["graph"], card))
 
 
 def sharded_collective(m: TransitModel, T0, q0) -> dict:
     """make_sharded_forward over a world-size-1 NCCL group on the card:
-    the collective step (all-gather of the parts; the inputs' gradient
-    all-reduced) bit for bit against the local assembly, forward and
-    gradient; both timed.  Multi-card scaling is not measured here (one
-    card)."""
+    the compiled collective step (the rank's local replayed from CUDA
+    graphs, forward and backward; the all-gather of the parts and the
+    all-reduce of the inputs' gradient eager around the replay) bit for
+    bit against the eager local assembly, forward and gradient; both
+    timed, forward and gradient step.  Multi-card scaling is not measured
+    here (one card)."""
     check(dist.is_nccl_available(), "torch.distributed has no NCCL backend")
     store = Path(tempfile.mkdtemp(dir=ROOT / "build"))
     dist.init_process_group("nccl", init_method=f"file://{store / 'nccl'}",
@@ -2672,35 +2778,60 @@ def sharded_collective(m: TransitModel, T0, q0) -> dict:
                             timeout=datetime.timedelta(seconds=MH_TIMEOUT))
     try:
         step = make_sharded_forward(m, group=dist.group.WORLD)
-        check(step.nshard == 1, f"collective step has {step.nshard} shards")
+        check(step.nshard == 1 and isinstance(step, GraphedShardedStep),
+              f"collective step: {type(step).__name__} of {step.nshard} "
+              "shards")
 
         def local(T, q):
             return step.assemble([step.local(0, T, q)])
-        a, b = step(T0, q0), local(T0, q0)
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            a = step(T0, q0)
+        torch.cuda.synchronize()
+        capture_s = time.perf_counter() - t0
+        with torch.no_grad():
+            b = local(T0, q0)
         check(torch.equal(a, b), "collective step differs from the local "
               f"assembly by {max_rel(a, b):.3e}")
         T, q = grad_leaves(m, T0, q0)
         ga = torch.autograd.grad(step(T, q).sum(), (T, q))
-        T, q = grad_leaves(m, T0, q0)
+        ga = torch.autograd.grad(step(T, q).sum(), (T, q))   # a replay
         gb = torch.autograd.grad(local(T, q).sum(), (T, q))
         check(all(torch.equal(x, y) for x, y in zip(ga, gb)),
               "collective step's gradient differs from the local "
               "assembly's")
-        out = {"backend": dist.get_backend(),
-               "ms": cuda_ms(lambda: step(T0, q0)),
-               "local_ms": cuda_ms(lambda: local(T0, q0))}
+        out = {"backend": dist.get_backend(), "capture_s": capture_s,
+               "ms": cuda_ms(nograd(lambda: step(T0, q0))),
+               "local_ms": cuda_ms(nograd(lambda: local(T0, q0))),
+               "grad_ms": cuda_ms(lambda: torch.autograd.grad(
+                   step(T, q).sum(), (T, q))),
+               "local_grad_ms": cuda_ms(lambda: torch.autograd.grad(
+                   local(T, q).sum(), (T, q)))}
     finally:
         dist.destroy_process_group()
         shutil.rmtree(store, ignore_errors=True)
     return out
 
 
+def eager_band(run):
+    """A copy of the band runner ``run`` (MultihostForward) whose band
+    step and band kmax run eagerly (ShardedStep, ``_band_kmax``), to hold
+    the compiled ones against."""
+    e = copy.copy(run)
+    e._step = ShardedStep(run.model, external_kmax=run.exact_ethresh)
+    e._kmax_fn = run._band_kmax
+    return e
+
+
 def multihost_worker(rank: int, store: str, io: str):
     """One process of multihost_card: joins the gloo group, builds its
     band of the main path (MultihostForward: balanced bounds, band-local
-    TLI read, the global kmax through layer_kmax and an all-reduce MAX),
-    runs forward and value_and_grad, times them, and writes its results
-    to ``io``.p<rank>.npz."""
+    TLI read, the global kmax through layer_kmax and an all-reduce MAX;
+    on the card the band step and the band kmax are CUDA graph replays),
+    runs forward and value_and_grad, the same through the eager band
+    step (eager_band), times both, and writes its results to
+    ``io``.p<rank>.npz.  The launch counts are the first calls', whose
+    warm-up calls before each capture launch the kernels."""
     multihost.initialize(f"file://{store}", MH_PROCS, rank,
                          timeout=datetime.timedelta(seconds=MH_TIMEOUT))
     try:
@@ -2717,20 +2848,39 @@ def multihost_worker(rank: int, store: str, io: str):
             o = obs[blk[0]:blk[1]]
             return torch.sum(((band_spec - o) / o) ** 2)
         reset_counts(ALL_KERNELS)
+        t0 = time.perf_counter()
         spec = run.forward(T0, q0)
         loss, (gT, gq) = run.value_and_grad(loss_fn, T0, q0)
+        torch.cuda.synchronize()
+        capture_s = time.perf_counter() - t0
         launches = read_counts(ALL_KERNELS)
+        check(isinstance(run._step, GraphedShardedStep) and
+              run._step._graph.entries and run._kmax_fn.entries,
+              "multihost: the band step is not graphed")
+        spec, (loss, (gT, gq)) = (run.forward(T0, q0),
+                                  run.value_and_grad(loss_fn, T0, q0))
+        eager = eager_band(run)
+        spec_e = eager.forward(T0, q0)
+        loss_e, (gT_e, gq_e) = eager.value_and_grad(loss_fn, T0, q0)
         np.savez(f"{io}.p{rank}.npz", spec=spec.cpu().numpy(),
                  loss=loss.cpu().numpy(), gT=gT.cpu().numpy(),
-                 gq=gq.cpu().numpy(), bounds=run.bounds,
+                 gq=gq.cpu().numpy(), spec_e=spec_e.cpu().numpy(),
+                 loss_e=loss_e.cpu().numpy(), gT_e=gT_e.cpu().numpy(),
+                 gq_e=gq_e.cpu().numpy(), bounds=run.bounds,
                  block=np.asarray(run.block),
                  n_local_lines=run.n_local_lines,
                  device=str(run.model.device),
                  launches=json.dumps(launches), setup_s=setup_s,
+                 capture_s=capture_s,
                  forward_ms=cuda_ms(lambda: run.forward(T0, q0)),
                  band_ms=cuda_ms(lambda: run.local_spectrum(T0, q0)),
                  grad_ms=cuda_ms(lambda: run.value_and_grad(loss_fn, T0,
-                                                            q0)))
+                                                            q0)),
+                 eager_forward_ms=cuda_ms(lambda: eager.forward(T0, q0)),
+                 eager_band_ms=cuda_ms(lambda: eager.local_spectrum(T0,
+                                                                    q0)),
+                 eager_grad_ms=cuda_ms(lambda: eager.value_and_grad(
+                     loss_fn, T0, q0)))
     finally:
         dist.destroy_process_group()
 
@@ -2746,7 +2896,10 @@ def multihost_card(m: TransitModel, T0, q0) -> dict:
     gradient in q of CO2, in one process as in two), its loss to
     BANDED_VS_UNBANDED_TOL and gradient to GRAD_TOL against the single
     process's; each process launched layer_kmax and the line-tile
-    kernels.  The kernels were built before the spawn."""
+    kernels; the compiled band step (CUDA graphs) against the eager one
+    in each process (the spectrum bit for bit, the loss and gradient
+    within GRAPH_TOL of the max), both timed.  The kernels were built
+    before the spawn."""
     work = Path(tempfile.mkdtemp(dir=ROOT / "build"))
     try:
         ref = m.forward(T0, q0)
@@ -2772,14 +2925,23 @@ def multihost_card(m: TransitModel, T0, q0) -> dict:
                for r in range(MH_PROCS)]
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    graph_vs_eager = {}
     for r in res:
         for k in ("spec", "loss", "gT", "gq"):
             check(np.array_equal(r[k], res[0][k]),
                   f"multihost: processes differ in {k}")
+            a, b = np.asarray(r[k], np.float64), np.asarray(r[f"{k}_e"],
+                                                            np.float64)
+            graph_vs_eager[k] = max(graph_vs_eager.get(k, 0.0), float(
+                np.abs(a - b).max() / np.abs(b).max()))
         launched = json.loads(str(r["launches"]))
         check(launched["layer_kmax"] > 0 and
               launched["line_tile_extinction"] > 0,
               f"multihost: a process launched {launched}")
+    check(graph_vs_eager["spec"] == 0.0 and
+          max(graph_vs_eager.values()) <= GRAPH_TOL,
+          f"multihost: graphed vs eager band step {graph_vs_eager} (the "
+          f"spectrum bit for bit, the rest <= {GRAPH_TOL} asked)")
     spec = torch.as_tensor(res[0]["spec"], device=ref.device)
     vs = float(((spec - ref).abs() / ref.abs()).max())
     check(spec.shape == ref.shape and vs <= BANDED_VS_UNBANDED_TOL,
@@ -2797,11 +2959,10 @@ def multihost_card(m: TransitModel, T0, q0) -> dict:
             "devices": [str(r["device"]) for r in res],
             "launches": [json.loads(str(r["launches"])) for r in res],
             "vs_single": vs, "loss_vs_single": loss_err,
-            "grad_vs_single": gerr,
-            "setup_s": [float(r["setup_s"]) for r in res],
-            "forward_ms": [float(r["forward_ms"]) for r in res],
-            "band_ms": [float(r["band_ms"]) for r in res],
-            "grad_ms": [float(r["grad_ms"]) for r in res]}
+            "grad_vs_single": gerr, "graph_vs_eager": graph_vs_eager,
+            **{k: [float(r[k]) for r in res] for k in (
+                "setup_s", "capture_s", "forward_ms", "band_ms", "grad_ms",
+                "eager_forward_ms", "eager_band_ms", "eager_grad_ms")}}
 
 
 def main(device: str = "cuda", profile: str | None = None) -> int:
@@ -2922,6 +3083,9 @@ def main(device: str = "cuda", profile: str | None = None) -> int:
     print(f"forward unbanded: {points / (ms_forward * 1e-3):.6e} wavenumber "
           f"points x layers per second ({ms_forward:.3f} ms, {card})",
           flush=True)
+    t0 = time.perf_counter()
+    graph_u = graph_phase(hj, requests, "unbanded")
+    phase("graph_unbanded", t0, graph_text(graph_u, card))
 
     # 6. Path 2, the main path: bands=6 on the same workload.
     t0 = time.perf_counter()
@@ -2985,19 +3149,24 @@ def main(device: str = "cuda", profile: str | None = None) -> int:
     t0 = time.perf_counter()
     coll = sharded_collective(hjb, T0, q0)
     phase("sharded_collective", t0, f"world-size-1 {coll['backend']} group:"
-          f" the collective step equals the local assembly bit for bit, "
-          f"forward and gradient; step {coll['ms']:.3f} ms, local "
-          f"{coll['local_ms']:.3f} ms ({card}); scaling over cards is not "
-          f"measured (one card)")
+          f" the compiled collective step equals the eager local assembly "
+          f"bit for bit, forward and gradient; forward {coll['ms']:.3f} ms "
+          f"compiled, {coll['local_ms']:.3f} ms eager; gradient step "
+          f"{coll['grad_ms']:.3f} ms compiled, {coll['local_grad_ms']:.3f} "
+          f"ms eager ({card}); capture {coll['capture_s']:.2f} s; scaling "
+          f"over cards is not measured (one card)")
     t0 = time.perf_counter()
     mh = multihost_card(hjb, T0, q0)
     phase("multihost_card", t0, f"{MH_PROCS} processes on one card (gloo):"
           f" bounds {mh['bounds']}, lines per band {mh['lines']}; gathered "
           f"spectrum vs single process max_rel {mh['vs_single']:.3e}, loss "
           f"{mh['loss_vs_single']:.3e}, gradient {mh['grad_vs_single']}; "
-          f"spawn to exit {mh['seconds']:.2f} s ({card}); " + json.dumps(
-              {k: mh[k] for k in ("devices", "launches", "setup_s",
-                                  "forward_ms", "band_ms", "grad_ms")}))
+          f"spawn to exit {mh['seconds']:.2f} s ({card}); the compiled "
+          f"band step vs the eager one {mh['graph_vs_eager']}; " +
+          json.dumps({k: mh[k] for k in (
+              "devices", "launches", "setup_s", "capture_s", "forward_ms",
+              "eager_forward_ms", "band_ms", "eager_band_ms", "grad_ms",
+              "eager_grad_ms")}))
     t0 = time.perf_counter()
     graph_b = graph_phase(hjb, requests, "main", profile=profile)
     settings_b = graph_settings(hjb, T0, q0)
@@ -3388,18 +3557,25 @@ def main(device: str = "cuda", profile: str | None = None) -> int:
         "graph": {path: {k: g[k] for k in (
             "forward_ms", "eager_forward_ms", "gradient_ms",
             "eager_gradient_ms", "bitwise", "max_rel", "grad_bitwise",
-            "grad_max_rel", "replay_device_ms", "replay_kernels")}
-            for path, g in (("main", graph_b), ("main_batch", graph_bb),
+            "grad_max_rel", "replay_device_ms", "replay_kernels",
+            "eager_device_ms", "eager_kernels")}
+            for path, g in (("unbanded", graph_u), ("main", graph_b),
+                            ("main_batch", graph_bb),
+                            ("sharded_main", shard_b["graph"]),
+                            ("sharded_0.05", shard_f["graph"]),
                             ("0.05", graph_f), ("transit", graph_t),
                             ("exact", ex["graph"]), ("grid", gr["graph"]))},
         "sharded": {path: {k: r[k] for k in (
             "shards", "loads_max_over_min", "vs_unsharded",
             "grad_vs_unsharded", "forward_ms", "shard_ms")}
             for path, r in (("main", shard_b), ("0.05", shard_f))},
-        "sharded_collective_ms": {k: coll[k] for k in ("ms", "local_ms")},
+        "sharded_collective_ms": {k: coll[k] for k in (
+            "ms", "local_ms", "grad_ms", "local_grad_ms")},
         "multihost_card": {k: mh[k] for k in (
             "bounds", "lines", "vs_single", "loss_vs_single",
-            "grad_vs_single", "forward_ms", "band_ms", "grad_ms")},
+            "grad_vs_single", "graph_vs_eager", "forward_ms",
+            "eager_forward_ms", "band_ms", "eager_band_ms", "grad_ms",
+            "eager_grad_ms")},
         "grid": {"shape": GRID_SHAPE,
                  "exact_build_s": gr["exact"]["seconds"],
                  "exact_cells_per_s": gr["exact"]["cells_per_s"],

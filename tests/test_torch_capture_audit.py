@@ -15,8 +15,13 @@ the CPU (the card launches the kernels in their place): the line-tile
 and profile-scatter functions, their kmax scans and their VJPs.  Paths:
 the eclipse main path (bands=6) and its batched step, the unbanded
 plan, transit with hydrostatic radii (and with ``transparent``),
-eclipse with hydrostatic radii, exact mode and grid mode, on the
-conformance fixture in float32.  Port only."""
+eclipse with hydrostatic radii, exact mode and grid mode; the sharded
+step (parallel/sharded.py, 2 shards through ``step.local`` and
+``step.assemble``) of the main path, the unbanded plan and grid mode;
+and the band step of one process (parallel/multihost.py,
+``MultihostForward``: ``local_spectrum`` and ``value_and_grad`` at the
+band's external kmax; the kmax's host collective runs only with several
+processes), on the conformance fixture in float32.  Port only."""
 
 import functools
 
@@ -29,6 +34,8 @@ from tests.test_conformance import GOLD, make_config
 from tests.test_torch_common import port_config
 from transit_tpu_torch.model import TransitModel
 from transit_tpu_torch.opacities import banded, kernel_lbl, kernel_profile
+from transit_tpu_torch.parallel.multihost import MultihostForward
+from transit_tpu_torch.parallel.sharded import make_sharded_forward
 
 torch.set_num_threads(1)
 
@@ -111,18 +118,30 @@ def audit(monkeypatch):
     for name in ("profile_scatter_plain", "profile_scatter_plain_vjp"):
         monkeypatch.setattr(kernel_profile, name,
                             paused(a, getattr(kernel_profile, name)))
+    monkeypatch.setattr(banded, "band_kmax", paused(a, banded.band_kmax))
     return a
 
 
-def step(m, T, q, batch: bool):
-    """A forward and its backward in T and q."""
+def step(fn, T, q):
+    """A forward of ``fn`` and its backward in T and q."""
     T = T.clone().requires_grad_(True)
     q = q.clone().requires_grad_(True)
-    out = (m.forward_batch if batch else m.forward)(T, q)
-    return torch.autograd.grad(out.sum(), (T, q))
+    return torch.autograd.grad(fn(T, q).sum(), (T, q))
+
+
+def step_fn(case: str, m):
+    """The case's step (T, q) -> spectrum: the model's forward
+    (forward_batch for the batch), or 2 shards through step.local, then
+    step.assemble."""
+    if case.startswith("sharded"):
+        st = make_sharded_forward(m, nshard=2)
+        return lambda T, q: st.assemble([st.local(s, T, q)
+                                         for s in range(st.nshard)])
+    return m.forward_batch if case == "main_batch" else m.forward
 
 
 def config(case: str):
+    case = case.removeprefix("sharded_")
     if case == "grid":
         cfg = make_config("eclipse", 1e30)
         cfg.tlow, cfg.thigh, cfg.tempdelt = 1000.0, 2000.0, 100.0
@@ -146,7 +165,10 @@ CASES = {"main": dict(mode="fast", bands=6),
          "transit_transparent": dict(mode="fast", bands=6),
          "eclipse_hydro": dict(mode="fast", bands=6),
          "exact": dict(mode="exact"),
-         "grid": dict(mode="fast")}
+         "grid": dict(mode="fast"),
+         "sharded_main": dict(mode="fast", bands=6),
+         "sharded_unbanded": dict(mode="fast"),
+         "sharded_grid": dict(mode="fast")}
 
 
 @pytest.mark.parametrize("case", list(CASES))
@@ -155,16 +177,39 @@ def test_step_makes_no_host_transfer(case, audit):
                      device="cpu", **CASES[case])
     assert m.hydrostatic == (case.startswith("transit") or
                              case == "eclipse_hydro")
-    assert (m.ogrid is not None) == (case == "grid")
+    assert (m.ogrid is not None) == case.endswith("grid")
     T = torch.tensor(m.atm.temp, dtype=torch.float32)
     q = torch.tensor(m.atm.q, dtype=torch.float32)
     batch = case == "main_batch"
     if batch:
         T = torch.stack([T, T + 40.0])
         q = torch.stack([q, q * 1.1])
-    step(m, T, q, batch)                    # warm-up
+    fn = step_fn(case, m)
+    step(fn, T, q)                          # warm-up
     with audit:
-        gT, gq = step(m, T + 10.0, q, batch)
+        gT, gq = step(fn, T + 10.0, q)
+    assert torch.isfinite(gT).all() and float(gT.abs().max()) > 0
+    assert audit.found == [], "\n".join(sorted(set(audit.found)))
+
+
+def test_band_step_makes_no_host_transfer(audit):
+    """The band step of one process at its external kmax (the band's
+    own: line_kmax over its lines): local_spectrum and value_and_grad of
+    the band spectrum's sum."""
+    run = MultihostForward(port_config(config("main")), bands=6,
+                           dtype=torch.float32, device="cpu")
+    assert run.nproc == 1 and run.exact_ethresh
+    T = torch.tensor(run.model.atm.temp, dtype=torch.float32)
+    q = torch.tensor(run.model.atm.q, dtype=torch.float32)
+
+    def loss(spec, block):
+        return spec.sum()
+    run.local_spectrum(T, q)                # warm-up
+    run.value_and_grad(loss, T, q)
+    with audit:
+        spec = run.local_spectrum(T + 10.0, q)
+        val, (gT, gq) = run.value_and_grad(loss, T + 10.0, q)
+    assert spec.shape == (run.model.wns.n,) and torch.isfinite(val)
     assert torch.isfinite(gT).all() and float(gT.abs().max()) > 0
     assert audit.found == [], "\n".join(sorted(set(audit.found)))
 

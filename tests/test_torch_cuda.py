@@ -32,13 +32,18 @@ def card():
     return torch.device("cuda")
 
 
-def _model(device, dtype=torch.float32, mode="fast", **kw):
-    cfg = TransitConfig(
+def _config(**kw):
+    return TransitConfig(
         atm=f"{FIX}/test.atm", linedb=f"{FIX}/test.tli",
         csfile=f"{FIX}/test_cia.dat", molfile=f"{FIX}/molecules.dat",
         wnlow=2000.0, wnhigh=2100.0, wndelt=1.0, wnosamp=216, wnfct=1.0,
-        nwidth=20.0, ethreshold=1e-8, solution="eclipse", toomuch=1e30)
-    return TransitModel(cfg, mode=mode, dtype=dtype, device=device, **kw)
+        nwidth=20.0, ethreshold=1e-8, solution="eclipse", toomuch=1e30,
+        **kw)
+
+
+def _model(device, dtype=torch.float32, mode="fast", **kw):
+    return TransitModel(_config(), mode=mode, dtype=dtype, device=device,
+                        **kw)
 
 
 def _state(m):
@@ -1380,3 +1385,174 @@ def test_make_forward_capture_failure_raises(card, monkeypatch):
     with torch.no_grad():
         assert bool(torch.isfinite(m.forward(T, q)).all())
         assert torch.equal(m.make_forward()(T, q), m.forward(T, q))
+
+
+def _grid_model(device):
+    """The fixture in grid mode: the conformance grid file
+    (tests/golden/ref_opacity_grid.bin, 1000-2000 K)."""
+    return TransitModel(_config(
+        opacityfile=os.path.join(os.path.dirname(FIX), "golden",
+                                 "ref_opacity_grid.bin"),
+        tlow=1000.0, thigh=2000.0, tempdelt=100.0), dtype=torch.float32,
+        device=device)
+
+
+def _band_kmax(m, T):
+    """The model's own per-layer kmax at T, an external kmax."""
+    from transit_tpu_torch.opacities.banded import line_kmax
+    d0 = m.bdev[0] if m.bdev is not None else m.fdev
+    return line_kmax(d0, T * m.atm.tfct, m.partition(T))
+
+
+def _close(a, b, tol=1e-6):
+    return torch.equal(a, b) or float(
+        (a - b).abs().max() / b.abs().max()) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,nshard,kmax", [
+    ("main", 1, False), ("main", 4, False), ("main", 4, True),
+    ("unbanded", 4, False), ("unbanded", 4, True), ("grid", 1, False),
+    ("grid", 4, False)])
+def test_sharded_graph_matches_eager(card, case, nshard, kmax):
+    """make_sharded_forward on the card is the compiled step (one CUDA
+    graph of every shard's local and the assembly; no launch is counted
+    by a replay): its spectra equal the eager ShardedStep's bit for bit,
+    its gradients within 1e-6 of the max (the backward kernels add in
+    float64 atomics), with an external kmax as the third argument; the
+    result of a call is unchanged by the next call."""
+    from transit_tpu_torch.parallel.sharded import (GraphedShardedStep,
+                                                    ShardedStep,
+                                                    make_sharded_forward)
+    m = _grid_model(card) if case == "grid" else _model(
+        card, bands=0 if case == "unbanded" else 6)
+    step = make_sharded_forward(m, nshard=nshard, external_kmax=kmax)
+    eager = ShardedStep(m, nshard=nshard, external_kmax=kmax)
+    assert isinstance(step, GraphedShardedStep)
+    reqs = [(T, q) + ((_band_kmax(m, T),) if kmax else ())
+            for T, q in _requests(m, card)]
+    with torch.no_grad():
+        step(*reqs[0])                                  # capture
+        line_tile_extinction.launches = 0
+        got = [step(*r) for r in reqs]
+        assert line_tile_extinction.launches == 0
+        first = got[0].clone()
+        want = [eager(*r) for r in reqs]
+    for a, b in zip(got, want):
+        assert a.shape == (m.wns.n,) and torch.equal(a, b)
+    assert torch.equal(got[0], first) and not torch.equal(got[0], got[1])
+    held = None
+    for T, q, *k in reqs:
+        a = _grad(lambda T, q: step(T, q, *k), T, q)
+        b = _grad(lambda T, q: eager(T, q, *k), T, q)
+        held = held or tuple(x.clone() for x in a) + a
+        assert float(a[1].abs().max()) > 0
+        assert all(_close(x, y) for x, y in zip(a, b))
+    for x, y in zip(held[3:], held[:3]):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+def test_sharded_graph_with_group(card, tmp_path):
+    """The compiled step over a world-size-1 NCCL group: the rank's local
+    replayed from CUDA graphs, the all-gather and the gradient's
+    all-reduce around it; bit for bit the eager local assembly, forward
+    and gradient."""
+    import datetime
+
+    import torch.distributed as dist
+    from transit_tpu_torch.parallel.sharded import make_sharded_forward
+    m = _model(card, bands=6)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            world_size=1, rank=0,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        step = make_sharded_forward(m, group=dist.group.WORLD)
+
+        def local(T, q):
+            return step.assemble([step.local(0, T, q)])
+        for T, q in _requests(m, card)[:2]:
+            with torch.no_grad():
+                assert torch.equal(step(T, q), local(T, q))
+            for _ in range(2):                      # capture, replay
+                a, b = _grad(step, T, q), _grad(local, T, q)
+                assert all(torch.equal(x, y) for x, y in zip(a, b))
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_sharded_graph_refuses_a_late_gradient(card):
+    from transit_tpu_torch.parallel.sharded import make_sharded_forward
+    m = _model(card, bands=6)
+    step = make_sharded_forward(m, nshard=2)
+    (T1, q), (T2, _) = _requests(m, card)[:2]
+    T1, T2 = T1.requires_grad_(True), T2.requires_grad_(True)
+    s1 = step(T1, q)
+    torch.autograd.grad(s1.sum(), T1)        # captured, then replayed
+    s1 = step(T1, q)
+    step(T2, q)
+    with pytest.raises(RuntimeError, match="later call"):
+        torch.autograd.grad(s1.sum(), T1)
+
+
+@pytest.mark.cuda
+def test_sharded_graph_capture_failure_raises(card, monkeypatch):
+    """A host read in a shard's step makes the capture fail: the call
+    raises, naming the line, and never falls back to the eager step."""
+    from transit_tpu_torch.parallel.sharded import make_sharded_forward
+    from transit_tpu_torch.rt import tau as rt_tau
+    m = _model(card, bands=6)
+    T, q = _requests(m, card)[0]
+    last_index = rt_tau.last_index
+
+    def host_read(tau, toomuch):
+        if float(tau.max()) < 0:
+            raise AssertionError
+        return last_index(tau, toomuch)
+    monkeypatch.setattr(rt_tau, "last_index", host_read)
+    step = make_sharded_forward(m, nshard=2)
+    for grad in (False, True):
+        with torch.set_grad_enabled(grad), pytest.raises(
+                RuntimeError, match=r"make_sharded_forward: capturing the "
+                r"step .* failed at transit_tpu_torch/"):
+            step(T, q.clone().requires_grad_(grad))
+        torch.cuda.synchronize()
+    assert not step._graph.entries
+    monkeypatch.setattr(rt_tau, "last_index", last_index)
+    with torch.no_grad():
+        assert torch.equal(make_sharded_forward(m, nshard=2)(T, q),
+                           step.assemble([step.local(s, T, q)
+                                          for s in range(2)]))
+
+
+@pytest.mark.cuda
+def test_multihost_one_process_graph_matches_eager(card):
+    """MultihostForward with one process on the card: the band step and
+    the band kmax are CUDA graph replays; forward, local_spectrum and
+    value_and_grad equal those of the same runner with the eager
+    ShardedStep and kmax (the spectrum bit for bit, the gradient within
+    1e-6 of the max)."""
+    import copy
+
+    from transit_tpu_torch.parallel import multihost
+    from transit_tpu_torch.parallel.sharded import (GraphedShardedStep,
+                                                    ShardedStep)
+    run = multihost.MultihostForward(_config(), bands=6,
+                                     dtype=torch.float32, device=card)
+    assert isinstance(run._step, GraphedShardedStep) and run.exact_ethresh
+    eager = copy.copy(run)
+    eager._step = ShardedStep(run.model, external_kmax=True)
+    eager._kmax_fn = run._band_kmax
+
+    def loss(spec, block):
+        return (spec * torch.linspace(0.5, 2.0, spec.shape[0],
+                                      device=spec.device)).sum()
+    for T, q in _requests(run.model, card):
+        assert torch.equal(run.forward(T, q), eager.forward(T, q))
+        assert torch.equal(run.local_spectrum(T, q),
+                           eager.local_spectrum(T, q))
+        va, ga = run.value_and_grad(loss, T, q)
+        vb, gb = eager.value_and_grad(loss, T, q)
+        assert _close(va, vb) and all(_close(x, y) for x, y in zip(ga, gb))
+    assert run._kmax_fn.entries and run._step._graph.entries

@@ -120,6 +120,26 @@ def test_gridmode_compute_matches_golden_and_jax(pair, jax_results):
     np.testing.assert_allclose(spec, jax_results["spec"], rtol=1e-12)
 
 
+def test_gridmode_gap_to_line_by_line_is_the_references(pair, jax_results):
+    """Grid mode against line-by-line at the file atmosphere: the port's
+    |grid / lbl - 1| (lbl: the reference C program's line-by-line
+    spectrum, ref_eclipse.npz) equals JAX's within 1e-12 and the
+    reference C program's own (its grid-mode spectrum against its
+    line-by-line one, both goldens of the same configuration) within
+    1e-5: the gap is the grid method's, which interpolates each cell's
+    extinction linearly in T and cuts lines per grid molecule."""
+    _, m = pair
+    lbl = np.load(os.path.join(GOLD, "ref_eclipse.npz"))["spec"]
+    c_grid = np.load(os.path.join(GOLD, "ref_eclipse_gridmode.npz"))["spec"]
+    port = m.forward(torch.as_tensor(m.atm.temp),
+                     torch.as_tensor(m.atm.q)).numpy()
+    gap = port / lbl - 1.0
+    np.testing.assert_allclose(gap, jax_results["spec"] / lbl - 1.0,
+                               rtol=0, atol=1e-12)
+    np.testing.assert_allclose(gap, c_grid / lbl - 1.0, rtol=0, atol=1e-5)
+    assert np.abs(gap).max() > 1e-6       # the method's gap, not zero
+
+
 def test_gridmode_gradient_equals_jax(pair, jax_results):
     _, m = pair
     t = torch.tensor(m.atm.temp * 1.05, requires_grad=True)

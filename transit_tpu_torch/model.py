@@ -481,7 +481,7 @@ class TransitModel:
         """The compiled step, ``(T, q) -> spectrum``, with the tensors of
         :meth:`device_tree` bound (transit_tpu model.py:374-379, a
         jax.jit of ``forward``).  On a card the step runs as CUDA graph
-        replays (step_graph.GraphedForward): each signature (shapes and
+        replays (step_graph.GraphedStep): each signature (shapes and
         dtypes of T and q, and which of them requires grad under grad
         mode) is captured once after warm-up calls; with a gradient the
         captured backward replays too, so that ``torch.autograd.grad(
@@ -503,11 +503,14 @@ class TransitModel:
         called, as JAX's trace fixes them; a new ``make_forward()`` sees
         new values.  The model's tensors must not be replaced while a
         callable lives: its graphs hold their addresses."""
-        if self.device.type == "cuda":
-            from transit_tpu_torch.step_graph import GraphedForward
-            return GraphedForward(self)
         settings, dev = self._settings(), self.device_tree()
-        return lambda temps_raw, q: self._step(temps_raw, q, settings, dev)
+
+        def step(temps_raw, q):
+            return self._step(temps_raw, q, settings, dev)
+        if self.device.type == "cuda":
+            from transit_tpu_torch.step_graph import GraphedStep
+            return GraphedStep(step, self.dtype, self.device, "make_forward")
+        return step
 
     def _step(self, temps_raw, q, settings: tuple, dev):
         """The step of :meth:`make_forward` with ``settings``

@@ -10,7 +10,8 @@ each process
     lines outside the band reach its edge tiles;
   * builds band-local tile plans (``TransitModel(wn_window=...,
     wn_margin=...)``) and runs the sharded step (parallel/sharded.py)
-    on its card;
+    on its card, compiled there as CUDA graph replays, as is the band's
+    kmax;
   * joins small host-tensor collectives on a gloo group: an all-reduce
     MAX of the (nlayer,) kmax (so the ethresh cut is the one of a
     single-process run, extinction.c:400-427, 467-470), a padded
@@ -183,7 +184,11 @@ def _local_card():
 
 class MultihostForward:
     """Multi-process band runner with a differentiable band step
-    (multihost.py:179-291).
+    (multihost.py:179-291).  On a card the band step
+    (:func:`make_sharded_forward`) and the band's kmax run as CUDA graph
+    replays (JAX jits both); the collectives, on host tensors, and
+    ``loss_fn`` run eagerly around them.  On the CPU every part is
+    eager.
 
     ``forward(temps_raw, q)`` -> the global spectrum, the same on every
     process.  ``exact_ethresh`` adds the per-step kmax max-reduction, so
@@ -211,6 +216,12 @@ class MultihostForward:
         self.exact_ethresh = exact_ethresh
         self._step = make_sharded_forward(self.model,
                                           external_kmax=exact_ethresh)
+        self._kmax_fn = self._band_kmax
+        if exact_ethresh and self.model.device.type == "cuda":
+            from transit_tpu_torch.step_graph import GraphedStep
+            self._kmax_fn = GraphedStep(self._band_kmax, self.model.dtype,
+                                        self.model.device,
+                                        "MultihostForward kmax", ("T",))
         self.span_max = int(np.diff(self.bounds).max())
 
     @property
@@ -221,17 +232,23 @@ class MultihostForward:
         return torch.as_tensor(x, dtype=self.model.dtype,
                                device=self.model.device)
 
-    def _global_kmax(self, temps_raw):
+    def _band_kmax(self, temps_raw):
         """The band's kmax (banded.line_kmax over its lines, layer_kmax
-        on the card), max-reduced over the processes; None without
+        on the card) at T (nl,)."""
+        m = self.model
+        d0 = m.bdev[0] if m.bdev is not None else m.fdev
+        return line_kmax(d0, temps_raw * m.atm.tfct, m.partition(temps_raw),
+                         use_kernel=m.use_kernel)
+
+    def _global_kmax(self, temps_raw):
+        """The band's kmax (:meth:`_band_kmax`, graphed on a card as
+        JAX's jitted ``_kmax``, multihost.py:212-216), max-reduced over
+        the processes as a host tensor outside every graph; None without
         exact_ethresh."""
         if not self.exact_ethresh:
             return None
         m = self.model
-        T = self._t(temps_raw).detach()
-        d0 = m.bdev[0] if m.bdev is not None else m.fdev
-        kl = line_kmax(d0, T * m.atm.tfct, m.partition(T),
-                       use_kernel=m.use_kernel)
+        kl = self._kmax_fn(self._t(temps_raw).detach())
         if self.nproc > 1:
             h = kl.cpu()
             dist.all_reduce(h, op=dist.ReduceOp.MAX, group=self.group)

@@ -30,6 +30,9 @@ all-gathers the parts; the gather's backward takes this rank's slice of
 the cotangent, and the inputs' gradient is summed over the ranks, so a
 loss that every rank computes on the gathered spectrum has the full
 gradient on every rank (JAX's shard_map differentiates the same way).
+On a card :func:`make_sharded_forward` returns the compiled step
+(:class:`GraphedShardedStep`: CUDA graph replays, JAX's jit), on the CPU
+the eager :class:`ShardedStep`.
 Grid mode (an opacity grid, ``model.ogrid``) shards the grid's wavenumber
 axis in contiguous spans (grid interpolation costs the same per bin).
 Radii are static (the model's ``W``), as in JAX.
@@ -46,7 +49,8 @@ from transit_tpu_torch.opacities import fast
 from transit_tpu_torch.opacities.banded import (banded_index,
                                                 banded_kernel_extinction)
 from transit_tpu_torch.opacities.grid import grid_extinction
-from transit_tpu_torch.opacities.kernel_lbl import kernel_extinction
+from transit_tpu_torch.opacities.kernel_lbl import (kernel_extinction,
+                                                    tiles_index)
 
 
 def _block_costs(subplans, nblk: int, B: int) -> np.ndarray:
@@ -266,11 +270,13 @@ class ShardedStep:
                         max=m.wns.n - 1)].contiguous(),)
         elif self.nshard == 1:
             view = ((m.bplan, m.bdev, m.bindex) if self.banded else
-                    (m.fplan, m.fdev, None))
+                    (m.fplan, m.fdev, m.findex))
         elif not self.banded:
             plan, d = _restrict(m.fplan, self._tiles(shard, m.fplan),
                                 m.dtype, m.device)
-            view = (plan, {**d, **_shared(m.fdev)}, None)
+            d.update(_shared(m.fdev))
+            view = (plan, d, tiles_index(plan, d)
+                    if m.device.type == "cuda" else None)
         else:
             bplan, plans, devs, far_plans = m.bplan, [], [], []
             for i, p in enumerate(bplan.plans):
@@ -307,11 +313,8 @@ class ShardedStep:
         kw = dict(wn_i=m.wns.i, dwn=m.wns.d, ethresh=m.cfg.ethreshold,
                   nwidth=m.cfg.nwidth, use_kernel=m.use_kernel,
                   kmax_override=kmax)
-        if self.banded:
-            full = banded_kernel_extinction(plan, d, *args, index=index,
-                                            **kw)
-        else:
-            full = kernel_extinction(plan, d, *args, **kw)
+        fn = banded_kernel_extinction if self.banded else kernel_extinction
+        full = fn(plan, d, *args, index=index, **kw)
         return torch.nn.functional.pad(full, (0, 1))[:, self._cols[shard]]
 
     def local(self, shard: int, temps_raw, q, kmax=None):
@@ -321,9 +324,7 @@ class ShardedStep:
         multi-process bands, a constant; None: the scan over the model's
         whole line list), then the model's assembly at its wavenumbers.
         Differentiable in T and q."""
-        if self.external_kmax != (kmax is not None) and not self.grid_mode:
-            raise ValueError("a step made with external_kmax takes kmax, "
-                             "another takes none")
+        self._check_kmax(kmax)
         m = self.model
         temps_raw, q, densities = m._profiles(temps_raw, q)
         temps_cgs = temps_raw * m.atm.tfct
@@ -332,6 +333,11 @@ class ShardedStep:
                                    m.partition(temps_raw), kmax)
         return m._assemble(temps_raw, q, densities, ex, False,
                            wn=self._wn[shard])
+
+    def _check_kmax(self, kmax):
+        if self.external_kmax != (kmax is not None) and not self.grid_mode:
+            raise ValueError("a step made with external_kmax takes kmax, "
+                             "another takes none")
 
     def assemble(self, parts):
         """The parts of every shard, in shard order, as the spectrum
@@ -355,11 +361,62 @@ class ShardedStep:
                              self.rank)[self._unperm]
 
 
+class GraphedShardedStep(ShardedStep):
+    """The compiled sharded step of :func:`make_sharded_forward` on a card:
+    ``step(temps_raw, q[, kmax])`` replays CUDA graphs
+    (step_graph.GraphedStep: per call signature, forward and, when an
+    input requires grad, backward), the counterpart of JAX's jitted
+    ``step_impl`` around its shard_map (sharded.py:340-355).  Without a
+    group one graph holds every shard's :meth:`local` and the
+    :meth:`assemble`; with one the rank's :meth:`local` is graphed and the
+    collectives (``_SumGrad``, ``_Gather``) run eagerly around the replay,
+    as JAX keeps its host collectives outside jit.  An external kmax is
+    the step's third tensor argument.  The settings the step reads as
+    Python values are the model's when the step is made
+    (``model._settings()``), and every view the graph reads is made then.
+    ``local``, ``assemble`` and the other attributes are the eager
+    :class:`ShardedStep`'s."""
+
+    def __init__(self, model, group=None, external_kmax: bool = False,
+                 balance: bool = True, nshard: int = None):
+        from transit_tpu_torch.step_graph import GraphedStep
+        super().__init__(model, group, external_kmax, balance, nshard)
+        shards = range(self.nshard) if group is None else [self.rank]
+        for s in shards:
+            self._view(s)
+        settings = model._settings()
+
+        def step(temps_raw, q, *kmax):
+            with model._with_settings(settings):
+                return (self.assemble([self.local(s, temps_raw, q, *kmax)
+                                       for s in shards])
+                        if group is None else
+                        self.local(self.rank, temps_raw, q, *kmax))
+        self._graph = GraphedStep(step, model.dtype, model.device,
+                                  "make_sharded_forward",
+                                  ("T", "q", "kmax"))
+
+    def __call__(self, temps_raw, q, kmax=None):
+        self._check_kmax(kmax)
+        args = (temps_raw, q) + (() if kmax is None else (kmax,))
+        if self.group is None:
+            return self._graph(*args)
+        m = self.model
+        T, qq = (_SumGrad.apply(torch.as_tensor(
+            a, dtype=m.dtype, device=m.device), self.group)
+            for a in args[:2])
+        part = self._graph(T, qq, *args[2:])
+        return _Gather.apply(part, self.group, self.nshard,
+                             self.rank)[self._unperm]
+
+
 def make_sharded_forward(model, group=None, external_kmax: bool = False,
                          balance: bool = True, nshard: int = None):
     """The sharded spectrum step of a fast-mode TransitModel (banded or
     not) or of one with an opacity grid (transit_tpu
-    make_sharded_forward, sharded.py:98-359): a :class:`ShardedStep`.
+    make_sharded_forward, sharded.py:98-359): on a card the compiled
+    step, a :class:`GraphedShardedStep` (CUDA graph replays, JAX's jit);
+    on the CPU the eager :class:`ShardedStep`.
 
     ``group``: the ``torch.distributed`` group whose ranks are the shards
     (one process per card); None: one process, ``nshard`` shards (default
@@ -368,4 +425,5 @@ def make_sharded_forward(model, group=None, external_kmax: bool = False,
     kmax, so that every band cuts at the same ethresh level,
     extinction.c:467-470).  ``balance`` assigns blocks to shards by
     line-eval cost; False keeps contiguous equal spans."""
-    return ShardedStep(model, group, external_kmax, balance, nshard)
+    cls = GraphedShardedStep if model.device.type == "cuda" else ShardedStep
+    return cls(model, group, external_kmax, balance, nshard)
