@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--profile chiprun_out/forward_trace.json]
+                          [--seed N]
 
 Builds the port's CUDA kernels (csrc/line_tile.cu: the line-tile kernel,
 its backward and the per-layer kmax scan; csrc/shell_tile.cu: the
@@ -132,6 +133,30 @@ the captures reserve; ``graph_main`` also checks that
 a ``make_forward()`` made after ``set_cloudtop`` equals the eager
 forward with the new deck.  ``hmc`` times a leapfrog evaluation through
 the graphed batched step beside the eager one.
+The ExoMol-scale phases (``--seed`` seeds their lists and file) run the
+native host preprocessing (csrc/lineprep.cpp, built with the host C++
+compiler) and the line-list path it serves.  ``exomol_list`` splits each
+of hj.tli's 194,349 lines of the hot-Jupiter range into EXOMOL_SPLIT
+copies (the same isotope and elow, gf / k, the wavenumber uniform within
++-wndelt/2: 1.0e8 lines), sorts them with the native argsort and writes
+the TLI (2.6 GB) into a temporary directory, removed at the end;
+``lineprep_checks`` holds the native argsort against np.lexsort (the
+first SORT_CHECK_LINES lines), the native parser against float() on
+every field of a seeded PAR_RECORDS-record HITRAN file, and
+lineread.compile of its first PAR_COMPILE_RECORDS records with the
+native routines against the plain ones (the same TLI bytes);
+``exomol_band`` builds, in this one process, the band of EXOMOL_PROCS
+line-balanced bands (parallel.multihost.balanced_blocks,
+build_band_model) that holds the most lines (~25M), drives its forward
+and gradient step with the launch counts from 0, holds layer_kmax, the
+line-tile launches and the backward launches against their plain
+versions (on every EXOMOL_ROW_STEP-th row of a launch) and runs its
+make_forward() step against the eager one; ``exomol_exact`` builds
+exact mode through TransitModel(cfg) on the EXOMOL_EXACT_SPLIT list
+(4.86M lines): the plan against lbl.plan_lines_plain array by array,
+the profile-scatter kernels against their plain versions, the spectrum
+against the plain path, a forward and a gradient step counted and
+timed.
 Every phase prints one line with its seconds; any failed check raises,
 so the script exits non-zero and prints no result.
 
@@ -144,12 +169,14 @@ with code 1 at once.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import dataclasses
 import datetime
 import gc
 import json
 import re
+import resource
 import shutil
 import statistics
 import subprocess
@@ -163,12 +190,19 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
-from transit_tpu_torch import cli
+import transit_tpu_torch.model as model_module
+from transit_tpu_torch import _native, cli
 from transit_tpu_torch.config import TransitConfig, load_config
-from transit_tpu_torch.constants import SUNRADIUS
+from transit_tpu_torch.constants import SUNRADIUS, TLI_WAV_UNITS
 from transit_tpu_torch.grids import make_wn_sampling
+from transit_tpu_torch.io.tli import (TliData, bisect_mm, read_tli,
+                                      read_tli_header, select_lines,
+                                      write_tli)
+from transit_tpu_torch.lineread import compile as tli_compile
+from transit_tpu_torch.lineread import hitran
 from transit_tpu_torch.model import TransitModel
-from transit_tpu_torch.opacities import _build, banded, grid, kernel_lbl
+from transit_tpu_torch.opacities import (_build, banded, fast, grid,
+                                         kernel_lbl, lbl)
 from transit_tpu_torch.opacities.kernel_profile import (
     profile_scatter, profile_scatter_backward, profile_scatter_permol)
 from transit_tpu_torch.opacities.lbl import (
@@ -667,16 +701,19 @@ def model_view(m: TransitModel, view=None):
     return (m.bplan, m.bdev, m.bindex) if view is None else view
 
 
-def banded_launches(m: TransitModel, view=None):
+def banded_launches(m: TransitModel, view=None, row_step: int = 1):
     """The kernel launches of one banded forward (of the shard ``view``
     when given), in order: yields
     (part, unit, the band's rows as an int32 and a long tensor) with part
     "near" or "s1" (line-tile kernel, unit (plan, line tensors, global
     tiles (numpy or None), their int32 tensor)) or "shell" (one shell
-    launch for the band's decimated shells, unit its ShellBand)."""
+    launch for the band's decimated shells, unit its ShellBand); with
+    ``row_step``, every row_step-th row of the band from its first."""
     bplan, devs, index = model_view(m, view)
     for i, part, unit in banded.launch_units(bplan, devs, index):
         r = index["rows"][i]
+        if row_step > 1:
+            r = r[::row_step].contiguous()
         yield part, unit, r, r.long()
 
 
@@ -715,17 +752,18 @@ def kernel_name(part: str) -> str:
             "line_tile_extinction")
 
 
-def banded_vs_plain(m: TransitModel, label: str, view=None) -> dict:
+def banded_vs_plain(m: TransitModel, label: str, view=None,
+                    row_step: int = 1) -> dict:
     """Every launch of the banded path (of the shard ``view`` when given)
     on its own, into a zero output, against its plain version on the same
-    inputs (the band's rows): {kernel: {"max_rel", "max_abs",
-    "launches"}}."""
+    inputs (the band's rows; with ``row_step`` every row_step-th of
+    them): {kernel: {"max_rel", "max_abs", "launches"}}."""
     args, kw = file_state(m)
     T = args[0]
     tab = banded.prep_layers(model_view(m, view)[1][0], *args,
                              use_kernel=True)
     res = {}
-    for part, unit, r, sel in banded_launches(m, view):
+    for part, unit, r, sel in banded_launches(m, view, row_step):
         got = torch.zeros((m.atm.nlayers, m.wns.n), device=T.device)
         want = torch.zeros_like(got)
         launch_kernel(tab, T, kw, part, unit, r, got)
@@ -1014,16 +1052,19 @@ def shell_clip(tab, T, kw, unit, r, n_coarse: int):
     return clip
 
 
-def backward_launches(m: TransitModel, view=None):
+def backward_launches(m: TransitModel, view=None, row_step: int = 1):
     """The backward kernel launches of one gradient step (of the shard
     ``view`` when given), in order:
     yields (part, unit, the band's rows as an int32 and a long tensor)
     with part "lines" (one line_tile_backward launch over the band's
     near and stride-1 classes, unit its LineBand) or "shell" (one
-    shell_tile_backward launch, unit the band's ShellBand)."""
+    shell_tile_backward launch, unit the band's ShellBand); with
+    ``row_step``, every row_step-th row of the band from its first."""
     bplan, devs, index = model_view(m, view)
     for i, part, unit in banded.backward_units(bplan, devs, index):
         r = index["rows"][i]
+        if row_step > 1:
+            r = r[::row_step].contiguous()
         yield part, unit, r, r.long()
 
 
@@ -1057,12 +1098,14 @@ def backward_plain(tab, T, kw, part, unit, sel, g) -> dict:
     return grads
 
 
-def backward_vs_plain(m: TransitModel, g, label: str, view=None) -> dict:
+def backward_vs_plain(m: TransitModel, g, label: str, view=None,
+                      row_step: int = 1) -> dict:
     """Every backward launch of the banded path (of the shard ``view``
     when given) on its own (one
     line_tile_backward per band over its classes; the shell launch with
     the clip mask of its forward launch) against its plain VJP on the
-    same inputs and cotangent ``g``: per output max|a-b| / max|b| <
+    same inputs and cotangent ``g`` (the band's rows; with ``row_step``
+    every row_step-th of them): per output max|a-b| / max|b| <
     GRAD_LAUNCH_TOL.  {kernel: {"max_rel": {output: x},
     "max_abs_temps", "launches"}}."""
     args, kw = file_state(m)
@@ -1070,7 +1113,7 @@ def backward_vs_plain(m: TransitModel, g, label: str, view=None) -> dict:
     tab = banded.prep_layers(model_view(m, view)[1][0], *args,
                              use_kernel=True)
     res = {}
-    for part, unit, r, sel in backward_launches(m, view):
+    for part, unit, r, sel in backward_launches(m, view, row_step):
         clip = shell_clip(tab, T, kw, unit, r, m.wns.n) \
             if part == "shell" else None
         acc = backward_kernel(tab, T, kw, part, unit, r, g, clip)
@@ -1796,21 +1839,28 @@ def synthetic_scatter(device, nl: int = SYN_SHAPE[0], seed: int = 7,
 
 def scatter_vs_plain(g_k, keep, g_idop, ilor, s, ct, label: str) -> dict:
     """One profile_scatter and one profile_scatter_backward launch
-    against their plain versions: the forward max|a-b| / (|a| + 1e-6
-    max|a|) < KERNEL_REL_TOL, its pair counter equal to the host count
+    against their plain versions: the forward against the plain scatter
+    of the same inputs summed in float64, max|a-b| / (|a| + 1e-6 max|a|)
+    < KERNEL_REL_TOL, its pair counter equal to the host count
     (lbl.scatter_pairs); the backward, on the cotangent ``ct``, bit for
-    bit.  Returns the errors, the pair count and the tiles' spans
-    against the kernels' shared segment."""
+    bit.  The plain scatter in float32 adds every (group, bin) pair into
+    the output with its own atomic, in no set order: on an H100, at
+    4.86M lines (hj.tli split 25 ways), its sums are 2.3e-5 from the
+    float64 ones, the kernel's (a tile's pairs summed in shared memory
+    first) 2.4e-6; both distances are returned beside the kernel's
+    distance from it.  Returns the errors, the pair
+    count and the tiles' spans against the kernels' shared segment."""
     args = (g_k, g_idop, ilor, s)
     stats = torch.zeros(1, dtype=torch.int64, device=g_k.device)
     got = profile_scatter(*args, stats=stats)
-    want = profile_scatter_plain(*args)
+    want = profile_scatter_plain(g_k.double(), *args[1:])
+    plain32 = profile_scatter_plain(*args).double()
     torch.cuda.synchronize()
     check(bool(torch.isfinite(got).all()) and float(want.max()) > 0,
           f"{label}: profile_scatter not finite, or plain zero")
-    err = rel_err(want, got)
+    err = rel_err(want, got.double())
     check(err < KERNEL_REL_TOL, f"{label}: profile_scatter vs plain "
-          f"{err:.3e} >= {KERNEL_REL_TOL}")
+          f"(float64 sums) {err:.3e} >= {KERNEL_REL_TOL}")
     host = scatter_pairs(*args)
     check(int(stats[0]) == host, f"{label}: pair counter {int(stats[0])} "
           f"!= host count {host}")
@@ -1820,8 +1870,10 @@ def scatter_vs_plain(g_k, keep, g_idop, ilor, s, ct, label: str) -> dict:
           f"{label}: profile_scatter_backward vs plain VJP not bit for "
           f"bit: max|a-b| / max|b| {max_rel(a, b):.3e}")
     spans = tile_spans(g_k != 0, g_idop, ilor, s)
-    return {"fwd_max_rel": err, "fwd_max_abs": float((got - want).abs()
-                                                     .max()),
+    return {"fwd_max_rel": err, "fwd_max_abs": float((got.double() - want)
+                                                     .abs().max()),
+            "fwd_max_rel_vs_plain32": rel_err(plain32, got.double()),
+            "plain32_max_rel": rel_err(want, plain32),
             "bwd_max_rel": max_rel(a, b),
             "bwd_max_abs": float((a - b).abs().max()), "pairs": host,
             "tiles_in_segment": int(((spans > 0) &
@@ -1837,8 +1889,9 @@ def exact_vs_plain(m: TransitModel, g, label: str) -> dict:
     take the kernels' global-memory path (checked: some tile spans more
     than the shared segment)."""
     T = np.asarray(m.atm.temp, dtype=np.float64)
-    res = {"fwd_max_rel": 0.0, "fwd_max_abs": 0.0, "bwd_max_rel": 0.0,
-           "bwd_max_abs": 0.0, "pairs": {}, "tiles": {}}
+    res = {"fwd_max_rel": 0.0, "fwd_max_abs": 0.0,
+           "fwd_max_rel_vs_plain32": 0.0, "plain32_max_rel": 0.0,
+           "bwd_max_rel": 0.0, "bwd_max_abs": 0.0, "pairs": {}, "tiles": {}}
     cases = [(name, t) for name, t in (("file", T), ("+50K", T + 50.0),
                                        ("-50K", T - 50.0))]
     for name, t in cases + [("synthetic", None)]:
@@ -1855,8 +1908,8 @@ def exact_vs_plain(m: TransitModel, g, label: str) -> dict:
             grp, s = exact_groups(m, t)
             r = scatter_vs_plain(grp["g_k"], grp["keep"], grp["g_idop"],
                                  grp["ilor"], s, g, f"{label} {name}")
-        for k in ("fwd_max_rel", "fwd_max_abs", "bwd_max_rel",
-                  "bwd_max_abs"):
+        for k in ("fwd_max_rel", "fwd_max_abs", "fwd_max_rel_vs_plain32",
+                  "plain32_max_rel", "bwd_max_rel", "bwd_max_abs"):
             res[k] = max(res[k], r[k])
         res["pairs"][name] = r["pairs"]
         res["tiles"][name] = {k: r[k] for k in (
@@ -2965,7 +3018,446 @@ def multihost_card(m: TransitModel, T0, q0) -> dict:
                 "eager_forward_ms", "eager_band_ms", "eager_grad_ms")}}
 
 
-def main(device: str = "cuda", profile: str | None = None) -> int:
+# ExoMol scale: the native host preprocessing (csrc/lineprep.cpp through
+# transit_tpu_torch._native) and the line-list path it serves, on
+# hj.tli's lines split into copies.
+EXOMOL_SPLIT = 515             # copies a line: 1.0e8 lines
+EXOMOL_EXACT_SPLIT = 25        # 4.86M lines, benchmarks/data/hj5m's count
+EXOMOL_PROCS = 4               # bands of balanced_blocks
+EXOMOL_BANDS = 6               # layer bands of the band's plan
+# The band's launches are held against their plain versions on every
+# EXOMOL_ROW_STEP-th row of each launch: the plain line-tile function and
+# its VJP evaluate every (row, bin, line) of a tile, ~2 minutes on an
+# H100 for all 100 rows of a 25M-line band.
+EXOMOL_ROW_STEP = 10
+SORT_CHECK_LINES = 20_000_000  # the argsort against np.lexsort
+# A seeded HITRAN .par of one molecule of the hot-Jupiter atmosphere
+# (CH4, HITRAN molecule 6): 160-character records (HITRAN2004), the
+# fields at their offsets, the reader's g'' slice with the newline.
+PAR_MOL = 6
+PAR_RECORDS = 1_000_000
+PAR_COMPILE_RECORDS = 200_000
+PAR_FIELDS = {"iso": (2, 3), "wn": (3, 15), "S": (15, 25), "A": (25, 35),
+              "gamma_air": (35, 40), "gamma_self": (40, 45),
+              "elow": (45, 55), "n_air": (55, 59), "delta_air": (59, 67),
+              "g_upper": (146, 153), "g_lower": (153, 160),
+              "g_lower_read": (155, 161)}
+
+
+def peak_rss_gib() -> float:
+    """This process's peak resident memory so far, GiB."""
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2 ** 20
+
+
+@contextlib.contextmanager
+def stage_times(*targets):
+    """While inside, time every call of the functions ``targets``
+    ((module, name) pairs, looked up by the callers at call time): yields
+    {name: seconds}."""
+    times, saved = {}, []
+    for mod, name in targets:
+        fn = getattr(mod, name)
+        saved.append((mod, name, fn))
+
+        def timed(*a, _fn=fn, _name=name, **kw):
+            t = time.perf_counter()
+            try:
+                return _fn(*a, **kw)
+            finally:
+                times[_name] = (times.get(_name, 0.0) +
+                                time.perf_counter() - t)
+        setattr(mod, name, timed)
+    try:
+        yield times
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def exomol_lines(k: int, seed: int):
+    """hj.tli's 194,349 lines of the hot-Jupiter range (500-10000 cm-1)
+    split into k copies each, in hj.tli's order: a copy keeps its line's
+    isotope and elow, takes gf / k, and its wavenumber is drawn uniformly
+    within +-wndelt/2 of the line's (numpy, seeded with ``seed``).
+    Returns (hj.tli's TliData, (isoid int16, wl um, elow, gf))."""
+    src = read_tli(str(HJ / "hj.tli"))
+    cfg = hotjupiter_config()
+    wl0, iso0, elow0, gf0 = select_lines(src, cfg.wnlow, cfg.wnhigh)
+    half = 0.5 * cfg.wndelt
+    wl = np.random.default_rng(seed).uniform(-half, half, wl0.shape[0] * k)
+    wl += np.repeat(1.0 / (wl0 * TLI_WAV_UNITS), k)
+    wl *= TLI_WAV_UNITS
+    np.reciprocal(wl, out=wl)
+    return src, (np.repeat(iso0, k), wl, np.repeat(elow0, k),
+                 np.repeat(gf0 / k, k))
+
+
+def write_exomol(path: Path, src: TliData, lines, order) -> None:
+    """The lines permuted by ``order`` as a TLI with hj.tli's header
+    (databases, isotopes, partition functions), through write_tli."""
+    isoid = lines[0][order]
+    counts = np.bincount(isoid)
+    write_tli(str(path), TliData(
+        version=src.version, iwav=src.iwav, fwav=src.fwav,
+        databases=src.databases, wl=lines[1][order], isoid=isoid,
+        elow=lines[2][order], gf=lines[3][order],
+        isotran=counts[counts > 0].astype(np.uint64)))
+
+
+def exomol_list(workdir: Path, k: int, seed: int) -> dict:
+    """hj.tli split k ways (:func:`exomol_lines`), sorted by the native
+    argsort (lineread.compile.sort_iso_wl) and written to ``workdir``:
+    the seconds of each stage, the file's size and the peak RSS; the
+    unsorted lines stay in the result (``lines``) for the checks."""
+    rss0 = peak_rss_gib()
+    t = time.perf_counter()
+    src, lines = exomol_lines(k, seed)
+    gen_s = time.perf_counter() - t
+    t = time.perf_counter()
+    order = tli_compile.sort_iso_wl(lines[0], lines[1])
+    sort_s = time.perf_counter() - t
+    path = workdir / f"exomol_{k}.tli"
+    t = time.perf_counter()
+    write_exomol(path, src, lines, order)
+    write_s = time.perf_counter() - t
+    del order
+    return {"path": path, "lines": lines, "n_lines": int(lines[1].shape[0]),
+            "split": k, "generate_s": gen_s, "sort_s": sort_s,
+            "write_s": write_s, "bytes": path.stat().st_size,
+            "peak_rss_gib_before": rss0, "peak_rss_gib": peak_rss_gib()}
+
+
+def write_par(path: Path, n: int, seed: int) -> None:
+    """n seeded HITRAN2004 records of PAR_MOL (its isotopes 1-4 in the
+    port's isotopologue table), ascending in wavenumber over the
+    hot-Jupiter range, in the number formats HITRAN writes (as
+    tests/test_lineread.py's make_par_line)."""
+    rng = np.random.default_rng(seed)
+    cols = [np.sort(rng.uniform(500.0, 10000.0, n)),
+            10.0 ** rng.uniform(-35.0, -18.0, n),
+            10.0 ** rng.uniform(-8.0, 2.0, n),
+            rng.uniform(0.01, 0.1, n), rng.uniform(0.01, 0.5, n),
+            rng.uniform(0.0, 9000.0, n), rng.uniform(0.3, 0.9, n),
+            rng.uniform(-0.09, 0.09, n),
+            rng.integers(1, 600, n).astype(float),
+            rng.integers(1, 600, n).astype(float)]
+    iso = rng.integers(1, 5, n).tolist()
+    cols = [c.tolist() for c in cols]
+    mid = " " * 60 + "000000" + " " * 12 + " "
+    with open(path, "w") as f:
+        f.writelines(
+            f"{PAR_MOL:2d}{i:1d}{w:12.6f}{s:10.3E}{a:10.3E}{ga:5.3f}"
+            f"{gs:5.3f}{e:10.4f}{na:4.2f}{d:8.5f}{mid}{gu:7.1f}{gl:7.1f}\n"
+            for i, w, s, a, ga, gs, e, na, d, gu, gl in zip(iso, *cols))
+
+
+def compile_par(par: Path, out: Path) -> float:
+    """lineread.compile of the HITRAN file ``par`` over 1-20 um into the
+    TLI ``out`` (the port's HITRAN reader, the default partition
+    functions); returns the seconds."""
+    t = time.perf_counter()
+    block = hitran.HitranReader(str(par)).block(1.0, 20.0)
+    tli_compile.compile_tli([block], 1.0, 20.0, str(out))
+    return time.perf_counter() - t
+
+
+@contextlib.contextmanager
+def plain_lineread():
+    """While inside, lineread parses and sorts with the native routines'
+    plain versions (float() of each field, np.lexsort)."""
+    parse, sort = hitran._parse_float, tli_compile.sort_iso_wl
+    hitran._parse_float = hitran._parse_float_plain
+    tli_compile.sort_iso_wl = tli_compile.sort_iso_wl_plain
+    try:
+        yield
+    finally:
+        hitran._parse_float, tli_compile.sort_iso_wl = parse, sort
+
+
+def lineprep_checks(lines, workdir: Path, seed: int,
+                    sort_lines: int = SORT_CHECK_LINES,
+                    records: int = PAR_RECORDS,
+                    compile_records: int = PAR_COMPILE_RECORDS) -> dict:
+    """The native routines against their plain versions on this host: the
+    argsort against np.lexsort on the first ``sort_lines`` of the
+    unsorted ``lines``; every field of a seeded ``records``-record
+    HITRAN .par (:func:`write_par`) parsed to the bits float() gives;
+    lineread.compile of its first ``compile_records`` records writing the
+    same TLI bytes with the native routines as with the plain ones.
+    Native and plain seconds of each; any difference raises."""
+    out = {}
+    isoid, wl = lines[0][:sort_lines], lines[1][:sort_lines]
+    t = time.perf_counter()
+    a = tli_compile.sort_iso_wl(isoid, wl)
+    t1 = time.perf_counter()
+    b = tli_compile.sort_iso_wl_plain(isoid, wl)
+    t2 = time.perf_counter()
+    check(np.array_equal(a, b), f"argsort_iso_wl differs from np.lexsort "
+          f"on {isoid.shape[0]} lines at {int((a != b).sum())} places")
+    out["argsort"] = {"lines": int(isoid.shape[0]), "native_s": t1 - t,
+                      "plain_s": t2 - t1}
+    del a, b
+    par = workdir / "ch4.par"
+    t = time.perf_counter()
+    write_par(par, records, seed)
+    out["par_write_s"] = time.perf_counter() - t
+    raw = par.read_bytes()
+    recsize = len(raw) // records
+    check(recsize == 161 and len(raw) == records * recsize,
+          f"HITRAN file of {len(raw)} bytes, records of {recsize}")
+    rec = np.frombuffer(raw, np.uint8).reshape(records, recsize)
+    native_s = plain_s = 0.0
+    for name, (f0, f1) in PAR_FIELDS.items():
+        t = time.perf_counter()
+        got = _native.parse_fixed_floats(raw, recsize, f0, f1 - f0, records)
+        t1 = time.perf_counter()
+        want = hitran._parse_float_plain(rec[:, f0:f1])
+        t2 = time.perf_counter()
+        native_s += t1 - t
+        plain_s += t2 - t1
+        bad = got.view(np.int64) != want.view(np.int64)
+        check(not bad.any(), f"parse_fixed_floats field {name} differs from "
+              f"float() on {int(bad.sum())} records, first "
+              f"{bytes(rec[int(np.argmax(bad)), f0:f1])!r}")
+    out["parse"] = {"records": records, "fields": len(PAR_FIELDS),
+                    "native_s": native_s, "plain_s": plain_s}
+    prefix = workdir / "ch4_prefix.par"
+    prefix.write_bytes(raw[:compile_records * recsize])
+    del raw, rec
+    native_tli, plain_tli = workdir / "native.tli", workdir / "plain.tli"
+    c_native = compile_par(prefix, native_tli)
+    with plain_lineread():
+        c_plain = compile_par(prefix, plain_tli)
+    same = native_tli.read_bytes() == plain_tli.read_bytes()
+    check(same, "lineread.compile: the native routines' TLI differs from "
+          "the plain versions'")
+    out["compile"] = {"records": compile_records, "native_s": c_native,
+                      "plain_s": c_plain,
+                      "lines": read_tli_header(str(native_tli))[
+                          "_line_layout"][1],
+                      "bytes_equal": same}
+    for f in (par, prefix, native_tli, plain_tli):
+        f.unlink()
+    return out
+
+
+def lines_in(path: Path, wn_lo: float, wn_hi: float) -> int:
+    """Lines of the TLI ``path`` with wavenumber in [wn_lo, wn_hi]: a
+    memmap binary search in each isotope's block (io.tli.bisect_mm)."""
+    data_off, nlines, isotran = read_tli_header(str(path))["_line_layout"]
+    wl_mm = np.memmap(path, dtype="<f8", mode="r", offset=data_off,
+                      shape=(nlines,))
+    lo, hi = 1.0 / (wn_hi * TLI_WAV_UNITS), 1.0 / (wn_lo * TLI_WAV_UNITS)
+    tot = start = 0
+    for cnt in isotran.astype(np.int64):
+        blk = wl_mm[start:start + cnt]
+        tot += bisect_mm(blk, hi, side="right") - bisect_mm(blk, lo)
+        start += cnt
+    return tot
+
+
+def exomol_band(path: Path, dev, card: str, nproc: int = EXOMOL_PROCS,
+                row_step: int = EXOMOL_ROW_STEP) -> dict:
+    """The multi-process band path (parallel/multihost.py) for the band of
+    the ``path`` list that holds the most lines, in this one process:
+    balanced_blocks into ``nproc`` bands, build_band_model(mode="fast",
+    bands=EXOMOL_BANDS) with its stages timed; three forward requests
+    and a gradient step with the launch counts set to 0 just before and
+    read just after (one launch per plan entry, finite spectra and
+    gradient); layer_kmax bit for bit, the band's line-tile and backward
+    launches against their plain versions on every ``row_step``-th row;
+    then make_forward() against the eager step (:func:`graph_phase`)."""
+    cfg = hotjupiter_config()
+    cfg.linedb = str(path)
+    wns, _ = make_wn_sampling(wnlow=cfg.wnlow, wnhigh=cfg.wnhigh,
+                              wndelt=cfg.wndelt, wnosamp=cfg.wnosamp,
+                              wnfct=cfg.wnfct)
+    t = time.perf_counter()
+    bounds = multihost.balanced_blocks(cfg.linedb, wns.v, nproc)
+    split_s = time.perf_counter() - t
+    per_band = [lines_in(path, float(wns.v[b0]), float(wns.v[b1 - 1]))
+                for b0, b1 in zip(bounds[:-1], bounds[1:])]
+    p = int(np.argmax(per_band))
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    with stage_times((multihost, "read_tli_band"),
+                     (fast, "make_banded_plans"),
+                     (fast, "banded_device_arrays"),
+                     (model_module, "banded_index")) as st:
+        m, block, _ = multihost.build_band_model(
+            cfg, nproc, p, mode="fast", bands=EXOMOL_BANDS,
+            dtype=torch.float32, bounds=bounds, device=dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t
+    out = {"bounds": bounds.tolist(), "lines_per_band": per_band,
+           "band": p, "block": list(block), "band_lines": m.tli.n_lines,
+           "split_s": split_s, "setup_s": setup_s, "stages_s": dict(st),
+           "plan": plan_summary(m), "row_step": row_step}
+    T0 = np.asarray(m.atm.temp, dtype=np.float64)
+    q0 = np.asarray(m.atm.q, dtype=np.float64)
+    requests = [(T0, q0), (T0 + 50.0, q0), (T0 - 50.0, q0)]
+    kernels = (line_tile_extinction, layer_kmax, shell_tile_extinction)
+    specs, out["launches"] = run_requests(m, requests, kernels)
+    check_launches(m, out["launches"], "exomol band")
+    for sp in specs:
+        check(sp.shape == (m.wns.n,) and bool(torch.isfinite(sp).all()) and
+              float(sp.min()) > 0, "exomol band: spectrum not finite and "
+              "positive")
+    reset_counts(ALL_KERNELS)
+    gT, gq = grad_step(m, *grad_leaves(m, T0, q0))
+    torch.cuda.synchronize()
+    out["launches_grad"] = read_counts(ALL_KERNELS)
+    want = sum(1 for part, *_ in backward_launches(m) if part == "lines")
+    check(out["launches_grad"]["line_tile_backward"] == want and
+          bool(torch.isfinite(gT).all()) and bool(torch.isfinite(gq).all())
+          and float(gT.abs().max()) > 0, f"exomol band: gradient step "
+          f"launches {out['launches_grad']} (line_tile_backward {want} "
+          f"asked) or its gradient not finite")
+    t = time.perf_counter()
+    out["kmax_max_abs"] = kmax_vs_plain(m, "exomol band")
+    out["vs_plain"] = banded_vs_plain(m, "exomol band", row_step=row_step)
+    out["vs_plain_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    out["backward_vs_plain"] = backward_vs_plain(
+        m, line_cotangent(m, T0, q0), "exomol band", row_step=row_step)
+    out["backward_vs_plain_s"] = time.perf_counter() - t
+    out["graph"] = graph_phase(m, requests, "exomol band")
+    out["max_memory_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    out["card"] = card
+    return out
+
+
+def plan_vs_plain(m: TransitModel, label: str) -> tuple:
+    """The exact model's plan, and lbl.plan_lines on the model's lines
+    again, against lbl.plan_lines_plain array by array (dtype and
+    values); raises on a difference.  Returns the seconds of
+    plan_lines and of plan_lines_plain."""
+    wl, isoid, elow, gf = select_lines(m.tli, m.wns.i, m.wns.f)
+    kw = dict(wn_i=m.wns.i, odwn=m.owns.d / m.owns.o,
+              dwn=m.wns.d / m.wns.o, owns_v=m.owns.v, n_coarse=m.wns.n,
+              ofactor=m.owns.o)
+    t = time.perf_counter()
+    native = lbl.plan_lines(wl, isoid, elow, gf, TLI_WAV_UNITS, **kw)
+    t1 = time.perf_counter()
+    plain = lbl.plan_lines_plain(wl, isoid, elow, gf, TLI_WAV_UNITS, **kw)
+    t2 = time.perf_counter()
+    for f in dataclasses.fields(lbl.LinePlan):
+        a, b, c = (getattr(x, f.name) for x in (m.plan, native, plain))
+        same = (np.array_equal(a, c) and np.array_equal(b, c) and
+                getattr(a, "dtype", None) == getattr(c, "dtype", None) ==
+                getattr(b, "dtype", None))
+        check(same, f"{label}: plan field {f.name} of plan_lines differs "
+              f"from plan_lines_plain")
+    return t1 - t, t2 - t1
+
+
+def exomol_exact(path: Path, dev, card: str) -> dict:
+    """Exact mode, the default entry point TransitModel(cfg), on
+    hj_ref.cfg with the ``path`` list: set-up split into the plan, the
+    profile table and the device arrays; the native plan against
+    lbl.plan_lines_plain array by array (both timed); profile_scatter
+    and its backward against their plain versions (:func:`exact_vs_plain`);
+    a forward and a gradient step with the launch counts set to 0 just
+    before and read just after; the forward and gradient ms."""
+    cfg = exact_config()
+    cfg.linedb = str(path)
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    with stage_times((lbl, "plan_lines"),
+                     (model_module, "build_profile_table"),
+                     (lbl, "device_arrays")) as st:
+        m = TransitModel(cfg, dtype=torch.float32, device=dev)
+    torch.cuda.synchronize()
+    out = {"setup_s": time.perf_counter() - t, "stages_s": dict(st),
+           "lines": m.plan.n_lines, "groups": m.plan.n_groups}
+    out["plan_native_s"], out["plan_plain_s"] = plan_vs_plain(
+        m, "exomol exact")
+    T0 = np.asarray(m.atm.temp, dtype=np.float64)
+    q0 = np.asarray(m.atm.q, dtype=np.float64)
+    t = time.perf_counter()
+    out["vs_plain"] = exact_vs_plain(m, line_cotangent(m, T0, q0),
+                                     "exomol exact")
+    out["vs_plain_s"] = time.perf_counter() - t
+    reset_counts(EXACT_KERNELS)
+    spec = m.forward(T0, q0)
+    leaves = grad_leaves(m, T0, q0)
+    gT, gq = grad_step(m, *leaves)
+    torch.cuda.synchronize()
+    out["launches"] = read_counts(EXACT_KERNELS)
+    check(spec.shape == (m.wns.n,) and bool(torch.isfinite(spec).all()) and
+          float(spec.min()) > 0 and bool(torch.isfinite(gT).all()) and
+          bool(torch.isfinite(gq).all()), "exomol exact: spectrum or "
+          "gradient not finite")
+    check(out["launches"] == {"profile_scatter": 2,
+                              "profile_scatter_backward": 1},
+          f"exomol exact: launches {out['launches']} in a forward and a "
+          f"gradient step")
+    out["vs_plain_path"] = check_spectra(m, [spec], [(T0, q0)],
+                                         "exomol exact")
+    out["forward_ms"] = cuda_ms(lambda: m.forward(T0, q0))
+    out["gradient_ms"] = cuda_ms(lambda: grad_step(m, *leaves))
+    out["max_memory_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    out["card"] = card
+    return out
+
+
+def exomol_phases(dev, card: str, seed: int) -> dict:
+    """The ExoMol-scale phases in a temporary directory, removed at the
+    end: exomol_list (EXOMOL_SPLIT copies a line), lineprep_checks,
+    exomol_band on that list, exomol_exact on the EXOMOL_EXACT_SPLIT
+    list.  Returns what the result line reads."""
+    res = {}
+    with tempfile.TemporaryDirectory(prefix="exomol_") as tmp:
+        work = Path(tmp)
+        t0 = time.perf_counter()
+        lst = exomol_list(work, EXOMOL_SPLIT, seed)
+        phase("exomol_list", t0, f"{lst['n_lines']} lines (hj.tli x "
+              f"{EXOMOL_SPLIT}, seed {seed}): generate "
+              f"{lst['generate_s']:.2f} s, native argsort "
+              f"{lst['sort_s']:.2f} s, write {lst['write_s']:.2f} s "
+              f"({lst['bytes']} bytes); peak RSS {lst['peak_rss_gib']:.2f} "
+              f"GiB (before {lst['peak_rss_gib_before']:.2f})")
+        t0 = time.perf_counter()
+        res["lineprep"] = lineprep_checks(lst.pop("lines"), work, seed)
+        phase("lineprep_checks", t0, "native bit for bit the plain "
+              "versions, on the card machine's host: " +
+              json.dumps(res["lineprep"]))
+        res["list"] = {k: v for k, v in lst.items() if k != "path"}
+        t0 = time.perf_counter()
+        res["band"] = exomol_band(lst["path"], dev, card)
+        b = res["band"]
+        phase("exomol_band", t0, f"band {b['band']} of {EXOMOL_PROCS} "
+              f"(bins {b['block']}): {b['band_lines']} lines; split "
+              f"{b['split_s']:.3f} s, set-up {b['setup_s']:.2f} s "
+              f"{json.dumps(b['stages_s'])}; launches {b['launches']}, "
+              f"gradient {b['launches_grad']}; vs plain "
+              f"{json.dumps(b['vs_plain'])} {b['vs_plain_s']:.1f} s, "
+              f"backward {json.dumps(b['backward_vs_plain'])} "
+              f"{b['backward_vs_plain_s']:.1f} s (every {b['row_step']}th "
+              f"row); {graph_text(b['graph'], card)}; max memory "
+              f"{b['max_memory_gib']:.2f} GiB; {b['plan']}")
+        lst["path"].unlink()
+        t0 = time.perf_counter()
+        ex = exomol_list(work, EXOMOL_EXACT_SPLIT, seed)
+        del ex["lines"]
+        res["exact"] = exomol_exact(ex["path"], dev, card)
+        e = res["exact"]
+        phase("exomol_exact", t0, f"{e['lines']} lines in {e['groups']} "
+              f"groups (hj.tli x {EXOMOL_EXACT_SPLIT}); list "
+              f"{ex['generate_s'] + ex['sort_s'] + ex['write_s']:.2f} s; "
+              f"set-up {e['setup_s']:.2f} s {json.dumps(e['stages_s'])}; "
+              f"plan native {e['plan_native_s']:.3f} s, plain "
+              f"{e['plan_plain_s']:.3f} s, equal; kernels vs plain "
+              f"{json.dumps(e['vs_plain'])} ({e['vs_plain_s']:.1f} s); "
+              f"launches {e['launches']}; spectrum vs plain path max_rel "
+              f"{e['vs_plain_path']:.3e}; forward {e['forward_ms']:.3f} "
+              f"ms, gradient {e['gradient_ms']:.3f} ms; max memory "
+              f"{e['max_memory_gib']:.2f} GiB ({card})")
+    return res
+
+
+def main(device: str = "cuda", profile: str | None = None,
+         seed: int = 0) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the smoke run needs one card",
               file=sys.stderr)
@@ -2991,10 +3483,24 @@ def main(device: str = "cuda", profile: str | None = None) -> int:
     so, log = _build.build(verbose=True)
     _build.load_library()
     ptxas = ptxas_summary(log)
+    t_host = time.perf_counter()
+    host_so = _build.build_host()
+    _build.load_host_library()
+    host_s = time.perf_counter() - t_host
     phase("build", t0, f"({so.relative_to(ROOT)}); backward kernels' "
-          f"ptxas: {json.dumps(ptxas)}")
+          f"ptxas: {json.dumps(ptxas)}; host preprocessing "
+          f"({host_so.relative_to(ROOT)}, {_build.cxx_path()} "
+          f"{' '.join(_build.HOST_FLAGS)}) {host_s:.2f} s")
 
-    # 3. Kernels against their plain versions at the fixture and
+    # 3. ExoMol scale, first, so that the host's peak RSS is the list's:
+    #    the native host preprocessing against its plain versions, and
+    #    the line-list path it serves on hj.tli split into 1.0e8 lines
+    #    (one band of four, fast mode) and 4.86M lines (exact mode, the
+    #    default).
+    xm = exomol_phases(dev, card, seed)
+    torch.cuda.empty_cache()
+
+    # 3b. Kernels against their plain versions at the fixture and
     #    hot-Jupiter shapes, float32.
     t0 = time.perf_counter()
     fix = TransitModel(fixture_config(), mode="fast",
@@ -3394,19 +3900,23 @@ def main(device: str = "cuda", profile: str | None = None) -> int:
     def launched(name):
         return (launches_b[name] + launches_f[name] + launches_t[name] +
                 shard_b["launches"][name] + shard_f["launches"][name] +
-                mh_launched(name))
+                mh_launched(name) + xm["band"]["launches"][name])
     by_path = {k.__name__: {"unbanded": launches_unb[k.__name__],
                             "banded": launches_b[k.__name__],
                             "banded_0.05": launches_f[k.__name__],
                             "transit": launches_t[k.__name__],
                             "sharded_main": shard_b["launches"][k.__name__],
                             "sharded_0.05": shard_f["launches"][k.__name__],
-                            "multihost_card": mh_launched(k.__name__)}
+                            "multihost_card": mh_launched(k.__name__),
+                            "exomol_band": xm["band"]["launches"][
+                                k.__name__]}
                for k in kernels}
     shard_fwd = merge_errors(merge_errors({}, shard_b["launch_vs_plain"]),
                              shard_f["launch_vs_plain"])
     shard_bwd = merge_errors(merge_errors({}, shard_b["backward_vs_plain"]),
                              shard_f["backward_vs_plain"])
+    xm_bwd = {"launch_vs_plain": xm["band"]["backward_vs_plain"]}
+    xm_fwd = xm["band"]["vs_plain"]["line_tile_extinction"]
     lt, km, sh = (times_b["line_tile_extinction"], times_b["layer_kmax"],
                   times_f["shell_tile_extinction"])
     ltb, shb = (grad_b["times"]["line_tile_backward"],
@@ -3415,10 +3925,12 @@ def main(device: str = "cuda", profile: str | None = None) -> int:
     def grad_launched(name):
         return (sum(g["launches"][name] for g in (grad_b, grad_f, grad_t)) +
                 shard_b["launches_grad"][name] +
-                shard_f["launches_grad"][name] + mh_launched(name))
+                shard_f["launches_grad"][name] + mh_launched(name) +
+                xm["band"]["launches_grad"][name])
 
     def bwd_err(name):
-        errs = [g["launch_vs_plain"][name] for g in (grad_b, grad_f, grad_t)
+        errs = [g["launch_vs_plain"][name] for g in (grad_b, grad_f, grad_t,
+                                                    xm_bwd)
                 if name in g["launch_vs_plain"]] + [shard_bwd[name]]
         return (max(e["max_abs_temps"] for e in errs),
                 {k: max(e["max_rel"][k] for e in errs) for k in GRAD_OUTPUTS})
@@ -3433,11 +3945,13 @@ def main(device: str = "cuda", profile: str | None = None) -> int:
         "max_abs_err": max(err_hj["max_abs"],
                            err_b["line_tile_extinction"]["max_abs"],
                            err_f["line_tile_extinction"]["max_abs"],
-                           shard_fwd["line_tile_extinction"]["max_abs"]),
+                           shard_fwd["line_tile_extinction"]["max_abs"],
+                           xm_fwd["max_abs"]),
         "max_rel_vs_plain": max(err_hj["max_rel"], err_fix["max_rel"],
                                 err_b["line_tile_extinction"]["max_rel"],
                                 err_f["line_tile_extinction"]["max_rel"],
-                                shard_fwd["line_tile_extinction"]["max_rel"]),
+                                shard_fwd["line_tile_extinction"]["max_rel"],
+                                xm_fwd["max_rel"]),
         "ms": lt["ms"],
         "plain_ms": lt["plain_ms"],
         "bound_ms": lt["bound_ms"],
@@ -3462,7 +3976,8 @@ def main(device: str = "cuda", profile: str | None = None) -> int:
         "launches": launched("layer_kmax"),
         "launches_by_path": by_path["layer_kmax"],
         "max_abs_err": max(kmax_err_b, kmax_err_f, shard_b["kmax_max_abs"],
-                           shard_f["kmax_max_abs"]),
+                           shard_f["kmax_max_abs"],
+                           xm["band"]["kmax_max_abs"]),
         "max_abs_err_unbanded": kmax_err,
         "launches_grid_build_fast": gr["fast"]["launches"]["layer_kmax"],
         "ms": km["ms"],
@@ -3502,7 +4017,9 @@ def main(device: str = "cuda", profile: str | None = None) -> int:
                               "transit": grad_t["per_step"][name],
                               "sharded_main": shard_b["launches_grad"][name],
                               "sharded_0.05": shard_f["launches_grad"][name],
-                              "multihost_card": mh_launched(name)},
+                              "multihost_card": mh_launched(name),
+                              "exomol_band": xm["band"]["launches_grad"][
+                                  name]},
         "max_abs_err": bwd_err(name)[0],
         "max_rel_vs_plain_by_output": bwd_err(name)[1],
         "ms": t["ms"],
@@ -3521,9 +4038,13 @@ def main(device: str = "cuda", profile: str | None = None) -> int:
         "route": "cuda",
         "source": "transit_tpu_torch/csrc/profile_scatter.cu",
         "replaces": "transit_tpu/opacities/lbl.py:245",
-        "launches": n,
-        "max_abs_err": ex["err"][f"{kind}_max_abs"],
-        "max_rel_vs_plain": ex["err"][f"{kind}_max_rel"],
+        "launches": n + xm["exact"]["launches"][name],
+        "launches_by_path": {"exact": n,
+                             "exomol_exact": xm["exact"]["launches"][name]},
+        "max_abs_err": max(ex["err"][f"{kind}_max_abs"],
+                           xm["exact"]["vs_plain"][f"{kind}_max_abs"]),
+        "max_rel_vs_plain": max(ex["err"][f"{kind}_max_rel"],
+                                xm["exact"]["vs_plain"][f"{kind}_max_rel"]),
         "ms": ex["times"][name]["ms"],
         "plain_ms": ex["times"][name]["plain_ms"],
         "bound_ms": ex["times"][name]["bound_ms"],
@@ -3588,7 +4109,16 @@ def main(device: str = "cuda", profile: str | None = None) -> int:
                     if not k.startswith("profile")},
                  "multihost_grid_vs_full": gr["multihost"]["vs_full"],
                  "cli_grid_bytes_equal": gr["cli"]["grid_bytes_equal"],
-                 "cli_grid_max_rel": gr["cli"]["grid_max_rel"]}}),
+                 "cli_grid_max_rel": gr["cli"]["grid_max_rel"]},
+        "exomol": {
+            "list": xm["list"], "lineprep": xm["lineprep"],
+            "band": {k: v for k, v in xm["band"].items()
+                     if k not in ("graph", "plan")} | {
+                "graph": {k: xm["band"]["graph"][k] for k in (
+                    "forward_ms", "eager_forward_ms", "gradient_ms",
+                    "eager_gradient_ms", "bitwise", "grad_max_rel",
+                    "replay_device_ms", "replay_kernels")}},
+            "exact": xm["exact"]}}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3602,4 +4132,8 @@ if __name__ == "__main__":
                     help="also trace forwards with torch.profiler, print "
                     "the device time by kernel and the busy share, and "
                     "write the Chrome trace to TRACE")
-    sys.exit(main(profile=ap.parse_args().profile))
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of the ExoMol-scale line lists and of the "
+                    "HITRAN file")
+    args = ap.parse_args()
+    sys.exit(main(profile=args.profile, seed=args.seed))

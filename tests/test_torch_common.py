@@ -1,7 +1,9 @@
 """Helpers shared by the port's test files (no tests here): configs,
 the file-atmosphere state of a model, the JAX model's device arrays as
-numpy, and the relative error the port's tests bound."""
+numpy, the relative error the port's tests bound, and one profile table
+per grid for a process's JAX exact models."""
 
+import contextlib
 import dataclasses
 import os
 
@@ -114,3 +116,30 @@ def banded_pair(jcfg, npdt, far_full_res=False):
                                   far_full_res=far_full_res, **kw).numpy()
     return jm, ref, got
 
+
+
+_JAX_TABLES = {}
+
+
+@contextlib.contextmanager
+def shared_jax_tables():
+    """While inside, transit_tpu's exact models take their profile table
+    from this process's cache, keyed by the table's arguments
+    (transit_tpu.opacities.voigt.build_profile_table is a function of
+    them alone; ~10 s a fixture table on one core): the port's tests that
+    build JAX exact models on one grid build its table once.  Outside,
+    JAX's models build their own, as the reference tests' do."""
+    import transit_tpu.model as jmodel
+    build = jmodel.build_profile_table
+
+    def cached(**kw):
+        key = tuple(sorted(kw.items()))
+        if key not in _JAX_TABLES:
+            _JAX_TABLES[key] = build(**kw)
+        return _JAX_TABLES[key]
+
+    jmodel.build_profile_table = cached
+    try:
+        yield
+    finally:
+        jmodel.build_profile_table = build

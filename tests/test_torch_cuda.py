@@ -1556,3 +1556,31 @@ def test_multihost_one_process_graph_matches_eager(card):
         vb, gb = eager.value_and_grad(loss, T, q)
         assert _close(va, vb) and all(_close(x, y) for x, y in zip(ga, gb))
     assert run._kmax_fn.entries and run._step._graph.entries
+
+
+@pytest.mark.cuda
+def test_exact_model_on_a_split_hot_jupiter_list(card, tmp_path):
+    """Exact mode through the default entry point, TransitModel(cfg), on
+    hj_ref.cfg with hj.tli's lines split 4 ways (0.78M lines,
+    chip_smoke.exomol_lines, seed 0, sorted by the native argsort): the
+    plan (the native co-add partition) equals lbl.plan_lines_plain array
+    by array, and the spectrum through the profile-scatter kernels the
+    plain path's within chip_smoke.SPECTRUM_REL_TOL."""
+    import chip_smoke
+    from transit_tpu_torch.lineread.compile import sort_iso_wl
+    src, lines = chip_smoke.exomol_lines(4, 0)
+    path = tmp_path / "hj_x4.tli"
+    chip_smoke.write_exomol(path, src, lines,
+                            sort_iso_wl(lines[0], lines[1]))
+    cfg = chip_smoke.exact_config()
+    cfg.linedb = str(path)
+    m = TransitModel(cfg, dtype=torch.float32, device=card)
+    assert m.mode == "exact" and m.tli.n_lines == 4 * 194349
+    chip_smoke.plan_vs_plain(m, "split hot Jupiter")
+    T0, q0 = m.atm.temp, m.atm.q
+    spec = m.forward(T0, q0)
+    m.use_kernel = False
+    want = m.forward(T0, q0)
+    assert bool(torch.isfinite(spec).all()) and float(want.min()) > 0
+    rel = float(((spec - want).abs() / want.abs()).max())
+    assert rel <= chip_smoke.SPECTRUM_REL_TOL

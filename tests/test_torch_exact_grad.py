@@ -1,18 +1,40 @@
-"""The gradient of the port's exact-mode ``forward`` in T and q against
-jax.grad of transit_tpu's exact ``forward`` (jitted), float64, on the
+"""Exact mode's gradients against transit_tpu's, float64, on the
 conformance fixture's 2000-2040 cm-1 (the JAX table builds in half the
-time of the whole fixture's): eclipse with the file's static radii,
-within 1e-9 of each gradient's max.  Transit with hydrostatic radii:
-tests/test_torch_exact_grad_transit.py."""
+time of the whole fixture's, and once for this file:
+test_torch_common.shared_jax_tables):
+
+  * the port's exact ``forward``'s gradient in T and q against jax.grad
+    of transit_tpu's exact ``forward`` (jitted), within 1e-9 of each
+    gradient's max: eclipse with the file's static radii, and transit
+    geometry with hydrostatic radii (tests/test_torch_transit_model.py's
+    HYDRO: gsurf 980, refpress 1, refradius 92000; every step rebuilds
+    the radii, the path weights and the modulation table);
+  * the port's ``make_forward`` in exact mode (the default) against
+    transit_tpu's, the port's model on JAX's profile table: rtol 1e-12
+    against the port's ``forward`` and JAX's ``make_forward()``, the
+    gradient within 1e-9 of the max (tests/test_torch_make_forward.py);
+  * the gradient of exact mode's layer function (opacities/lbl.py
+    layer_extinction: autograd through the group tables, the plain VJP
+    of the profile scatter in g_k) against jax.grad of transit_tpu's
+    lbl.layer_extinction under lax.map, fed identical state
+    (tests/test_torch_exact_layer.py): d/d(T, densities, Z) of
+    sum(w * ext), w random, within 1e-9 of each gradient's max, at the
+    file's temperatures and 200 K above."""
 
 import dataclasses
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from tests.test_conformance import make_config
+from tests.test_torch_common import shared_jax_tables
+from tests.test_torch_exact_layer import (jax_layers, layer_state,
+                                          make_pair, port_layers)
+from tests.test_torch_make_forward import make_forward_matches_jax
+from tests.test_torch_transit_model import HYDRO
 from transit_tpu.model import TransitModel as JModel
 from transit_tpu_torch.config import TransitConfig
 from transit_tpu_torch.model import TransitModel
@@ -27,7 +49,8 @@ def gradient_matches_jax(cfg):
     (cut at WNHIGH) at the file's atmosphere: max|a - b| <= 1e-9
     max|b|."""
     cfg.wnhigh = WNHIGH
-    jm = JModel(cfg)
+    with shared_jax_tables():
+        jm = JModel(cfg)
     assert jm.mode == "exact"
     ref = jax.jit(jax.grad(lambda t, q: jnp.sum(jm.forward(t, q)),
                            argnums=(0, 1)))(jnp.asarray(jm.atm.temp),
@@ -45,3 +68,45 @@ def gradient_matches_jax(cfg):
 
 def test_eclipse_gradient_matches_jax():
     gradient_matches_jax(make_config("eclipse", 1e30))
+
+
+def test_transit_hydrostatic_gradient_matches_jax():
+    cfg = make_config("transit", 1e30)
+    for k, v in HYDRO.items():
+        setattr(cfg, k, v)
+    gradient_matches_jax(cfg)
+
+
+def test_exact_make_forward_matches_forward_and_jax():
+    cfg = make_config("eclipse", 1e30)
+    cfg.wnhigh = WNHIGH
+    with shared_jax_tables():
+        tm = make_forward_matches_jax(cfg, jax_table=True)
+    assert tm.mode == "exact" and tm.plan is not None
+
+
+@pytest.fixture(scope="module")
+def pair():
+    cfg = make_config("eclipse", 1e30)
+    cfg.wnhigh = WNHIGH
+    return make_pair(cfg)
+
+
+@pytest.mark.parametrize("dT", [0.0, 200.0])
+def test_layer_gradient_matches_jax(pair, dT):
+    jm, plan, d = pair
+    fn = jax_layers(jm, 1e-8)
+    args = layer_state(jm, dT)
+    w = np.random.default_rng(11).standard_normal((jm.atm.nlayers,
+                                                   jm.wns.n))
+    ref = jax.jit(jax.grad(lambda t, dd, z: jnp.sum(fn(t, dd, z) * w),
+                           argnums=(0, 1, 2)))(
+                               *(jnp.asarray(a) for a in args[:3]))
+    leaves = [torch.tensor(a, requires_grad=True) for a in args[:3]]
+    ext = port_layers(jm, plan, d, (*leaves, *args[3:]), 1e-8)
+    got = torch.autograd.grad((ext * torch.as_tensor(w)).sum(), leaves)
+    for name, a, b in zip(("T", "densities", "Z"), got, ref):
+        b = np.asarray(b)
+        assert a.shape == b.shape and np.abs(b).max() > 0, name
+        assert (float(np.abs(a.numpy() - b).max()) <=
+                1e-9 * np.abs(b).max()), name

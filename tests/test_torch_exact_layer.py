@@ -8,9 +8,22 @@ above and below, at the file's ethresh and at one that drops more
 groups (both drop some); the Doppler-index forward fill takes each of
 its branches.  The plain
 scatter is the same whatever its chunk size.  The gradient of sum(w*ext)
-in T, the densities and Z: tests/test_torch_exact_layer_grad.py."""
+in T, the densities and Z: tests/test_torch_exact_grad.py.
+
+Here too, on the same fixture's JAX exact model (its profile table built
+once for the file: test_torch_common.shared_jax_tables), the port's
+exact opacity-grid build (opacities/grid.py build_opacity_grid: all
+(layer, temperature) cells as pseudo-layers of lbl.layer_groups(nm=...)
+and the per-molecule profile scatter) against transit_tpu's
+build_opacity_grid (tests/test_opacity_grid.py:19-44), float64, the
+port's model given JAX's profile table: within 1e-12 of the max, the C
+golden grid at that test's tolerances (rtol 5e-5, atol 1e-10 max), the
+same grid whatever the chunk of cells, and the file written.  The
+per-molecule scatter with one molecule adds what the collapsed one adds,
+bit for bit."""
 
 import dataclasses
+import os
 
 import jax
 import jax.numpy as jnp
@@ -18,13 +31,18 @@ import numpy as np
 import pytest
 import torch
 
-from tests.test_conformance import make_config
+from tests.test_conformance import GOLD, make_config
+from tests.test_opacity_grid import grid_config
+from tests.test_torch_common import port_config, shared_jax_tables
 from transit_tpu.model import TransitModel as JModel
+from transit_tpu.opacities import grid as jgrid
 from transit_tpu.opacities import lbl as jlbl
 from transit_tpu_torch.convert import exact_state_from_numpy
+from transit_tpu_torch.model import TransitModel
 from transit_tpu_torch.numerics.search import nearest_index_torch
-from transit_tpu_torch.opacities import lbl
+from transit_tpu_torch.opacities import grid, lbl
 from transit_tpu_torch.opacities.fast import _layer_widths
+from transit_tpu_torch.opacities.voigt import ProfileTable
 
 torch.set_num_threads(1)
 
@@ -50,7 +68,8 @@ def jax_layers(jm, ethresh):
 def make_pair(cfg):
     """The JAX exact model of cfg and the port's (plan, device arrays)
     made from its state."""
-    jm = JModel(cfg)
+    with shared_jax_tables():
+        jm = JModel(cfg)
     plan, _, d = exact_state_from_numpy(
         dataclasses.asdict(jm.plan), dataclasses.asdict(jm.table),
         {k: np.asarray(v) for k, v in jm.dev.items()},
@@ -142,3 +161,79 @@ def test_plain_scatter_chunks_agree(pair):
                                        grp["ilor"], s, budget=64)
     assert float(g1.abs().max()) > 0 and torch.equal(g1, g2)
     assert lbl.scatter_pairs(grp["g_k"], grp["g_idop"], grp["ilor"], s) > 0
+
+
+@pytest.fixture(scope="module")
+def grid_pair():
+    """JAX's exact fixture model and its grid; the port's model of the
+    same configuration on JAX's profile table (float64, CPU)."""
+    cfg = grid_config()
+    with shared_jax_tables():
+        jm = JModel(cfg)
+    m = TransitModel(port_config(cfg), dtype=torch.float64, device="cpu",
+                     table=ProfileTable(**dataclasses.asdict(jm.table)))
+    return jm, jgrid.build_opacity_grid(jm), m
+
+
+@pytest.fixture(scope="module")
+def built(grid_pair):
+    return grid.build_opacity_grid(grid_pair[2])
+
+
+def test_exact_build_equals_jax(grid_pair, built):
+    _, want, _ = grid_pair
+    for k in ("molID", "temp", "press", "wns"):
+        np.testing.assert_array_equal(getattr(built, k), getattr(want, k))
+    assert built.grid.shape == want.grid.shape == (20, 11, 1, 101)
+    scale = np.abs(want.grid).max()
+    assert scale > 0
+    assert np.abs(built.grid - want.grid).max() <= 1e-12 * scale
+
+
+def test_exact_build_matches_c_golden(built):
+    ref = grid.read_opacity_grid(os.path.join(GOLD, "ref_opacity_grid.bin"))
+    np.testing.assert_allclose(built.temp, ref.temp)
+    np.testing.assert_allclose(built.press, ref.press, rtol=1e-12)
+    np.testing.assert_allclose(built.wns, ref.wns, rtol=1e-12)
+    np.testing.assert_array_equal(built.molID, ref.molID)
+    np.testing.assert_allclose(built.grid, ref.grid, rtol=5e-5,
+                               atol=ref.grid.max() * 1e-10)
+
+
+@pytest.mark.parametrize("cell_batch", [1, 17])
+def test_exact_build_chunks_agree(grid_pair, built, cell_batch, tmp_path):
+    path = tmp_path / "g.bin"
+    og = grid.build_opacity_grid(grid_pair[2], str(path),
+                                 cell_batch=cell_batch)
+    np.testing.assert_array_equal(og.grid, built.grid)
+    back = grid.read_opacity_grid(str(path))
+    np.testing.assert_array_equal(back.grid, built.grid)
+    np.testing.assert_array_equal(back.molID, built.molID)
+
+
+def test_exact_build_refuses_a_fast_model(grid_pair):
+    m = TransitModel(port_config(grid_config()), mode="fast",
+                     dtype=torch.float64, device="cpu")
+    with pytest.raises(ValueError, match="exact-mode"):
+        grid.build_opacity_grid(m)
+
+
+def test_permol_scatter_with_one_molecule_is_the_collapsed_one(grid_pair):
+    """The plain per-molecule scatter with nm = 1 (every tile on row 0)
+    on the group tables of the file atmosphere equals the collapsed
+    scatter bit for bit; the tile molecules are checked."""
+    m = grid_pair[2]
+    t = m._t(m.atm.temp)
+    grp = lbl.layer_groups(m.dev, t * m.atm.tfct, m._t(m.atm.d),
+                           m.partition(t), m._molm_t, m._molrad_t,
+                           wn0=float(m.wns.v[0]), ethresh=m.cfg.ethreshold)
+    s = lbl.scatter_tables(m.plan, m.dev)
+    s1 = lbl.permol_tables(s, m.dev["line_iout"], m.dev["g_primary"], 1)
+    assert s1.nm == 1 and s1.tile_mol.dtype == torch.int32
+    args = (grp["g_k"], grp["g_idop"], grp["ilor"])
+    a = lbl.profile_scatter_plain(*args, s)
+    b = lbl.profile_scatter_plain(*args, s1)
+    assert b.shape == (a.shape[0], 1, a.shape[1]) and float(a.max()) > 0
+    assert torch.equal(a, b[:, 0])
+    with pytest.raises(ValueError, match=r"\[0, 0\)"):
+        lbl.permol_tables(s, m.dev["line_iout"], m.dev["g_primary"], 0)

@@ -2,8 +2,9 @@
 device_arrays' isotope-run starts) equal to transit_tpu's field for
 field, on the fixture line list and on the full hot-Jupiter list
 (benchmarks/data/hj: 194,349 lines of 4 isotopes on the 0.5 cm-1 x 2160
-grid; host only).  The port always takes the Python co-add loop; JAX may
-take its native partition, so the plans must agree either way."""
+grid; host only).  The port takes its native partition
+(transit_tpu_torch/_native.py), JAX its Python loop or its own native
+one, so the plans must agree either way."""
 
 import dataclasses
 

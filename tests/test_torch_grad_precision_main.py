@@ -14,13 +14,20 @@ in float64 either way.  Each is compared, as max|a-b| / max|b|:
   * both against jax.grad of the JAX model in float64 and in float32,
     chained to T and q.
 
-``python -m tests.test_torch_grad_precision_main`` prints the numbers."""
+``python -m tests.test_torch_grad_precision_main`` prints the numbers.
 
+Here too, the port's float64 gradient in T and q against jax.grad of the
+JAX model in float64 on the same slice (:func:`gradient_matches_jax`; the
+0.05 cm-1 slice in test_torch_grad_precision_fine.py): each slice's JAX
+gradient is compiled once a process (:func:`jax_gradient`)."""
+
+import functools
 import json
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from tests.test_torch_common import hotjupiter_config, port_config
@@ -55,21 +62,57 @@ def _line_cotangent(m, T, q):
 JAX_DTYPES = {"jax64": jnp.float64, "jax32": jnp.float32}
 
 
-def precision_study(wndelt: float, wnlow: float, wnhigh: float,
-                    jax_refs=tuple(JAX_DTYPES)) -> dict:
-    """The comparisons of the module docstring on one slice, against the
-    JAX gradients ``jax_refs``: {"pair32 vs pair64": {output: x},
-    "<pair> vs <jax>": {"T": x, "q": x}}."""
+def slice_config(wndelt: float, wnlow: float, wnhigh: float):
+    """The hot-Jupiter configuration on [wnlow, wnhigh] at ``wndelt``."""
     cfg = hotjupiter_config(wndelt)
     cfg.wnlow, cfg.wnhigh = wnlow, wnhigh
-    ref = {}
-    for name in jax_refs:
-        dt = JAX_DTYPES[name]
-        jm = JModel(cfg, dtype=dt, mode="fast", bands=6)
-        fn = jax.jit(jax.grad(lambda t, q: jnp.sum(jm.forward(t, q)),
-                              argnums=(0, 1)))
-        ref[name] = [np.asarray(a, np.float64) for a in fn(
-            jnp.asarray(jm.atm.temp, dt), jnp.asarray(jm.atm.q, dt))]
+    return cfg
+
+
+@functools.lru_cache(maxsize=None)
+def jax_gradient(wndelt: float, wnlow: float, wnhigh: float,
+                 name: str) -> tuple:
+    """jax.grad of sum(forward) of the JAX model (bands=6, dtype
+    JAX_DTYPES[name]) on the slice at the file's T and q, jitted: (dF/dT,
+    dF/dq) as float64 numpy, computed once a process."""
+    dt = JAX_DTYPES[name]
+    jm = JModel(slice_config(wndelt, wnlow, wnhigh), dtype=dt, mode="fast",
+                bands=6)
+    fn = jax.jit(jax.grad(lambda t, q: jnp.sum(jm.forward(t, q)),
+                          argnums=(0, 1)))
+    return tuple(np.asarray(a, np.float64) for a in fn(
+        jnp.asarray(jm.atm.temp, dt), jnp.asarray(jm.atm.q, dt)))
+
+
+def gradient_matches_jax(wndelt, wnlow, wnhigh):
+    """The port's float64 gradient against JAX's on the hot-Jupiter slice
+    [wnlow, wnhigh] at ``wndelt``: max|a-b| <= 1e-9 max|b| for dF/dT and
+    dF/dq, F = sum(forward), bands=6.  JAX's gradient, like the port's,
+    holds the wing cutoff and the ethresh cut fixed; grad_fd_study.py
+    shows how central differences across those cuts depart from it."""
+    cfg = slice_config(wndelt, wnlow, wnhigh)
+    ref = jax_gradient(wndelt, wnlow, wnhigh, "jax64")
+    m = TransitModel(port_config(cfg), mode="fast", dtype=torch.float64,
+                     device="cpu", bands=6)
+    shells = {(fp.wfn_tag, s) for far in m.bplan.far_plans if far
+              for fp, _, s in far}
+    assert shells == ({("r2", 1)} if wndelt == 0.5 else
+                      {("r2", 1), ("asym2", 2), ("asym2", 4)})
+    T = torch.tensor(m.atm.temp, requires_grad=True)
+    q = torch.tensor(m.atm.q, requires_grad=True)
+    got = torch.autograd.grad(m.forward(T, q).sum(), (T, q))
+    for a, b in zip(got, ref):
+        assert a.shape == b.shape and np.abs(b).max() > 0
+        assert float(np.abs(a.numpy() - b).max()) <= 1e-9 * np.abs(b).max()
+
+
+@functools.lru_cache(maxsize=None)
+def port_pairs(wndelt: float, wnlow: float, wnhigh: float) -> tuple:
+    """The port's side of the study on one slice, once a process: the
+    float32 model's gradient in (T, q) and the line extinction's raw VJP
+    (banded.plain_bands_vjp) with the pair in float32 and in float64,
+    ({pair: [dT, dq]}, {pair: {output: cotangent}})."""
+    cfg = slice_config(wndelt, wnlow, wnhigh)
     m = TransitModel(port_config(cfg), mode="fast",
                      dtype=torch.float32, device="cpu",
                      bands=6)
@@ -94,6 +137,17 @@ def precision_study(wndelt: float, wnlow: float, wnhigh: float,
                                                g, kw)
         finally:
             kernel_lbl.PAIR_DTYPE = saved
+    return got, raw
+
+
+def precision_study(wndelt: float, wnlow: float, wnhigh: float,
+                    jax_refs=tuple(JAX_DTYPES)) -> dict:
+    """The comparisons of the module docstring on one slice, against the
+    JAX gradients ``jax_refs``: {"pair32 vs pair64": {output: x},
+    "<pair> vs <jax>": {"T": x, "q": x}}."""
+    ref = {name: list(jax_gradient(wndelt, wnlow, wnhigh, name))
+           for name in jax_refs}
+    got, raw = port_pairs(wndelt, wnlow, wnhigh)
     out = {"pair32 vs pair64": {
         **{k: max_rel(raw["pair32"][k], raw["pair64"][k]) for k in OUTPUTS},
         "T": max_rel(got["pair32"][0], got["pair64"][0]),
@@ -134,6 +188,14 @@ def test_float32_pair_main_slice():
     res = precision_study(*MAIN)
     check_study(res)
     assert res["pair32 vs pair64"]["alphad_f"] > GRAD_LAUNCH_TOL, res
+
+
+# The 0.05 cm-1 case is in tests/test_torch_grad_precision_fine.py, beside
+# the study that shares its JAX gradient.
+@pytest.mark.parametrize("wndelt,wnlow,wnhigh", [MAIN], ids=["main"])
+def test_model_gradient_matches_jax_hot_jupiter_slice(wndelt, wnlow,
+                                                      wnhigh):
+    gradient_matches_jax(wndelt, wnlow, wnhigh)
 
 
 if __name__ == "__main__":

@@ -49,6 +49,7 @@ _MODS = [
     "transit_tpu_torch.lineread.compile as c; "
     "[c._load_reader(t, 'db', None, None) for t in ('ps', 'ts', 'vo')]",
     "transit_tpu_torch.step_graph",
+    "transit_tpu_torch._native",
     "chip_smoke",
     "grad_fd_study",
     "line_tile_ablation",

@@ -1,10 +1,11 @@
 """The port's ``TransitModel.make_forward`` against transit_tpu's
 (tests/test_fast_and_forward.py:361-375), float64 on the CPU, on the
 conformance fixture (tests/test_conformance.make_config): here fast mode
-on the unbanded plan; bands=4, exact mode, transit with hydrostatic
-radii and the batched call are in tests/test_torch_make_forward_banded.py,
-_exact.py, _transit.py and _batch.py (one JAX model a file: JAX compiles
-each model's step and its gradient, ~5-12 s).
+on the unbanded plan; bands=4, transit with hydrostatic radii and the
+batched call are in tests/test_torch_make_forward_banded.py, _transit.py
+and _batch.py (one JAX model a file: JAX compiles each model's step and
+its gradient, ~5-12 s), exact mode in tests/test_torch_exact_grad.py
+(beside the exact gradients on the same grid's JAX profile table).
 
 On a CPU model make_forward is the eager ``forward`` bound to
 ``device_tree()``: its spectrum equals the port's ``forward`` and JAX's

@@ -14,6 +14,7 @@ import sys
 
 import numpy as np
 
+from transit_tpu_torch import _native
 from transit_tpu_torch.io.tli import (TliData, TliDatabase, TliIsotope, write_tli)
 from transit_tpu_torch.lineread.base import LineBlock
 
@@ -44,7 +45,14 @@ def _load_reader(dbtype, dbfile, pffile, defn):
 
 def sort_iso_wl(isoid, wl):
     """Stable argsort by (isotope, wavelength) — the TLI line order
-    (pylineread.py:364-383)."""
+    (pylineread.py:364-383), by the native radix sort
+    (:func:`transit_tpu_torch._native.argsort_iso_wl`, compile.py:45-57):
+    :func:`sort_iso_wl_plain`'s permutation, in ~O(n)."""
+    return _native.argsort_iso_wl(isoid, wl)
+
+
+def sort_iso_wl_plain(isoid, wl):
+    """The plain version of :func:`sort_iso_wl`: numpy's lexsort."""
     return np.lexsort((wl, isoid))
 
 

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from transit_tpu_torch import _native
 from transit_tpu_torch.lineread.base import DbReader, MTC, load_isotopologues
 from transit_tpu_torch.lineread import tips
 
@@ -125,7 +126,18 @@ class HitranReader(DbReader):
 
 
 def _parse_float(rec: np.ndarray) -> np.ndarray:
-    """Parse a fixed-width ASCII float column (2-D uint8 array)."""
+    """Parse a fixed-width ASCII float column (2-D uint8 array) with the
+    native parser (:func:`transit_tpu_torch._native.parse_fixed_floats`,
+    hitran.py:127-135): C's strtod in the C locale, so a blank field is
+    0.0, where :func:`_parse_float_plain` raises."""
+    w = rec.shape[1]
+    return _native.parse_fixed_floats(np.ascontiguousarray(rec).tobytes(), w,
+                                      0, w, rec.shape[0])
+
+
+def _parse_float_plain(rec: np.ndarray) -> np.ndarray:
+    """The plain version of :func:`_parse_float`: Python's float() of
+    each field (an empty field 0; a blank one raises ValueError)."""
     s = rec.tobytes().decode("ascii")
     w = rec.shape[1]
     return np.array([float(s[i * w:(i + 1) * w] or 0)

@@ -11,6 +11,12 @@ rebuilt and an unchanged one is loaded as it is.
 Not compiled with ``--use_fast_math``: the kernels' ``expf``/``cosf``
 must stay accurate to ~1 ulp, or lines near the ethresh cut flip between
 the kernel and its plain version.
+
+The host preprocessing (``csrc/lineprep.cpp``, see
+``transit_tpu_torch._native``) is built apart from them, with the host
+C++ compiler (``$CXX``, else ``c++``), into its own library in the same
+directory, keyed by a hash of its source and flags: it needs no CUDA
+toolkit and runs on every device.
 """
 
 from __future__ import annotations
@@ -45,6 +51,20 @@ SIGNATURES = {
     "layer_kmax": [_P] * 7 + [_I] * 3 + [_F] + [_P],
     "profile_scatter": [_P] * 13 + [_I] * 8 + [_P],
     "profile_scatter_backward": [_P] * 12 + [_I] * 7 + [_P],
+}
+
+
+HOST_SOURCE = CSRC / "lineprep.cpp"
+HOST_FLAGS = ["-O3", "-std=c++17", "-fPIC", "-shared"]
+_I64 = ctypes.c_int64
+_D = ctypes.c_double
+# The host library's extern "C" entry points: name -> (argument types,
+# return type).
+HOST_SIGNATURES = {
+    "group_partition": ([_P, _P, _I64, _P, _I64] + [_D] * 4 + [_P] * 5,
+                        _I64),
+    "argsort_iso_wl": ([_P, _P, _I64, _P], _I),
+    "parse_fixed_floats": ([_P] + [_I64] * 5 + [_P], _I),
 }
 
 
@@ -123,4 +143,53 @@ def load_library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
+    return lib
+
+
+def cxx_path() -> str:
+    """The host C++ compiler: ``$CXX``, else ``c++`` on PATH."""
+    cxx = os.environ.get("CXX") or "c++"
+    path = shutil.which(cxx)
+    if path is None:
+        raise RuntimeError(f"host C++ compiler {cxx!r} not found: the line "
+                           "preprocessing library is built with it (set CXX)")
+    return path
+
+
+def host_library_path() -> Path:
+    """Where the host library built from the current source lives."""
+    h = hashlib.sha256(" ".join(HOST_FLAGS).encode())
+    h.update(HOST_SOURCE.read_bytes())
+    return BUILD_DIR / f"libtransit_lineprep_{h.hexdigest()[:16]}.so"
+
+
+def build_host() -> Path:
+    """Compile ``csrc/lineprep.cpp`` with the host C++ compiler unless the
+    keyed library exists; returns its path.  A failed build raises with
+    the compiler's output."""
+    so = host_library_path()
+    if so.exists():
+        return so
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cmd = [cxx_path(), *HOST_FLAGS]
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        tmp = os.path.join(tmpdir, "lib.so")
+        cmd += ["-o", tmp, str(HOST_SOURCE)]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"host C++ build failed ({res.returncode}):\n"
+                               f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
+        os.replace(tmp, so)      # atomic, as the CUDA library
+    return so
+
+
+@functools.cache
+def load_host_library() -> ctypes.CDLL:
+    """Build the host library if needed, load it, and declare its entry
+    points' C types."""
+    lib = ctypes.CDLL(str(build_host()))
+    for name, (argtypes, restype) in HOST_SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = restype
     return lib

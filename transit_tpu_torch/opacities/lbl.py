@@ -35,6 +35,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from transit_tpu_torch import _native
 from transit_tpu_torch.constants import EXPCTE, SIGCTE
 from transit_tpu_torch.numerics.search import nearest_index_torch
 from transit_tpu_torch.opacities.fast import _layer_widths
@@ -90,29 +91,24 @@ class LinePlan:
         return self.g_primary.shape[0]
 
 
-def plan_lines(wl: np.ndarray, isoid: np.ndarray, elow: np.ndarray,
-               gf: np.ndarray, wfct: float,
-               wn_i: float, odwn: float, dwn: float,
-               owns_v: np.ndarray, n_coarse: int, ofactor: int) -> LinePlan:
-    """Build the line plan (lbl.py:62), the scalar loop of computemolext's
-    pass 2 (extinction.c:430-462) for group formation:
+def group_partition_plain(wavn, isoid, owns_v, wn_i: float, odwn: float,
+                          dwn: float, wn_top: float):
+    """The co-add group partition of the sorted lines, the scalar loop of
+    computemolext's pass 2 (extinction.c:430-462) on Python floats (IEEE
+    doubles, the same arithmetic as numpy's float64 scalars):
 
       - primary line: first unconsumed line; skipped if out of
         [wns.i, owns[-1]] (still forms a singleton group).
       - consume following lines of the same isotope while their wavenumber
         is within odwn of the primary's grid point owns[iown].
 
-    The loop runs on Python floats (IEEE doubles, the same arithmetic as
-    numpy's float64 scalars)."""
-    wl = np.asarray(wl, dtype=np.float64)
-    wavn = 1.0 / (wl * wfct)
-    isoid = np.asarray(isoid, dtype=np.int32)
-    n = wavn.shape[0]
+    Returns (gid int32 (n,), primary int32 (ng,), inrange bool (ng,),
+    iown int64 (ng,), idwn int64 (ng,)).  The plain version of
+    :func:`transit_tpu_torch._native.group_partition`."""
+    n = len(wavn)
     onwn = owns_v.shape[0]
-    wn_top = float(owns_v[-1])
-    wv = wavn.tolist()
-    iso = isoid.tolist()
-
+    wv = np.asarray(wavn, dtype=np.float64).tolist()
+    iso = np.asarray(isoid, dtype=np.int32).tolist()
     gid = np.zeros(n, dtype=np.int32)
     g_primary, g_inrange, g_iown, g_idwn = [], [], [], []
     i = 0
@@ -140,18 +136,52 @@ def plan_lines(wl: np.ndarray, isoid: np.ndarray, elow: np.ndarray,
         g_iown.append(iown)
         g_idwn.append(int((w - wn_i) / dwn))
         i = j
+    return (gid, np.asarray(g_primary, dtype=np.int32),
+            np.asarray(g_inrange, dtype=bool),
+            np.asarray(g_iown, dtype=np.int64),
+            np.asarray(g_idwn, dtype=np.int64))
 
+
+def _plan(partition, wl, isoid, elow, gf, wfct: float, wn_i: float,
+          odwn: float, dwn: float, owns_v, n_coarse: int,
+          ofactor: int) -> LinePlan:
+    """The line plan with the co-add groups of ``partition``."""
+    wl = np.asarray(wl, dtype=np.float64)
+    wavn = 1.0 / (wl * wfct)
+    isoid = np.asarray(isoid, dtype=np.int32)
+    wn_top = float(owns_v[-1])
+    gid, g_primary, g_inrange, g_iown, g_idwn = partition(
+        wavn, isoid, owns_v, wn_i, odwn, dwn, wn_top)
     return LinePlan(
         wavn=wavn, isoid=isoid,
         elow=np.asarray(elow, dtype=np.float64),
         gf=np.asarray(gf, dtype=np.float64),
         gid=gid,
         inrange=(wavn >= wn_i) & (wavn <= wn_top),
-        g_primary=np.asarray(g_primary, dtype=np.int32),
-        g_inrange=np.asarray(g_inrange, dtype=bool),
-        g_iown=np.asarray(g_iown, dtype=np.int64),
-        g_idwn=np.asarray(g_idwn, dtype=np.int64),
-        n_coarse=n_coarse, ofactor=ofactor)
+        g_primary=g_primary, g_inrange=g_inrange, g_iown=g_iown,
+        g_idwn=g_idwn, n_coarse=n_coarse, ofactor=ofactor)
+
+
+def plan_lines(wl: np.ndarray, isoid: np.ndarray, elow: np.ndarray,
+               gf: np.ndarray, wfct: float,
+               wn_i: float, odwn: float, dwn: float,
+               owns_v: np.ndarray, n_coarse: int, ofactor: int) -> LinePlan:
+    """Build the line plan (lbl.py:62); the co-add groups come from the
+    native partition (:func:`transit_tpu_torch._native.group_partition`,
+    lbl.py:80-98), bit for bit :func:`plan_lines_plain`'s."""
+    return _plan(_native.group_partition, wl, isoid, elow, gf, wfct, wn_i,
+                 odwn, dwn, owns_v, n_coarse, ofactor)
+
+
+def plan_lines_plain(wl: np.ndarray, isoid: np.ndarray, elow: np.ndarray,
+                     gf: np.ndarray, wfct: float,
+                     wn_i: float, odwn: float, dwn: float,
+                     owns_v: np.ndarray, n_coarse: int,
+                     ofactor: int) -> LinePlan:
+    """:func:`plan_lines` with the Python loop
+    (:func:`group_partition_plain`): its plain version."""
+    return _plan(group_partition_plain, wl, isoid, elow, gf, wfct, wn_i,
+                 odwn, dwn, owns_v, n_coarse, ofactor)
 
 
 def _run_starts(g_iso) -> np.ndarray:
