@@ -153,10 +153,16 @@ line-tile launches and the backward launches against their plain
 versions (on every EXOMOL_ROW_STEP-th row of a launch) and runs its
 make_forward() step against the eager one; ``exomol_exact`` builds
 exact mode through TransitModel(cfg) on the EXOMOL_EXACT_SPLIT list
-(4.86M lines): the plan against lbl.plan_lines_plain array by array,
-the profile-scatter kernels against their plain versions, the spectrum
-against the plain path, a forward and a gradient step counted and
-timed.
+(4.86M lines, 8 chunks of layers, lbl.chunk_rows): the plan against
+lbl.plan_lines_plain array by array, the profile-scatter kernels
+against their plain versions, the spectrum against the plain path, a
+forward and a gradient step counted (one launch each a chunk) and
+timed, then its make_forward() step against the eager one;
+``exomol_exact_large`` does the same on the EXOMOL_LARGE_SPLIT list
+(20,017,947 lines, 34 chunks of 3 layers), its kernels against their
+plain versions on every EXOMOL_ROW_STEP-th layer, without the plan's
+plain loop, the plain path and the graphs.  Both give each stage's peak
+device memory counted from 0.
 Every phase prints one line with its seconds; any failed check raises,
 so the script exits non-zero and prints no result.
 
@@ -228,7 +234,7 @@ from transit_tpu_torch.retrieval import (batched_value_and_grad,
 from transit_tpu_torch.rt.geometry import radpress_torch
 from transit_tpu_torch.rt.transmission import modulation
 
-from exact_profile import PORT_KERNELS, profile_step
+from exact_profile import PORT_KERNELS, profile_step, stage
 
 ROOT = Path(__file__).resolve().parent
 FIX = ROOT / "tests" / "fixtures"
@@ -1779,15 +1785,22 @@ def exact_table(cfg: TransitConfig, device):
         lmax=cfg.lmax, device=device)
 
 
-def exact_groups(m: TransitModel, T=None):
+def exact_groups(m: TransitModel, T=None, rows=slice(None)):
     """lbl.layer_groups of the exact model's forward at the temperatures
-    T (numpy; default the file's) and the file's abundances, and its
-    ScatterTables."""
+    T (numpy; default the file's) and the file's abundances, on the
+    layers ``rows`` (an index; default all), and its ScatterTables."""
     Tt, qt, dens = m._profiles(m.atm.temp if T is None else T, m.atm.q)
-    grp = layer_groups(m.dev, Tt * m.atm.tfct, dens, m.partition(Tt),
-                       m._molm_t, m._molrad_t, wn0=float(m.wns.v[0]),
-                       ethresh=m.cfg.ethreshold)
+    grp = layer_groups(m.dev, (Tt * m.atm.tfct)[rows], dens[:, rows],
+                       m.partition(Tt)[:, rows], m._molm_t, m._molrad_t,
+                       wn0=float(m.wns.v[0]), ethresh=m.cfg.ethreshold)
     return grp, scatter_tables(m.plan, m.dev)
+
+
+def exact_chunks(m: TransitModel) -> int:
+    """The chunks of layers exact mode's line extinction takes on the
+    model's device (lbl.chunk_rows)."""
+    return len(lbl.row_slices(m.atm.nlayers, lbl.chunk_rows(
+        m.plan, m.device, m.wns.n)))
 
 
 def synthetic_scatter(device, nl: int = SYN_SHAPE[0], seed: int = 7,
@@ -1882,9 +1895,11 @@ def scatter_vs_plain(g_k, keep, g_idop, ilor, s, ct, label: str) -> dict:
             "widest_span": int(spans.max())}
 
 
-def exact_vs_plain(m: TransitModel, g, label: str) -> dict:
+def exact_vs_plain(m: TransitModel, g, label: str, row_step: int = 1) -> dict:
     """:func:`scatter_vs_plain` at the file's temperatures and 50 K
-    above and below, on the main path's cotangent ``g``, and on
+    above and below, on the main path's cotangent ``g``, on every
+    ``row_step``-th layer, in the model's chunks of layers (one launch
+    each; the pairs and tiles summed over them), and on
     :func:`synthetic_scatter` (a seeded cotangent), whose wide tiles
     take the kernels' global-memory path (checked: some tile spans more
     than the shared segment)."""
@@ -1905,15 +1920,33 @@ def exact_vs_plain(m: TransitModel, g, label: str) -> dict:
             check(r["tiles_wider"] > 0 and r["tiles_in_segment"] > 0,
                   f"{label} {name}: tiles {r}: not both paths")
         else:
-            grp, s = exact_groups(m, t)
-            r = scatter_vs_plain(grp["g_k"], grp["keep"], grp["g_idop"],
-                                 grp["ilor"], s, g, f"{label} {name}")
+            r = chunks_vs_plain(m, t, g, f"{label} {name}", row_step)
         for k in ("fwd_max_rel", "fwd_max_abs", "fwd_max_rel_vs_plain32",
                   "plain32_max_rel", "bwd_max_rel", "bwd_max_abs"):
             res[k] = max(res[k], r[k])
         res["pairs"][name] = r["pairs"]
         res["tiles"][name] = {k: r[k] for k in (
             "tiles_in_segment", "tiles_wider", "widest_span")}
+    return res
+
+
+def chunks_vs_plain(m: TransitModel, T, g, label: str, row_step: int) -> dict:
+    """:func:`scatter_vs_plain` at the temperatures T on the layers
+    0, row_step, ... in the model's chunk size: the errors' max, the
+    pairs and tiles summed, the widest span's max."""
+    rows = np.arange(0, m.atm.nlayers, row_step)
+    size = lbl.chunk_rows(m.plan, m.device, m.wns.n)
+    res = {}
+    for sl in lbl.row_slices(rows.shape[0], size):
+        idx = torch.as_tensor(rows[sl], device=m.device)
+        grp, s = exact_groups(m, T, idx)
+        r = scatter_vs_plain(grp["g_k"], grp["keep"], grp["g_idop"],
+                             grp["ilor"], s, g[idx].contiguous(), label)
+        del grp
+        for k, v in r.items():
+            summed = k in ("pairs", "tiles_in_segment", "tiles_wider")
+            res[k] = v if k not in res else (res[k] + v if summed else
+                                             max(res[k], v))
     return res
 
 
@@ -3023,6 +3056,8 @@ def multihost_card(m: TransitModel, T0, q0) -> dict:
 # hj.tli's lines split into copies.
 EXOMOL_SPLIT = 515             # copies a line: 1.0e8 lines
 EXOMOL_EXACT_SPLIT = 25        # 4.86M lines, benchmarks/data/hj5m's count
+EXOMOL_LARGE_SPLIT = 103       # 20,017,947 lines: exact mode in chunks
+XM_EXACT = ("exact", "exact_large")   # the exact phases' keys
 EXOMOL_PROCS = 4               # bands of balanced_blocks
 EXOMOL_BANDS = 6               # layer bands of the band's plan
 # The band's launches are held against their plain versions on every
@@ -3351,54 +3386,92 @@ def plan_vs_plain(m: TransitModel, label: str) -> tuple:
     return t1 - t, t2 - t1
 
 
-def exomol_exact(path: Path, dev, card: str) -> dict:
+def exomol_exact(path: Path, dev, card: str, large: bool = False,
+                 row_step: int = 1) -> dict:
     """Exact mode, the default entry point TransitModel(cfg), on
-    hj_ref.cfg with the ``path`` list: set-up split into the plan, the
-    profile table and the device arrays; the native plan against
-    lbl.plan_lines_plain array by array (both timed); profile_scatter
-    and its backward against their plain versions (:func:`exact_vs_plain`);
-    a forward and a gradient step with the launch counts set to 0 just
-    before and read just after; the forward and gradient ms."""
+    hj_ref.cfg with the ``path`` list, its layers in several chunks
+    (checked): set-up split into the plan, the profile table and the
+    device arrays; a forward and a gradient step with the launch counts
+    set to 0 just before and read just after (one launch each a chunk);
+    profile_scatter and its backward against their plain versions
+    (:func:`exact_vs_plain` on every ``row_step``-th layer); the forward
+    and gradient ms; each stage's peak device memory counted from 0
+    (exact_profile.stage).  Unless ``large``: the native plan against
+    lbl.plan_lines_plain array by array (both timed), the spectrum
+    against the plain path and the make_forward() step against the
+    eager one (:func:`graph_phase`)."""
+    label = "exomol exact large" if large else "exomol exact"
     cfg = exact_config()
     cfg.linedb = str(path)
-    torch.cuda.reset_peak_memory_stats()
-    t = time.perf_counter()
+    peak, secs = {}, {}
+
+    def run(name, fn):
+        res, peak[name], secs[name] = stage(fn)
+        return res
+
     with stage_times((lbl, "plan_lines"),
                      (model_module, "build_profile_table"),
                      (lbl, "device_arrays")) as st:
-        m = TransitModel(cfg, dtype=torch.float32, device=dev)
-    torch.cuda.synchronize()
-    out = {"setup_s": time.perf_counter() - t, "stages_s": dict(st),
-           "lines": m.plan.n_lines, "groups": m.plan.n_groups}
-    out["plan_native_s"], out["plan_plain_s"] = plan_vs_plain(
-        m, "exomol exact")
+        m = run("setup", lambda: TransitModel(cfg, dtype=torch.float32,
+                                              device=dev))
+    chunks = exact_chunks(m)
+    out = {"setup_s": secs["setup"], "stages_s": dict(st),
+           "lines": m.plan.n_lines, "groups": m.plan.n_groups,
+           "chunks": chunks, "chunk_layers": lbl.chunk_rows(
+               m.plan, m.device, m.wns.n), "row_step": row_step}
+    check(chunks > 1, f"{label}: the layers fit one chunk")
+    if not large:
+        out["plan_native_s"], out["plan_plain_s"] = plan_vs_plain(m, label)
     T0 = np.asarray(m.atm.temp, dtype=np.float64)
     q0 = np.asarray(m.atm.q, dtype=np.float64)
-    t = time.perf_counter()
-    out["vs_plain"] = exact_vs_plain(m, line_cotangent(m, T0, q0),
-                                     "exomol exact")
-    out["vs_plain_s"] = time.perf_counter() - t
-    reset_counts(EXACT_KERNELS)
-    spec = m.forward(T0, q0)
     leaves = grad_leaves(m, T0, q0)
-    gT, gq = grad_step(m, *leaves)
-    torch.cuda.synchronize()
+    reset_counts(EXACT_KERNELS)
+    spec = run("forward", nograd(lambda: m.forward(T0, q0)))
+    gT, gq = run("gradient", lambda: grad_step(m, *leaves))
     out["launches"] = read_counts(EXACT_KERNELS)
     check(spec.shape == (m.wns.n,) and bool(torch.isfinite(spec).all()) and
           float(spec.min()) > 0 and bool(torch.isfinite(gT).all()) and
-          bool(torch.isfinite(gq).all()), "exomol exact: spectrum or "
-          "gradient not finite")
-    check(out["launches"] == {"profile_scatter": 2,
-                              "profile_scatter_backward": 1},
-          f"exomol exact: launches {out['launches']} in a forward and a "
-          f"gradient step")
-    out["vs_plain_path"] = check_spectra(m, [spec], [(T0, q0)],
-                                         "exomol exact")
+          bool(torch.isfinite(gq).all()) and float(gT.abs().max()) > 0,
+          f"{label}: spectrum or gradient not finite")
+    check(out["launches"] == {"profile_scatter": 2 * chunks,
+                              "profile_scatter_backward": chunks},
+          f"{label}: launches {out['launches']} in a forward and a "
+          f"gradient step over {chunks} chunks")
+    out["vs_plain"] = run("exact_vs_plain", lambda: exact_vs_plain(
+        m, line_cotangent(m, T0, q0), label, row_step))
+    if not large:
+        out["vs_plain_path"] = run("plain_path", lambda: check_spectra(
+            m, [spec], [(T0, q0)], label))
     out["forward_ms"] = cuda_ms(lambda: m.forward(T0, q0))
     out["gradient_ms"] = cuda_ms(lambda: grad_step(m, *leaves))
-    out["max_memory_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    if not large:
+        requests = [(T0, q0), (T0 + 50.0, q0), (T0 - 50.0, q0)]
+        out["graph"] = run("graph", lambda: graph_phase(
+            m, requests, label, atomics=True))
+    out["peak_gib"], out["stage_s"] = peak, secs
+    out["max_memory_gib"] = max(peak.values())
     out["card"] = card
     return out
+
+
+def exact_text(e: dict, card: str) -> str:
+    """The exomol_exact phases' line."""
+    plan = ("" if "plan_plain_s" not in e else
+            f"plan native {e['plan_native_s']:.3f} s, plain "
+            f"{e['plan_plain_s']:.3f} s, equal; ")
+    path = ("" if "vs_plain_path" not in e else
+            f"spectrum vs plain path max_rel {e['vs_plain_path']:.3e}; ")
+    graph = ("" if "graph" not in e else
+             graph_text(e["graph"], card) + "; ")
+    return (f"{e['lines']} lines in {e['groups']} groups, {e['chunks']} "
+            f"chunks of {e['chunk_layers']} layers; set-up "
+            f"{e['setup_s']:.2f} s {json.dumps(e['stages_s'])}; {plan}"
+            f"launches {e['launches']}; kernels vs plain (layers 0, "
+            f"{e['row_step']}, ...) {json.dumps(e['vs_plain'])}; {path}"
+            f"forward {e['forward_ms']:.3f} ms, gradient "
+            f"{e['gradient_ms']:.3f} ms; {graph}peak device memory GiB by "
+            f"stage {json.dumps(e['peak_gib'])}, seconds "
+            f"{json.dumps(e['stage_s'])} ({card})")
 
 
 def exomol_phases(dev, card: str, seed: int) -> dict:
@@ -3437,22 +3510,19 @@ def exomol_phases(dev, card: str, seed: int) -> dict:
               f"row); {graph_text(b['graph'], card)}; max memory "
               f"{b['max_memory_gib']:.2f} GiB; {b['plan']}")
         lst["path"].unlink()
-        t0 = time.perf_counter()
-        ex = exomol_list(work, EXOMOL_EXACT_SPLIT, seed)
-        del ex["lines"]
-        res["exact"] = exomol_exact(ex["path"], dev, card)
-        e = res["exact"]
-        phase("exomol_exact", t0, f"{e['lines']} lines in {e['groups']} "
-              f"groups (hj.tli x {EXOMOL_EXACT_SPLIT}); list "
-              f"{ex['generate_s'] + ex['sort_s'] + ex['write_s']:.2f} s; "
-              f"set-up {e['setup_s']:.2f} s {json.dumps(e['stages_s'])}; "
-              f"plan native {e['plan_native_s']:.3f} s, plain "
-              f"{e['plan_plain_s']:.3f} s, equal; kernels vs plain "
-              f"{json.dumps(e['vs_plain'])} ({e['vs_plain_s']:.1f} s); "
-              f"launches {e['launches']}; spectrum vs plain path max_rel "
-              f"{e['vs_plain_path']:.3e}; forward {e['forward_ms']:.3f} "
-              f"ms, gradient {e['gradient_ms']:.3f} ms; max memory "
-              f"{e['max_memory_gib']:.2f} GiB ({card})")
+        for key, k, large in (("exact", EXOMOL_EXACT_SPLIT, False),
+                              ("exact_large", EXOMOL_LARGE_SPLIT, True)):
+            t0 = time.perf_counter()
+            ex = exomol_list(work, k, seed)
+            del ex["lines"]
+            res[key] = exomol_exact(ex["path"], dev, card, large=large,
+                                    row_step=EXOMOL_ROW_STEP if large else 1)
+            ex["path"].unlink()
+            gc.collect()
+            torch.cuda.empty_cache()
+            phase(f"exomol_{key}", t0, f"hj.tli x {k}; list "
+                  f"{ex['generate_s'] + ex['sort_s'] + ex['write_s']:.2f}"
+                  f" s; " + exact_text(res[key], card))
     return res
 
 
@@ -4038,13 +4108,13 @@ def main(device: str = "cuda", profile: str | None = None,
         "route": "cuda",
         "source": "transit_tpu_torch/csrc/profile_scatter.cu",
         "replaces": "transit_tpu/opacities/lbl.py:245",
-        "launches": n + xm["exact"]["launches"][name],
-        "launches_by_path": {"exact": n,
-                             "exomol_exact": xm["exact"]["launches"][name]},
-        "max_abs_err": max(ex["err"][f"{kind}_max_abs"],
-                           xm["exact"]["vs_plain"][f"{kind}_max_abs"]),
-        "max_rel_vs_plain": max(ex["err"][f"{kind}_max_rel"],
-                                xm["exact"]["vs_plain"][f"{kind}_max_rel"]),
+        "launches": n + sum(xm[p]["launches"][name] for p in XM_EXACT),
+        "launches_by_path": {"exact": n, **{
+            f"exomol_{p}": xm[p]["launches"][name] for p in XM_EXACT}},
+        "max_abs_err": max(ex["err"][f"{kind}_max_abs"], *(
+            xm[p]["vs_plain"][f"{kind}_max_abs"] for p in XM_EXACT)),
+        "max_rel_vs_plain": max(ex["err"][f"{kind}_max_rel"], *(
+            xm[p]["vs_plain"][f"{kind}_max_rel"] for p in XM_EXACT)),
         "ms": ex["times"][name]["ms"],
         "plain_ms": ex["times"][name]["plain_ms"],
         "bound_ms": ex["times"][name]["bound_ms"],
@@ -4118,7 +4188,13 @@ def main(device: str = "cuda", profile: str | None = None,
                     "forward_ms", "eager_forward_ms", "gradient_ms",
                     "eager_gradient_ms", "bitwise", "grad_max_rel",
                     "replay_device_ms", "replay_kernels")}},
-            "exact": xm["exact"]}}),
+            **{p: {k: v for k, v in xm[p].items() if k != "graph"} | (
+                {"graph": {k: xm[p]["graph"][k] for k in (
+                    "forward_ms", "eager_forward_ms", "gradient_ms",
+                    "eager_gradient_ms", "bitwise", "max_rel",
+                    "grad_max_rel", "replay_device_ms", "replay_kernels",
+                    "capture_mib")}} if "graph" in xm[p] else {})
+               for p in XM_EXACT}}}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

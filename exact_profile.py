@@ -1,6 +1,7 @@
 """Profile exact mode's step on one NVIDIA GPU.
 
     python3 exact_profile.py [--root DIR] [--trace chiprun_out/exact.json]
+    python3 exact_profile.py [--root DIR] --exomol K [--seed N]
 
 Builds the kernels of the checkout at DIR (default: this one), sets up
 its exact model on benchmarks/data/hj/hj_ref.cfg (as ``chip_smoke.py``'s
@@ -14,6 +15,16 @@ measures, with this file's :func:`profile_step` whatever the checkout:
     ms per step, the busy share (device ms over the events' ms), device
     kernels per step, the port's kernels' device ms and the top device
     operations.
+
+With ``--exomol K`` it measures exact mode on hj.tli's lines split K
+ways instead (the checkout's ``chip_smoke.exomol_list``; K = 25 gives
+4,858,725 lines), each stage with the device's peak memory counted from
+0 (:func:`stage`): the set-up (``TransitModel(cfg)`` on hj_ref.cfg), a
+forward without gradient, a gradient step, the kernels against their
+plain versions (the checkout's ``exact_vs_plain``) and the spectrum
+against the plain path (``check_spectra``); then the forward and the
+gradient step (CUDA events, median of 5) and a :func:`profile_step`
+pass of each.
 
 It prints the card's name and power limit, then one JSON line.  Two
 checkouts compare by running this for each in turns on the same card
@@ -29,6 +40,8 @@ import argparse
 import json
 import subprocess
 import sys
+import tempfile
+import time
 from pathlib import Path
 
 RUNS = 5
@@ -94,7 +107,65 @@ def profile_step(step, ms_step: float, trace: str | None,
     return res
 
 
-def main(root: Path, trace: str | None) -> int:
+def stage(fn) -> tuple:
+    """fn() with the device's peak memory counted from 0: (its result,
+    the peak allocated GiB while it ran, its seconds)."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (out, torch.cuda.max_memory_allocated() / 2 ** 30,
+            time.perf_counter() - t)
+
+
+def exomol_stages(cs, dev, k: int, seed: int) -> dict:
+    """Exact mode on hj.tli split ``k`` ways through the checkout's
+    chip_smoke helpers (``cs``): each stage's peak GiB and seconds, the
+    kernels' and the plain path's distances, forward and gradient ms."""
+    import numpy as np
+    import torch
+
+    res = {"split": k, "peak_gib": {}, "s": {}}
+
+    def run(name, fn):
+        out, res["peak_gib"][name], res["s"][name] = stage(fn)
+        return out
+
+    with tempfile.TemporaryDirectory(prefix="exomol_") as tmp:
+        lst = cs.exomol_list(Path(tmp), k, seed)
+        del lst["lines"]
+        cfg = cs.exact_config()
+        cfg.linedb = str(lst["path"])
+        m = run("setup", lambda: cs.TransitModel(cfg, dtype=torch.float32,
+                                                 device=dev))
+    res["lines"], res["groups"] = m.plan.n_lines, m.plan.n_groups
+    T0 = np.asarray(m.atm.temp, dtype=np.float64)
+    q0 = np.asarray(m.atm.q, dtype=np.float64)
+    with torch.no_grad():
+        spec = run("forward", lambda: m.forward(T0, q0))
+    leaves = cs.grad_leaves(m, T0, q0)
+    run("gradient", lambda: cs.grad_step(m, *leaves))
+    res["vs_plain"] = run("exact_vs_plain", lambda: cs.exact_vs_plain(
+        m, cs.line_cotangent(m, T0, q0), "exomol exact"))
+    with torch.no_grad():
+        res["vs_plain_path"] = run("plain_path", lambda: cs.check_spectra(
+            m, [spec], [(T0, q0)], "exomol exact"))
+    fwd = cs.nograd(lambda: m.forward(T0, q0))
+    res["forward_ms"] = cs.cuda_ms(fwd)
+    res["gradient_ms"] = cs.cuda_ms(lambda: cs.grad_step(m, *leaves))
+    res["profile_forward"] = profile_step(fwd, res["forward_ms"], None,
+                                          f"exomol {k} forward")
+    res["profile_grad"] = profile_step(
+        lambda: cs.grad_step(m, *leaves), res["gradient_ms"], None,
+        f"exomol {k} grad")
+    return res
+
+
+def main(root: Path, trace: str | None, exomol: int | None = None,
+         seed: int = 0) -> int:
     sys.path.insert(0, str(root))
     import torch
 
@@ -114,6 +185,12 @@ def main(root: Path, trace: str | None) -> int:
     print(card, flush=True)
     cs._build.build()
     dev = torch.device("cuda")
+    if exomol is not None:
+        cs._build.build_host()
+        res = {"root": str(root), "card": card,
+               **exomol_stages(cs, dev, exomol, seed)}
+        print(json.dumps(res), flush=True)
+        return 0
     cfg = cs.exact_config()
     m = cs.TransitModel(cfg, dtype=torch.float32, device=dev,
                         table=cs.exact_table(cfg, dev))
@@ -151,5 +228,10 @@ if __name__ == "__main__":
                     help="the checkout to measure (default: this one)")
     ap.add_argument("--trace", default=None,
                     help="write the Chrome traces beside this path")
+    ap.add_argument("--exomol", type=int, default=None, metavar="K",
+                    help="measure each stage's peak device memory on "
+                    "hj.tli's lines split K ways instead")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of the --exomol line list")
     args = ap.parse_args()
-    sys.exit(main(args.root.resolve(), args.trace))
+    sys.exit(main(args.root.resolve(), args.trace, args.exomol, args.seed))

@@ -1103,6 +1103,51 @@ def test_exact_vmap_forward_on_card(card):
             want.abs().max())
 
 
+def _chunk_budget(monkeypatch, m, rows):
+    """Exact mode's layers in chunks of ``rows`` on the card
+    (lbl.GROUP_ROW_ENTRIES lowered for the test)."""
+    from transit_tpu_torch.opacities import lbl
+    monkeypatch.setitem(lbl.GROUP_ROW_ENTRIES, "cuda",
+                        rows * max(m.plan.n_lines, m.plan.n_groups))
+    assert lbl.chunk_rows(m.plan, m.device, m.wns.n) == rows
+
+
+@pytest.mark.cuda
+def test_exact_chunks_on_card(card, monkeypatch):
+    """The fixture's 20 layers in chunks of 7 on the card
+    (kernel_profile.ChunkedExtinction): one profile_scatter launch a
+    chunk in the forward, one profile_scatter_backward a chunk in the
+    gradient step; spectrum, gradient and torch.func.vmap(m.forward)
+    against the one-chunk path within 1e-6 of the max (float32 atomics
+    add in another order)."""
+    from transit_tpu_torch.opacities.kernel_profile import (
+        profile_scatter, profile_scatter_backward)
+    m, _ = _exact_pair(card)
+    reqs = _requests(m, card)
+    want = [_grad(m.forward, T, q) for T, q in reqs]
+    wantv = torch.func.vmap(m.forward)(*(torch.stack(x) for x in zip(*reqs)))
+    _chunk_budget(monkeypatch, m, 7)
+    n0, b0 = profile_scatter.launches, profile_scatter_backward.launches
+    got = [_grad(m.forward, T, q) for T, q in reqs]
+    torch.cuda.synchronize()
+    assert profile_scatter.launches == n0 + 3 * len(reqs)
+    assert profile_scatter_backward.launches == b0 + 3 * len(reqs)
+    gotv = torch.func.vmap(m.forward)(*(torch.stack(x) for x in zip(*reqs)))
+    for a, b in zip([x for g in got for x in g] + [gotv],
+                    [x for g in want for x in g] + [wantv]):
+        assert bool(torch.isfinite(a).all()) and float(b.abs().max()) > 0
+        assert float((a - b).abs().max() / b.abs().max()) <= 1e-6
+
+
+@pytest.mark.cuda
+def test_make_forward_exact_chunks_on_card(card, monkeypatch):
+    """make_forward's graphs of the exact model in chunks of 7 layers
+    (the forward and the backward that recomputes a chunk at a time)
+    against the eager step, as test_make_forward_graph_matches_eager."""
+    _chunk_budget(monkeypatch, _exact_pair(card)[0], 7)
+    test_make_forward_graph_matches_eager(card, "exact")
+
+
 @pytest.mark.cuda
 def test_forward_batch_split_on_card(card, monkeypatch):
     """forward_batch on the card with model.INDEX_LIMIT lowered so that 3

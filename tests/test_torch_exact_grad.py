@@ -19,7 +19,13 @@ test_torch_common.shared_jax_tables):
     lbl.layer_extinction under lax.map, fed identical state
     (tests/test_torch_exact_layer.py): d/d(T, densities, Z) of
     sum(w * ext), w random, within 1e-9 of each gradient's max, at the
-    file's temperatures and 200 K above."""
+    file's temperatures and 200 K above;
+  * the same layer function forced into chunks of 3 layers
+    (kernel_profile.ChunkedExtinction: its backward recomputes a chunk
+    at a time) against the same JAX program's lax.map forward (1e-12 of
+    each layer's max) and gradient (1e-9 of each gradient's max)."""
+
+import functools
 
 import dataclasses
 
@@ -92,21 +98,51 @@ def pair():
     return make_pair(cfg)
 
 
-@pytest.mark.parametrize("dT", [0.0, 200.0])
-def test_layer_gradient_matches_jax(pair, dT):
-    jm, plan, d = pair
+@functools.lru_cache(maxsize=None)
+def jax_layer_value_and_grad(jm):
+    """One jitted JAX program: the layers' extinction under lax.map
+    (jax_layers) and the gradient of sum(w * ext) in (T, densities, Z)."""
     fn = jax_layers(jm, 1e-8)
+
+    def loss(t, dd, z, w):
+        ext = fn(t, dd, z)
+        return jnp.sum(ext * w), ext
+
+    return jax.jit(jax.value_and_grad(loss, argnums=(0, 1, 2),
+                                      has_aux=True))
+
+
+def layer_case(pair, dT, **kw):
+    """The port's layer function (``kw``: lbl.layer_extinction's) and its
+    gradient of sum(w * ext) against JAX's at the file's temperatures +
+    dT, w random: the gradients within 1e-9 of each one's max; returns
+    (the port's extinction, JAX's)."""
+    jm, plan, d = pair
     args = layer_state(jm, dT)
     w = np.random.default_rng(11).standard_normal((jm.atm.nlayers,
                                                    jm.wns.n))
-    ref = jax.jit(jax.grad(lambda t, dd, z: jnp.sum(fn(t, dd, z) * w),
-                           argnums=(0, 1, 2)))(
-                               *(jnp.asarray(a) for a in args[:3]))
+    (_, ref_ext), ref = jax_layer_value_and_grad(jm)(
+        *(jnp.asarray(a) for a in args[:3]), jnp.asarray(w))
     leaves = [torch.tensor(a, requires_grad=True) for a in args[:3]]
-    ext = port_layers(jm, plan, d, (*leaves, *args[3:]), 1e-8)
+    ext = port_layers(jm, plan, d, (*leaves, *args[3:]), 1e-8, **kw)
     got = torch.autograd.grad((ext * torch.as_tensor(w)).sum(), leaves)
     for name, a, b in zip(("T", "densities", "Z"), got, ref):
         b = np.asarray(b)
         assert a.shape == b.shape and np.abs(b).max() > 0, name
         assert (float(np.abs(a.numpy() - b).max()) <=
                 1e-9 * np.abs(b).max()), name
+    return ext.detach().numpy(), np.asarray(ref_ext)
+
+
+@pytest.mark.parametrize("dT", [0.0, 200.0])
+def test_layer_gradient_matches_jax(pair, dT):
+    layer_case(pair, dT)
+
+
+def test_chunked_layers_match_jax(pair):
+    jm = pair[0]
+    assert jm.atm.nlayers % 3 != 0      # the last chunk is short
+    got, ref = layer_case(pair, 200.0, rows=3)
+    scale = np.abs(ref).max(axis=1, keepdims=True)
+    assert got.shape == ref.shape and np.all(scale > 0)
+    assert float(np.max(np.abs(got - ref) / scale)) <= 1e-12

@@ -1,5 +1,5 @@
 """Exact mode's layer function of the port (opacities/lbl.py
-layer_extinction, all layers at once) against transit_tpu's
+layer_extinction, the fixture's layers in one chunk) against transit_tpu's
 lbl.layer_extinction (per layer under lax.map, as its model runs it),
 float64, fed identical state (convert.exact_state_from_numpy of the JAX
 model's plan, table and device arrays) on the conformance fixture:

@@ -5,11 +5,19 @@ tests/test_fast_and_forward.py:149-155 holds JAX), ``run_transit``
 equals ``forward``, ``forward_batch`` raises with JAX's message,
 ``torch.func.vmap(m.forward)`` equals a loop of ``forward`` (values and
 gradients), float32 against float64, the default mode is JAX's, and
-a profile table of another configuration is refused.
+a profile table of another configuration is refused.  Layers in chunks
+(lbl.chunk_rows, forced small here through lbl.GROUP_ROW_ENTRIES):
+chunks of 1 and of 7 layers give the one-chunk path's bits, float64 and
+float32, in ``forward``, its gradient in T and q, ``torch.func.vmap(
+m.forward)`` and its gradient, and the vmap of ``torch.func.grad`` (with
+the Doppler fill's running max in segments, lbl.row_cummax, which
+equals torch.cummax); the chunk rule keeps a hot-Jupiter model in one
+chunk on the card and cuts a 2.0e7-line one.
 The gradient against jax.grad: tests/test_torch_exact_grad*.py."""
 
 import dataclasses
 import inspect
+import types
 
 import numpy as np
 import pytest
@@ -19,6 +27,7 @@ from tests.test_conformance import make_config
 from transit_tpu.model import TransitModel as JModel
 from transit_tpu_torch.config import TransitConfig
 from transit_tpu_torch.model import TransitModel
+from transit_tpu_torch.opacities import kernel_profile, lbl
 
 torch.set_num_threads(1)
 
@@ -111,3 +120,84 @@ def test_table_of_another_configuration_raises(m64, field, value):
     setattr(cfg, field, value)
     with pytest.raises(ValueError, match="profile table"):
         TransitModel(cfg, dtype=torch.float64, device="cpu", table=m64.table)
+
+
+@pytest.fixture(scope="module")
+def m32(m64):
+    return TransitModel(port(make_config("eclipse", 1e30)),
+                        dtype=torch.float32, device="cpu", table=m64.table)
+
+
+def chunk_outputs(m):
+    """forward and its gradient in T and q at a profile; vmap(m.forward)
+    over 3 profiles and the gradient of its sum; the vmap of
+    torch.func.grad of the forward's sum, in the model's dtype."""
+    T, q = profiles(m)
+    dt = m.dtype
+    t = torch.tensor(T[0], dtype=dt, requires_grad=True)
+    qq = torch.tensor(q[0], dtype=dt, requires_grad=True)
+    spec = m.forward(t, qq)
+    out = [spec, *torch.autograd.grad(spec.sum(), (t, qq))]
+    Tb = torch.tensor(T, dtype=dt, requires_grad=True)
+    qb = torch.tensor(q, dtype=dt, requires_grad=True)
+    specs = torch.func.vmap(m.forward)(Tb, qb)
+    out += [specs, *torch.autograd.grad(specs.sum(), (Tb, qb))]
+    out += torch.func.vmap(torch.func.grad(
+        lambda a, b: m.forward(a, b).sum(), argnums=(0, 1)))(
+            torch.tensor(T, dtype=dt), torch.tensor(q, dtype=dt))
+    return [x.detach() for x in out]
+
+
+_ONE_CHUNK = {}
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("rows", [1, 7])
+def test_layer_chunks_equal_one_chunk(m64, m32, monkeypatch, dtype, rows):
+    m = m64 if dtype == "float64" else m32
+    nl = m.atm.nlayers
+    assert lbl.chunk_rows(m.plan, "cpu", m.wns.n) >= nl
+    if dtype not in _ONE_CHUNK:
+        _ONE_CHUNK[dtype] = chunk_outputs(m)
+    want = _ONE_CHUNK[dtype]
+    monkeypatch.setitem(lbl.GROUP_ROW_ENTRIES, "cpu",
+                        rows * max(m.plan.n_lines, m.plan.n_groups))
+    assert lbl.chunk_rows(m.plan, "cpu", m.wns.n) == rows
+    # The Doppler fill's running max in segments, the last one short.
+    monkeypatch.setattr(lbl, "CUMMAX_SEGMENT", 100)
+    assert m.plan.n_groups > 100 and m.plan.n_groups % 100 != 0
+    assert nl % rows != 0 or rows == 1       # the last chunk is short
+    calls = []
+    groups = kernel_profile.layer_groups
+    monkeypatch.setattr(kernel_profile, "layer_groups",
+                        lambda *a, **k: calls.append(1) or groups(*a, **k))
+    with torch.no_grad():
+        m.forward(m.atm.temp, m.atm.q)
+    assert len(calls) == -(-nl // rows)      # one layer_groups a chunk
+    got = chunk_outputs(m)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype == m.dtype and float(b.abs().max()) > 0
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("n, m, seg", [(3, 10, 4), (5, 4097, 4096),
+                                       (2, 9, 3), (4, 1, 4)])
+def test_row_cummax_is_cummax(monkeypatch, n, m, seg):
+    rng = np.random.default_rng(n * m)
+    x = torch.as_tensor(np.where(rng.uniform(size=(n, m)) < 0.3,
+                                 rng.integers(0, 50, (n, m)), -1))
+    monkeypatch.setattr(lbl, "CUMMAX_SEGMENT", seg)
+    assert torch.equal(lbl.row_cummax(x), torch.cummax(x, dim=1).values)
+
+
+@pytest.mark.parametrize("n_lines, chunks", [(194_349, 1),
+                                             (20_017_947, 34)])
+def test_chunk_rule(n_lines, chunks):
+    """On the card a hot-Jupiter list (100 layers, 19001 wavenumbers) is
+    one chunk; a 2.0e7-line list 34 chunks of 3 layers (the groups are
+    fewer than the lines)."""
+    plan = types.SimpleNamespace(n_lines=n_lines, n_groups=n_lines // 2)
+    rows = lbl.chunk_rows(plan, "cuda", 19001)
+    assert len(lbl.row_slices(100, rows)) == chunks
+    assert rows * n_lines <= lbl.GROUP_ROW_ENTRIES["cuda"]
+    assert lbl.chunk_rows(plan, "cuda", 2 ** 31) == 1

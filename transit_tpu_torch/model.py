@@ -552,7 +552,8 @@ class TransitModel:
                         batch: int = 1, kmax_override=None):
         """Per-layer line extinction (nlayer, nwn), differentiable in the
         temperatures, densities and Z: in exact mode lbl.layer_extinction
-        (kernel_profile.ProfileScatter), in fast mode
+        (in chunks of layers, lbl.chunk_rows: kernel_profile.ProfileScatter
+        for one chunk, ChunkedExtinction for more), in fast mode
         kernel_lbl.LineExtinction; the backward kernels on the card, the
         plain VJPs on the CPU or with ``use_kernel=False``.  ``dev``
         overrides the model's stored tensors (device_tree).  ``batch``:

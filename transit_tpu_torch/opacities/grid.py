@@ -44,10 +44,6 @@ from transit_tpu_torch.numerics.search import nearest_index_torch
 from transit_tpu_torch.numerics.spline import splinterp_np
 from transit_tpu_torch.opacities import banded, fast, lbl
 
-# (cell, line) entries of one exact-build chunk, by device: the group
-# tables of lbl.layer_groups hold ~15 tensors of (cells, lines or groups).
-GRID_CELL_ENTRIES = {"cpu": 1 << 22, "cuda": 1 << 26}
-
 
 @dataclasses.dataclass
 class OpacityGrid:
@@ -189,19 +185,14 @@ def _finish(model, cells: GridCells, rows: np.ndarray, path) -> OpacityGrid:
 def exact_chunks(model, cells: GridCells, cell_batch: int | None = None):
     """The exact build's chunks of cells: yields (slice of cells, the
     group tables of lbl.layer_groups(nm=Nmol) on them, the per-molecule
-    ScatterTables).  ``cell_batch`` defaults to GRID_CELL_ENTRIES of the
-    model's device over the line (or group) count, and stays below the
-    kernels' int32 indices (model.INDEX_LIMIT)."""
-    from transit_tpu_torch.model import INDEX_LIMIT
-
+    ScatterTables).  ``cell_batch`` defaults to lbl.GROUP_ROW_ENTRIES of
+    the model's device over the line (or group) count, and stays below
+    the kernels' int32 indices (lbl.chunk_rows)."""
     plan, d = model.plan, model.dev
     nm = model.iso.nmol_out
     ncells = cells.tt.shape[0]
-    if cell_batch is None:
-        per = max(plan.n_lines, plan.n_groups, 1)
-        cell_batch = GRID_CELL_ENTRIES[model.device.type] // per
-    cell_batch = int(np.clip(cell_batch, 1, max(
-        1, (INDEX_LIMIT - 1) // (nm * plan.n_coarse))))
+    cell_batch = lbl.chunk_rows(plan, model.device, nm * plan.n_coarse,
+                                cell_batch)
     s = lbl.permol_tables(lbl.scatter_tables(plan, d), d["line_iout"],
                           d["g_primary"], nm)
     wn0 = float(model.wns.v[0])

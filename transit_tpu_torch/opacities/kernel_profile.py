@@ -10,6 +10,10 @@ strengths g_k around them, which takes their plain PyTorch versions
 (lbl.profile_scatter_plain and lbl.profile_scatter_plain_vjp) for CPU
 tensors or with ``use_kernel=False``.  On a CUDA tensor it launches the
 kernel or raises: nothing on the card gives way to the plain version.
+:func:`ChunkedExtinction` is exact mode's line extinction of layers in
+chunks (lbl.layer_extinction, when the layers do not fit one chunk of
+lbl.chunk_rows): lbl.layer_groups and one scatter launch a chunk, and a
+backward that recomputes a chunk's group tables at a time.
 :func:`profile_scatter_permol` is the opacity-grid build's per-molecule
 scatter (no gradient): the same forward kernel, each tile adding to its
 output molecule's row.
@@ -18,14 +22,17 @@ output molecule's row.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
 from transit_tpu_torch.opacities.kernel_lbl import (_check_cuda, _ptr,
                                                     fold_batch)
 from transit_tpu_torch.opacities.lbl import (ScatterTables, check_tiles,
+                                             layer_groups,
                                              profile_scatter_plain,
-                                             profile_scatter_plain_vjp)
+                                             profile_scatter_plain_vjp,
+                                             row_slices)
 
 
 def _check_launch(fn: str, per_group: dict, ilor, s: ScatterTables):
@@ -246,6 +253,125 @@ class ProfileScatterVjp(torch.autograd.Function):
                 zip((ct, keep, g_idop, ilor), in_dims[:4])]
         return ProfileScatterVjp.apply(*args, s, kernel).reshape(
             B, -1, args[2].shape[1]), 0
+
+
+@dataclasses.dataclass
+class LayerChunks:
+    """What :class:`ChunkedExtinction` needs besides its rows' temperatures,
+    densities and Z: lbl.layer_groups' device arrays ``d``, molecule
+    masses and radii, ``wn0`` and ``ethresh``; the scatter tables ``s``;
+    ``kernel`` (the kernels, else the plain versions) and the ``rows`` of
+    a chunk."""
+    d: dict
+    s: ScatterTables
+    mol_mass: torch.Tensor
+    mol_radius: torch.Tensor
+    wn0: float
+    ethresh: float
+    kernel: bool
+    rows: int
+
+    def groups(self, temps, densities, Z) -> dict:
+        return layer_groups(self.d, temps, densities, Z, self.mol_mass,
+                            self.mol_radius, self.wn0, self.ethresh)
+
+
+def fold_columns(x, dim, B: int):
+    """A vmapped (n, nl) argument (densities, Z) with its batch at ``dim``
+    (None: shared by every member) as (n, B * nl), member after member
+    (the rows of fold_batch)."""
+    x = x.movedim(dim, 0) if dim is not None else x.expand(B, *x.shape)
+    return x.transpose(0, 1).reshape(x.shape[1], -1)
+
+
+class ChunkedExtinction(torch.autograd.Function):
+    """Exact mode's line extinction (nl, n_coarse) of temps (nl,),
+    densities (nmol, nl) and Z (niso, nl), ``op.rows`` layers at a time
+    (:class:`LayerChunks`): per chunk lbl.layer_groups and one
+    ``profile_scatter`` launch (the plain scatter without ``op.kernel``),
+    the chunk's output into its rows.  It saves only its inputs; the
+    backward (:class:`ChunkedExtinctionVjp`) recomputes one chunk's group
+    tables at a time, so no chunk's tables outlive it.  The vmap rule
+    folds the batch into the rows (member after member) and chunks
+    those."""
+
+    @staticmethod
+    def forward(temps, densities, Z, op: LayerChunks):
+        parts = []
+        for sl in row_slices(temps.shape[0], op.rows):
+            grp = op.groups(temps[sl], densities[:, sl], Z[:, sl])
+            args = (grp["g_k"], grp["g_idop"], grp["ilor"], op.s)
+            parts.append(profile_scatter(*args) if op.kernel else
+                         profile_scatter_plain(*args))
+            del grp, args
+        return torch.cat(parts)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        temps, densities, Z, op = inputs
+        ctx.save_for_backward(temps, densities, Z)
+        ctx.op = op
+
+    @staticmethod
+    def backward(ctx, ct):
+        return (*ChunkedExtinctionVjp.apply(ct, *ctx.saved_tensors, ctx.op),
+                None)
+
+    @staticmethod
+    def vmap(info, in_dims, temps, densities, Z, op):
+        B = info.batch_size
+        out = ChunkedExtinction.apply(
+            fold_batch(temps, in_dims[0], B),
+            fold_columns(densities, in_dims[1], B),
+            fold_columns(Z, in_dims[2], B), op)
+        return out.reshape(B, -1, op.s.n_coarse), 0
+
+
+class ChunkedExtinctionVjp(torch.autograd.Function):
+    """The backward of :class:`ChunkedExtinction`: the cotangent ct (nl,
+    n_coarse) -> those of temps, densities and Z.  Per chunk: the group
+    tables again, under torch.func.vjp (the autograd graph of one chunk),
+    the cotangent of g_k (``profile_scatter_backward``, or
+    lbl.profile_scatter_plain_vjp), and the VJP of the tables into the
+    chunk's rows.  Its vmap rule folds the batch into the rows; it has no
+    derivative of its own."""
+
+    @staticmethod
+    def forward(ct, temps, densities, Z, op: LayerChunks):
+        grads = tuple(torch.zeros_like(x) for x in (temps, densities, Z))
+        vjp_of = profile_scatter_backward if op.kernel else \
+            profile_scatter_plain_vjp
+
+        def g_k(t, dn, z):
+            grp = op.groups(t, dn, z)
+            return grp["g_k"], (grp["keep"], grp["g_idop"], grp["ilor"])
+
+        for sl in row_slices(temps.shape[0], op.rows):
+            _, vjp, (keep, g_idop, ilor) = torch.func.vjp(
+                g_k, temps[sl], densities[:, sl], Z[:, sl], has_aux=True)
+            gT, gD, gZ = vjp(vjp_of(ct[sl], keep, g_idop, ilor, op.s))
+            grads[0][sl], grads[1][:, sl], grads[2][:, sl] = gT, gD, gZ
+            del vjp, keep, g_idop, ilor, gT, gD, gZ
+        return grads
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *_):
+        raise NotImplementedError("the chunked line extinction has no "
+                                  "second derivative")
+
+    @staticmethod
+    def vmap(info, in_dims, ct, temps, densities, Z, op):
+        B = info.batch_size
+        gT, gD, gZ = ChunkedExtinctionVjp.apply(
+            fold_batch(ct, in_dims[0], B), fold_batch(temps, in_dims[1], B),
+            fold_columns(densities, in_dims[2], B),
+            fold_columns(Z, in_dims[3], B), op)
+        return ((gT.reshape(B, -1), gD.reshape(gD.shape[0], B, -1),
+                 gZ.reshape(gZ.shape[0], B, -1)), (0, 1, 1))
 
 
 def profile_scatter_permol(grp: dict, s: ScatterTables,

@@ -6,8 +6,9 @@ extinction.c:281-529).
      lbl.py:62): nearest fine-bin index per line, the sequential co-add
      group partition (extinction.c:449-462: the groups depend only on the
      wavelengths and the grid) and the coarse-bin scatter geometry.
-  2. The per-layer computation (lbl.py:161), here batched over all layers
-     at once instead of JAX's ``lax.map``: widths, line strengths, the
+  2. The per-layer computation (lbl.py:161), here batched over a chunk
+     of layers at a time (JAX maps over single layers with ``lax.map``;
+     :func:`chunk_rows` sizes the chunks): widths, line strengths, the
      per-species max strength for the ethresh cut (extinction.c:400-427),
      the co-add sums per group, the ``keep`` mask (extinction.c:467-470),
      the forward fill of the Doppler index (extinction.c:479-483), in
@@ -44,6 +45,16 @@ from transit_tpu_torch.opacities.voigt import ProfileTable
 # (layer, group, window) entries the plain scatter holds at once, by
 # device (its temporaries: ~40 bytes an entry).
 PLAIN_ENTRIES = {"cpu": 1 << 18, "cuda": 1 << 25}
+
+# (row, line) entries of one chunk of layer_groups rows, by device: its
+# group tables hold ~15 tensors of (rows, lines or groups).  Exact mode's
+# line extinction (layer_extinction: rows are layers) and the exact grid
+# build (grid.exact_chunks: rows are (layer, temperature) cells) take
+# their rows in chunks of this many entries (chunk_rows).
+GROUP_ROW_ENTRIES = {"cpu": 1 << 22, "cuda": 1 << 26}
+
+# Columns of one segment of row_cummax.
+CUMMAX_SEGMENT = 4096
 
 # Groups a tile of the profile-scatter kernels holds at most: one thread
 # each (csrc/profile_scatter.cu PS_TILE).
@@ -343,10 +354,84 @@ def permol_tables(s: ScatterTables, line_iout, g_primary,
         tile_mol=torch.as_tensor(first.astype(np.int32), device=dev))
 
 
+def chunk_rows(plan: LinePlan, device, n_out: int,
+               rows: int | None = None) -> int:
+    """Rows of one chunk of :func:`layer_groups` on ``device``: ``rows``,
+    by default GROUP_ROW_ENTRIES of the device's type over the plan's
+    line (or group) count; at least 1, and few enough that a chunk's
+    ``n_out`` outputs a row stay below the kernels' int32 indices
+    (model.INDEX_LIMIT)."""
+    from transit_tpu_torch.model import INDEX_LIMIT
+
+    if rows is None:
+        rows = (GROUP_ROW_ENTRIES[torch.device(device).type] //
+                max(plan.n_lines, plan.n_groups, 1))
+    return int(np.clip(rows, 1, max(1, (INDEX_LIMIT - 1) // n_out)))
+
+
+def row_slices(n: int, rows: int) -> list:
+    """Consecutive slices of ``rows`` of n rows, the last one short."""
+    return [slice(a, min(a + rows, n)) for a in range(0, n, rows)]
+
+
+def group_runs(d: dict) -> tuple:
+    """(isotope, its molecule, first group, end group) of each run of
+    consecutive groups of one isotope (the plan sorts the lines by
+    isotope), from d["g_iso"] and d["iso_imol"]: read to the host at the
+    first call for that g_iso tensor and kept on it, so a warm step
+    (a CUDA graph's capture) reads nothing back."""
+    g_iso = d["g_iso"]
+    runs = getattr(g_iso, "_group_runs", None)
+    if runs is None:
+        g = g_iso.cpu().numpy()
+        imol = d["iso_imol"].cpu().numpy()
+        cut = np.flatnonzero(np.diff(g)) + 1
+        runs = tuple((int(g[a]), int(imol[g[a]]), int(a), int(b)) for a, b
+                     in zip(np.r_[0, cut], np.r_[cut, g.shape[0]]))
+        g_iso._group_runs = runs
+    return runs
+
+
+def run_columns(x, runs) -> torch.Tensor:
+    """x[:, idx] (n, groups) for the runs [(column, first group, end
+    group)] covering the groups in order: each run's column of x (n, k)
+    expanded over its groups.  The backward sums each run, a reduction
+    (an indexing gather's backward, on the card, sorts the groups and adds
+    a column's ~ng/niso of them one after another, a time that does not
+    shrink with the rows)."""
+    n = x.shape[0]
+    return torch.cat([x[:, c:c + 1].expand(n, b - a) for c, a, b in runs],
+                     dim=1)
+
+
+def row_cummax(x):
+    """torch.cummax(x, dim=1).values of an integer (n, m) tensor, in
+    segments of CUMMAX_SEGMENT columns: each segment's running max, then each
+    row's running max over the segments' last values carried into the
+    next segment (max is exact, so the bits are cummax's).  A scan along
+    a row runs serially on the card, so m columns in one piece take a
+    time that does not shrink with the rows; segments give it n * m /
+    seg rows to run in parallel."""
+    n, m = x.shape
+    seg = CUMMAX_SEGMENT
+    if m <= seg:
+        return torch.cummax(x, dim=1).values
+    k = -(-m // seg)
+    low = torch.iinfo(x.dtype).min
+    xp = torch.nn.functional.pad(x, (0, k * seg - m), value=low)
+    local = torch.cummax(xp.reshape(n * k, seg), dim=1).values.reshape(
+        n, k, seg)
+    carry = torch.cummax(local[:, :, -1], dim=1).values[:, :-1]
+    carry = torch.nn.functional.pad(carry, (1, 0), value=low)
+    return torch.maximum(local, carry[:, :, None]).reshape(n, k * seg)[:, :m]
+
+
 def layer_groups(d: dict, temps, densities, Z, mol_mass, mol_radius,
                  wn0: float, ethresh: float, nm: int | None = None) -> dict:
     """Everything of lbl.layer_extinction before the scatter (lbl.py:183-243),
-    for all layers at once: temps (nl,) cgs, densities (nmol, nl), Z
+    for the layers (rows) it is given, each row on its own (per-row max,
+    co-add sums and forward fill: a chunk of rows gives the bits of the
+    same rows among all layers): temps (nl,) cgs, densities (nmol, nl), Z
     (niso, nl) -> {"g_k": (nl, ng) group strength x density, 0 where the
     group is not kept; "keep": (nl, ng) bool; "g_idop": (nl, ng) int32
     Doppler index of the group's profile; "ilor": (nl, niso) int32
@@ -392,14 +477,19 @@ def layer_groups(d: dict, temps, densities, Z, mol_mass, mol_radius,
                  for m in range(nm)], dim=1), 0.0)
             kmax = kmax[:, line_m[d["g_primary"].long()]]      # (nl, ng)
 
-    # Pass 2, the co-add groups' strengths (extinction.c:449-464):
+    # Pass 2, the co-add groups' strengths (extinction.c:449-464).  Z and
+    # the densities reach the groups through their isotope runs
+    # (:func:`run_columns`), whose backward sums each run.
+    runs = group_runs(d)
     gsum = torch.zeros((nl, ng), dtype=dt, device=temps.device).index_add(
         1, d["gid"], strength)
-    g_k = gsum * SIGCTE * d["iso_ratio"][g_iso] / (d["iso_mass"][g_iso] *
-                                                   Z.T[:, g_iso])
+    g_k = gsum * SIGCTE * d["iso_ratio"][g_iso] / (
+        d["iso_mass"][g_iso] * run_columns(Z.T, [(i, a, b)
+                                                 for i, _, a, b in runs]))
     keep = d["g_inrange"] & (g_k >= ethresh * kmax)
     if nm is None:
-        g_k = g_k * densities.T[:, d["iso_imol"].long()[g_iso]]
+        g_k = g_k * run_columns(densities.T, [(m, a, b)
+                                              for _, m, a, b in runs])
 
     # The Doppler index's forward fill (extinction.c:479-483): kept
     # groups with alphad*wavn/alphal >= 0.1 recompute it; later groups of
@@ -408,7 +498,7 @@ def layer_groups(d: dict, temps, densities, Z, mol_mass, mol_radius,
     aD_g = alphad[:, g_iso] * d["g_wavn"]
     cond = keep & (aD_g / alphal[:, g_iso] >= 1e-1)
     gidx = torch.arange(ng, device=temps.device)
-    ff = torch.cummax(torch.where(cond, gidx, -1), dim=1).values
+    ff = row_cummax(torch.where(cond, gidx, -1))
     ff_valid = ff >= d["g_iso_start"]
     idop_at = nearest_index_torch(d["aDop"], aD_g)
     g_idop = torch.where(cond, idop_at, torch.where(
@@ -553,25 +643,45 @@ def profile_scatter_plain_vjp(ct, keep, g_idop, ilor, s: ScatterTables,
 
 def layer_extinction(plan: LinePlan, d: dict, temps, densities, Z,
                      mol_mass, mol_radius, wn0: float, ethresh: float,
-                     use_kernel: bool = True, nm: int | None = None):
-    """Line extinction (nlayer, n_coarse) of exact mode for all layers
-    (lbl.layer_extinction, lbl.py:161, collapsed over species): the group
-    tables (:func:`layer_groups`), then the profile scatter, differentiable
-    in temps, densities and Z (kernel_profile.ProfileScatter: the
+                     use_kernel: bool = True, nm: int | None = None,
+                     rows: int | None = None):
+    """Line extinction (nlayer, n_coarse) of exact mode (lbl.layer_extinction,
+    lbl.py:161, collapsed over species, which JAX maps over the layers):
+    the group tables (:func:`layer_groups`), then the profile scatter, a
+    chunk of layers at a time (:func:`chunk_rows`; ``rows`` sets the
+    chunk), differentiable in temps, densities and Z (the
     ``profile_scatter`` kernels on the card, the plain versions on the
-    CPU or with ``use_kernel=False``).  ``wn0``: the first coarse
-    wavenumber (the initial Doppler index, extinction.c:393).  ``nm``:
-    per-molecule output (permol, the grid build), (nlayer, nm, n_coarse)
-    per unit density of each of the nm output molecules, without
-    gradient (kernel_profile.profile_scatter_permol)."""
+    CPU or with ``use_kernel=False``).  Layers that fit one chunk go
+    through kernel_profile.ProfileScatter, autograd keeping the group
+    tables for the backward; more go through
+    kernel_profile.ChunkedExtinction, one launch a chunk, whose backward
+    recomputes a chunk's tables at a time (under torch.func.vmap the
+    batch folds into the rows, and those are chunked).  ``wn0``: the
+    first coarse wavenumber (the initial Doppler index,
+    extinction.c:393).  ``nm``: per-molecule output (permol, the grid
+    build), (nlayer, nm, n_coarse) per unit density of each of the nm
+    output molecules, without gradient
+    (kernel_profile.profile_scatter_permol)."""
     # Imported here: kernel_profile imports this module's plain versions.
     from transit_tpu_torch.opacities.kernel_profile import (
-        profile_scatter_fn, profile_scatter_permol)
+        ChunkedExtinction, LayerChunks, profile_scatter_fn,
+        profile_scatter_permol)
 
-    grp = layer_groups(d, temps, densities, Z, mol_mass, mol_radius, wn0,
-                       ethresh, nm=nm)
+    nl = temps.shape[0]
+    rows = chunk_rows(plan, temps.device, plan.n_coarse * (nm or 1), rows)
     s = scatter_tables(plan, d)
-    if nm is None:
+    if nm is not None:
+        sp = permol_tables(s, d["line_iout"], d["g_primary"], nm)
+        parts = [profile_scatter_permol(layer_groups(
+            d, temps[sl], densities[:, sl], Z[:, sl], mol_mass, mol_radius,
+            wn0, ethresh, nm=nm), sp, use_kernel=use_kernel)
+            for sl in row_slices(nl, rows)]
+        return parts[0] if len(parts) == 1 else torch.cat(parts)
+    if rows >= nl:
+        grp = layer_groups(d, temps, densities, Z, mol_mass, mol_radius,
+                           wn0, ethresh)
         return profile_scatter_fn(grp, s, use_kernel=use_kernel)
-    return profile_scatter_permol(grp, permol_tables(
-        s, d["line_iout"], d["g_primary"], nm), use_kernel=use_kernel)
+    op = LayerChunks(d=d, s=s, mol_mass=mol_mass, mol_radius=mol_radius,
+                     wn0=wn0, ethresh=ethresh, rows=rows,
+                     kernel=use_kernel and temps.device.type == "cuda")
+    return ChunkedExtinction.apply(temps, densities, Z, op)
