@@ -1000,7 +1000,9 @@ def device_ms(fn, runs: int = RUNS) -> dict:
         torch.cuda.synchronize()
     ms, n, port = 0.0, 0, {}
     for ev in prof.key_averages():
-        if ev.device_type == DeviceType.CUDA:
+        # (a "transit.*" row is a program span's annotation, not work)
+        if ev.device_type == DeviceType.CUDA and not ev.key.startswith(
+                "transit."):
             us = getattr(ev, "self_device_time_total", None)
             ms += (ev.self_cuda_time_total if us is None else us) / 1e3
             n += ev.count

@@ -79,7 +79,8 @@ def profile_step(step, ms_step: float, trace: str | None,
     # the device time of the kernels it launched.
     rows = []
     for ev in prof.key_averages():
-        if ev.device_type != DeviceType.CUDA:
+        if ev.device_type != DeviceType.CUDA or ev.key.startswith(
+                "transit."):       # the program's spans' annotations
             continue
         us = getattr(ev, "self_device_time_total", None)
         us = ev.self_cuda_time_total if us is None else us

@@ -1629,3 +1629,94 @@ def test_exact_model_on_a_split_hot_jupiter_list(card, tmp_path):
     assert bool(torch.isfinite(spec).all()) and float(want.min()) > 0
     rel = float(((spec - want).abs() / want.abs()).max())
     assert rel <= chip_smoke.SPECTRUM_REL_TOL
+
+
+def _profiled_events(call, calls: int = 3):
+    """The device events (utils.log.device_events) of the last of
+    ``calls`` calls of ``call()`` in one profile, 50 ms apart: the trace
+    splits at its gaps of over 20 ms, and the last two calls' events
+    agree by name (the device operations issued right after a profiler
+    starts can be missing from its trace, so the first is not used)."""
+    import time
+    from transit_tpu_torch.utils import log
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            call()
+            torch.cuda.synchronize()
+            time.sleep(0.05)
+    parts, end = [], None
+    for e in log.device_events(prof):
+        if end is None or e[1] - end > 0.02:
+            parts.append([])
+        parts[-1].append(e)
+        end = e[2] if end is None else max(end, e[2])
+    assert len(parts) >= 2
+    assert [e[0] for e in parts[-1]] == [e[0] for e in parts[-2]]
+    return parts[-1]
+
+
+def _layer_map_call(card, case, monkeypatch, grad: bool):
+    """A new make_forward of the case's model, captured by one call (a
+    gradient step with ``grad``); returns the maps it recorded and the
+    device events of a profiled later call."""
+    from transit_tpu_torch.utils import log
+    m = _graph_case(card, "batch" if case == "batch" else
+                    "exact" if case.startswith("exact") else case)
+    if case == "exact_chunks":
+        _chunk_budget(monkeypatch, m, 7)
+    fwd = m.make_forward()
+    reqs = _requests(m, card, batch=2 if case == "batch" else 0)
+    before = dict(log.MAPS)
+
+    def call(T, q):
+        if grad:
+            return _grad(fwd, T, q)
+        with torch.no_grad():
+            return fwd(T, q)
+    call(*reqs[0])
+    maps = {k: v for k, v in log.MAPS.items() if before.get(k) is not v}
+    return maps, _profiled_events(lambda: call(*reqs[1])), fwd
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grad", [False, True])
+@pytest.mark.parametrize("case", ["main", "batch", "exact",
+                                  "exact_chunks"])
+def test_layer_map_matches_the_replay(card, case, grad, monkeypatch):
+    """make_forward's layer maps on the card (utils/log.py): each graph's
+    map finds its replay in a profiled call (log.attribute), every port
+    kernel of the call sits at a recorded position of a map, a forward
+    graph's node count equals its bare replay's device events, and the
+    graphs captured without the maps' bookkeeping make as many device
+    events."""
+    from transit_tpu_torch import step_graph
+    from transit_tpu_torch.utils import log
+    from port_bench.harness.tracing import is_port
+    maps, ev, fwd = _layer_map_call(card, case, monkeypatch, grad)
+    assert sorted(k[2] for k in maps) == (["bwd", "fwd"] if grad else
+                                          ["fwd"])
+    inside = set()
+    for key, lm in maps.items():
+        assert lm.kernels and lm.spans[0][0] in ("step", "step.bwd")
+        a = log.attribute(lm, ev, key)
+        assert a is not None, key
+        i0, i1 = a["window"]
+        assert i1 - i0 == lm.nodes and not inside & set(range(i0, i1))
+        inside |= set(range(i0, i1))
+        for p, k in lm.kernels:
+            assert k in ev[i0 + p][0]
+        assert a["unattributed_ms"] + a["spans"][lm.spans[0][0:1]][
+            "ms"] == pytest.approx(a["ms"])
+    assert all(i in inside for i, e in enumerate(ev) if is_port(e[0]))
+    if not grad:
+        (entry,) = fwd.entries.values()
+        bare = _profiled_events(entry.graph.replay)
+        assert len(bare) == next(iter(maps.values())).nodes
+    # The same call on graphs captured without the maps' bookkeeping:
+    monkeypatch.setattr(step_graph._Recording, "__call__",
+                        lambda self, *a: self.fn(*a))
+    plain, ev_plain, _ = _layer_map_call(card, case, monkeypatch, grad)
+    assert plain == {} and len(ev_plain) == len(ev)
+    assert [e[0] for e in ev_plain] == [e[0] for e in ev]

@@ -71,6 +71,7 @@ from transit_tpu_torch.rt.emission import eclipse_intensities, flux
 from transit_tpu_torch.rt.transmission import (
     modulation, modulation_m1, modulation_weight_table,
     modulation_weight_table_torch)
+from transit_tpu_torch.utils.log import span
 from transit_tpu_torch.utils.savefiles import (load_extinction,
                                                save_extinction)
 
@@ -604,9 +605,11 @@ class TransitModel:
                   dev=None, geom=()):
         """Shared spectrum core; ``geom``: (radii, W, Wmod) of the step,
         or () for the static geometry."""
-        temps_cgs = temps_raw * self.atm.tfct
-        Z = self.partition(temps_raw)
-        ex = self.line_extinction(temps_cgs, densities, Z, dev=dev)
+        with span("partition"):
+            temps_cgs = temps_raw * self.atm.tfct
+            Z = self.partition(temps_raw)
+        with span("line_extinction"):
+            ex = self.line_extinction(temps_cgs, densities, Z, dev=dev)
         return self._assemble(temps_raw, q, densities, ex, full_result,
                               *geom)
 
@@ -625,52 +628,65 @@ class TransitModel:
             else wn
         atm = self.atm
         nl = atm.nlayers
-        temps_cgs = temps_raw * atm.tfct
-        # The reference feeds computeextscat the *raw* (file-unit) pressure
-        # and temperature arrays (tau.c:113-114,226), not cgs:
-        e_s = scattering_extinction(
-            self._scatter_flag, self._scatter_logext, self._press_t,
-            temps_raw, wns_cgs, densities, self._molm_t, self._molpol_t)
+        with span("assembly"):
+            with span("scatter_clouds"):
+                temps_cgs = temps_raw * atm.tfct
+                # The reference feeds computeextscat the *raw* (file-unit)
+                # pressure and temperature arrays (tau.c:113-114,226), not
+                # cgs:
+                e_s = scattering_extinction(
+                    self._scatter_flag, self._scatter_logext, self._press_t,
+                    temps_raw, wns_cgs, densities, self._molm_t,
+                    self._molpol_t)
 
-        # Mean mass density and H2 number density for cloud models
-        # (tau.c:193-213; the reference leaves mean_dens uninitialized —
-        # we compute the intended quantity):
-        molm = self._molm_t
-        mean_molar = torch.sum(densities / molm[:, None] * q, dim=0)
-        mean_mm = torch.sum(molm[:, None] * q, dim=0)
-        mean_dens = mean_molar * mean_mm
-        iH2 = (atm.species.index("H2") if "H2" in atm.species else -1)
-        nH = (densities[iH2] / molm[iH2] * q[iH2] * NAVOGADRO if iH2 >= 0
-              else torch.zeros(nl, dtype=self.dtype, device=self.device))
-        e_c = cloud_extinction(self._cloud, self._press_t, mean_dens, nH,
-                               wns_cgs)
+                # Mean mass density and H2 number density for cloud models
+                # (tau.c:193-213; the reference leaves mean_dens
+                # uninitialized — we compute the intended quantity):
+                molm = self._molm_t
+                mean_molar = torch.sum(densities / molm[:, None] * q, dim=0)
+                mean_mm = torch.sum(molm[:, None] * q, dim=0)
+                mean_dens = mean_molar * mean_mm
+                iH2 = (atm.species.index("H2") if "H2" in atm.species
+                       else -1)
+                nH = (densities[iH2] / molm[iH2] * q[iH2] * NAVOGADRO
+                      if iH2 >= 0 else
+                      torch.zeros(nl, dtype=self.dtype, device=self.device))
+                e_c = cloud_extinction(self._cloud, self._press_t, mean_dens,
+                                       nH, wns_cgs)
 
-        e_cs = (cs_extinction(self.cs_tables, self.cs_pre, wns_raw,
-                              temps_cgs, densities, molm, self.cs_species)
-                if self.cs_tables else
-                torch.zeros((wns_raw.shape[0], nl), dtype=self.dtype,
-                            device=self.device))
+            with span("cia"):
+                e_cs = (cs_extinction(self.cs_tables, self.cs_pre, wns_raw,
+                                      temps_cgs, densities, molm,
+                                      self.cs_species)
+                        if self.cs_tables else
+                        torch.zeros((wns_raw.shape[0], nl), dtype=self.dtype,
+                                    device=self.device))
 
-        er = ex.T + e_s + e_c + e_cs            # (nwn, nl)
-        tau = rt_tau.optical_depth(er, W, self.rfct)
-        last = rt_tau.last_index(tau, self.cfg.toomuch)
+            with span("tau"):
+                er = ex.T + e_s + e_c + e_cs            # (nwn, nl)
+                tau = rt_tau.optical_depth(er, W, self.rfct)
+                last = rt_tau.last_index(tau, self.cfg.toomuch)
 
-        intens = None
-        if self.solution == "eclipse":
-            intens = eclipse_intensities(tau, last, wns_cgs,
-                                         temps_cgs.flip(0), self.angles)
-            spec = flux(intens, self.angles)
-        else:
-            cfg = self.cfg
-            srad = cfg.starrad * SUNRADIUS
-            ips = radii.flip(0)
-            if cfg.modlevel == -1:
-                spec = modulation_m1(tau, last, ips, self.rfct, srad,
-                                     cfg.toomuch)
+            intens = None
+            if self.solution == "eclipse":
+                with span("emission"):
+                    intens = eclipse_intensities(tau, last, wns_cgs,
+                                                 temps_cgs.flip(0),
+                                                 self.angles)
+                    spec = flux(intens, self.angles)
             else:
-                spec = modulation(tau, last, ips, self.rfct, srad,
-                                  cfg.toomuch, transparent=cfg.transparent,
-                                  Wmod=Wmod)
+                with span("modulation"):
+                    cfg = self.cfg
+                    srad = cfg.starrad * SUNRADIUS
+                    ips = radii.flip(0)
+                    if cfg.modlevel == -1:
+                        spec = modulation_m1(tau, last, ips, self.rfct, srad,
+                                             cfg.toomuch)
+                    else:
+                        spec = modulation(tau, last, ips, self.rfct, srad,
+                                          cfg.toomuch,
+                                          transparent=cfg.transparent,
+                                          Wmod=Wmod)
         if not full_result:
             return spec
         return SpectrumResult(wns=self.wns.v, spectrum=spec,
@@ -795,9 +811,13 @@ class TransitModel:
         the full spectrum.  With raddelt > 0, T and q are on the
         atmosphere file's layers (:meth:`_profiles`).  ``dev`` optionally
         supplies the line tile tensors (see device_tree)."""
-        temps_raw, q, densities = self._profiles(temps_raw, q)
-        return self._spectrum(temps_raw, q, densities, full_result=False,
-                              dev=dev, geom=self.geometry(temps_raw, q))
+        with span("step"):
+            with span("densities"):
+                temps_raw, q, densities = self._profiles(temps_raw, q)
+            with span("geometry"):
+                geom = self.geometry(temps_raw, q)
+            return self._spectrum(temps_raw, q, densities,
+                                  full_result=False, dev=dev, geom=geom)
 
     def run_transit(self, flat_input):
         """The reference's retrieval entry point (transit.c:118-122
@@ -845,10 +865,13 @@ class TransitModel:
             raise ValueError("forward_batch requires mode='fast' and "
                              "raddelt -1; use torch.func.vmap(model.forward)")
         splits = self.batch_splits(temps_raw.shape[0])
-        if len(splits) == 1:
-            return self._forward_batch(temps_raw, q, dev)
-        return torch.cat([self._forward_batch(temps_raw[a:b], q[a:b], dev)
-                          for a, b in splits])
+        with span("step"):
+            if len(splits) == 1:
+                return self._forward_batch(temps_raw, q, dev)
+            parts = [self._forward_batch(temps_raw[a:b], q[a:b], dev)
+                     for a, b in splits]
+            with span("assembly"):
+                return torch.cat(parts)
 
     def batch_splits(self, B: int) -> list:
         """[(start, stop)] of forward_batch's sub-batches: as few as keep
@@ -868,14 +891,19 @@ class TransitModel:
         """One pass of :meth:`forward_batch` over a batch below the
         kernels' index limit."""
         B, nl = temps_raw.shape
-        temps_raw, q, densities = self._profiles(temps_raw, q)
+        with span("densities"):
+            temps_raw, q, densities = self._profiles(temps_raw, q)
         nm = densities.shape[1]
-        ex = self.line_extinction(
-            (temps_raw * self.atm.tfct).reshape(B * nl),
-            densities.movedim(1, 0).reshape(nm, B * nl),
-            self.partition(temps_raw.reshape(B * nl)), dev=dev, batch=B)
-        ex = ex.reshape(B, nl, self.wns.n)
-        radii, W, Wmod = self.geometry(temps_raw, q) or (None,) * 3
+        with span("partition"):
+            args = ((temps_raw * self.atm.tfct).reshape(B * nl),
+                    densities.movedim(1, 0).reshape(nm, B * nl),
+                    self.partition(temps_raw.reshape(B * nl)))
+        with span("line_extinction"):
+            ex = self.line_extinction(*args, dev=dev, batch=B)
+            with span("line_tiles"):       # the kernels' rows, per profile
+                ex = ex.reshape(B, nl, self.wns.n)
+        with span("geometry"):
+            radii, W, Wmod = self.geometry(temps_raw, q) or (None,) * 3
         g = None if W is None else 0
         return torch.func.vmap(
             lambda t, qq, dd, e, r, w, wm: self._assemble(

@@ -57,6 +57,7 @@ from transit_tpu_torch.opacities.kernel_shell import (plain_shell_classes,
                                                       shell_counts,
                                                       shell_tile_backward,
                                                       shell_tile_extinction)
+from transit_tpu_torch.utils.log import span
 
 
 def band_coef0(d, Z):
@@ -370,7 +371,8 @@ def banded_kernel_extinction(bplan: BandedPlan, devs, temps, densities, Z,
     kernel = use_kernel and d0["all_wavn"].device.type == "cuda"
     if kernel and index is None:
         index = banded_index(bplan, devs, d0["all_wavn"].device)
-    tab = band_tables(d0, temps, densities, Z, mol_mass, mol_radius)
+    with span("tables"):
+        tab = band_tables(d0, temps, densities, Z, mol_mass, mol_radius)
     op = BandedOp(bplan, devs, index, dict(wn_i=wn_i, dwn=dwn,
                                            ethresh=ethresh, nwidth=nwidth),
                   far_full_res, kernel, stats, kmax_override)

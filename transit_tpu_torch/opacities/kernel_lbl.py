@@ -46,6 +46,8 @@ from transit_tpu_torch.opacities.fast import FastPlan, _layer_widths
 from transit_tpu_torch.opacities.voigt import (FAR_KERNELS, RAW_W,
                                                WFN_CODE, faddeeva_partials,
                                                humlicek_regions)
+from transit_tpu_torch.utils import log
+from transit_tpu_torch.utils.log import span
 
 # Elements of the (layer, tile, bin, line) volume the plain version
 # holds at once; it walks the tiles in chunks of this size: small enough
@@ -522,8 +524,10 @@ class LineExtinction(torch.autograd.Function):
     def forward(op, grad: bool, temps, coef0, densm, alphal, alphad_f):
         tab = {"alphal": alphal, "alphad_f": alphad_f, "densm": densm,
                "coef0": coef0}
-        tab["kmax"] = op.kmax(temps, coef0)
-        out, state = op.forward(tab, temps, grad=grad)
+        with span("kmax"):
+            tab["kmax"] = op.kmax(temps, coef0)
+        with span("line_tiles"):
+            out, state = op.forward(tab, temps, grad=grad)
         return out, tab["kmax"], state
 
     @staticmethod
@@ -561,7 +565,8 @@ class LineExtinctionVjp(torch.autograd.Function):
     def forward(op, state, temps, coef0, densm, alphal, alphad_f, kmax, g):
         tab = {"alphal": alphal, "alphad_f": alphad_f, "densm": densm,
                "coef0": coef0, "kmax": kmax}
-        gr = op.backward(tab, temps, g.contiguous(), state)
+        with span("line_tiles.bwd"):
+            gr = op.backward(tab, temps, g.contiguous(), state)
         return (gr["temps"], gr["coef0"], gr["densm"], gr["alphal"],
                 gr["alphad_f"])
 
@@ -690,8 +695,9 @@ def kernel_extinction(plan: FastPlan, d, temps, densities, Z, mol_mass,
     :func:`tiles_index` of the plan and ``d`` (made here when None).
     """
     kernel = use_kernel and d["all_wavn"].device.type == "cuda"
-    coef0 = strength_coef(d, Z)
-    tab = width_tables(d, temps, densities, mol_mass, mol_radius)
+    with span("tables"):
+        coef0 = strength_coef(d, Z)
+        tab = width_tables(d, temps, densities, mol_mass, mol_radius)
     op = TilesOp(plan, d, dict(wn_i=wn_i, dwn=dwn, ethresh=ethresh,
                                nwidth=nwidth), kernel, kmax_override, index)
     return line_extinction(op, temps, coef0, tab["densm"], tab["alphal"],
@@ -760,6 +766,7 @@ def layer_kmax(d, temps, coef0, floor: float = -torch.inf):
     if err != 0:
         raise RuntimeError(f"layer_kmax failed to launch: CUDA error {err}")
     layer_kmax.launches += 1
+    log.launched("layer_kmax_kernel")
     return kmax
 
 
@@ -871,6 +878,7 @@ def line_tile_extinction(plan: FastPlan, d, tab, temps, wn_i: float,
         raise RuntimeError(f"line_tile_extinction failed to launch: CUDA "
                            f"error {err}")
     line_tile_extinction.launches += 1
+    log.launched("line_tile_kernel")
     return out
 
 
@@ -966,6 +974,7 @@ def line_tile_backward(band: LineBand, tab, temps, g, wn_i: float,
         raise RuntimeError(f"line_tile_backward failed to launch: CUDA "
                            f"error {err}")
     line_tile_backward.launches += 1
+    log.launched("line_tile_bwd_kernel")
     return acc
 
 

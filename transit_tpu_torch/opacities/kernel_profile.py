@@ -33,6 +33,8 @@ from transit_tpu_torch.opacities.lbl import (ScatterTables, check_tiles,
                                              profile_scatter_plain,
                                              profile_scatter_plain_vjp,
                                              row_slices)
+from transit_tpu_torch.utils import log
+from transit_tpu_torch.utils.log import span
 
 
 def _check_launch(fn: str, per_group: dict, ilor, s: ScatterTables):
@@ -149,6 +151,7 @@ def profile_scatter(g_k, g_idop, ilor, s: ScatterTables, stats=None):
         raise RuntimeError(f"profile_scatter failed to launch: CUDA error "
                            f"{err}")
     profile_scatter.launches += 1
+    log.launched("profile_scatter_kernel")
     return out
 
 
@@ -184,6 +187,7 @@ def profile_scatter_backward(ct, keep, g_idop, ilor, s: ScatterTables):
         raise RuntimeError(f"profile_scatter_backward failed to launch: CUDA "
                            f"error {err}")
     profile_scatter_backward.launches += 1
+    log.launched("profile_scatter_bwd_kernel")
     return grad
 
 
@@ -212,9 +216,10 @@ class ProfileScatter(torch.autograd.Function):
     @staticmethod
     def backward(ctx, ct):
         keep, g_idop, ilor = ctx.saved_tensors
-        return (ProfileScatterVjp.apply(ct, keep, g_idop, ilor, ctx.s,
-                                        ctx.kernel),
-                None, None, None, None, None)
+        with span("scatter.bwd"):
+            g_k = ProfileScatterVjp.apply(ct, keep, g_idop, ilor, ctx.s,
+                                          ctx.kernel)
+        return g_k, None, None, None, None, None
 
     @staticmethod
     def vmap(info, in_dims, g_k, keep, g_idop, ilor, s, kernel):
@@ -299,12 +304,15 @@ class ChunkedExtinction(torch.autograd.Function):
     def forward(temps, densities, Z, op: LayerChunks):
         parts = []
         for sl in row_slices(temps.shape[0], op.rows):
-            grp = op.groups(temps[sl], densities[:, sl], Z[:, sl])
-            args = (grp["g_k"], grp["g_idop"], grp["ilor"], op.s)
-            parts.append(profile_scatter(*args) if op.kernel else
-                         profile_scatter_plain(*args))
-            del grp, args
-        return torch.cat(parts)
+            with span("chunk"):
+                grp = op.groups(temps[sl], densities[:, sl], Z[:, sl])
+                with span("scatter"):
+                    args = (grp["g_k"], grp["g_idop"], grp["ilor"], op.s)
+                    parts.append(profile_scatter(*args) if op.kernel else
+                                 profile_scatter_plain(*args))
+                del grp, args
+        with span("scatter"):
+            return torch.cat(parts)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -338,7 +346,8 @@ class ChunkedExtinctionVjp(torch.autograd.Function):
 
     @staticmethod
     def forward(ct, temps, densities, Z, op: LayerChunks):
-        grads = tuple(torch.zeros_like(x) for x in (temps, densities, Z))
+        with span("groups.vjp"):
+            grads = tuple(torch.zeros_like(x) for x in (temps, densities, Z))
         vjp_of = profile_scatter_backward if op.kernel else \
             profile_scatter_plain_vjp
 
@@ -347,11 +356,18 @@ class ChunkedExtinctionVjp(torch.autograd.Function):
             return grp["g_k"], (grp["keep"], grp["g_idop"], grp["ilor"])
 
         for sl in row_slices(temps.shape[0], op.rows):
-            _, vjp, (keep, g_idop, ilor) = torch.func.vjp(
-                g_k, temps[sl], densities[:, sl], Z[:, sl], has_aux=True)
-            gT, gD, gZ = vjp(vjp_of(ct[sl], keep, g_idop, ilor, op.s))
-            grads[0][sl], grads[1][:, sl], grads[2][:, sl] = gT, gD, gZ
-            del vjp, keep, g_idop, ilor, gT, gD, gZ
+            with span("chunk"):
+                with span("groups.recompute"):
+                    _, vjp, (keep, g_idop, ilor) = torch.func.vjp(
+                        g_k, temps[sl], densities[:, sl], Z[:, sl],
+                        has_aux=True)
+                with span("scatter.bwd"):
+                    ct_g = vjp_of(ct[sl], keep, g_idop, ilor, op.s)
+                with span("groups.vjp"):
+                    gT, gD, gZ = vjp(ct_g)
+                    grads[0][sl], grads[1][:, sl], grads[2][:, sl] = \
+                        gT, gD, gZ
+                del vjp, keep, g_idop, ilor, ct_g, gT, gD, gZ
         return grads
 
     @staticmethod

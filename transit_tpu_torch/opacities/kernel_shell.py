@@ -51,6 +51,7 @@ from transit_tpu_torch.opacities.kernel_lbl import (PLAIN_ELEMENTS,
                                                     voigt_bin_sums,
                                                     zero_grads)
 from transit_tpu_torch.opacities.voigt import FAR_KERNELS, RAW_W, WFN_CODE
+from transit_tpu_torch.utils import log
 
 
 def _cr_weights(stride: int) -> np.ndarray:
@@ -400,6 +401,7 @@ def shell_tile_extinction(band: ShellBand, tab, temps, wn_i: float,
         raise RuntimeError(f"shell_tile_extinction failed to launch: CUDA "
                            f"error {err}")
     shell_tile_extinction.launches += 1
+    log.launched("shell_tile_kernel")
     return out
 
 
@@ -448,6 +450,7 @@ def shell_tile_backward(band: ShellBand, tab, temps, g, wn_i: float,
         raise RuntimeError(f"shell_tile_backward failed to launch: CUDA "
                            f"error {err}")
     shell_tile_backward.launches += 1
+    log.launched("shell_tile_bwd_kernel")
     return acc
 
 

@@ -41,6 +41,7 @@ from transit_tpu_torch.constants import EXPCTE, SIGCTE
 from transit_tpu_torch.numerics.search import nearest_index_torch
 from transit_tpu_torch.opacities.fast import _layer_widths
 from transit_tpu_torch.opacities.voigt import ProfileTable
+from transit_tpu_torch.utils.log import span
 
 # (layer, group, window) entries the plain scatter holds at once, by
 # device (its temporaries: ~40 bytes an entry).
@@ -438,73 +439,85 @@ def layer_groups(d: dict, temps, densities, Z, mol_mass, mol_radius,
     Lorentz index}.  Differentiable in temps, densities and Z through
     g_k.  ``nm`` (permol, the grid build): the ethresh cut against the
     max over each of the ``nm`` output molecules' lines (d["line_iout"])
-    and no density factor on g_k (the densities still set the widths)."""
+    and no density factor on g_k (the densities still set the widths).
+    Spans: ``groups.strengths`` (the widths and pass 1),
+    ``groups.coadd`` (pass 2 and ``keep``), ``groups.doppler``."""
     dt = d["wavn"].dtype
     ng = d["g_iso"].shape[0]
     nl = temps.shape[0]
-    T = temps[:, None]
-    g_iso = d["g_iso"].long()
-    line_iso = d["line_iso"].long()
+    with span("groups.strengths"):
+        T = temps[:, None]
+        g_iso = d["g_iso"].long()
+        line_iso = d["line_iso"].long()
 
-    # Per-isotope widths (extinction.c:364-395):
-    alphal, alphad = _layer_widths(temps, densities, d["iso_mass"],
-                                   d["iso_imol"].long(), mol_mass,
-                                   mol_radius)                 # (nl, niso)
-    idop0 = nearest_index_torch(d["aDop"], alphad * wn0)
-    ilor = nearest_index_torch(d["aLor"], alphal)
+        # Per-isotope widths (extinction.c:364-395):
+        alphal, alphad = _layer_widths(temps, densities, d["iso_mass"],
+                                       d["iso_imol"].long(), mol_mass,
+                                       mol_radius)             # (nl, niso)
+        idop0 = nearest_index_torch(d["aDop"], alphad * wn0)
+        ilor = nearest_index_torch(d["aLor"], alphal)
 
-    # Pass 1, the max line strength for the ethresh cut
-    # (extinction.c:400-427): JAX's segment_max over the one collapsed
-    # species is the max over the in-range lines, floored at 0 (permol:
-    # over each output molecule's lines); it only sets ``keep``, so it
-    # carries no gradient.
-    strength = (d["gf"] * torch.exp(-EXPCTE * d["elow"] / T) *
-                (1.0 - torch.exp(-EXPCTE * d["wavn"] / T)))    # (nl, nlines)
-    coef = d["iso_ratio"][line_iso] * SIGCTE
-    with torch.no_grad():
-        k_full = coef * strength / (d["iso_mass"][line_iso] *
-                                    Z.T[:, line_iso])
-        k_in = torch.where(d["line_inrange"], k_full, -torch.inf)
+        # Pass 1, the max line strength for the ethresh cut
+        # (extinction.c:400-427): JAX's segment_max over the one
+        # collapsed species is the max over the in-range lines, floored
+        # at 0 (permol: over each output molecule's lines); it only sets
+        # ``keep``, so it carries no gradient.
+        strength = (d["gf"] * torch.exp(-EXPCTE * d["elow"] / T) *
+                    (1.0 - torch.exp(-EXPCTE * d["wavn"] / T)))
+        # strength: (nl, nlines)
+        coef = d["iso_ratio"][line_iso] * SIGCTE
+        with torch.no_grad():
+            k_full = coef * strength / (d["iso_mass"][line_iso] *
+                                        Z.T[:, line_iso])
+            k_in = torch.where(d["line_inrange"], k_full, -torch.inf)
+            if nm is None:
+                kmax = torch.clamp_min(k_in.amax(dim=1, keepdim=True),
+                                       0.0)
+            else:
+                # One masked max per molecule (nm is a few), not a
+                # scatter_reduce: its atomics would all land on nm cells
+                # a layer.
+                line_m = d["line_iout"].long()
+                kmax = torch.clamp_min(torch.stack(
+                    [torch.where(line_m == m, k_in, -torch.inf).amax(dim=1)
+                     for m in range(nm)], dim=1), 0.0)
+                kmax = kmax[:, line_m[d["g_primary"].long()]]  # (nl, ng)
+
+    with span("groups.coadd"):
+        # Pass 2, the co-add groups' strengths (extinction.c:449-464).  Z
+        # and the densities reach the groups through their isotope runs
+        # (:func:`run_columns`), whose backward sums each run.
+        runs = group_runs(d)
+        gsum = torch.zeros((nl, ng), dtype=dt,
+                           device=temps.device).index_add(1, d["gid"],
+                                                          strength)
+        g_k = gsum * SIGCTE * d["iso_ratio"][g_iso] / (
+            d["iso_mass"][g_iso] * run_columns(Z.T, [(i, a, b)
+                                                     for i, _, a, b
+                                                     in runs]))
+        keep = d["g_inrange"] & (g_k >= ethresh * kmax)
         if nm is None:
-            kmax = torch.clamp_min(k_in.amax(dim=1, keepdim=True), 0.0)
-        else:
-            # One masked max per molecule (nm is a few), not a
-            # scatter_reduce: its atomics would all land on nm cells a
-            # layer.
-            line_m = d["line_iout"].long()
-            kmax = torch.clamp_min(torch.stack(
-                [torch.where(line_m == m, k_in, -torch.inf).amax(dim=1)
-                 for m in range(nm)], dim=1), 0.0)
-            kmax = kmax[:, line_m[d["g_primary"].long()]]      # (nl, ng)
+            g_k = g_k * run_columns(densities.T, [(m, a, b)
+                                                  for _, m, a, b in runs])
 
-    # Pass 2, the co-add groups' strengths (extinction.c:449-464).  Z and
-    # the densities reach the groups through their isotope runs
-    # (:func:`run_columns`), whose backward sums each run.
-    runs = group_runs(d)
-    gsum = torch.zeros((nl, ng), dtype=dt, device=temps.device).index_add(
-        1, d["gid"], strength)
-    g_k = gsum * SIGCTE * d["iso_ratio"][g_iso] / (
-        d["iso_mass"][g_iso] * run_columns(Z.T, [(i, a, b)
-                                                 for i, _, a, b in runs]))
-    keep = d["g_inrange"] & (g_k >= ethresh * kmax)
-    if nm is None:
-        g_k = g_k * run_columns(densities.T, [(m, a, b)
-                                              for _, m, a, b in runs])
-
-    # The Doppler index's forward fill (extinction.c:479-483): kept
-    # groups with alphad*wavn/alphal >= 0.1 recompute it; later groups of
-    # the same isotope take the last recomputed value (the condition is
-    # monotone along an isotope's run), others the layer's initial index.
-    aD_g = alphad[:, g_iso] * d["g_wavn"]
-    cond = keep & (aD_g / alphal[:, g_iso] >= 1e-1)
-    gidx = torch.arange(ng, device=temps.device)
-    ff = row_cummax(torch.where(cond, gidx, -1))
-    ff_valid = ff >= d["g_iso_start"]
-    idop_at = nearest_index_torch(d["aDop"], aD_g)
-    g_idop = torch.where(cond, idop_at, torch.where(
-        ff_valid, idop_at.gather(1, ff.clamp(0, ng - 1)), idop0[:, g_iso]))
-    return {"g_k": torch.where(keep, g_k, 0.0), "keep": keep,
-            "g_idop": g_idop.to(torch.int32), "ilor": ilor.to(torch.int32)}
+    with span("groups.doppler"):
+        # The Doppler index's forward fill (extinction.c:479-483): kept
+        # groups with alphad*wavn/alphal >= 0.1 recompute it; later groups
+        # of the same isotope take the last recomputed value (the
+        # condition is monotone along an isotope's run), others the
+        # layer's initial index.
+        aD_g = alphad[:, g_iso] * d["g_wavn"]
+        cond = keep & (aD_g / alphal[:, g_iso] >= 1e-1)
+        gidx = torch.arange(ng, device=temps.device)
+        ff = row_cummax(torch.where(cond, gidx, -1))
+        ff_valid = ff >= d["g_iso_start"]
+        idop_at = nearest_index_torch(d["aDop"], aD_g)
+        g_idop = torch.where(cond, idop_at, torch.where(
+            ff_valid, idop_at.gather(1, ff.clamp(0, ng - 1)),
+            idop0[:, g_iso]))
+        return {"g_k": torch.where(keep, g_k, 0.0), "keep": keep,
+                "g_idop": g_idop.to(torch.int32),
+                "ilor": ilor.to(torch.int32)}
 
 
 def scatter_geometry(g_idop, ilor, s: ScatterTables):
@@ -680,7 +693,8 @@ def layer_extinction(plan: LinePlan, d: dict, temps, densities, Z,
     if rows >= nl:
         grp = layer_groups(d, temps, densities, Z, mol_mass, mol_radius,
                            wn0, ethresh)
-        return profile_scatter_fn(grp, s, use_kernel=use_kernel)
+        with span("scatter"):
+            return profile_scatter_fn(grp, s, use_kernel=use_kernel)
     op = LayerChunks(d=d, s=s, mol_mass=mol_mass, mol_radius=mol_radius,
                      wn0=wn0, ethresh=ethresh, rows=rows,
                      kernel=use_kernel and temps.device.type == "cuda")

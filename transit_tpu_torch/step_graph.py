@@ -27,16 +27,25 @@ taken before the next call of the same signature replays the forward:
 the graph holds one set of saved activations, and a later backward
 raises.  A capture that fails raises, naming the step's line that
 failed; nothing falls back to eager calls.
+
+While it captures a signature, GraphedStep records the layer map of each
+graph (utils/log.py: the forward's, and with a gradient the backward's)
+and the host seconds of the warm-up calls, the capture and the map's
+bookkeeping (``log.MAPS``, ``log.SETUP``); a replay runs none of it.
 """
 
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import gc
 import os
+import time
 import traceback
 
 import torch
+
+from transit_tpu_torch.utils import log
 
 # Eager calls of the step on a side stream before a capture: the first
 # builds and loads the kernels and fills the model's caches, the second
@@ -153,10 +162,14 @@ class GraphedStep:
         entry = self.entries.get(key)
         if entry is None:
             try:
+                rec = _Recording(self.fn, self.what, self._signature(key))
                 with _no_collection():
-                    entry = (self._capture_grad(args, key)
-                             if any(k[2] for k in key)
-                             else self._capture_forward(args))
+                    try:
+                        entry = (self._capture_grad(rec, args, key)
+                                 if any(k[2] for k in key)
+                                 else self._capture_forward(rec, args))
+                    finally:
+                        rec.done()
             except Exception as e:
                 names = self.names[:len(key)]
                 shapes = ", ".join(f"{n} {k[0]}" for n, k in zip(names, key))
@@ -169,7 +182,11 @@ class GraphedStep:
         entry.calls += 1
         return entry.run(*args)
 
-    def _capture_forward(self, args) -> _Entry:
+    def _signature(self, key) -> str:
+        return ", ".join(f"{n} {k[0]}" + (" grad" if k[2] else "")
+                         for n, k in zip(self.names, key))
+
+    def _capture_forward(self, fn, args) -> _Entry:
         static = tuple(a.detach().clone() for a in args)
         g = torch.cuda.CUDAGraph()
         with torch.no_grad():
@@ -177,10 +194,10 @@ class GraphedStep:
             side.wait_stream(torch.cuda.current_stream())
             with torch.cuda.stream(side):
                 for _ in range(WARMUP):
-                    self.fn(*static)
+                    fn(*static)
             torch.cuda.current_stream().wait_stream(side)
             with torch.cuda.graph(g):
-                out = self.fn(*static)
+                out = fn(*static)
         entry = _Entry(self.what)
 
         def run(*args):
@@ -191,8 +208,122 @@ class GraphedStep:
         entry.run, entry.graph = run, g
         return entry
 
-    def _capture_grad(self, args, key) -> _Entry:
+    def _capture_grad(self, fn, args, key) -> _Entry:
         static = tuple(a.detach().clone().requires_grad_(k[2])
                        for a, k in zip(args, key))
         return _GradEntry(self.what, torch.cuda.make_graphed_callables(
-            self.fn, static, num_warmup_iters=WARMUP))
+            fn, static, num_warmup_iters=WARMUP))
+
+
+class _Recording:
+    """A step ``fn`` as GraphedStep captures one signature ``sig`` of it:
+    each call's start is kept on the host clock; the captured call (the
+    current stream captures) records the forward graph's layer map and,
+    when its output requires grad, hooks the backward's
+    (log.MapRecorder, log.BackwardMap).  :meth:`done`, after the
+    capture, stores the set-up's host seconds in ``log.SETUP``: each
+    warm-up call from its start to the next call's (its backward and the
+    synchronize before the capture included), the capture from the
+    captured call's start, and the bookkeeping of the maps."""
+
+    def __init__(self, fn, what: str, sig: str):
+        self.fn, self.what, self.sig = fn, what, sig
+        self.starts, self.fwd, self.bwd = [], None, None
+
+    def __call__(self, *args):
+        self.starts.append(time.perf_counter())
+        if not torch.cuda.is_current_stream_capturing():
+            return self.fn(*args)
+        with log.MapRecorder((self.what, self.sig, "fwd"), _NodeCount(),
+                             tags=torch.is_grad_enabled()) as self.fwd:
+            out = self.fn(*args)
+        if out.requires_grad:
+            self.bwd = log.BackwardMap(self.fwd, (out,), args,
+                                       (self.what, self.sig, "bwd"),
+                                       _NodeCount)
+        return out
+
+    def done(self):
+        end = time.perf_counter()
+        if self.bwd is not None:
+            self.bwd.close()
+        if self.fwd is None:       # the capture failed before it began
+            return
+        s = self.starts
+        log.SETUP[(self.what, self.sig)] = (
+            [("warmup", b - a) for a, b in zip(s[:-1], s[1:])] +
+            [("capture", end - s[-1]),
+             ("layer_map", self.fwd.seconds +
+              (self.bwd.bookkeeping if self.bwd is not None else 0.0))])
+
+
+# CUgraphNodeType values of device work: kernel, memcpy, memset.
+_WORK_NODES = (0, 1, 2)
+_LIBCUDA = []
+
+
+def _libcuda():
+    """libcuda's capture and graph queries, typed once:
+    (cuStreamGetCaptureInfo (the edge-data version where libcuda has
+    it), whether it takes the edge-data argument, cuGraphGetNodes,
+    cuGraphNodeGetType)."""
+    if not _LIBCUDA:
+        lib = ctypes.CDLL("libcuda.so.1")
+        P, S, I = ctypes.c_void_p, ctypes.c_size_t, ctypes.c_int
+        out = ctypes.POINTER
+        info = getattr(lib, "cuStreamGetCaptureInfo_v3", None)
+        edges = info is not None
+        info = info or lib.cuStreamGetCaptureInfo_v2
+        info.argtypes = [P, out(I), P, out(P), out(out(P))] + \
+            [P] * edges + [out(S)]
+        nodes = lib.cuGraphGetNodes
+        nodes.argtypes = [P, out(P), out(S)]
+        kind = lib.cuGraphNodeGetType
+        kind.argtypes = [P, out(I)]
+        for f in (info, nodes, kind):
+            f.restype = I
+        _LIBCUDA.append((info, edges, nodes, kind))
+    return _LIBCUDA[0]
+
+
+def _check(err: int, what: str):
+    if err != 0:
+        raise RuntimeError(f"layer map: {what} failed: libcuda error "
+                           f"{err}")
+
+
+class _NodeCount:
+    """``count()``: the nodes of every kind that the graph the current
+    stream captures (cuStreamGetCaptureInfo) holds so far
+    (cuGraphGetNodes); ``work(c)``: how many of the first ``c`` are
+    device work (_WORK_NODES), libcuda listing nodes in the order they
+    were added.  The nodes are typed once, at the first ``work`` (as the
+    map closes, still inside the capture), so a count costs one libcuda
+    call."""
+
+    def __init__(self):
+        info, edges, nodes, kind = _libcuda()
+        status, self.graph = ctypes.c_int(), ctypes.c_void_p()
+        leaves, self.k = ctypes.POINTER(ctypes.c_void_p)(), ctypes.c_size_t()
+        _check(info(torch.cuda.current_stream().cuda_stream, status, None,
+                    self.graph, leaves, *(None,) * edges, self.k),
+               "cuStreamGetCaptureInfo")
+        if status.value != 1:          # CU_STREAM_CAPTURE_STATUS_ACTIVE
+            raise RuntimeError("layer map: the stream is not capturing")
+        self.prefix = None
+
+    def __call__(self) -> int:
+        _check(_libcuda()[2](self.graph, None, self.k), "cuGraphGetNodes")
+        return self.k.value
+
+    def work(self, c: int) -> int:
+        if self.prefix is None:
+            _, _, nodes, kind = _libcuda()
+            n = self()
+            buf, t = (ctypes.c_void_p * n)(), ctypes.c_int()
+            _check(nodes(self.graph, buf, self.k), "cuGraphGetNodes")
+            self.prefix = [0]
+            for node in buf[:self.k.value]:
+                _check(kind(node, t), "cuGraphNodeGetType")
+                self.prefix.append(self.prefix[-1] + (t.value in _WORK_NODES))
+        return self.prefix[c]
