@@ -6,8 +6,9 @@
 Builds the port's CUDA kernels (csrc/line_tile.cu: the line-tile kernel,
 its backward and the per-layer kmax scan; csrc/shell_tile.cu: the
 decimated far-wing shell kernel and its backward; csrc/profile_scatter.cu:
-exact mode's profile scatter and its backward) from the sources in this
-checkout, one nvcc per source,
+exact mode's profile scatter and its backward; csrc/doppler_fill.cu:
+exact mode's Doppler fill) from the sources in this checkout, one nvcc
+per source,
 and holds each against its plain PyTorch version on the card.  Then it
 drives four paths of ``transit_tpu_torch.model.TransitModel(mode="fast",
 use_kernel=True)`` and exact mode's (5. below), each through three
@@ -155,9 +156,11 @@ make_forward() step against the eager one; ``exomol_exact`` builds
 exact mode through TransitModel(cfg) on the EXOMOL_EXACT_SPLIT list
 (4.86M lines, 8 chunks of layers, lbl.chunk_rows): the plan against
 lbl.plan_lines_plain array by array, the profile-scatter kernels
-against their plain versions, the spectrum against the plain path, a
-forward and a gradient step counted (one launch each a chunk) and
-timed, then its make_forward() step against the eager one;
+against their plain versions, every chunk's Doppler fill bit for bit
+its plain version (timed on the first chunk, 13 x 4,448,638 groups,
+beside its byte bound), the spectrum against the plain path, a forward
+and a gradient step counted (one launch each a chunk) and timed, then
+its make_forward() step against the eager one;
 ``exomol_exact_large`` does the same on the EXOMOL_LARGE_SPLIT list
 (20,017,947 lines, 34 chunks of 3 layers), its kernels against their
 plain versions on every EXOMOL_ROW_STEP-th layer, without the plan's
@@ -208,11 +211,13 @@ from transit_tpu_torch.lineread import compile as tli_compile
 from transit_tpu_torch.lineread import hitran
 from transit_tpu_torch.model import TransitModel
 from transit_tpu_torch.opacities import (_build, banded, fast, grid,
-                                         kernel_lbl, lbl)
+                                         kernel_lbl, kernel_profile, lbl)
 from transit_tpu_torch.opacities.kernel_profile import (
-    profile_scatter, profile_scatter_backward, profile_scatter_permol)
+    doppler_fill, profile_scatter, profile_scatter_backward,
+    profile_scatter_permol)
 from transit_tpu_torch.opacities.lbl import (
-    SCATTER_SEGMENT, ScatterTables, layer_groups, profile_scatter_plain,
+    SCATTER_SEGMENT, ScatterTables, doppler_fill_plain, layer_groups,
+    profile_scatter_plain,
     profile_scatter_plain_vjp, scatter_geometry, scatter_pairs,
     scatter_tables, scatter_tiles, tile_spans)
 from transit_tpu_torch.opacities.kernel_lbl import (
@@ -1266,7 +1271,15 @@ def backward_times(m: TransitModel, g) -> dict:
 
 ALL_KERNELS = (line_tile_extinction, layer_kmax, shell_tile_extinction,
                line_tile_backward, shell_tile_backward)
-EXACT_KERNELS = (profile_scatter, profile_scatter_backward)
+EXACT_KERNELS = (profile_scatter, profile_scatter_backward, doppler_fill)
+
+
+def fills(m: TransitModel, grad: bool = False) -> int:
+    """Doppler fill calls of one forward (``grad``: one gradient step)
+    of the exact model: one a chunk, and in a gradient step over several
+    chunks one more a chunk's recompute."""
+    n = exact_chunks(m)
+    return 2 * n if grad and n > 1 else n
 
 
 def grad_phase(m: TransitModel, requests, label: str,
@@ -1790,11 +1803,13 @@ def exact_table(cfg: TransitConfig, device):
 def exact_groups(m: TransitModel, T=None, rows=slice(None)):
     """lbl.layer_groups of the exact model's forward at the temperatures
     T (numpy; default the file's) and the file's abundances, on the
-    layers ``rows`` (an index; default all), and its ScatterTables."""
+    layers ``rows`` (an index; default all), through the Doppler fill
+    kernel when the model's ``use_kernel``, and its ScatterTables."""
     Tt, qt, dens = m._profiles(m.atm.temp if T is None else T, m.atm.q)
     grp = layer_groups(m.dev, (Tt * m.atm.tfct)[rows], dens[:, rows],
                        m.partition(Tt)[:, rows], m._molm_t, m._molrad_t,
-                       wn0=float(m.wns.v[0]), ethresh=m.cfg.ethreshold)
+                       wn0=float(m.wns.v[0]), ethresh=m.cfg.ethreshold,
+                       use_kernel=m.use_kernel)
     return grp, scatter_tables(m.plan, m.dev)
 
 
@@ -1952,6 +1967,59 @@ def chunks_vs_plain(m: TransitModel, T, g, label: str, row_step: int) -> dict:
     return res
 
 
+@contextlib.contextmanager
+def fills_vs_plain(label: str):
+    """Every Doppler fill inside the block (kernel_profile.doppler_fill_fn
+    wrapped) must run the kernel and equal lbl.doppler_fill_plain on the
+    same inputs bit for bit (torch.equal); yields {"calls", "args"}: the
+    fills checked and the first one's launch arguments."""
+    res = {"calls": 0}
+    fn = kernel_profile.doppler_fill_fn
+
+    def checked(keep, alphad, alphal, idop0, d, use_kernel=True):
+        check(use_kernel and keep.is_cuda, f"{label}: a Doppler fill "
+              f"without the kernel")
+        out = fn(keep, alphad, alphal, idop0, d, use_kernel=use_kernel)
+        args = (keep, alphad, alphal, idop0, d["g_iso"], d["g_wavn"],
+                d["g_iso_start"], d["aDop"])
+        check(torch.equal(out, doppler_fill_plain(*args)),
+              f"{label}: Doppler fill {res['calls']} of shape "
+              f"{tuple(keep.shape)} not bit for bit its plain version")
+        res["calls"] += 1
+        res.setdefault("args", args)
+        return out
+
+    kernel_profile.doppler_fill_fn = checked
+    try:
+        yield res
+    finally:
+        kernel_profile.doppler_fill_fn = fn
+
+
+def fill_vs_plain(m: TransitModel, T, label: str, timed: bool = True) -> dict:
+    """A forward of the exact model at the temperatures T (numpy) and the
+    file's abundances under :func:`fills_vs_plain`: one fill a chunk,
+    each bit for bit its plain version.  With ``timed``, the first
+    chunk's fill timed (the kernel and its plain version) beside its
+    byte bound: keep read and g_idop (int32) written once, the plan's
+    g_iso, g_wavn and g_iso_start (12 B a group) and the rows' widths,
+    initial indices and aDop read once."""
+    with fills_vs_plain(label) as res, torch.no_grad():
+        m.forward(T, m.atm.q)
+    check(res["calls"] == fills(m), f"{label}: {res['calls']} Doppler "
+          f"fills in a forward of {exact_chunks(m)} chunks")
+    args = res.pop("args")
+    out = {"fills_equal": res["calls"], "shape": list(args[0].shape)}
+    if timed:
+        nbytes = nbytes_of(*args) + 4 * args[0].numel()
+        b_ms, b_by, _ = roofline(0.0, nbytes)
+        out.update(ms=cuda_ms(lambda: doppler_fill(*args)),
+                   plain_ms=cuda_ms(lambda: doppler_fill_plain(*args),
+                                    runs=1),
+                   bound_ms=b_ms, bound_by=b_by, bytes=nbytes)
+    return out
+
+
 def table_ulps(a, b) -> tuple:
     """(max ulp distance, count of values that differ) of two float32
     profile tables of equal layout; raises on another layout."""
@@ -2048,7 +2116,8 @@ def exact_fd_step(m64: TransitModel, T0, layer: int):
 def exact_grad_phase(m: TransitModel, requests, label: str) -> dict:
     """Three gradient steps of the exact path (launch counts set to 0
     just before and read just after): finite, one profile_scatter and
-    one profile_scatter_backward launch each; each against the plain
+    one profile_scatter_backward launch each, the Doppler fill's calls
+    (:func:`fills`); each against the plain
     path's gradient (GRAD_TOL); central differences in T with the
     float64 plain model, FD_RTOL, on two layers of large |dF/dT| at a
     step that moves no index and no keep flag (exact_fd_step); the
@@ -2061,6 +2130,7 @@ def exact_grad_phase(m: TransitModel, requests, label: str) -> dict:
     torch.cuda.synchronize()
     launches = {k.__name__: k.launches for k in kernels}
     want = {k.__name__: 3 if k in EXACT_KERNELS else 0 for k in kernels}
+    want["doppler_fill"] = 3 * fills(m, grad=True)
     check(launches == want, f"{label}: launches in 3 steps {launches}, "
           f"the path asks {want}")
     m.use_kernel = False
@@ -2156,6 +2226,7 @@ def exact_phases(dev, profile: str | None = None, card: str = "") -> dict:
           f"{launches_e}, per forward {per_forward(launches_e)}")
     want_e = {k.__name__: 3 if k is profile_scatter else 0
               for k in ALL_KERNELS + EXACT_KERNELS}
+    want_e["doppler_fill"] = 3 * fills(hje)
     check(launches_e == want_e, f"exact path: launches {launches_e}, the "
           f"path asks {want_e}")
     t0 = time.perf_counter()
@@ -2192,6 +2263,7 @@ def exact_phases(dev, profile: str | None = None, card: str = "") -> dict:
                 g_e, keep_e, *sargs[1:]), runs=1)}}
     for k, b in bounds_e.items():
         times_e[k].update(b)
+    times_e["doppler_fill"] = fill_vs_plain(hje, T0, "exact")
     phase("exact_path_times", t0, f"forward {ms_fwd_e:.3f} ms; " +
           json.dumps(times_e))
     t0 = time.perf_counter()
@@ -2408,7 +2480,7 @@ def cli_mode_b(workdir: Path) -> dict:
     check(a.shape == (20, 11, 1, 101) and np.abs(a).max() > 0 and
           err < GRID_BUILDS_TOL, f"cli: the two builds' grids {a.shape}: "
           f"{err:.3e} >= {GRID_BUILDS_TOL}")
-    want = {k.__name__: 2 if k.__name__ == "profile_scatter" else 0
+    want = {k.__name__: 2 if k in (profile_scatter, doppler_fill) else 0
             for k in kernels}
     check(launches == want, f"cli: launches of two builds and two grid-mode "
           f"runs {launches}, the path asks {want}")
@@ -2452,7 +2524,10 @@ def grid_phases(m: TransitModel, card: str,
     out = {}
 
     t0 = time.perf_counter()
-    vs = grid_exact_vs_plain(m, cells)
+    with fills_vs_plain("grid exact build") as fv:
+        vs = grid_exact_vs_plain(m, cells)
+    check(fv["calls"] == vs["chunks"], f"grid exact build: {fv['calls']} "
+          f"Doppler fills in {vs['chunks']} chunks")
     times = grid_exact_times(m, cells)
     reset_counts(kernels)
     t1 = time.perf_counter()
@@ -2460,7 +2535,7 @@ def grid_phases(m: TransitModel, card: str,
     torch.cuda.synchronize()
     secs = time.perf_counter() - t1
     launches = read_counts(kernels)
-    want = {k.__name__: vs["chunks"] if k.__name__ == "profile_scatter"
+    want = {k.__name__: vs["chunks"] if k in (profile_scatter, doppler_fill)
             else 0 for k in kernels}
     check(launches == want, f"grid exact build: launches {launches}, the "
           f"build asks {want}")
@@ -2470,14 +2545,18 @@ def grid_phases(m: TransitModel, card: str,
                                 dict.fromkeys(m.iso.imol.tolist())],
           f"grid molID {og.molID.tolist()}")
     out["exact"] = {"seconds": secs, "cells_per_s": L * T * W / secs,
-                    "launches": launches["profile_scatter"], "vs_plain": vs,
+                    "launches": launches["profile_scatter"],
+                    "fills": launches["doppler_fill"],
+                    "fills_vs_plain": fv["calls"], "vs_plain": vs,
                     "times": times}
     phase("grid_build_exact", t0,
           f"{L} x {T} x {M} x {W} in {secs:.3f} s: {L * T * W / secs:.6e} "
           f"layer*temp*wn cells/s ({card}); profile_scatter (per molecule) "
           f"{launches['profile_scatter']} launches, against plain on every "
           f"cell: " + json.dumps(vs) + "; first chunk's launch: " +
-          json.dumps(times))
+          json.dumps(times) + f"; Doppler fill {launches['doppler_fill']} "
+          f"launches, each of the {fv['calls']} checked bit for bit its "
+          f"plain version")
     if profile:
         t0 = time.perf_counter()
         trace = Path(profile)
@@ -3436,11 +3515,14 @@ def exomol_exact(path: Path, dev, card: str, large: bool = False,
           bool(torch.isfinite(gq).all()) and float(gT.abs().max()) > 0,
           f"{label}: spectrum or gradient not finite")
     check(out["launches"] == {"profile_scatter": 2 * chunks,
-                              "profile_scatter_backward": chunks},
+                              "profile_scatter_backward": chunks,
+                              "doppler_fill": 3 * chunks},
           f"{label}: launches {out['launches']} in a forward and a "
           f"gradient step over {chunks} chunks")
     out["vs_plain"] = run("exact_vs_plain", lambda: exact_vs_plain(
         m, line_cotangent(m, T0, q0), label, row_step))
+    out["fill"] = run("fill_vs_plain", lambda: fill_vs_plain(
+        m, T0, label, timed=not large))
     if not large:
         out["vs_plain_path"] = run("plain_path", lambda: check_spectra(
             m, [spec], [(T0, q0)], label))
@@ -3469,7 +3551,8 @@ def exact_text(e: dict, card: str) -> str:
             f"chunks of {e['chunk_layers']} layers; set-up "
             f"{e['setup_s']:.2f} s {json.dumps(e['stages_s'])}; {plan}"
             f"launches {e['launches']}; kernels vs plain (layers 0, "
-            f"{e['row_step']}, ...) {json.dumps(e['vs_plain'])}; {path}"
+            f"{e['row_step']}, ...) {json.dumps(e['vs_plain'])}; Doppler "
+            f"fill {json.dumps(e['fill'])}; {path}"
             f"forward {e['forward_ms']:.3f} ms, gradient "
             f"{e['gradient_ms']:.3f} ms; {graph}peak device memory GiB by "
             f"stage {json.dumps(e['peak_gib'])}, seconds "
@@ -3965,9 +4048,18 @@ def main(device: str = "cuda", profile: str | None = None,
     #    main path, the shell kernel's of the 0.05 cm-1 path, the
     #    profile-scatter kernels' of the exact path; the grid builds'
     #    launches and the per-molecule profile_scatter launch's time and
-    #    bound beside them.
+    #    bound beside them; the Doppler fill's launches by path and its
+    #    time and bound on the 4.86M-line list's first chunk.
     def mh_launched(name):
         return sum(r[name] for r in mh["launches"])
+
+    fill_e, fill_x = ex["times"]["doppler_fill"], xm["exact"]["fill"]
+    fill_launches = {
+        "exact": ex["launches"]["doppler_fill"],
+        "exact_grad": ex["grad"]["launches"]["doppler_fill"],
+        **{f"exomol_{p}": xm[p]["launches"]["doppler_fill"]
+           for p in XM_EXACT},
+        "grid_build_exact": gr["exact"]["fills"]}
 
     def launched(name):
         return (launches_b[name] + launches_f[name] + launches_t[name] +
@@ -4132,7 +4224,33 @@ def main(device: str = "cuda", profile: str | None = None,
     } for name, kind, n in (
         ("profile_scatter", "fwd", ex["launches"]["profile_scatter"]),
         ("profile_scatter_backward", "bwd",
-         ex["grad"]["launches"]["profile_scatter_backward"]))],
+         ex["grad"]["launches"]["profile_scatter_backward"]))] + [{
+        "name": "doppler_fill",
+        "route": "cuda",
+        "source": "transit_tpu_torch/csrc/doppler_fill.cu",
+        "replaces": "transit_tpu/opacities/lbl.py:227",
+        "launches": sum(fill_launches.values()),
+        "launches_by_path": fill_launches,
+        # Every fill of the exact path, both exact phases and the exact
+        # grid build held to its plain version by torch.equal.
+        "max_abs_err": 0,
+        "fills_bit_for_bit": {"exact": fill_e["fills_equal"], **{
+            f"exomol_{p}": xm[p]["fill"]["fills_equal"] for p in XM_EXACT},
+            "grid_build_exact": gr["exact"]["fills_vs_plain"]},
+        # The main exact path's chunk: 13 layers x 4,448,638 groups.
+        "shape": fill_x["shape"],
+        "ms": fill_x["ms"],
+        "plain_ms": fill_x["plain_ms"],
+        "bound_ms": fill_x["bound_ms"],
+        "bound_by": fill_x["bound_by"],
+        "ms_exact": fill_e["ms"],
+        "plain_ms_exact": fill_e["plain_ms"],
+        "bound_ms_exact": fill_e["bound_ms"],
+        # No one PyTorch call computes a segmented forward fill of a
+        # nearest index.
+        "library_ms": None,
+        "card": card,
+    }],
         "forward_ms": {"unbanded": ms_forward, "banded": ms_fwd_b,
                        "banded_0.05": ms_fwd_f, "transit": ms_fwd_t,
                        "exact": ex["forward_ms"]},

@@ -48,7 +48,9 @@ RUNS = 5
 # The port's kernels, by the name their device events carry.
 PORT_KERNELS = ("line_tile_kernel", "layer_kmax_kernel", "shell_tile_kernel",
                 "line_tile_bwd_kernel", "shell_tile_bwd_kernel",
-                "profile_scatter_kernel", "profile_scatter_bwd_kernel")
+                "profile_scatter_kernel", "profile_scatter_bwd_kernel",
+                "doppler_last_kernel", "doppler_carry_kernel",
+                "doppler_fill_kernel")
 
 
 def profile_step(step, ms_step: float, trace: str | None,

@@ -1066,6 +1066,140 @@ def test_profile_scatter_refuses_a_malformed_tile_table(card):
                   kernel_profile.profile_scatter_backward.launches)
 
 
+def _fill_args(m, temps, rows=slice(None)):
+    """The Doppler fill's arguments at lbl.layer_groups' rows ``rows`` of
+    the exact model ``m`` at ``temps`` (K): keep, alphad, alphal and idop0
+    as layer_groups makes them, then the plan's g_iso, g_wavn,
+    g_iso_start and aDop."""
+    from transit_tpu_torch.numerics.search import nearest_index_torch
+    from transit_tpu_torch.opacities import lbl
+    from transit_tpu_torch.opacities.fast import _layer_widths
+    d, t = m.dev, m._t(temps)
+    args = (t[rows] * m.atm.tfct, m._t(m.atm.d)[:, rows],
+            m.partition(t)[:, rows], m._molm_t, m._molrad_t)
+    grp = lbl.layer_groups(d, *args, float(m.wns.v[0]), m.cfg.ethreshold,
+                           use_kernel=False)
+    alphal, alphad = _layer_widths(args[0], args[1], d["iso_mass"],
+                                   d["iso_imol"].long(), m._molm_t,
+                                   m._molrad_t)
+    idop0 = nearest_index_torch(d["aDop"], alphad * float(m.wns.v[0]))
+    return (grp["keep"], alphad, alphal, idop0, d["g_iso"], d["g_wavn"],
+            d["g_iso_start"], d["aDop"]), grp
+
+
+def _fill_vs_plain(args):
+    """One doppler_fill call (its three launches) against
+    lbl.doppler_fill_plain, bit for bit; returns the plain result."""
+    from transit_tpu_torch.opacities import lbl
+    from transit_tpu_torch.opacities.kernel_profile import doppler_fill
+    n0 = doppler_fill.launches
+    got = doppler_fill(*args)
+    want = lbl.doppler_fill_plain(*args)
+    torch.cuda.synchronize()
+    assert doppler_fill.launches == n0 + 1
+    assert got.dtype == want.dtype == torch.int32
+    assert torch.equal(got, want)
+    return want
+
+
+@pytest.mark.cuda
+def test_doppler_fill_matches_plain_on_fixture(card):
+    """The Doppler fill kernel on the fixture's exact layers at three
+    temperature profiles equals lbl.doppler_fill_plain bit for bit, and
+    so does lbl.layer_groups' own fill on the card."""
+    from transit_tpu_torch.opacities import lbl
+    m, _ = _exact_pair(card)
+    for dT in (0.0, 150.0, -150.0):
+        args, grp = _fill_args(m, m.atm.temp + dT)
+        assert torch.equal(_fill_vs_plain(args), grp["g_idop"])
+        # The co-add sums' float atomics can move keep between two calls:
+        # the kernel's tables against the plain fill of their own keep.
+        t = m._t(m.atm.temp + dT)
+        mine = lbl.layer_groups(m.dev, t * m.atm.tfct, m._t(m.atm.d),
+                                m.partition(t), m._molm_t, m._molrad_t,
+                                float(m.wns.v[0]), m.cfg.ethreshold)
+        assert torch.equal(mine["g_idop"], lbl.doppler_fill_plain(
+            mine["keep"], *args[1:]))
+
+
+def _fill_synthetic(card, rows: int, runs, seed: int):
+    """Synthetic Doppler fill arguments on the card: isotope runs of the
+    given lengths (isotopes in reverse order), wavenumbers descending
+    along each run from 10000 to 500 cm-1, aDop 60 entries from 1e-3 to
+    5e-2.  Row r's widths give alphad * wavn / alphal = wavn / 1000 (at
+    least 0.5) on even rows and wavn / 30000 on odd ones (>= 0.1 on the
+    run's first ~74%); keep holds a share 10 ** -(r % 4) of the groups
+    (every one on row 0, one in a thousand on row 3)."""
+    rng = np.random.default_rng(seed)
+    ng, niso = int(sum(runs)), len(runs)
+    g_iso = np.repeat(np.arange(niso)[::-1], runs).astype(np.int32)
+    g_iso_start = np.repeat(np.cumsum((0,) + tuple(runs[:-1])),
+                            runs).astype(np.int32)
+    g_wavn = np.concatenate([np.sort(rng.uniform(500.0, 1e4, n))[::-1]
+                             for n in runs]).astype(np.float32)
+    alphad = rng.uniform(1e-6, 5e-6, (rows, niso))
+    scale = np.where(np.arange(rows) % 2 == 0, 1e3, 3e4)[:, None]
+    alphal = alphad * scale
+    keep = rng.uniform(size=(rows, ng)) < 10.0 ** -(np.arange(rows) % 4)[
+        :, None]
+    aDop = np.geomspace(1e-3, 5e-2, 60)
+    idop0 = rng.integers(0, 60, (rows, niso))
+
+    def t(a, dt=None):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dt,
+                               device=card)
+    return [t(keep), t(alphad, torch.float32), t(alphal, torch.float32),
+            t(idop0, torch.int64), t(g_iso), t(g_wavn),
+            t(g_iso_start), t(aDop, torch.float32)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["long_runs", "gap", "small"])
+def test_doppler_fill_synthetic(card, case):
+    """The Doppler fill kernel against its plain version, bit for bit, on
+    synthetic tables: "long_runs", 4.3M groups in four runs of ~1.1M
+    (4200 of the kernel's 1024-group segments a row, more than its carry
+    scan takes in one pass); "gap", rows whose kept groups stop for 40
+    segments inside a run after one kept group, so those groups take
+    their index from 40 segments back (and a row with no kept group);
+    "small", 13 rows of 70,001 groups in runs of 30,000, 1 and 40,000
+    (two blocks of a segment's rows, 7 and 6; segments that hold several
+    runs; a last segment of 369 groups)."""
+    from transit_tpu_torch.opacities.kernel_profile import DOPPLER_SEGMENT
+    if case == "small":
+        args = _fill_synthetic(card, 13, (30_000, 1, 40_000), 3)
+    else:
+        args = _fill_synthetic(card, 4, (1_100_003, 1_000_000, 1_200_001,
+                                         999_999), 7)
+    if case == "gap":
+        keep = args[0]
+        a = 1_100_003 + 200_000 + 17
+        seg = DOPPLER_SEGMENT
+        keep[:, a - 1] = True
+        keep[:, a:a + 40 * seg] = False
+        keep[3] = False
+    want = _fill_vs_plain(args)
+    if case == "gap":
+        assert bool((want[0, a:a + 40 * seg] == want[0, a - 1]).all())
+        assert int(want[0, a - 1]) != int(args[3][0, int(args[4][a])])
+        assert torch.equal(want[3], args[3][3][args[4].long()].int())
+
+
+@pytest.mark.cuda
+def test_doppler_fill_refuses_float64(card):
+    """The Doppler fill kernel takes float32: float64 widths raise
+    TypeError before any launch."""
+    from transit_tpu_torch.opacities.kernel_profile import doppler_fill
+    args = _fill_synthetic(card, 2, (100, 50), 5)
+    n0 = doppler_fill.launches
+    for i in (1, 5):
+        bad = list(args)
+        bad[i] = bad[i].double()
+        with pytest.raises(TypeError, match="float32"):
+            doppler_fill(*bad)
+    assert doppler_fill.launches == n0
+
+
 @pytest.mark.cuda
 def test_exact_spectrum_card_vs_cpu_float64(card):
     """The exact float32 spectrum on the card (the profile-scatter
@@ -1146,6 +1280,36 @@ def test_make_forward_exact_chunks_on_card(card, monkeypatch):
     against the eager step, as test_make_forward_graph_matches_eager."""
     _chunk_budget(monkeypatch, _exact_pair(card)[0], 7)
     test_make_forward_graph_matches_eager(card, "exact")
+
+
+@pytest.mark.cuda
+def test_doppler_fill_once_a_chunk_in_make_forward(card, monkeypatch):
+    """The exact model in chunks of 7 layers (3 chunks): one doppler_fill
+    call a chunk in an eager forward and a chunk's recompute in an eager
+    gradient step, and make_forward's graphed gradient step holds one
+    call (its three kernels) a chunk in the forward graph and one a
+    chunk's recompute in the backward graph, which no replay counts."""
+    from transit_tpu_torch.opacities.kernel_profile import doppler_fill
+    m, _ = _exact_pair(card)
+    _chunk_budget(monkeypatch, m, 7)
+    T, q = _requests(m, card)[0]
+    n0 = doppler_fill.launches
+    with torch.no_grad():
+        m.forward(T, q)
+    assert doppler_fill.launches == n0 + 3
+    _grad(m.forward, T, q)
+    assert doppler_fill.launches == n0 + 3 + 6
+    maps, _, fwd = _layer_map_call(card, "exact_chunks", monkeypatch, True)
+    assert sorted(k[2] for k in maps) == ["bwd", "fwd"]
+    for lm in maps.values():
+        names = [k for _, k in lm.kernels]
+        for k in ("doppler_last_kernel", "doppler_carry_kernel",
+                  "doppler_fill_kernel"):
+            assert names.count(k) == 3
+    n1 = doppler_fill.launches
+    for T, q in _requests(m, card):
+        _grad(fwd, T, q)
+    assert doppler_fill.launches == n1
 
 
 @pytest.mark.cuda
@@ -1609,8 +1773,9 @@ def test_exact_model_on_a_split_hot_jupiter_list(card, tmp_path):
     hj_ref.cfg with hj.tli's lines split 4 ways (0.78M lines,
     chip_smoke.exomol_lines, seed 0, sorted by the native argsort): the
     plan (the native co-add partition) equals lbl.plan_lines_plain array
-    by array, and the spectrum through the profile-scatter kernels the
-    plain path's within chip_smoke.SPECTRUM_REL_TOL."""
+    by array, the Doppler fill kernel the plain version's on the top and
+    the bottom 13 layers, bit for bit, and the spectrum through the
+    kernels the plain path's within chip_smoke.SPECTRUM_REL_TOL."""
     import chip_smoke
     from transit_tpu_torch.lineread.compile import sort_iso_wl
     src, lines = chip_smoke.exomol_lines(4, 0)
@@ -1623,6 +1788,8 @@ def test_exact_model_on_a_split_hot_jupiter_list(card, tmp_path):
     assert m.mode == "exact" and m.tli.n_lines == 4 * 194349
     chip_smoke.plan_vs_plain(m, "split hot Jupiter")
     T0, q0 = m.atm.temp, m.atm.q
+    for rows in (slice(0, 13), slice(87, 100)):
+        _fill_vs_plain(_fill_args(m, T0, rows)[0])
     spec = m.forward(T0, q0)
     m.use_kernel = False
     want = m.forward(T0, q0)

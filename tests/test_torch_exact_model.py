@@ -180,6 +180,43 @@ def test_layer_chunks_equal_one_chunk(m64, m32, monkeypatch, dtype, rows):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("rows", [None, 7])
+def test_doppler_fill_function_equals_plain(m32, monkeypatch, rows):
+    """kernel_profile.DopplerFill, the Doppler fill kernel's wrapper for
+    torch.func, with a stand-in launch (lbl.doppler_fill_plain, handed
+    plain tensors): forward, gradient, vmap(m.forward) and its gradient
+    and the vmap of torch.func.grad, in one chunk and in chunks of 7
+    (each chunk's recompute under torch.func.vjp), give the plain path's
+    bits."""
+    if "float32" not in _ONE_CHUNK:
+        _ONE_CHUNK["float32"] = chunk_outputs(m32)
+    want = _ONE_CHUNK["float32"]
+    seen = []
+
+    def launch(*args):
+        assert not any(torch._C._functorch.is_functorch_wrapped_tensor(a)
+                       for a in args)
+        seen.append(args[0].shape[0])
+        return lbl.doppler_fill_plain(*args)
+
+    def fill(keep, alphad, alphal, idop0, d, use_kernel=True):
+        return kernel_profile.DopplerFill.apply(
+            keep, alphad, alphal, idop0, d["g_iso"], d["g_wavn"],
+            d["g_iso_start"], d["aDop"])
+
+    monkeypatch.setattr(kernel_profile, "doppler_fill", launch)
+    monkeypatch.setattr(kernel_profile, "doppler_fill_fn", fill)
+    if rows:
+        monkeypatch.setitem(lbl.GROUP_ROW_ENTRIES, "cpu",
+                            rows * max(m32.plan.n_lines, m32.plan.n_groups))
+    got = chunk_outputs(m32)
+    nl = m32.atm.nlayers
+    # Batched calls fold the 3 profiles into the rows.
+    assert 3 * nl in seen if rows is None else max(seen) == rows
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.parametrize("n, m, seg", [(3, 10, 4), (5, 4097, 4096),
                                        (2, 9, 3), (4, 1, 4)])
 def test_row_cummax_is_cummax(monkeypatch, n, m, seg):

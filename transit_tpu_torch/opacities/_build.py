@@ -51,6 +51,9 @@ SIGNATURES = {
     "layer_kmax": [_P] * 7 + [_I] * 3 + [_F] + [_P],
     "profile_scatter": [_P] * 13 + [_I] * 8 + [_P],
     "profile_scatter_backward": [_P] * 12 + [_I] * 7 + [_P],
+    "doppler_last": [_P] * 6 + [_I] * 4 + [_P],
+    "doppler_carry": [_P] + [_I] * 2 + [_P],
+    "doppler_fill": [_P] * 10 + [_I] * 5 + [_P],
 }
 
 

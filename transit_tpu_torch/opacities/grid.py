@@ -202,7 +202,8 @@ def exact_chunks(model, cells: GridCells, cell_batch: int | None = None):
             grp = lbl.layer_groups(
                 d, model._t(cells.tt[sl]), model._t(cells.dd[:, sl]),
                 model._t(cells.zz[:, sl]), model._molm_t, model._molrad_t,
-                wn0=wn0, ethresh=model.cfg.ethreshold, nm=nm)
+                wn0=wn0, ethresh=model.cfg.ethreshold, nm=nm,
+                use_kernel=model.use_kernel)
         yield sl, grp, s
 
 

@@ -16,7 +16,10 @@ lbl.chunk_rows): lbl.layer_groups and one scatter launch a chunk, and a
 backward that recomputes a chunk's group tables at a time.
 :func:`profile_scatter_permol` is the opacity-grid build's per-molecule
 scatter (no gradient): the same forward kernel, each tile adding to its
-output molecule's row.
+output molecule's row.  ``doppler_fill`` launches the Doppler index's
+forward fill of lbl.layer_groups (csrc/doppler_fill.cu);
+:func:`doppler_fill_fn` is the one way every caller reaches it or its
+plain version, lbl.doppler_fill_plain.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ import torch
 from transit_tpu_torch.opacities.kernel_lbl import (_check_cuda, _ptr,
                                                     fold_batch)
 from transit_tpu_torch.opacities.lbl import (ScatterTables, check_tiles,
+                                             doppler_fill_plain,
                                              layer_groups,
                                              profile_scatter_plain,
                                              profile_scatter_plain_vjp,
@@ -278,7 +282,8 @@ class LayerChunks:
 
     def groups(self, temps, densities, Z) -> dict:
         return layer_groups(self.d, temps, densities, Z, self.mol_mass,
-                            self.mol_radius, self.wn0, self.ethresh)
+                            self.mol_radius, self.wn0, self.ethresh,
+                            use_kernel=self.kernel)
 
 
 def fold_columns(x, dim, B: int):
@@ -412,7 +417,134 @@ def profile_scatter_fn(grp: dict, s: ScatterTables, use_kernel: bool = True):
                                 grp["ilor"], s, kernel)
 
 
+# Groups of one segment of the Doppler fill (csrc/doppler_fill.cu DF_SEG):
+# the scratch holds one int a (row, segment).
+DOPPLER_SEGMENT = 1024
+# The most aDop entries the fill kernel stages in shared memory
+# (DF_MAX_NDOP).
+DOPPLER_MAX_NDOP = 4096
+
+
+def _launch_ok(fn: str, err: int, kernel: str):
+    if err != 0:
+        raise RuntimeError(f"{fn} failed to launch: CUDA error {err}")
+    log.launched(kernel)
+
+
+def doppler_fill(keep, alphad, alphal, idop0, g_iso, g_wavn, g_iso_start,
+                 aDop):
+    """Launch the Doppler fill (csrc/doppler_fill.cu: doppler_last,
+    doppler_carry and doppler_fill, in turn on the current stream): keep
+    (rows, ng) bool, the rows' widths alphad and alphal (rows, niso)
+    float32 and initial indices idop0 (rows, niso) int64, the plan's
+    g_iso and g_iso_start (ng,) int32, g_wavn (ng,) and aDop (ndop,)
+    float32 -> g_idop (rows, ng) int32 on their CUDA device, bit for bit
+    lbl.doppler_fill_plain's.  The scratch is (rows, ceil(ng /
+    DOPPLER_SEGMENT)) int32.  One call counts one launch.  Raises on any
+    other device, type or shape, and when a launch fails."""
+    from transit_tpu_torch.opacities._build import load_library
+
+    args = {"alphad": alphad, "alphal": alphal, "g_iso": g_iso,
+            "g_wavn": g_wavn, "g_iso_start": g_iso_start, "aDop": aDop}
+    device = _check_cuda("doppler_fill", args,
+                         ints=("g_iso", "g_iso_start"), u8=())
+    for name, t, want in (("keep", keep, torch.bool),
+                          ("idop0", idop0, torch.int64)):
+        if t.dtype != want or t.device != device:
+            raise TypeError(f"doppler_fill: {name} must be {want} on "
+                            f"{device}, not {t.dtype} on {t.device}")
+    if keep.dim() != 2 or alphad.dim() != 2:
+        raise ValueError("doppler_fill: keep must be (rows, ng) and alphad "
+                         "(rows, niso)")
+    rows, ng = keep.shape
+    niso = alphad.shape[1]
+    for name, t in (("alphal", alphal), ("idop0", idop0)):
+        if tuple(t.shape) != (rows, niso):
+            raise ValueError(f"doppler_fill: {name} has shape "
+                             f"{tuple(t.shape)}, not ({rows}, {niso})")
+    for name in ("g_iso", "g_wavn", "g_iso_start"):
+        if tuple(args[name].shape) != (ng,):
+            raise ValueError(f"doppler_fill: {name} must be ({ng},)")
+    ndop = aDop.shape[0]
+    if aDop.dim() != 1 or not 2 <= ndop <= DOPPLER_MAX_NDOP:
+        raise ValueError(f"doppler_fill: aDop must be 1-d, 2 to "
+                         f"{DOPPLER_MAX_NDOP} values")
+    out = torch.empty((rows, ng), dtype=torch.int32, device=device)
+    if rows == 0 or ng == 0:
+        return out
+    if niso == 0:
+        raise ValueError("doppler_fill: no isotope widths")
+    nseg = -(-ng // DOPPLER_SEGMENT)
+    last = torch.empty((rows, nseg), dtype=torch.int32, device=device)
+    keep = keep.contiguous().view(torch.uint8)
+    a = {k: v.contiguous() for k, v in args.items()}
+    ad, al, i0 = (x.contiguous() for x in (alphad, alphal, idop0))
+    with torch.cuda.device(device):
+        lib = load_library()
+        stream = ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+        _launch_ok("doppler_last", lib.doppler_last(
+            _ptr(keep), _ptr(ad), _ptr(al), _ptr(a["g_iso"]),
+            _ptr(a["g_wavn"]), _ptr(last), rows, ng, nseg, niso, stream),
+            "doppler_last_kernel")
+        _launch_ok("doppler_carry", lib.doppler_carry(
+            _ptr(last), rows, nseg, stream), "doppler_carry_kernel")
+        _launch_ok("doppler_fill", lib.doppler_fill(
+            _ptr(keep), _ptr(ad), _ptr(al), _ptr(i0), _ptr(a["g_iso"]),
+            _ptr(a["g_wavn"]), _ptr(a["g_iso_start"]), _ptr(a["aDop"]),
+            _ptr(last), _ptr(out), rows, ng, nseg, niso, ndop, stream),
+            "doppler_fill_kernel")
+    doppler_fill.launches += 1
+    return out
+
+
+class DopplerFill(torch.autograd.Function):
+    """``doppler_fill`` as a function torch.func transforms (the
+    recompute under torch.func.vjp, vmap of the forward): its output is
+    an integer index and carries no gradient; the vmap rule folds the
+    batch into the rows (the plan's tables are shared)."""
+
+    @staticmethod
+    def forward(keep, alphad, alphal, idop0, g_iso, g_wavn, g_iso_start,
+                aDop):
+        return doppler_fill(keep, alphad, alphal, idop0, g_iso, g_wavn,
+                            g_iso_start, aDop)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.mark_non_differentiable(output)
+
+    @staticmethod
+    def backward(ctx, _):
+        return (None,) * 8
+
+    @staticmethod
+    def vmap(info, in_dims, keep, alphad, alphal, idop0, *plan):
+        if any(d is not None for d in in_dims[4:]):
+            raise ValueError("doppler_fill: the plan's tables are shared "
+                             "by the batch")
+        B = info.batch_size
+        rows = [fold_batch(x, d, B) for x, d in
+                zip((keep, alphad, alphal, idop0), in_dims[:4])]
+        out = DopplerFill.apply(*rows, *plan)
+        return out.reshape(B, -1, out.shape[1]), 0
+
+
+def doppler_fill_fn(keep, alphad, alphal, idop0, d: dict,
+                    use_kernel: bool = True):
+    """The Doppler fill of lbl.layer_groups, for every caller: keep (rows,
+    ng), alphad, alphal and idop0 (rows, niso), the plan's g_iso, g_wavn,
+    g_iso_start and aDop from ``d`` -> g_idop (rows, ng) int32, through
+    :class:`DopplerFill` (the kernel) when keep lies on a CUDA device and
+    ``use_kernel``, else lbl.doppler_fill_plain."""
+    args = (keep, alphad, alphal, idop0, d["g_iso"], d["g_wavn"],
+            d["g_iso_start"], d["aDop"])
+    if use_kernel and keep.device.type == "cuda":
+        return DopplerFill.apply(*args)
+    return doppler_fill_plain(*args)
+
+
 # Kernel launches since the last reset (plain counts; set one to 0 to
 # start a new count).
 profile_scatter.launches = 0
 profile_scatter_backward.launches = 0
+doppler_fill.launches = 0

@@ -15,10 +15,11 @@ extinction.c:281-529).
      torch ops (:func:`layer_groups`); then the windowed gather of each
      kept group's bin-averaged profile from the flat table and its
      scatter-add onto the coarse grid (lbl.py:245-271).  On the card the
-     scatter is the hand-written kernel ``profile_scatter``
-     (opacities/kernel_profile.py); :func:`profile_scatter_plain` is its
-     plain PyTorch version, and :func:`profile_scatter_plain_vjp` that of
-     its backward.
+     Doppler fill and the scatter are the hand-written kernels
+     ``doppler_fill`` and ``profile_scatter``
+     (opacities/kernel_profile.py); :func:`doppler_fill_plain` and
+     :func:`profile_scatter_plain` are their plain PyTorch versions, and
+     :func:`profile_scatter_plain_vjp` that of the scatter's backward.
 
 The numerics are the reference's: the same profile table, the same co-add
 order, the same integer index arithmetic with C truncating division.  The
@@ -428,7 +429,8 @@ def row_cummax(x):
 
 
 def layer_groups(d: dict, temps, densities, Z, mol_mass, mol_radius,
-                 wn0: float, ethresh: float, nm: int | None = None) -> dict:
+                 wn0: float, ethresh: float, nm: int | None = None,
+                 use_kernel: bool = True) -> dict:
     """Everything of lbl.layer_extinction before the scatter (lbl.py:183-243),
     for the layers (rows) it is given, each row on its own (per-row max,
     co-add sums and forward fill: a chunk of rows gives the bits of the
@@ -440,6 +442,8 @@ def layer_groups(d: dict, temps, densities, Z, mol_mass, mol_radius,
     g_k.  ``nm`` (permol, the grid build): the ethresh cut against the
     max over each of the ``nm`` output molecules' lines (d["line_iout"])
     and no density factor on g_k (the densities still set the widths).
+    The Doppler fill is kernel_profile.doppler_fill_fn: the kernel on a
+    CUDA device with ``use_kernel``, else :func:`doppler_fill_plain`.
     Spans: ``groups.strengths`` (the widths and pass 1),
     ``groups.coadd`` (pass 2 and ``keep``), ``groups.doppler``."""
     dt = d["wavn"].dtype
@@ -501,23 +505,37 @@ def layer_groups(d: dict, temps, densities, Z, mol_mass, mol_radius,
                                                   for _, m, a, b in runs])
 
     with span("groups.doppler"):
-        # The Doppler index's forward fill (extinction.c:479-483): kept
-        # groups with alphad*wavn/alphal >= 0.1 recompute it; later groups
-        # of the same isotope take the last recomputed value (the
-        # condition is monotone along an isotope's run), others the
-        # layer's initial index.
-        aD_g = alphad[:, g_iso] * d["g_wavn"]
-        cond = keep & (aD_g / alphal[:, g_iso] >= 1e-1)
-        gidx = torch.arange(ng, device=temps.device)
-        ff = row_cummax(torch.where(cond, gidx, -1))
-        ff_valid = ff >= d["g_iso_start"]
-        idop_at = nearest_index_torch(d["aDop"], aD_g)
-        g_idop = torch.where(cond, idop_at, torch.where(
-            ff_valid, idop_at.gather(1, ff.clamp(0, ng - 1)),
-            idop0[:, g_iso]))
+        # Imported here: kernel_profile imports this module.
+        from transit_tpu_torch.opacities.kernel_profile import \
+            doppler_fill_fn
+
+        g_idop = doppler_fill_fn(keep, alphad, alphal, idop0, d,
+                                 use_kernel=use_kernel)
         return {"g_k": torch.where(keep, g_k, 0.0), "keep": keep,
-                "g_idop": g_idop.to(torch.int32),
-                "ilor": ilor.to(torch.int32)}
+                "g_idop": g_idop, "ilor": ilor.to(torch.int32)}
+
+
+def doppler_fill_plain(keep, alphad, alphal, idop0, g_iso, g_wavn,
+                       g_iso_start, aDop):
+    """The Doppler index's forward fill (extinction.c:479-483) of the rows
+    of keep (rows, ng) bool, from the rows' widths alphad and alphal
+    (rows, niso) and initial indices idop0 (rows, niso), and the plan's
+    g_iso, g_wavn and g_iso_start (ng,) and aDop: kept groups with
+    alphad*wavn/alphal >= 0.1 recompute the nearest aDop index; later
+    groups of the same isotope run take the last recomputed value, others
+    the row's initial index.  Returns g_idop (rows, ng) int32.  The plain
+    PyTorch version of kernel_profile.doppler_fill."""
+    ng = g_iso.shape[0]
+    g_iso = g_iso.long()
+    aD_g = alphad[:, g_iso] * g_wavn
+    cond = keep & (aD_g / alphal[:, g_iso] >= 1e-1)
+    gidx = torch.arange(ng, device=keep.device)
+    ff = row_cummax(torch.where(cond, gidx, -1))
+    ff_valid = ff >= g_iso_start
+    idop_at = nearest_index_torch(aDop, aD_g)
+    g_idop = torch.where(cond, idop_at, torch.where(
+        ff_valid, idop_at.gather(1, ff.clamp(0, ng - 1)), idop0[:, g_iso]))
+    return g_idop.to(torch.int32)
 
 
 def scatter_geometry(g_idop, ilor, s: ScatterTables):
@@ -687,12 +705,13 @@ def layer_extinction(plan: LinePlan, d: dict, temps, densities, Z,
         sp = permol_tables(s, d["line_iout"], d["g_primary"], nm)
         parts = [profile_scatter_permol(layer_groups(
             d, temps[sl], densities[:, sl], Z[:, sl], mol_mass, mol_radius,
-            wn0, ethresh, nm=nm), sp, use_kernel=use_kernel)
+            wn0, ethresh, nm=nm, use_kernel=use_kernel), sp,
+            use_kernel=use_kernel)
             for sl in row_slices(nl, rows)]
         return parts[0] if len(parts) == 1 else torch.cat(parts)
     if rows >= nl:
         grp = layer_groups(d, temps, densities, Z, mol_mass, mol_radius,
-                           wn0, ethresh)
+                           wn0, ethresh, use_kernel=use_kernel)
         with span("scatter"):
             return profile_scatter_fn(grp, s, use_kernel=use_kernel)
     op = LayerChunks(d=d, s=s, mol_mass=mol_mass, mol_radius=mol_radius,
